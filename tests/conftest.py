@@ -39,3 +39,9 @@ except ModuleNotFoundError:
 else:
     settings.register_profile("ci", max_examples=25, deadline=None)
     settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips where torch.cuda.is_available() is false")
