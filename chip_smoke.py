@@ -4,23 +4,31 @@
   PYTHONPATH=src python chip_smoke.py
 
 Drives the port (``src/repro_torch``) on one card, in five phases, each
-printing one JSON line:
+printing JSON lines:
 
 1. device — refuses to run without CUDA; the card's name and power limit
    (``nvidia-smi``), also printed raw on a line of their own;
 2. build — builds every CUDA kernel from the sources in this checkout;
 3. kernels — every kernel against its plain PyTorch version on the card at
    the serving path's shapes (and at qwen2-1.5b's head shapes, bf16 and
-   int8, a wrapped ring and a sliding window), with its time, the plain
-   version's, a PyTorch library call's and the bound the card sets;
+   int8, a sliding window; a wrapped ring; pool blocks of 16 and 64
+   tokens in shuffled order, two slots sharing their first blocks), with
+   its time, the plain version's, a PyTorch library call's and the bound
+   the card sets; and the paged kernel at 64-token blocks against the ring
+   kernel on the same stream, bit for bit;
 4. serve — full-width SmolLM-135M (random weights from seed 0) through the
-   port's ``Engine``: 16 requests, prompts of 32–512 tokens, 64 new tokens
-   each, mixed greedy and sampled, FCFS, with the bf16 and the int8-dither
-   KV cache; every launch count is set to 0 just before each run and read
-   just after; then five steady decode ticks under ``torch.profiler``
+   port's ``Engine``, with the bf16 and the int8-dither KV cache, over the
+   ring cache (16 requests, prompts of 32–512 tokens) and over the paged
+   pool (16 requests sharing a 256-token system prompt, a pool of 56
+   blocks against the 128 a dense cache would take, so requests hit the
+   prefix cache and get preempted), 64 new tokens each, mixed greedy and
+   sampled; each path's launch counts are set to 0 just before its run
+   and read just after; then steady decode ticks under ``torch.profiler``
    (wall and device time per tick, launches, the heaviest kernels);
-5. parity — one prefill and three decode steps at full width, the CUDA
-   kernel against the plain version passed explicitly.
+5. parity — one prefill and three decode steps at full width per layout,
+   the CUDA kernel against the plain version passed explicitly; and the
+   paged engine's greedy streams against the ring engine's, token for
+   token.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
@@ -53,6 +61,8 @@ KERNEL_TOL = 1e-4     # f32 vs f32, summation order only
 # The kernel is held to about twice that: 2^-4 at most, 2^-7 on average.
 LOGIT_ATOL, LOGIT_MEAN_ATOL = 2.0 ** -4, 2.0 ** -7
 REPLACES = "src/repro/kernels/decode_attention.py:139"
+PAGED_REPLACES = "src/repro/kernels/decode_attention.py:482"
+PAGED_BLOCKS = 56          # the paged serve phase's pool, against 8 × 16
 
 
 def emit(obj) -> None:
@@ -156,10 +166,33 @@ def library_call(t, window):
                                                   attn_mask=mask)
 
 
+def cold_times(t, kernel, plain, library, iters):
+    """Mean device ms of ``kernel(*t)``, ``plain(*t)`` and the call that
+    ``library(t)`` returns, over ``iters`` = (kernel, plain, library)
+    launches, with the inputs rotated over copies that exceed the 50 MB L2,
+    as the serving path finds each layer's cache cold.  Returns the three
+    times and the number of copies."""
+    nbytes = sum(x.numel() * x.element_size() for x in t[1:3])
+    copies = [t] + [[None if x is None else x.clone() for x in t]
+                    for _ in range(max(1, math.ceil(120e6 / nbytes)))]
+    libs = [library(c) for c in copies]
+    turn = {"i": 0}
+
+    def rotate(fn):
+        """fn(i) on the next copy's index, round robin."""
+        def call():
+            turn["i"] = (turn["i"] + 1) % len(copies)
+            return fn(turn["i"])
+        return call
+
+    return (cuda_ms(rotate(lambda i: kernel(*copies[i])), iters[0]),
+            cuda_ms(rotate(lambda i: plain(*copies[i])), iters[1]),
+            cuda_ms(rotate(lambda i: libs[i]()), iters[2]), len(copies))
+
+
 def kernel_phase(torch, da, ref):
     """Each case: kernel vs plain version (same 64-slot block) on the card;
-    then times with the inputs rotated over copies that exceed the 50 MB
-    L2, as the serving path finds each layer's cache cold."""
+    then cold times (``cold_times``)."""
     pos_vals = [0, 37, 255, 511, 700, 1023, 1500, 2047]   # ring wrap ≥ 1024
     shapes = {"smollm_135m": dict(nkv=3, group=3, hd=64),
               "qwen2_1_5b": dict(nkv=2, group=6, hd=128)}
@@ -183,25 +216,10 @@ def kernel_phase(torch, da, ref):
         torch.testing.assert_close(got, whole, atol=KERNEL_TOL,
                                    rtol=KERNEL_TOL)
 
-        cache_bytes = sum(x.numel() * x.element_size() for x in t[1:3])
-        copies = [t] + [[None if x is None else x.clone() for x in t]
-                        for _ in range(max(1, math.ceil(120e6
-                                                         / cache_bytes)))]
-        turn = {"i": 0}
-
-        def rotate(fn):
-            """fn(i) on the next copy's index, round robin."""
-            def call():
-                turn["i"] = (turn["i"] + 1) % len(copies)
-                return fn(turn["i"])
-            return call
-
-        ms = cuda_ms(rotate(lambda i: da.decode_attention(
-            *copies[i], window=window)), 200)
-        plain_ms = cuda_ms(rotate(lambda i: ref.decode_attention_ref(
-            *copies[i], window=window)), 20)
-        libs = [library_call(c, window) for c in copies]
-        library_ms = cuda_ms(rotate(lambda i: libs[i]()), 200)
+        ms, plain_ms, library_ms, n_copies = cold_times(
+            t, functools.partial(da.decode_attention, window=window),
+            functools.partial(ref.decode_attention_ref, window=window),
+            lambda c: library_call(c, window), (200, 20, 200))
         bound_ms, bound_by = decode_bound(pos_vals, quant=quant,
                                           window=window, **dims)
         results.append({
@@ -213,15 +231,190 @@ def kernel_phase(torch, da, ref):
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "share_of_bound": bound_ms / ms,
-            "copies_rotated": len(copies)})
-        del copies, libs
+            "copies_rotated": n_copies})
     return results
+
+
+def pool_inputs(gen, *, b, nbmax, bs, nkv, group, hd, quant, pos_vals,
+                share, device="cuda"):
+    """A paged pool on the card: each row's blocks taken in a shuffled
+    order, the rows in ``share`` reading the first row's first two blocks
+    (a shared prompt prefix), unused table entries on the trash block."""
+    import torch
+
+    need = [min(p // bs, nbmax - 1) + 1 for p in pos_vals]
+    nblk = sum(need) + 1
+    ids = torch.randperm(nblk - 1, generator=gen).tolist()
+    bt = torch.full((b, nbmax), nblk - 1, dtype=torch.int32)
+    for i, n in enumerate(need):
+        for j in range(n):
+            bt[i, j] = (bt[share[0], j] if i in share[1:] and j < 2
+                        else ids.pop())
+    q = torch.randn((b, nkv, group, hd), generator=gen).to(torch.bfloat16)
+    if quant:
+        k = torch.randint(-127, 128, (nblk, bs, nkv, hd), generator=gen,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (nblk, bs, nkv, hd), generator=gen,
+                          dtype=torch.int8)
+        ks = torch.rand((nblk, bs, nkv), generator=gen) * 1.9 + 0.1
+        vs = torch.rand((nblk, bs, nkv), generator=gen) * 1.9 + 0.1
+    else:
+        k = torch.randn((nblk, bs, nkv, hd), generator=gen).to(torch.bfloat16)
+        v = torch.randn((nblk, bs, nkv, hd), generator=gen).to(torch.bfloat16)
+        ks = vs = None
+    pos = torch.tensor(pos_vals, dtype=torch.int32)
+    return [None if t is None else t.to(device)
+            for t in (q, k, v, bt, pos, ks, vs)]
+
+
+def paged_bound(t, window, *, quant):
+    """Least time the card could take for a paged call: each distinct pool
+    position the rows need (shared prefix positions once) read once, plus
+    the table entries, the queries, positions and output; the QK and PV
+    flops over the peak rate of the pool's type.  Returns (ms, bound_by,
+    distinct bytes, bytes counted per slot)."""
+    q, k, _, bt, pos, _, _ = t
+    b, nkv, group, hd = q.shape
+    bs = k.shape[1]
+    per_pos = nkv * hd * (1 if quant else 2) * 2 + (nkv * 8 if quant else 0)
+    seen, per_slot = set(), 0
+    bt_h, pos_h = bt.cpu().tolist(), pos.cpu().tolist()
+    for row, p in zip(bt_h, pos_h):
+        lo = max(0, p - window + 1) if window else 0
+        for x in range(lo, p + 1):
+            seen.add((row[x // bs], x % bs))
+        per_slot += p + 1 - lo
+    fixed = (b * nkv * group * hd * (2 + 4) + b * 4
+             + sum(p // bs + 1 for p in pos_h) * 4)
+    nbytes = len(seen) * per_pos + fixed
+    ops = 4 * group * hd * nkv * per_slot
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS["int8" if quant else "bf16"]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            per_slot * per_pos + fixed)
+
+
+def paged_library_call(t, window):
+    """One PyTorch route to the same function, timed as a yardstick only
+    (the port never calls it): gather each row's blocks through the table
+    with torch indexing, dequantise an int8 pool, expand K/V over the GQA
+    group and run ``F.scaled_dot_product_attention`` with the mask."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, bt, pos, ks, vs = t
+    b, nkv, group, hd = q.shape
+    nbmax, bs = bt.shape[1], k.shape[1]
+    kp = torch.arange(nbmax * bs, device=q.device)[None, :]
+    p = pos[:, None]
+    mask = kp <= p
+    if window:
+        mask = mask & (kp > p - window)
+    mask = mask[:, None, None, :]
+    qq = q.reshape(b, nkv * group, 1, hd)
+    idx = bt.long()
+
+    def call():
+        kk, vv = k[idx], v[idx]                     # (B, nbmax, bs, nkv, hd)
+        if ks is not None:
+            kk = (kk.float() * (ks[idx][..., None] / 127.0)).to(torch.bfloat16)
+            vv = (vv.float() * (vs[idx][..., None] / 127.0)).to(torch.bfloat16)
+        kk = kk.reshape(b, nbmax * bs, nkv, hd).permute(0, 2, 1, 3)
+        vv = vv.reshape(b, nbmax * bs, nkv, hd).permute(0, 2, 1, 3)
+        kk = kk.repeat_interleave(group, dim=1)
+        vv = vv.repeat_interleave(group, dim=1)
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+
+    return call
+
+
+def paged_kernel_phase(torch, da, pda, ref):
+    """Each case: the paged kernel vs its plain version on the card, then
+    cold times (``cold_times``).
+    Positions are the ring case's, unwrapped (a table of 2048 tokens);
+    row 6 shares row 5's first two blocks.  Then the bitwise check:
+    paged at 64-token blocks against the ring kernel at bk = 64 on one
+    stream."""
+    pos_vals = [0, 37, 255, 511, 700, 1023, 1500, 2047]
+    shapes = {"smollm_135m": dict(nkv=3, group=3, hd=64),
+              "qwen2_1_5b": dict(nkv=2, group=6, hd=128)}
+    gen = torch.Generator().manual_seed(1)
+    results = []
+    for model in shapes:
+        for quant in (False, True):
+            for bs in (16, 64):
+                for window in (0, 256):
+                    dims = dict(b=8, nbmax=2048 // bs, bs=bs, **shapes[model])
+                    t = pool_inputs(gen, quant=quant, pos_vals=pos_vals,
+                                    share=(5, 6), **dims)
+                    got = pda.paged_decode_attention(*t, window=window)
+                    torch.cuda.synchronize()
+                    want = ref.paged_decode_attention_ref(*t, window=window)
+                    err = (got - want).abs().max().item()
+                    assert torch.isfinite(got).all()
+                    torch.testing.assert_close(got, want, atol=KERNEL_TOL,
+                                               rtol=KERNEL_TOL)
+                    ms, plain_ms, library_ms, n_copies = cold_times(
+                        t, functools.partial(pda.paged_decode_attention,
+                                             window=window),
+                        functools.partial(ref.paged_decode_attention_ref,
+                                          window=window),
+                        lambda c: paged_library_call(c, window),
+                        (200, 10, 50))
+                    bound_ms, bound_by, nbytes, slot_bytes = paged_bound(
+                        t, window, quant=quant)
+                    results.append({
+                        "name": "paged_decode_attention"
+                                f"[{'int8' if quant else 'bf16'}]",
+                        "model_shapes": model, "window": window,
+                        "shape": {"B": 8, "bs": bs, "nbmax": 2048 // bs,
+                                  **shapes[model]},
+                        "pos": pos_vals, "max_abs_err": err,
+                        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "distinct_bytes": nbytes,
+                        "per_slot_bytes": slot_bytes,
+                        "share_of_bound": bound_ms / ms,
+                        "copies_rotated": n_copies})
+
+    # paged == ring, bit for bit, at bs == bk == 64 on one stream
+    bitwise = []
+    for quant in (False, True):
+        for window in (0, 256):
+            dims = dict(b=8, cap=2048, **shapes["smollm_135m"])
+            q, k, v, kp, pos, ks, vs = ring_inputs(
+                gen, quant=quant, pos_vals=pos_vals, **dims)
+            bs, nb = da.KERNEL_BLOCK, 2048 // da.KERNEL_BLOCK
+            perm = torch.randperm(8 * nb, generator=gen).to(q.device)
+            bt = perm.reshape(8, nb).to(torch.int32)
+
+            def to_pool(x):
+                if x is None:
+                    return None
+                tail = tuple(x.shape[2:])
+                pool = torch.zeros((8 * nb + 1, bs) + tail, dtype=x.dtype,
+                                   device=x.device)
+                pool[perm] = x.reshape((8 * nb, bs) + tail)
+                return pool
+
+            ring = da.decode_attention(q, k, v, kp, pos, ks, vs,
+                                       window=window)
+            paged = pda.paged_decode_attention(
+                q, to_pool(k), to_pool(v), bt, pos, to_pool(ks), to_pool(vs),
+                window=window)
+            torch.cuda.synchronize()
+            same = torch.equal(ring, paged)
+            assert same, (quant, window, (ring - paged).abs().max().item())
+            bitwise.append({"kv": "int8" if quant else "bf16",
+                            "window": window, "bitwise_equal": same})
+    return results, bitwise
 
 
 # ---------------------------------------------------------------- phase 4
 
 
-def serve_phase(torch, da, cfg, params, kv_quant, device="cuda"):
+def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     import numpy as np
 
     from repro_torch.serve import Engine, Request, SamplingParams
@@ -254,6 +447,7 @@ def serve_phase(torch, da, cfg, params, kv_quant, device="cuda"):
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
     da.decode_attention.launches = 0
+    pda.paged_decode_attention.launches = 0
     t0 = time.perf_counter()
     done = eng.run(10_000)
     sync()
@@ -267,7 +461,9 @@ def serve_phase(torch, da, cfg, params, kv_quant, device="cuda"):
         assert all(0 <= t < cfg.vocab_size for t in r.out)
     assert launches == cfg.n_layers * st["decode_calls"], (
         launches, st["decode_calls"])
-    return {"phase": "serve", "kv": "int8" if kv_quant else "bf16",
+    assert pda.paged_decode_attention.launches == 0
+    return {"phase": "serve", "layout": "ring",
+            "kv": "int8" if kv_quant else "bf16",
             "requests": 16, "prompt_tokens": int(sum(lens)),
             "new_tokens_each": 64, "batch": 8, "max_len": 1024,
             "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
@@ -278,7 +474,88 @@ def serve_phase(torch, da, cfg, params, kv_quant, device="cuda"):
             "launches_per_tick": launches / st["decode_calls"]}
 
 
-def profile_phase(torch, cfg, params, kv_quant, device="cuda"):
+def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
+    """The paged path: 16 requests sharing a 256-token system prompt, then
+    suffixes of 16–256 tokens, 64 new tokens each, even requests greedy,
+    odd ones at temperature 0.8 with top-k 40, one counter offset (so the
+    int8 pool's prefix chain matches across requests); batch 8, 64-token
+    blocks, a pool of ``PAGED_BLOCKS`` against the 8 × 16 a dense cache
+    would hold.  Later requests hit the prefix cache and the pool runs dry,
+    so requests are preempted with their blocks and resumed."""
+    import numpy as np
+
+    from repro_torch.serve import Engine, Request, SamplingParams
+
+    def requests(n, suffix_lens, max_new):
+        rng = np.random.default_rng(0)
+        system = rng.integers(1, cfg.vocab_size, size=256).tolist()
+        out = []
+        for r in range(n):
+            suffix = rng.integers(1, cfg.vocab_size, size=int(suffix_lens[r]))
+            greedy = r % 2 == 0
+            out.append(Request(rid=r, prompt=system + suffix.tolist(),
+                               sampling=SamplingParams(
+                                   temperature=0.0 if greedy else 0.8,
+                                   top_k=0 if greedy else 40, seed=r,
+                                   max_new=max_new, counter_offset=0)))
+        return out
+
+    def engine():
+        return Engine(params, cfg, 8, 1024, kv_quant=kv_quant,
+                      kv_layout="paged", block_size=64,
+                      num_blocks=PAGED_BLOCKS, device=device)
+
+    warm = engine()                                  # warm-up wave
+    for req in requests(2, [16, 200], 4):
+        warm.submit(req)
+    warm.run(50)
+    del warm
+
+    lens = np.random.default_rng(1).permutation(
+        np.linspace(16, 256, 16).astype(int))
+    eng = engine()
+    for req in requests(16, lens, 64):
+        eng.submit(req)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    da.decode_attention.launches = 0
+    pda.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run(10_000)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = pda.paged_decode_attention.launches
+    ring_launches = da.decode_attention.launches
+    st = eng.stats
+    assert len(done) == 16, len(done)
+    for r in done:
+        assert r.finish_reason == "length" and len(r.out) == 64, (
+            r.rid, r.finish_reason, len(r.out))
+        assert all(0 <= t < cfg.vocab_size for t in r.out)
+    assert st["prefix_hit_tokens"] > 0, st
+    assert st["preemptions"] >= 1, st
+    assert eng.pool.live_blocks == 0, eng.pool_stats()
+    assert ring_launches == 0, ring_launches
+    assert launches == cfg.n_layers * st["decode_calls"], (
+        launches, st["decode_calls"])
+    return {"phase": "serve", "layout": "paged",
+            "kv": "int8" if kv_quant else "bf16", "requests": 16,
+            "prompt_tokens": int(256 * 16 + sum(lens)),
+            "new_tokens_each": 64, "batch": 8, "max_len": 1024,
+            "block_size": 64, "num_blocks": PAGED_BLOCKS,
+            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+            "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+            "prefill_tokens_computed": st["prefill_tokens"],
+            "prefix_hit_tokens": st["prefix_hit_tokens"],
+            "preemptions": st["preemptions"], "pool": eng.pool_stats(),
+            "prefill_calls": st["prefill_calls"],
+            "decode_ticks": st["decode_calls"], "wall_s": wall,
+            "paged_decode_attention_launches": launches,
+            "launches_per_tick": launches / st["decode_calls"]}
+
+
+def profile_phase(torch, cfg, params, kv_quant, device="cuda",
+                  kv_layout="ring"):
     """Where a decode tick's time goes: five steady ticks of batch-8
     decoding under ``torch.profiler`` — wall time per tick, device time of
     all kernels per tick (their sum over wall is the busy share), kernel
@@ -287,7 +564,8 @@ def profile_phase(torch, cfg, params, kv_quant, device="cuda"):
 
     from repro_torch.serve import Engine, Request, SamplingParams
 
-    eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device=device)
+    eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device=device,
+                 kv_layout=kv_layout)
     for r in range(8):
         eng.submit(Request(rid=r, prompt=list(range(1, 200 + 20 * r)),
                            sampling=SamplingParams(max_new=64)))
@@ -306,8 +584,8 @@ def profile_phase(torch, cfg, params, kv_quant, device="cuda"):
                and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return {"phase": "profile", "kv": "int8" if kv_quant else "bf16",
-            "ticks": ticks, "wall_ms_per_tick": wall_ms,
+    return {"phase": "profile", "layout": kv_layout,
+            "kv": "int8" if kv_quant else "bf16", "ticks": ticks, "wall_ms_per_tick": wall_ms,
             "device_ms_per_tick": device_us / 1e3 / ticks,
             "device_busy_share": device_us / 1e3 / ticks / wall_ms,
             "kernel_launches_per_tick": sum(e.count for e in kernels) / ticks,
@@ -384,6 +662,75 @@ def parity_phase(torch, cfg, params, kv_quant, device="cuda"):
                 drift["plain_reblocked"][1]}
 
 
+def paged_parity_phase(torch, cfg, params, kv_quant, device="cuda"):
+    """Full width, paged: one cold paged prefill into shuffled 64-token
+    blocks, then three decode steps through the paged kernel and through
+    the plain version passed explicitly (both in 64-token tiles).  Then the
+    paged engine's greedy streams (cold, prefix cache off) against the ring
+    engine's on the same requests, token for token: at bs == bk the two
+    kernels share one tile body and a cold paged prefill is the ring
+    prefill's ops, so the streams must be equal."""
+    import numpy as np
+
+    from repro_torch.models import registry
+    from repro_torch.serve import Engine, Request
+
+    rng = np.random.default_rng(3)
+    lens = np.array([32, 97, 160, 255, 300, 411, 480, 512], np.int32)
+    toks = np.zeros((8, 512), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(1, cfg.vocab_size, size=n)
+    bs, nbmax = 64, 1024 // 64
+    cache = registry.make_cache(params, cfg, 8, 1024, kv_quant=kv_quant,
+                                kv_layout="paged", block_size=bs,
+                                device=device)
+    ids = rng.permutation(8 * nbmax).tolist()
+    bt = np.full((8, nbmax), 8 * nbmax, np.int32)
+    for i, n in enumerate(lens):
+        for j in range((int(n) + 3) // bs + 1):
+            bt[i, j] = ids.pop()
+    off = torch.arange(8, dtype=torch.int32, device=device) * 1000
+    logits, cache = registry.apply_prefill_paged(
+        params, cfg, torch.from_numpy(toks).to(device),
+        torch.from_numpy(lens).to(device),
+        torch.zeros(8, dtype=torch.int32, device=device),
+        torch.from_numpy(bt).to(device), cache, kv_quant=kv_quant,
+        kv_offset=off)
+    caches = {p: copy.deepcopy(cache) for p in ("cuda", "torch-ref")}
+    cur = torch.argmax(logits, -1)
+    worst = mean = 0.0
+    for _ in range(3):
+        out = {}
+        for path in caches:
+            out[path], caches[path] = registry.apply_decode(
+                params, cfg, cur, caches[path], kv_offset=off, backend=path)
+        d = (out["cuda"] - out["torch-ref"]).abs()
+        worst, mean = max(worst, d.max().item()), max(mean, d.mean().item())
+        assert torch.isfinite(out["cuda"]).all()
+        assert out["cuda"].shape == (8, cfg.vocab_size)
+        cur = torch.argmax(out["cuda"], -1)
+    assert worst <= LOGIT_ATOL and mean <= LOGIT_MEAN_ATOL, (worst, mean)
+
+    streams = {}
+    for layout in ("ring", "paged"):
+        eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant,
+                     kv_layout=layout, prefix_cache=False, device=device)
+        for r, n in enumerate(lens):
+            eng.submit(Request(rid=r, prompt=toks[r, :n].tolist(),
+                               max_new=32))
+        streams[layout] = [r.out for r in sorted(eng.run(1000),
+                                                 key=lambda r: r.rid)]
+    same = streams["paged"] == streams["ring"]
+    assert same, [i for i, (a, b) in enumerate(zip(streams["paged"],
+                                                  streams["ring"])) if a != b]
+    return {"phase": "parity", "layout": "paged",
+            "kv": "int8" if kv_quant else "bf16", "decode_steps": 3,
+            "max_abs_logit_diff": worst, "max_mean_abs_logit_diff": mean,
+            "atol": LOGIT_ATOL, "mean_atol": LOGIT_MEAN_ATOL,
+            "greedy_streams_equal_ring": same, "stream_requests": 8,
+            "stream_tokens_each": 32}
+
+
 def main() -> int:
     import torch
 
@@ -393,6 +740,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.models import registry
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -422,32 +770,48 @@ def main() -> int:
     # 3 — kernels
     checks = kernel_phase(torch, da, ref)
     emit({"phase": "kernels", "checks": checks})
+    paged_checks, bitwise = paged_kernel_phase(torch, da, pda, ref)
+    emit({"phase": "kernels", "layout": "paged", "checks": paged_checks,
+          "paged_equals_ring_bitwise": bitwise})
 
     # 4 — serve, 5 — parity
     cfg = get_config("smollm_135m")
     params = registry.init_model(cfg, seed=0, device="cuda")
-    serve = {}
+    serve, paged = {}, {}
     for kv_quant in (False, True):
-        serve[kv_quant] = serve_phase(torch, da, cfg, params, kv_quant)
+        serve[kv_quant] = serve_phase(torch, da, pda, cfg, params, kv_quant)
         emit(serve[kv_quant])
     for kv_quant in (False, True):
+        paged[kv_quant] = paged_serve_phase(torch, da, pda, cfg, params,
+                                            kv_quant)
+        emit(paged[kv_quant])
+    for kv_quant in (False, True):
         emit(profile_phase(torch, cfg, params, kv_quant))
+    emit(profile_phase(torch, cfg, params, True, kv_layout="paged"))
     for kv_quant in (False, True):
         emit(parity_phase(torch, cfg, params, kv_quant))
+        emit(paged_parity_phase(torch, cfg, params, kv_quant))
 
     kernels = []
     for kv_quant in (False, True):
-        main = next(c for c in checks if c["model_shapes"] == "smollm_135m"
-                    and c["window"] == 0
-                    and c["name"].endswith("[int8]") == kv_quant)
-        kernels.append({
-            "name": main["name"], "route": "cuda",
-            "source": da.SOURCE, "replaces": REPLACES,
-            "launches": serve[kv_quant]["decode_attention_launches"],
-            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "kernel_ms": main["kernel_ms"], "shape": main["shape"]})
+        for rows, source, replaces, runs, key in (
+                (checks, da.SOURCE, REPLACES, serve,
+                 "decode_attention_launches"),
+                ([c for c in paged_checks if c["shape"]["bs"] == 64],
+                 pda.SOURCE, PAGED_REPLACES, paged,
+                 "paged_decode_attention_launches")):
+            main = next(c for c in rows
+                        if c["model_shapes"] == "smollm_135m"
+                        and c["window"] == 0
+                        and c["name"].endswith("[int8]") == kv_quant)
+            kernels.append({
+                "name": main["name"], "route": "cuda", "source": source,
+                "replaces": replaces, "launches": runs[kv_quant][key],
+                "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"],
+                "kernel_ms": main["kernel_ms"], "shape": main["shape"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameters and ring caches over to the port.
+"""Carry the JAX package's parameters and caches (ring or paged) over to
+the port.
 
 The reference hands them over as nested dicts/lists of numpy arrays (for
 example ``jax.tree.map(numpy.asarray, params)``); nothing here imports JAX
@@ -41,6 +42,8 @@ def params_from_numpy(tree, device="cuda"):
 
 
 def cache_from_numpy(tree, device="cuda"):
-    """A reference ring cache (``pos``, stacked ``layers``, ``remainder``)
-    → the port's ring cache on ``device``."""
+    """A reference decode cache → the port's on ``device``, bit for bit:
+    a ring cache (``pos``, stacked ``layers``, ``remainder``) or a paged
+    one (the same plus ``block_tables``; each layer's pool includes its
+    trailing trash block)."""
     return _tree(tree, device)

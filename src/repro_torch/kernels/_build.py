@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels from the sources in this checkout.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface, compiled by
-``nvcc`` for ``sm_90a`` into a shared library and loaded with ``ctypes``.
-Libraries go to ``build/repro_torch_kernels/`` at the checkout's root (git
-ignores it), named by a hash of the source and the flags, so an edited
-source builds anew and an unchanged one is reused.  Nothing is built when a
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface (it may
+include the shared ``csrc/*.cuh`` headers), compiled by ``nvcc`` for
+``sm_90a`` into a shared library and loaded with ``ctypes``.  Libraries go
+to ``build/repro_torch_kernels/`` at the checkout's root (git ignores it),
+named by a hash of the source, the headers and the flags, so an edited
+source or header builds anew and an unchanged one is reused.  Nothing is built when a
 module is imported: a wrapper builds its library at its first launch.  If
 ``nvcc`` is missing or a build fails, this raises with the compiler's
 output; there is no fallback.
@@ -28,7 +29,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 # kernel name → its source under csrc/
-KERNELS = {"decode_attention": "decode_attention.cu"}
+KERNELS = {"decode_attention": "decode_attention.cu",
+           "paged_decode_attention": "paged_decode_attention.cu"}
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -47,9 +49,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where kernel ``name``'s library lives, keyed by source and flags."""
+    """Where kernel ``name``'s library lives, keyed by source, headers and
+    flags."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    h.update((_CSRC / KERNELS[name]).read_bytes())
+    for src in [_CSRC / KERNELS[name], *sorted(_CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,112 @@
+// Paged flash-decode attention over the bf16 or int8-dither block pool, for
+// Hopper (sm_90a).  One query token per slot, GQA groups of any size.
+//
+// Replaces: the TPU kernel src/repro/kernels/decode_attention.py
+// paged_decode_attention_call (body _paged_attn_body), and computes the same
+// function as its plain version
+// repro_torch/kernels/ref.py:paged_decode_attention_ref:
+//
+//   q (B, n_kv, group, HD) bf16, pool k/v (n_blocks, bs, n_kv, HD) int8
+//   codes or bf16, block_tables (B, nbmax) i32, pos (B,) i32,
+//   k_scale/v_scale (n_blocks, bs, n_kv) f32 when int8
+//   ->  out (B, n_kv, group, HD) f32.
+//   The tile is the pool block: logical block j of slot b is physical block
+//   block_tables[b, j] for j = 0 .. min(pos // bs, nbmax - 1), and the key
+//   position of in-block slot t is the implicit j * bs + t.  The tile body
+//   (flash_decode.cuh) is the ring kernel's, so paged == ring bit for bit
+//   when bs == bk on the same token stream.
+//
+// Idle slots: the engine points every entry of an idle slot's table row at
+// the pool's trailing trash block (a valid id), so the kernel reads in
+// bounds there; their outputs are discarded.  Table entries must be ids of
+// the pool: the kernel does not check them.
+//
+// What bounds it on an H100: HBM bytes.  A slot at position pos reads its
+// ceil((pos+1) / bs) blocks of K and V for each KV head — bs * n_kv * HD *
+// (1 B int8 | 2 B bf16) * 2 per block, plus the scales (8 B per position and
+// head when int8) — at 3.35 TB/s; blocks that several slots share (a common
+// prompt prefix) are read by each of them, but the bound counts each
+// distinct block once.  The work is 4 * group * HD flops per position and
+// head, far below the card's arithmetic rate.
+//
+// What this design does about it: the same as the ring kernel — codes are
+// read as codes and upcast in registers, the tile loop stops at pos // bs.
+// A tile is one pool block, so bs keys (1 <= bs <= 64) come from one
+// contiguous bs * n_kv * HD run of the pool, read as 16-byte words.  It is a
+// first, simple design: B * n_kv blocks, single-buffered tiles; split-K over
+// blocks, cp.async/TMA double-buffering and tensor cores are later work.
+//
+// The C entry points return cudaGetLastError() after the launch; the
+// wrapper (kernels/paged_decode_attention.py) checks shapes, dtypes and
+// alignment before calling and raises on a non-zero return.
+
+#include "flash_decode.cuh"
+
+namespace {
+
+// Paged tiles: tile t of slot b is pool block block_tables[b, t], key
+// positions implicit.
+struct PagedTiles {
+  const int* __restrict__ block_tables;
+  int nbmax;
+  int size;  // bs
+  __device__ __forceinline__ int ntiles(int, int p) const {
+    const int last = p >= 0 ? p / size : -1;     // floor(p / bs)
+    return min(last, nbmax - 1) + 1;
+  }
+  __device__ __forceinline__ size_t base(int b, int t) const {
+    const int phys = block_tables[static_cast<size_t>(b) * nbmax + t];
+    return static_cast<size_t>(phys) * size;
+  }
+  __device__ __forceinline__ int key_pos(size_t, int t, int j) const {
+    return t * size + j;
+  }
+};
+
+int launch_paged(bool quant, const void* q, const void* k, const void* v,
+                 const void* k_scale, const void* v_scale,
+                 const void* block_tables, const void* pos, void* out, int B,
+                 int bs, int nbmax, int nkv, int group, int hd, int window,
+                 float inv_sqrt_hd, void* stream) {
+  if (nbmax < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const PagedTiles tiles{static_cast<const int*>(block_tables), nbmax, bs};
+  if (quant)
+    return flash_decode::launch<int8_t>(q, k, v, k_scale, v_scale, tiles,
+                                        pos, out, B, nkv, group, hd, window,
+                                        inv_sqrt_hd, stream);
+  return flash_decode::launch<uint16_t>(q, k, v, nullptr, nullptr, tiles,
+                                        pos, out, B, nkv, group, hd, window,
+                                        inv_sqrt_hd, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// bf16 pool: k, v hold bf16 bits; no scales.
+int repro_paged_decode_attention_bf16(const void* q, const void* k,
+                                      const void* v, const void* block_tables,
+                                      const void* pos, void* out, int B,
+                                      int bs, int nbmax, int nkv, int group,
+                                      int hd, int window, float inv_sqrt_hd,
+                                      void* stream) {
+  return launch_paged(false, q, k, v, nullptr, nullptr, block_tables, pos,
+                      out, B, bs, nbmax, nkv, group, hd, window, inv_sqrt_hd,
+                      stream);
+}
+
+// int8 dither pool: k, v hold codes; k_scale, v_scale (n_blocks, bs, n_kv).
+int repro_paged_decode_attention_int8(const void* q, const void* k,
+                                      const void* v, const void* k_scale,
+                                      const void* v_scale,
+                                      const void* block_tables,
+                                      const void* pos, void* out, int B,
+                                      int bs, int nbmax, int nkv, int group,
+                                      int hd, int window, float inv_sqrt_hd,
+                                      void* stream) {
+  return launch_paged(true, q, k, v, k_scale, v_scale, block_tables, pos,
+                      out, B, bs, nbmax, nkv, group, hd, window, inv_sqrt_hd,
+                      stream);
+}
+
+}  // extern "C"

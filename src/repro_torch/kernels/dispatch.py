@@ -18,9 +18,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import ref
 
-__all__ = ["BACKENDS", "resolve_backend", "decode_attention"]
+__all__ = ["BACKENDS", "resolve_backend", "decode_attention",
+           "paged_decode_attention"]
 
 BACKENDS = ("cuda", "torch-ref")
 
@@ -58,3 +60,26 @@ def decode_attention(
                                     window=window)
     return ref.decode_attention_ref(q, k, v, k_pos, pos, k_scale, v_scale,
                                     window=window)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,        # (B, n_kv_heads, group, hd) — post-RoPE queries
+    k: torch.Tensor,        # (n_blocks, bs, n_kv_heads, hd) int8 codes or bf16
+    v: torch.Tensor,        # (n_blocks, bs, n_kv_heads, hd)
+    block_tables: torch.Tensor,   # (B, nbmax) int32 physical block per logical
+    pos: torch.Tensor,      # (B,) int32 per-slot decode position
+    *,
+    k_scale: Optional[torch.Tensor] = None,   # (n_blocks, bs, n_kv) f32
+    v_scale: Optional[torch.Tensor] = None,
+    window: int = 0,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Flash-decode attention over the paged block pool →
+    (B, n_kv, group, hd) f32, through the selected backend.  The tile is
+    the pool block on both backends, so ``torch-ref`` runs the kernel's own
+    recurrence (the reference's ``xla-ref`` does the same)."""
+    if resolve_backend(backend, q) == "cuda":
+        return _pda.paged_decode_attention(q, k, v, block_tables, pos,
+                                           k_scale, v_scale, window=window)
+    return ref.paged_decode_attention_ref(q, k, v, block_tables, pos,
+                                          k_scale, v_scale, window=window)

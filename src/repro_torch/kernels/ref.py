@@ -13,7 +13,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["decode_attention_ref", "shrink_block"]
+__all__ = ["decode_attention_ref", "paged_decode_attention_ref",
+           "shrink_block"]
 
 _NEG_BIG = -1e30   # the reference's mask value
 
@@ -26,6 +27,57 @@ def shrink_block(bk: int, cap: int) -> int:
     while cap % bk:
         bk -= 1
     return bk
+
+
+def _flash_decode(q, tile, nb: int, last, pos, *, hd: int, window: int,
+                  quantized: bool) -> torch.Tensor:
+    """The split-K online-softmax recurrence both plain versions share.
+
+    ``tile(j)`` returns block j's ``(kb, vb, kp, ksb, vsb)``: K and V
+    (B, bk, n_kv, hd), key positions (B, bk) and, when quantised, the
+    scales (B, bk, n_kv).  Per block: upcast K to the query dtype, f32 dot,
+    ``× 1/sqrt(hd)``, ``× k_scale/127`` when quantised, mask (``kp ≥ 0``,
+    ``kp ≤ pos``, optional window) to -1e30, then fold into f32 running
+    max, sum and value accumulator, with ``p × v_scale/127`` after the sum
+    update.  Rows whose ``last`` block is below j keep their state (the
+    length-aware skip).  One body for the ring and the paged cache, so the
+    two agree bit for bit on the same tiles.
+    """
+    bsz, nkv, group = q.shape[0], q.shape[1], q.shape[2]
+    dev = q.device
+    inv = float(1.0 / math.sqrt(hd))
+    qf = q.to(torch.float32)
+    m = torch.full((bsz, nkv, group, 1), -math.inf, dtype=torch.float32,
+                   device=dev)
+    s = torch.zeros((bsz, nkv, group, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((bsz, nkv, group, hd), dtype=torch.float32, device=dev)
+    pb = pos[:, None, None, None]
+    for j in range(nb):
+        kb, vb, kpb, ksb, vsb = tile(j)
+        kp = kpb[:, None, None, :]
+        kc = kb.to(q.dtype).to(torch.float32)
+        logits = torch.einsum("bhgd,bkhd->bhgk", qf, kc) * inv
+        if quantized:
+            logits = logits * (ksb.transpose(1, 2)[:, :, None, :]
+                               * (1.0 / 127.0))
+        valid = (kp >= 0) & (kp <= pb)
+        if window:
+            valid = valid & (kp > pb - window)
+        logits = torch.where(valid, logits, _NEG_BIG)
+
+        m_new = torch.maximum(m, torch.amax(logits, dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new)
+        s_new = s * alpha + torch.sum(p, dim=-1, keepdim=True)
+        if quantized:
+            p = p * (vsb.transpose(1, 2)[:, :, None, :] * (1.0 / 127.0))
+        acc_new = acc * alpha + torch.einsum("bhgk,bkhd->bhgd", p,
+                                             vb.to(torch.float32))
+        act = (j <= last)[:, None, None, None]
+        m = torch.where(act, m_new, m)
+        s = torch.where(act, s_new, s)
+        acc = torch.where(act, acc_new, acc)
+    return acc / s
 
 
 def decode_attention_ref(
@@ -43,19 +95,15 @@ def decode_attention_ref(
     """Flash-decode attention over the ring cache → (B, n_kv, group, hd) f32.
 
     The split-K online-softmax recurrence of the reference's
-    ``decode_attention_ref``: per cache block of ``bk`` slots, upcast K to
-    the query dtype, f32 dot, ``× 1/sqrt(hd)``, ``× k_scale/127`` when
-    quantised, mask (``k_pos ≥ 0``, ``k_pos ≤ pos``, optional window) to
-    -1e30, then fold into f32 running max, sum and value accumulator, with
-    ``p × v_scale/127`` after the sum update.  Blocks past ``pos // bk`` are
-    skipped (the length-aware skip).  ``block=None`` is one whole-cap block.
+    ``decode_attention_ref`` (``_flash_decode``) over cache blocks of
+    ``bk`` ring slots, with key positions read from ``k_pos``.  Blocks past
+    ``pos // bk`` are skipped (the length-aware skip).  ``block=None`` is
+    one whole-cap block.
     """
     bsz, cap, nkv, hd = k.shape
-    group = q.shape[2]
     quantized = k_scale is not None
     bk = shrink_block(cap if block is None else block[0], cap)
     nb = cap // bk
-    inv = float(1.0 / math.sqrt(hd))
     dev = k.device
     pos = torch.broadcast_to(pos.to(torch.int32), (bsz,))
     last = torch.div(pos, bk, rounding_mode="floor")
@@ -68,38 +116,55 @@ def decode_attention_ref(
             return x
         return x[rows, start[:, None] + lane]
 
-    qf = q.to(torch.float32)
-    m = torch.full((bsz, nkv, group, 1), -math.inf, dtype=torch.float32,
-                   device=dev)
-    s = torch.zeros((bsz, nkv, group, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((bsz, nkv, group, hd), dtype=torch.float32, device=dev)
-    pb = pos[:, None, None, None]
-    for j in range(nb):
+    def tile(j):
         jc = torch.clamp(last, 0, j) * bk                   # clamped start
-        kb = gather(k, jc)                                  # (B, bk, nkv, hd)
-        vb = gather(v, jc)
-        kp = gather(k_pos, jc)[:, None, None, :]
-        kc = kb.to(q.dtype).to(torch.float32)
-        logits = torch.einsum("bhgd,bkhd->bhgk", qf, kc) * inv
-        if quantized:
-            ksb = gather(k_scale, jc).transpose(1, 2)       # (B, nkv, bk)
-            logits = logits * (ksb[:, :, None, :] * (1.0 / 127.0))
-        valid = (kp >= 0) & (kp <= pb)
-        if window:
-            valid = valid & (kp > pb - window)
-        logits = torch.where(valid, logits, _NEG_BIG)
+        return (gather(k, jc), gather(v, jc), gather(k_pos, jc),
+                gather(k_scale, jc) if quantized else None,
+                gather(v_scale, jc) if quantized else None)
 
-        m_new = torch.maximum(m, torch.amax(logits, dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(logits - m_new)
-        s_new = s * alpha + torch.sum(p, dim=-1, keepdim=True)
-        if quantized:
-            vsb = gather(v_scale, jc).transpose(1, 2)
-            p = p * (vsb[:, :, None, :] * (1.0 / 127.0))
-        acc_new = acc * alpha + torch.einsum("bhgk,bkhd->bhgd", p,
-                                             vb.to(torch.float32))
-        act = (j <= last)[:, None, None, None]
-        m = torch.where(act, m_new, m)
-        s = torch.where(act, s_new, s)
-        acc = torch.where(act, acc_new, acc)
-    return acc / s
+    return _flash_decode(q, tile, nb, last, pos, hd=hd, window=window,
+                         quantized=quantized)
+
+
+def paged_decode_attention_ref(
+    q: torch.Tensor,        # (B, n_kv, group, hd) bf16/f32 — post-RoPE
+    k: torch.Tensor,        # (n_blocks, bs, n_kv, hd) int8 codes or bf16
+    v: torch.Tensor,        # (n_blocks, bs, n_kv, hd)
+    block_tables: torch.Tensor,   # (B, nbmax) int32 physical block ids
+    pos: torch.Tensor,      # (B,) int32 per-slot absolute decode position
+    k_scale: Optional[torch.Tensor] = None,   # (n_blocks, bs, n_kv) f32
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    """Flash-decode attention over the paged block pool →
+    (B, n_kv, group, hd) f32: the reference's
+    ``paged_decode_attention_ref``.
+
+    The same recurrence as ``decode_attention_ref`` (``_flash_decode``)
+    with the tile pinned to the pool block ``bs``: logical block j of slot
+    b is physical block ``block_tables[b, min(j, pos // bs)]``, and the key
+    position of in-block slot t is the implicit ``j·bs + t`` (the pool is
+    append-only, so there is no stored k_pos).  For ``bs == bk`` it is bit
+    for bit the ring recurrence on the same token stream.
+    """
+    bs, hd = k.shape[1], k.shape[3]
+    bsz = q.shape[0]
+    nbmax = block_tables.shape[1]
+    quantized = k_scale is not None
+    dev = k.device
+    pos = torch.broadcast_to(pos.to(torch.int32), (bsz,))
+    bt = block_tables.to(torch.int64)
+    last = torch.div(pos, bs, rounding_mode="floor")
+    rows = torch.arange(bsz, device=dev)
+    lane = torch.arange(bs, dtype=torch.int32, device=dev)[None, :]
+
+    def tile(j):
+        jc = torch.clamp(last, 0, j)                        # clamped logical
+        phys = bt[rows, jc.to(torch.int64)]                 # (B,)
+        return (k[phys], v[phys], jc[:, None] * bs + lane,
+                k_scale[phys] if quantized else None,
+                v_scale[phys] if quantized else None)
+
+    return _flash_decode(q, tile, nbmax, last, pos, hd=hd, window=window,
+                         quantized=quantized)

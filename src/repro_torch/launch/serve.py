@@ -1,9 +1,12 @@
-"""Serving launcher of the port: drive the ring engine over a synthetic
-request mix on the card (or, with ``--device cpu``, on the CPU):
+"""Serving launcher of the port: drive the engine over a synthetic request
+mix on the card (or, with ``--device cpu``, on the CPU), over the ring or
+the paged KV cache:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
       --requests 6 --batch 4 --max-new 8 --temperature 0.8 --top-k 40 \\
       --sched priority
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
+      --kv-layout paged --num-blocks 8 --kv-quant
 
 Takes the subset of the reference launcher's flags that the port's engine
 serves, plus ``--device``.  Weights are random, drawn from seed 0 (the
@@ -32,6 +35,18 @@ def serve_main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=5)
     ap.add_argument("--kv-quant", action="store_true",
                     help="dither-quantised int8 KV cache")
+    ap.add_argument("--kv-layout", default="ring", choices=["ring", "paged"],
+                    help="KV cache layout: dense per-slot ring, or the paged "
+                         "block pool with prefix caching + continuous "
+                         "batching")
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="paged pool block size in tokens (default 64, the "
+                         "CUDA kernels' tile; the CUDA kernel takes 1..64)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="paged pool capacity in blocks (default: matches "
+                         "the dense ring, batch × ceil(max_len/bs))")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable cross-request prefix-block reuse")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 = softmax sampling")
     ap.add_argument("--top-k", type=int, default=0)
@@ -50,7 +65,9 @@ def serve_main(argv=None):
     params = registry.init_model(cfg, seed=0, device=args.device)
     engine = Engine(params, cfg, args.batch, args.max_len,
                     kv_quant=args.kv_quant, scheduler=args.sched,
-                    device=args.device)
+                    kv_layout=args.kv_layout, device=args.device,
+                    block_size=args.block_size, num_blocks=args.num_blocks,
+                    prefix_cache=not args.no_prefix_cache)
     for r in range(args.requests):
         prompt = [(7 * r + i) % (cfg.vocab_size - 1) + 1
                   for i in range(args.prompt_len)]
@@ -73,6 +90,13 @@ def serve_main(argv=None):
           f"{args.device} (prefill {pf:.0f} tok/s over "
           f"{st['prefill_calls']} calls, decode {dc:.0f} tok/s over "
           f"{st['decode_calls']} ticks)")
+    if args.kv_layout == "paged":
+        ps = engine.pool_stats()
+        print(f"paged pool: block_size={engine.block_size} "
+              f"num_blocks={engine.num_blocks} "
+              f"prefix_hit_tokens={st['prefix_hit_tokens']} "
+              f"preemptions={st['preemptions']} "
+              f"cow_copies={ps['cow_copies']} live_blocks={ps['live']}")
 
 
 if __name__ == "__main__":

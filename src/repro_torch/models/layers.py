@@ -21,9 +21,9 @@ from repro_torch.numerics.policy import dense, matmul
 
 Params = Dict[str, Any]
 
-__all__ = ["rms_norm", "rope", "attention", "mlp", "softmax",
-           "make_causal_mask", "init_attention", "init_mlp",
-           "init_embedding"]
+__all__ = ["rms_norm", "rope", "attention", "qkv", "grouped_logits",
+           "grouped_values", "mlp", "softmax", "make_causal_mask",
+           "init_attention", "init_mlp", "init_embedding"]
 
 
 def _init(gen: torch.Generator, shape, scale=None, device="cuda"):
@@ -101,17 +101,10 @@ def make_causal_mask(s_q: int, s_k: int, window: int = 0,
     return m
 
 
-def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, *, window: int = 0, policy=None,
-              counter=0, return_kv: bool = False):
-    """Causal GQA self-attention over a full sequence (prefill).
-
-    x: (B, S, d) bf16, positions: (B, S).  Returns ``(out, kv)``: ``kv`` is
-    the post-RoPE ``(k, v)`` of this call's tokens, each
-    (B, S, n_kv_heads, hd), when ``return_kv`` (the batched prefill
-    scatters them into the ring cache), else None.  The score einsum comes
-    out in bf16 before the f32 cast, as the reference's does.
-    """
+def qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
+        positions: torch.Tensor, policy=None, counter=0):
+    """The post-RoPE projections of a full sequence: q (B, S, H, hd), k and
+    v (B, S, n_kv_heads, hd), in x's dtype."""
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
     q = dense(x, params["wq"], policy, counter, seed=1)
@@ -121,24 +114,51 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = rope(q.reshape(b, s, nh, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(b, s, nkv, hd), positions, cfg.rope_theta)
-    v = v.reshape(b, s, nkv, hd)
+    return q, k, v.reshape(b, s, nkv, hd)
+
+
+def grouped_logits(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Scores of queries qg (B, Sq, n_kv, group, hd) against keys
+    k (B, Sk, n_kv, hd) → (B, n_kv, group, Sq, Sk) f32, divided by
+    sqrt(hd).  A batched matmul over (B, n_kv): f32 accumulation, rounded
+    to the operands' dtype as the reference's einsum, then cast."""
+    b, s_q, nkv, group, hd = qg.shape
+    qh = qg.permute(0, 2, 3, 1, 4).reshape(b, nkv, group * s_q, hd)
+    kt = k.permute(0, 2, 3, 1)                              # (B, nkv, hd, Sk)
+    logits = matmul(qh, kt).reshape(b, nkv, group, s_q, k.shape[1])
+    return logits.to(torch.float32) / math.sqrt(hd)
+
+
+def grouped_values(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs (B, n_kv, group, Sq, Sk) times values v (B, Sk, n_kv, hd) →
+    (B, Sq, n_kv, group, hd) in the operands' dtype."""
+    b, nkv, group, s_q, s_k = probs.shape
+    vh = v.permute(0, 2, 1, 3)                              # (B, nkv, Sk, hd)
+    out = matmul(probs.reshape(b, nkv, group * s_q, s_k), vh)
+    return out.reshape(b, nkv, group, s_q, v.shape[3]).permute(0, 3, 1, 2, 4)
+
+
+def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, window: int = 0, policy=None,
+              counter=0, return_kv: bool = False):
+    """Causal GQA self-attention over a full sequence (prefill).
+
+    x: (B, S, d) bf16, positions: (B, S).  Returns ``(out, kv)``: ``kv`` is
+    the post-RoPE ``(k, v)`` of this call's tokens, each
+    (B, S, n_kv_heads, hd), when ``return_kv`` (the batched prefill
+    scatters them into the ring cache), else None.  The score product comes
+    out in bf16 before the f32 cast, as the reference's einsum does.
+    """
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
+    q, k, v = qkv(params, cfg, x, positions, policy, counter)
     kv_out = (k, v) if return_kv else None
 
     mask = make_causal_mask(s, s, window=window, device=x.device)
-    group = nh // nkv
-    qg = q.reshape(b, s, nkv, group, hd)
-    # scores (B, nkv, group, S, S) and values as batched matmuls over
-    # (B, nkv): f32 accumulation, rounded to bf16 as the reference's einsums
-    qh = qg.permute(0, 2, 3, 1, 4).reshape(b, nkv, group * s, hd)
-    kt = k.permute(0, 2, 3, 1)                              # (B, nkv, hd, S)
-    logits = matmul(qh, kt).reshape(b, nkv, group, s, s).to(torch.float32)
-    logits = logits / math.sqrt(hd)
+    logits = grouped_logits(q.reshape(b, s, nkv, nh // nkv, hd), k)
     logits = torch.where(mask[None, None, None, :, :], logits, -1e30)
     probs = softmax(logits, dim=-1).to(x.dtype)
-    vh = v.permute(0, 2, 1, 3)                              # (B, nkv, S, hd)
-    out = matmul(probs.reshape(b, nkv, group * s, s), vh)
-    out = out.reshape(b, nkv, group, s, hd).permute(0, 3, 1, 2, 4)
-    out = out.reshape(b, s, nh * hd)
+    out = grouped_values(probs, v).reshape(b, s, nh * hd)
     return dense(out, params["wo"], policy, counter, seed=4), kv_out
 
 

@@ -14,8 +14,9 @@ from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 
-__all__ = ["init_model", "make_cache", "apply_prefill", "apply_decode",
-           "merge_prefill", "supports_batched_prefill"]
+__all__ = ["init_model", "make_cache", "apply_prefill", "apply_prefill_paged",
+           "apply_decode", "merge_prefill", "supports_batched_prefill",
+           "supports_paged_kv"]
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -33,6 +34,12 @@ def supports_batched_prefill(cfg: ModelConfig) -> bool:
             and all(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)))
 
 
+def supports_paged_kv(cfg: ModelConfig) -> bool:
+    """True when the arch can serve from the paged block-pool KV cache
+    (DESIGN.md §6): attention-only decoders, as for batched prefill."""
+    return supports_batched_prefill(cfg)
+
+
 def init_model(cfg: ModelConfig, *, seed: int = 0,
                device="cuda") -> Params:
     """Random bf16 weights from a ``torch.Generator`` seeded with ``seed``
@@ -45,11 +52,13 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
 def make_cache(params: Params, cfg: ModelConfig, batch_size: int,
                max_len: int, *, policy=None, kv_quant: bool = False,
-               kv_layout: str = "ring", device="cuda") -> Params:
-    """The ring decode cache on ``device``."""
+               kv_layout: str = "ring", block_size: Optional[int] = None,
+               num_blocks: Optional[int] = None, device="cuda") -> Params:
+    """The ring or paged decode cache on ``device``."""
     _check_family(cfg)
     return transformer.init_cache(cfg, batch_size, max_len, kv_quant=kv_quant,
-                                  kv_layout=kv_layout, device=device)
+                                  kv_layout=kv_layout, block_size=block_size,
+                                  num_blocks=num_blocks, device=device)
 
 
 def apply_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -65,10 +74,32 @@ def apply_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return logits[torch.arange(b, device=logits.device), last], cache
 
 
+def apply_prefill_paged(params: Params, cfg: ModelConfig,
+                        tokens: torch.Tensor, lengths: torch.Tensor,
+                        starts: torch.Tensor, block_tables: torch.Tensor,
+                        cache: Params, *, policy=None, counter=0,
+                        kv_quant: bool = False, kv_offset=None,
+                        prefix_blocks: int = 0):
+    """Paged batched prefill → (last-suffix-token logits (B, vocab_size),
+    the live cache with the suffix blocks written in place).  Prefix-hit
+    rows (``starts > 0``) skip recomputing the shared prefix — its K/V is
+    gathered from the refcounted pool blocks inside attention."""
+    _check_family(cfg)
+    b, s = tokens.shape
+    lengths = lengths.to(torch.int32)
+    logits, cache = transformer.prefill_with_cache_paged(
+        params, cfg, tokens, lengths, starts, block_tables, cache,
+        policy=policy, counter=counter, kv_quant=kv_quant,
+        kv_offset=kv_offset, prefix_blocks=prefix_blocks)
+    last = torch.clamp(lengths.long() - 1, 0, s - 1)
+    return logits[torch.arange(b, device=logits.device), last], cache
+
+
 def apply_decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
                  cache: Params, *, policy=None, counter=0, kv_offset=None,
                  backend: Optional[str] = None):
-    """One decode step (``transformer.decode_step``)."""
+    """One decode step (``transformer.decode_step``), ring or paged by the
+    cache's layout."""
     _check_family(cfg)
     return transformer.decode_step(params, cfg, token, cache, policy=policy,
                                    counter=counter, kv_offset=kv_offset,

@@ -1,5 +1,5 @@
-"""Dense decoder over the ring KV cache (counterpart of the reference's
-``models/transformer.py``, its ring-serving subset).
+"""Dense decoder over the ring or the paged KV cache (counterpart of the
+reference's ``models/transformer.py``, its serving subset).
 
 Parameters keep the reference's layout: per block-pattern position one
 dict whose leaves carry a leading ``(R, …)`` repeat axis, plus unrolled
@@ -9,13 +9,17 @@ Python loop over the leading axis.
 Decode uses the reference's ring-buffer cache: capacity C = window (local
 attention) or max_len, with per-slot absolute positions (``cache["pos"]``
 (B,), ``k_pos`` (B, C)) driving the mask, in bf16 or as dither-rounded int8
-codes with per-position scales (``_kv_q8``).  Unlike the reference's pure
-functions, ``decode_step`` and ``merge_cache`` update the cache tensors **in
-place** (``index_put_`` / ``copy_``) and return a cache dict that shares
-them, so a step costs no copy of the cache; callers that need the old cache
-keep a clone.  Only attention layers (``kind="attn"``) of dense models are
-ported; the rest of the zoo is ROADMAP Queue 1 item 11 and the paged layout
-Queue 1 item 5.
+codes with per-position scales (``_kv_q8``).  The paged layout
+(DESIGN.md §6) keeps per layer a pool of fixed-size token blocks plus a
+trailing trash block, shared by every slot through one ``block_tables``
+(B, nbmax) map; ``prefill_with_cache_paged`` writes prompt suffixes into
+it and joins prefix blocks other requests already wrote.  Unlike the
+reference's pure functions, ``decode_step``, ``merge_cache`` and
+``prefill_with_cache_paged`` update the cache tensors **in place**
+(``index_put_`` / ``copy_``) and return a cache dict that shares them, so
+a step costs no copy of the cache; callers that need the old cache keep a
+clone.  Only attention layers (``kind="attn"``) of dense models are
+ported; the rest of the zoo is ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ from repro_torch.numerics.policy import dense
 
 Params = Dict[str, Any]
 
-__all__ = ["init_params", "init_cache", "prefill_with_cache", "merge_cache",
-           "decode_step"]
+__all__ = ["init_params", "init_cache", "prefill_with_cache",
+           "prefill_with_cache_paged", "merge_cache", "decode_step"]
 
 
 def _kv_q8(t: torch.Tensor, ctr, idx, seed: int):
@@ -159,47 +163,88 @@ def _cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     return entry
 
 
+def _paged_cache_entry(cfg: ModelConfig, kind: str, num_blocks: int,
+                       block_size: int, kv_quant: bool, device) -> Params:
+    """One attention layer's share of the paged block pool: ``num_blocks``
+    usable blocks of ``block_size`` token slots plus a trailing *trash*
+    block (physical id ``num_blocks``) that absorbs writes through
+    unallocated block-table entries; what is read from it is masked or
+    (idle rows) discarded."""
+    if kind != "attn":
+        raise ValueError("paged KV layout requires attention-only layers")
+    shape = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd())
+    dtype = torch.int8 if kv_quant else torch.bfloat16
+    entry = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kv_quant:
+        for name in ("k_scale", "v_scale"):
+            entry[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                      device=device)
+    return entry
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_quant: bool = False, kv_layout: str = "ring",
-               device="cuda") -> Params:
-    """The ring decode cache: stacked ``(R, B, …)`` entries per pattern
-    position, remainder entries, and per-slot positions ``pos`` (B,)."""
-    if kv_layout == "paged":
-        raise NotImplementedError("the paged KV layout is not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
-    if kv_layout != "ring":
+               block_size: Optional[int] = None,
+               num_blocks: Optional[int] = None, device="cuda") -> Params:
+    """The decode cache: stacked ``(R, …)`` entries per pattern position,
+    remainder entries, and per-slot positions ``pos`` (B,).  The paged
+    layout holds ``num_blocks`` usable blocks of ``block_size`` tokens
+    (default ``batch × ceil(max_len / block_size)``, the dense ring's token
+    count) plus the trash block, and ``block_tables`` (B, nbmax) whose
+    unset entries are the trash id ``num_blocks``."""
+    if kv_layout not in ("ring", "paged"):
         raise ValueError(f"unknown kv_layout {kv_layout!r}")
+    paged = kv_layout == "paged"
+    if paged:
+        if not block_size or block_size <= 0:
+            raise ValueError("paged kv_layout requires a positive block_size")
+        nbmax = -(-max_len // block_size)           # blocks per full request
+        num_blocks = num_blocks if num_blocks is not None else batch * nbmax
+
+    def entry(kind):
+        if paged:
+            return _paged_cache_entry(cfg, kind, num_blocks, block_size,
+                                      kv_quant, device)
+        return _cache_entry(cfg, kind, batch, max_len, kv_quant, device)
+
     p_ = _period(cfg)
     rep, rem = divmod(cfg.n_layers, p_)
     stacked = []
     if rep:
         for pos in range(p_):
-            one = _cache_entry(cfg, cfg.layer_kind(pos), batch, max_len,
-                               kv_quant, device)
+            one = entry(cfg.layer_kind(pos))
             stacked.append({k: v.expand((rep,) + v.shape).contiguous()
                             for k, v in one.items()})
-    remainder = [_cache_entry(cfg, cfg.layer_kind(rep * p_ + i), batch,
-                              max_len, kv_quant, device) for i in range(rem)]
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "layers": stacked, "remainder": remainder}
+    remainder = [entry(cfg.layer_kind(rep * p_ + i)) for i in range(rem)]
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+             "layers": stacked, "remainder": remainder}
+    if paged:
+        cache["block_tables"] = torch.full((batch, nbmax), num_blocks,
+                                           dtype=torch.int32, device=device)
+    return cache
 
 
 # ---------------------------------------------------------------------------
-# decode attention over the ring cache
+# decode attention over the ring or paged cache
 # ---------------------------------------------------------------------------
 
 
 def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
                       cache: Params, pos: torch.Tensor, policy, counter,
-                      kv_offset=None, backend: Optional[str] = None):
-    """One-token attention against one layer's ring cache entry.
+                      kv_offset=None, backend: Optional[str] = None,
+                      block_tables: Optional[torch.Tensor] = None):
+    """One-token attention against one layer's cache entry.
     x: (B, 1, d); ``pos`` (B,) int32 per-slot absolute positions.
 
     Writes the new token's K/V (int8 codes + scales when the cache is
-    quantised, with counter = position + ``kv_offset``) into ring slot
-    ``pos % cap`` **in place**, then runs flash-decode attention through
-    the kernel dispatcher (``backend`` None: the CUDA kernel on the card,
-    the plain version on the CPU).
+    quantised, with counter = position + ``kv_offset``) **in place**: into
+    ring slot ``pos % cap``, or — when ``block_tables`` (B, nbmax) selects
+    the paged layout — into pool block ``block_tables[b, pos // bs]`` at
+    in-block slot ``pos % bs`` (the engine has made that block exist and
+    uniquely owned, or pointed the row at the trash block).  Then runs
+    flash-decode attention through the kernel dispatcher (``backend``
+    None: the CUDA kernel on the card, the plain version on the CPU).
     """
     b = x.shape[0]
     hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
@@ -214,9 +259,15 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     q = layers.rope(q, posv, cfg.rope_theta)
     k = layers.rope(k, posv, cfg.rope_theta)
 
-    cap = cache["k"].shape[1]
-    rows = torch.arange(b, device=x.device)
-    slot = torch.remainder(pos, cap)
+    paged = block_tables is not None
+    width = cache["k"].shape[1]                     # ring cap or block size
+    slot = torch.remainder(pos, width)
+    if paged:
+        logical = torch.clamp(torch.div(pos, width, rounding_mode="floor"),
+                              0, block_tables.shape[1] - 1)
+        rows = block_tables.gather(1, logical[:, None].long())[:, 0].long()
+    else:
+        rows = torch.arange(b, device=x.device)
     if cache["k"].dtype == torch.int8:
         ctr = pos if kv_offset is None else pos + kv_offset
         ctr4 = ctr.reshape(b, 1, 1, 1)
@@ -230,14 +281,20 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["k_pos"][rows, slot] = pos
 
     group = nh // nkv
     qg = q[:, 0].reshape(b, nkv, group, hd)
-    attn = dispatch.decode_attention(
-        qg, cache["k"], cache["v"], cache["k_pos"], pos,
-        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-        window=cfg.window or 0, backend=backend)
+    if paged:
+        attn = dispatch.paged_decode_attention(
+            qg, cache["k"], cache["v"], block_tables, pos,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            window=cfg.window or 0, backend=backend)
+    else:
+        cache["k_pos"][rows, slot] = pos
+        attn = dispatch.decode_attention(
+            qg, cache["k"], cache["v"], cache["k_pos"], pos,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            window=cfg.window or 0, backend=backend)
     out = attn.to(x.dtype).reshape(b, 1, nh * hd)
     return dense(out, params["wo"], policy, counter, seed=4), cache
 
@@ -250,7 +307,7 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
 def _apply_block(bp: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions, *, policy, counter, cache_entry=None, pos=None,
                  kv_offset=None, collect_kv: bool = False,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, block_tables=None):
     _check_kind(kind)
     h = layers.rms_norm(x, bp["ln1"], cfg.norm_eps)
     new_cache = cache_entry
@@ -258,7 +315,8 @@ def _apply_block(bp: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
         out, new_cache = _attention_decode(bp["attn"], cfg, h, cache_entry,
                                            pos, policy, counter,
                                            kv_offset=kv_offset,
-                                           backend=backend)
+                                           backend=backend,
+                                           block_tables=block_tables)
     else:
         out, kv = layers.attention(bp["attn"], cfg, h, positions,
                                    window=cfg.window, policy=policy,
@@ -366,10 +424,200 @@ def prefill_with_cache(params: Params, cfg: ModelConfig,
     return logits, {"pos": lengths, "layers": stacked, "remainder": remainder}
 
 
+# ---------------------------------------------------------------------------
+# paged prefill: suffix forward + prefix gather + block-pool scatter
+# ---------------------------------------------------------------------------
+
+
+def _gather_prefix(entry: Params, block_tables: torch.Tensor,
+                   prefix_blocks: int):
+    """The leading ``prefix_blocks`` logical blocks of every slot, gathered
+    from one layer's pool → K, V (B, prefix_blocks·bs, n_kv, hd) and, for
+    an int8 pool, the scales (B, prefix_blocks·bs, n_kv), else None.
+    Unallocated entries point at the trash block; the caller masks those
+    positions (implicit position ≥ the slot's start)."""
+    bt = block_tables[:, :prefix_blocks].long()                # (B, P)
+    b, p = bt.shape
+
+    def gather(t):
+        g = t[bt]                                              # (B, P, bs, …)
+        return g.reshape((b, p * g.shape[2]) + g.shape[3:])
+
+    scales = ([gather(entry["k_scale"]), gather(entry["v_scale"])]
+              if "k_scale" in entry else [None, None])
+    return [gather(entry["k"]), gather(entry["v"])] + scales
+
+
+def _paged_scatter_entry(entry: Params, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor, starts: torch.Tensor,
+                         block_tables: torch.Tensor, kv_quant: bool,
+                         kv_offset) -> None:
+    """Write one layer's suffix K/V (post-RoPE, (B, S, n_kv, hd)) into its
+    pool blocks, **in place**.  Suffix token s lands in logical block
+    ``starts // bs + s // bs`` at in-block slot ``s % bs`` (starts are
+    block-aligned); blocks past the suffix length go to the trash block.
+    The int8 path quantises with counter = absolute position (+ per-request
+    offset) and the decode step's element indices, so the codes are bit
+    for bit what token-by-token decode would have written — the contract
+    behind prefix sharing (DESIGN.md §6)."""
+    nbp, bs = entry["k"].shape[0], entry["k"].shape[1]
+    trash = nbp - 1
+    b, s, nkv, hd = k.shape
+    dev = k.device
+    nbmax = block_tables.shape[1]
+    s_pad = -(-s // bs) * bs
+    if s_pad != s:
+        pad = (0, 0, 0, 0, 0, s_pad - s)
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    n_jb = s_pad // bs
+    jb = torch.arange(n_jb, dtype=torch.int32, device=dev)[None, :]
+    needed = jb * bs < lengths[:, None]                           # (B, JB)
+    tj = torch.clamp(torch.div(starts, bs, rounding_mode="floor")[:, None]
+                     + jb, 0, nbmax - 1)
+    phys = torch.where(needed, block_tables.gather(1, tj.long()),
+                       trash).reshape(-1).long()                  # (B·JB,)
+
+    def blocks(t):
+        return t.reshape((b * n_jb, bs) + t.shape[2:])
+
+    if not kv_quant:
+        entry["k"][phys] = blocks(k.to(entry["k"].dtype))
+        entry["v"][phys] = blocks(v.to(entry["v"].dtype))
+        return
+    off = (torch.zeros((b,), dtype=torch.int32, device=dev)
+           if kv_offset is None
+           else torch.broadcast_to(kv_offset.to(torch.int32), (b,)))
+    pos_pad = starts[:, None] + torch.arange(s_pad, dtype=torch.int32,
+                                             device=dev)[None, :]
+    ctr = (pos_pad + off[:, None])[:, :, None, None]          # (B, S_pad, 1, 1)
+    idx4 = _kv_elem_idx(nkv, hd, dev)
+    kq, ks = _kv_q8(k, ctr, idx4, 101)
+    vq, vs = _kv_q8(v, ctr, idx4, 102)
+    entry["k"][phys] = blocks(kq)
+    entry["v"][phys] = blocks(vq)
+    entry["k_scale"][phys] = blocks(ks)
+    entry["v_scale"][phys] = blocks(vs)
+
+
+def _paged_prefill_attention(params: Params, cfg: ModelConfig,
+                             x: torch.Tensor, positions: torch.Tensor,
+                             lengths: torch.Tensor, starts: torch.Tensor,
+                             block_tables: torch.Tensor, entry: Params,
+                             policy, counter, kv_quant: bool, kv_offset,
+                             prefix_blocks: int) -> torch.Tensor:
+    """Suffix attention of the paged prefill: queries at absolute positions
+    ``starts + t`` attend the in-batch suffix K/V (relative-causal — the
+    cold prefill's ``layers.attention`` ops, so a cold wave is exactly the
+    ring prefill) plus, when ``prefix_blocks > 0``, the prefix K/V gathered
+    from the pool (int8 codes dequantised per position), joined *before*
+    the softmax so a prefix-hit request sees one distribution over its
+    whole history.  The suffix K/V is then scattered into the pool in
+    place (after the gather, so a layer reads its pool before writing
+    it).  Returns the attention block's output."""
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
+    q, k, v = layers.qkv(params, cfg, x, positions, policy, counter)
+    window = cfg.window or 0
+    qg = q.reshape(b, s, nkv, nh // nkv, hd)
+    m_ss = layers.make_causal_mask(s, s, window=window, device=x.device)
+    logits_s = layers.grouped_logits(qg, k)
+    logits_s = torch.where(m_ss[None, None, None, :, :], logits_s, -1e30)
+
+    if prefix_blocks:
+        pk, pv, pks, pvs = _gather_prefix(entry, block_tables, prefix_blocks)
+        if pks is not None:
+            pk = (pk.to(torch.float32) * (pks[..., None] / 127.0)).to(x.dtype)
+            pv = (pv.to(torch.float32) * (pvs[..., None] / 127.0)).to(x.dtype)
+        s_pre = pk.shape[1]
+        kp = torch.arange(s_pre, dtype=torch.int32,
+                          device=x.device)[None, None, :]     # implicit pos
+        vp = kp < starts[:, None, None]                       # (B, S, S_pre)
+        if window:
+            vp = vp & (kp > positions[:, :, None] - window)
+        logits_p = layers.grouped_logits(qg, pk)
+        logits_p = torch.where(vp[:, None, None, :, :], logits_p, -1e30)
+        probs = layers.softmax(torch.cat([logits_p, logits_s], dim=-1),
+                               dim=-1).to(x.dtype)
+        out = (layers.grouped_values(probs[..., :s_pre].contiguous(), pv)
+               + layers.grouped_values(probs[..., s_pre:].contiguous(), v))
+    else:
+        probs = layers.softmax(logits_s, dim=-1).to(x.dtype)
+        out = layers.grouped_values(probs, v)
+    out = dense(out.reshape(b, s, nh * hd), params["wo"], policy, counter,
+                seed=4)
+    _paged_scatter_entry(entry, k, v, lengths, starts, block_tables,
+                         kv_quant, kv_offset)
+    return out
+
+
+def _paged_prefill_block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
+                         positions, lengths, starts, block_tables,
+                         entry: Params, policy, counter, kv_quant: bool,
+                         kv_offset, prefix_blocks: int) -> torch.Tensor:
+    """One transformer block of the paged prefill: ``_apply_block`` with
+    the prefix-aware attention above in place of ``layers.attention``."""
+    h = layers.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    x = x + _paged_prefill_attention(
+        bp["attn"], cfg, h, positions, lengths, starts, block_tables, entry,
+        policy, counter, kv_quant, kv_offset, prefix_blocks)
+    h2 = layers.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + layers.mlp(bp["mlp"], h2, cfg.mlp_act, policy, counter)
+
+
+def prefill_with_cache_paged(params: Params, cfg: ModelConfig,
+                             tokens: torch.Tensor, lengths: torch.Tensor,
+                             starts: torch.Tensor,
+                             block_tables: torch.Tensor, cache: Params, *,
+                             policy=None, counter=0, kv_quant: bool = False,
+                             kv_offset=None, prefix_blocks: int = 0):
+    """Batched paged prefill: one forward over right-padded prompt
+    *suffixes* (B, S) with lengths (B,) (0 = inactive row) that writes
+    their K/V into the pool blocks named by ``block_tables`` (B, nbmax),
+    in place.
+
+    A prefix-cache hit sets ``starts[b] > 0`` (a multiple of the block
+    size): tokens before it are not recomputed — their K/V is gathered from
+    the shared pool blocks inside each layer's attention, over the first
+    ``prefix_blocks`` logical blocks (0 on cold waves, which makes this
+    exactly the cold batched prefill).  Returns ``(logits (B, S,
+    vocab_size) f32, cache)``: the live cache, its layer tensors written in
+    place, ``pos`` = ``starts + lengths`` for active rows, and
+    ``block_tables`` installed.
+    """
+    for i in range(cfg.n_layers):
+        if cfg.layer_kind(i) != "attn":
+            raise ValueError("paged prefill requires attention-only layers")
+    x = params["embed"][tokens]
+    b, s, _ = x.shape
+    dev = x.device
+    lengths = lengths.to(torch.int32)
+    starts = starts.to(torch.int32)
+    block_tables = block_tables.to(torch.int32)
+    positions = starts[:, None] + torch.arange(s, dtype=torch.int32,
+                                               device=dev)[None, :]
+    for bp, kind, pos_i, r in _layers(params, cfg):
+        entry = (_index(cache["layers"][pos_i], r) if r is not None
+                 else cache["remainder"][pos_i])
+        x = _paged_prefill_block(bp, cfg, x, positions, lengths, starts,
+                                 block_tables, entry, policy, counter,
+                                 kv_quant, kv_offset, prefix_blocks)
+    logits = _logits(params, cfg, x)[:, :, : cfg.vocab_size]
+    return logits, {"pos": torch.where(lengths > 0, starts + lengths,
+                                       cache["pos"].to(torch.int32)),
+                    "block_tables": block_tables,
+                    "layers": cache["layers"],
+                    "remainder": cache["remainder"]}
+
+
 def merge_cache(old: Params, new: Params, active: torch.Tensor) -> Params:
     """Per-slot cache insertion: rows of ``new`` where ``active`` (B,) bool
     replace rows of ``old``, **in place** in ``old``'s tensors (stacked
-    entries carry batch at axis 1, remainder entries at axis 0)."""
+    entries carry batch at axis 1, remainder entries at axis 0).  Ring
+    caches only: the paged prefill writes the pool in place."""
+    if "block_tables" in old or "block_tables" in new:
+        raise ValueError("merge_cache applies to ring caches only; the paged "
+                         "prefill writes the pool in place")
     def sel(o_tree, n_tree, axis):
         for key, o in o_tree.items():
             shp = [1] * o.dim()
@@ -392,21 +640,30 @@ def merge_cache(old: Params, new: Params, active: torch.Tensor) -> Params:
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Params, *, policy=None, counter=0, kv_offset=None,
                 backend: Optional[str] = None):
-    """One decode step: (B,) tokens + ring cache → ((B, vocab_size) f32
-    logits, cache).  Every slot advances by one; the cache's layer tensors
-    are updated in place and shared by the returned cache.  ``kv_offset``
+    """One decode step: (B,) tokens + cache → ((B, vocab_size) f32 logits,
+    cache).  Every slot advances by one; the cache's layer tensors are
+    updated in place and shared by the returned cache.  A cache carrying
+    ``block_tables`` (B, nbmax) decodes against the paged block pool (one
+    map for every layer's pool), else against the ring.  ``kv_offset``
     (B,) shifts the int8-KV dither counter per slot.  ``backend`` selects
     the decode-attention kernel backend (None: by device)."""
     x = params["embed"][token[:, None]]
     b = x.shape[0]
     pos = torch.broadcast_to(cache["pos"].to(torch.int32), (b,)).contiguous()
+    block_tables = cache.get("block_tables")
+    if block_tables is not None:
+        block_tables = block_tables.to(torch.int32).contiguous()
     positions = pos[:, None]
     for bp, kind, pos_i, r in _layers(params, cfg):
         entry = (_index(cache["layers"][pos_i], r) if r is not None
                  else cache["remainder"][pos_i])
         x, _ = _apply_block(bp, cfg, kind, x, positions, policy=policy,
                             counter=counter, cache_entry=entry, pos=pos,
-                            kv_offset=kv_offset, backend=backend)
+                            kv_offset=kv_offset, backend=backend,
+                            block_tables=block_tables)
     logits = _logits(params, cfg, x)[:, 0, : cfg.vocab_size]
-    return logits, {"pos": pos + 1, "layers": cache["layers"],
-                    "remainder": cache["remainder"]}
+    new_cache = {"pos": pos + 1, "layers": cache["layers"],
+                 "remainder": cache["remainder"]}
+    if block_tables is not None:
+        new_cache["block_tables"] = cache["block_tables"]
+    return logits, new_cache

@@ -1,24 +1,36 @@
 """Serving engine of the port: batched prefill, then one decode tick at a
-time over the ring KV cache (counterpart of the reference's
-``serve/engine.py``, its single-device, ring-layout, ``decode_ticks=1``
-subset; DESIGN.md §6).
+time over the ring or the paged KV cache (counterpart of the reference's
+``serve/engine.py``, its single-device, ``decode_ticks=1`` subset;
+DESIGN.md §6).
 
-``make_serve_fns`` builds the prefill and decode steps, ``Engine`` is the
-host-side loop that drives them: a :class:`Scheduler` admits queued
-requests into free decode slots, admitted prompts run through one batched
-prefill (right-padded prompts, KV written per slot into the shared ring
-cache, prefill logits seeding each request's first token), and each tick
-decodes and samples every active slot.  Per-request :class:`SamplingParams`
-drive greedy/temperature/top-k sampling, EOS/stop handling and the
-per-request dither-counter offsets; slots are preempted at ``max_len`` and
-recycled.
+``make_serve_fns`` and ``make_paged_prefill`` build the prefill and decode
+steps, ``Engine`` is the host-side loop that drives them: a
+:class:`Scheduler` admits queued requests into free decode slots, admitted
+prompts run through one batched prefill (right-padded prompts, KV written
+per slot into the cache, prefill logits seeding each request's first
+token), and each tick decodes and samples every active slot.  Per-request
+:class:`SamplingParams` drive greedy/temperature/top-k sampling, EOS/stop
+handling and the per-request dither-counter offsets.
+
+Two KV layouts:
+
+* ``ring`` — one ring per slot; slots are preempted at ``max_len`` and
+  recycled.
+* ``paged`` — one shared block pool (:class:`KVPool` on the host, per-layer
+  pools plus a trash block on the device, ``block_tables`` (B, nbmax)
+  mapping each slot's logical blocks to physical ones).  Continuous
+  batching admits while the pool has blocks; sealed blocks are
+  content-addressed, so a prompt whose leading blocks another request
+  already wrote shares them and prefills only its suffix; a slot that
+  runs the pool dry is preempted with its blocks intact and resumed
+  later; a deadlock breaker makes queued block holders re-prefill.
 
 PyTorch runs eagerly, so the reference's jitted dispatches become plain
-calls; the per-slot sampling state and the last sampled tokens stay on the
-device and are re-uploaded only when slot membership changes, and the ring
-cache is updated in place.  Every constructor knob of the reference that
-this slice does not port raises ``NotImplementedError`` naming its ROADMAP
-item.
+calls; the per-slot sampling state, the last sampled tokens and the block
+tables stay on the device and are re-uploaded only when they change, and
+the cache is updated in place.  Every constructor knob of the reference
+that this slice does not port raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,13 +42,22 @@ from typing import Callable, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.kernels.paged_decode_attention import MAX_BLOCK_SIZE
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
+from repro_torch.serve.kvpool import KVPool
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 from repro_torch.serve.scheduler import Scheduler
 
 __all__ = ["make_serve_fns", "make_decode_and_sample", "make_fused_decode",
-           "Engine", "Request", "SamplingParams", "Scheduler"]
+           "make_paged_prefill", "Engine", "Request", "SamplingParams",
+           "Scheduler", "KVPool", "DEFAULT_BLOCK_SIZE"]
+
+# The paged pool's default block size: the CUDA kernels' tile (64 keys), so
+# at the default settings the paged kernel runs the ring kernel's tiles and
+# ring == paged holds bit for bit on the card.  (The reference picks its
+# default with a TPU cost model, kernels/autotune.py, which is not ported.)
+DEFAULT_BLOCK_SIZE = MAX_BLOCK_SIZE
 
 
 def _check_policy(policy) -> None:
@@ -89,8 +110,10 @@ def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
     samples every slot once and returns ``(tokens (1, B), last_token (B,),
     counters, cache)``.  Rows that are not ``alive`` (idle or finished
     slots) still run but are inert: their token, sampling counter and cache
-    position freeze, as in the reference's window at one tick.  Windows of
-    more than one tick are ROADMAP Queue 1 item 6."""
+    position freeze and, on a paged cache, their block-table rows read as
+    the trash block, so their writes land there — as in the reference's
+    window at one tick.  Windows of more than one tick are ROADMAP Queue 1
+    item 6."""
     _check_policy(policy)
     if n_ticks != 1:
         raise NotImplementedError("fused decode windows (n_ticks > 1) are "
@@ -99,25 +122,58 @@ def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
     def fused_decode(params, token, cache, kv_offset, counter,
                      temps, topks, seeds, counters, alive):
         pos0 = cache["pos"]
+        step_cache = cache
+        if "block_tables" in cache:
+            leaf = (cache["layers"][0]["k"] if cache["layers"]
+                    else cache["remainder"][0]["k"])
+            # the pool's leading dim is blocks + 1; the last id is trash
+            trash = leaf.shape[1] - 1 if cache["layers"] else leaf.shape[0] - 1
+            step_cache = dict(cache)
+            step_cache["block_tables"] = torch.where(
+                alive[:, None], cache["block_tables"], trash).to(torch.int32)
         logits, new_cache = registry.apply_decode(
-            params, cfg, token, cache, policy=policy, counter=counter,
+            params, cfg, token, step_cache, policy=policy, counter=counter,
             kv_offset=kv_offset)
         toks = sample_tokens(logits, temps, topks, seeds, counters)
         toks = torch.where(alive, toks, token)
         new_cache["pos"] = torch.where(alive, new_cache["pos"], pos0)
+        if "block_tables" in cache:
+            new_cache["block_tables"] = cache["block_tables"]
         counters = torch.where(alive, counters + 1, counters)
         return toks[None], toks, counters, new_cache
 
     return fused_decode
 
 
+def make_paged_prefill(cfg: ModelConfig, policy=None, *,
+                       kv_quant: bool = False):
+    """The paged prefill step: ``paged_prefill(params, tokens, lengths,
+    starts, block_tables, cache, kv_offset, counter, prefix_blocks=...)``
+    runs one batched forward over the prompt *suffixes*, writes their K/V
+    into the pool blocks named by ``block_tables`` (in place) and returns
+    ``(last_logits, cache)``.  ``prefix_blocks`` is 0 on cold waves —
+    exactly the cold batched prefill — or the table width when an admitted
+    request hit the prefix cache."""
+    _check_policy(policy)
+
+    def paged_prefill(params, tokens, lengths, starts, block_tables, cache,
+                      kv_offset, counter, *, prefix_blocks: int = 0):
+        return registry.apply_prefill_paged(
+            params, cfg, tokens, lengths, starts, block_tables, cache,
+            policy=policy, counter=counter, kv_quant=kv_quant,
+            kv_offset=kv_offset, prefix_blocks=prefix_blocks)
+
+    return paged_prefill
+
+
 @dataclass
 class Request:
     """One generation request.
 
-    Lifecycle: ``queued`` → (scheduler admits) → ``active`` → ``done`` with
-    ``finish_reason`` ∈ {"eos", "stop", "length", "preempted",
-    "rejected"}.  ``sampling`` carries the per-request decode controls;
+    Lifecycle: ``queued`` → (scheduler admits) → [``prefilling`` →]
+    ``active`` → ``done`` with ``finish_reason`` ∈ {"eos", "stop",
+    "length", "preempted", "rejected"}; a paged request preempted for
+    blocks goes back to ``queued`` and resumes later.  ``sampling`` carries the per-request decode controls;
     ``max_new`` overrides ``sampling.max_new``.  ``stream`` (if set) is
     called as ``stream(request, token)`` for every emitted token.  Timing
     fields are host-clock seconds.  ``deadline_s`` exists for the
@@ -141,6 +197,15 @@ class Request:
     t_first: Optional[float] = None
     t_last: Optional[float] = None
     itl: List[float] = field(default_factory=list)
+    # paged-pool lifecycle state (engine-internal): a preempted request's
+    # frozen decode position / pending input token (blocks stay in the
+    # pool, so re-admission resumes instead of re-prefilling), and the
+    # count of its pool blocks sealed into the prefix cache so far
+    _resume: Optional[dict] = None
+    _sealed: int = 0
+    # prefill progress (engine-internal): tokens of the prompt already
+    # written to the cache while state == "prefilling"
+    _pf_pos: int = 0
 
     @property
     def ttft(self) -> Optional[float]:
@@ -163,7 +228,6 @@ def _bucket(n: int) -> int:
 
 # reference knob → (value that means "off", ROADMAP Queue 1 item porting it)
 _OUT_OF_SLICE = {
-    "block_size": (None, 5), "num_blocks": (None, 5),
     "mesh": (None, 10), "metrics": (None, 8), "trace": (None, 8),
     "decode_ticks": (1, 6), "prefill_chunk": (None, 6),
     "queue_cap": (None, 8), "shed_policy": ("reject-new", 8),
@@ -174,43 +238,50 @@ _OUT_OF_SLICE = {
 
 
 class Engine:
-    """Host-side continuous-batching loop over the ring KV cache.
+    """Host-side continuous-batching loop over the ring or the paged KV
+    cache.
 
     Fixed decode batch B (the slot count).  Each :meth:`step`:
 
     1. asks the scheduler for requests to fill free slots; admitted prompts
        are right-padded into a (B, S_bucket) batch and run through one
-       batched prefill whose cache rows are merged into the admitted slots,
-       and the prefill logits seed each request's first sampled token;
+       batched prefill, and the prefill logits seed each request's first
+       sampled token.  The ring layout merges the prefill's cache rows into
+       the admitted slots; the paged layout admits while the pool can
+       supply blocks, shares cached prefix blocks and prefills only the
+       suffix, and resumes preempted requests where they stopped;
     2. decodes and samples every active slot once;
     3. retires slots on EOS/stop tokens, ``max_new``, or ``max_len``
-       preemption, freeing them for the next admission wave.
+       (ring: preempted; paged: a 'length' stop), freeing them for the
+       next admission wave.
 
     ``device`` is where the cache and the per-slot state live; ``params``
-    must be there already.
+    must be there already.  Paged knobs: ``block_size`` (default
+    ``DEFAULT_BLOCK_SIZE`` = 64, the CUDA kernels' tile, so ring == paged
+    bit for bit on the card at the defaults; the CUDA paged kernel takes
+    1 ≤ block_size ≤ 64), ``num_blocks`` (default batch × ceil(max_len /
+    block_size), the dense ring's token count) and ``prefix_cache``.
     """
 
     def __init__(self, params, cfg: ModelConfig, batch: int, max_len: int,
                  policy=None, kv_quant: bool = False,
                  scheduler: Union[str, Scheduler] = "fcfs",
                  kv_layout: str = "ring", *, device="cuda",
-                 block_size=None, num_blocks=None, mesh=None, metrics=None,
-                 trace=None, decode_ticks: int = 1, prefill_chunk=None,
-                 queue_cap=None, shed_policy: str = "reject-new",
-                 queue_ttl_s=None, injector=None, snapshot_path=None,
+                 block_size=None, num_blocks=None, prefix_cache: bool = True,
+                 mesh=None, metrics=None, trace=None, decode_ticks: int = 1,
+                 prefill_chunk=None, queue_cap=None,
+                 shed_policy: str = "reject-new", queue_ttl_s=None,
+                 injector=None, snapshot_path=None,
                  spec_decode: bool = False, frames=None):
         _check_policy(policy)
-        if kv_layout == "paged":
-            raise NotImplementedError("kv_layout='paged' is not ported yet "
-                                      "(ROADMAP Queue 1 item 5)")
-        if kv_layout != "ring":
+        if kv_layout not in ("ring", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        given = dict(block_size=block_size, num_blocks=num_blocks, mesh=mesh,
-                     metrics=metrics, trace=trace, decode_ticks=decode_ticks,
-                     prefill_chunk=prefill_chunk, queue_cap=queue_cap,
-                     shed_policy=shed_policy, queue_ttl_s=queue_ttl_s,
-                     injector=injector, snapshot_path=snapshot_path,
-                     spec_decode=spec_decode, frames=frames)
+        given = dict(mesh=mesh, metrics=metrics, trace=trace,
+                     decode_ticks=decode_ticks, prefill_chunk=prefill_chunk,
+                     queue_cap=queue_cap, shed_policy=shed_policy,
+                     queue_ttl_s=queue_ttl_s, injector=injector,
+                     snapshot_path=snapshot_path, spec_decode=spec_decode,
+                     frames=frames)
         for name, (off, item) in _OUT_OF_SLICE.items():
             if given[name] != off:
                 raise NotImplementedError(
@@ -229,11 +300,42 @@ class Engine:
                              f"{self.device}")
         self.params, self.cfg, self.batch, self.max_len = (
             params, cfg, batch, max_len)
-        self.cache = registry.make_cache(params, cfg, batch, max_len,
-                                         kv_quant=kv_quant,
-                                         device=self.device)
-        self._prefill, _ = make_serve_fns(cfg, policy, max_len=max_len,
-                                          kv_quant=kv_quant)
+        self.kv_quant = kv_quant
+        self.kv_layout = kv_layout
+        # the paged layout's block pool (None on the ring layout): one pool,
+        # since a single device is one data shard
+        self.pool: Optional[KVPool] = None
+        if kv_layout == "paged":
+            bs = int(block_size) if block_size is not None \
+                else DEFAULT_BLOCK_SIZE
+            if bs < 1 or (self.device.type == "cuda" and bs > MAX_BLOCK_SIZE):
+                raise ValueError(
+                    f"block_size {bs} not in [1, {MAX_BLOCK_SIZE}] (the CUDA "
+                    "paged kernel's tile is the pool block)")
+            self.block_size = bs
+            self.nbmax = -(-max_len // bs)
+            self.num_blocks = (int(num_blocks) if num_blocks is not None
+                               else batch * self.nbmax)
+            # prefix reuse is sound because prefill numerics depend only on
+            # token identity + absolute position (no matmul policy; the int8
+            # KV quantiser's per-request offset seeds the hash chain)
+            self.pool = KVPool(self.num_blocks, bs,
+                               prefix_cache=bool(prefix_cache))
+            self._trash = self.num_blocks
+            self.cache = registry.make_cache(
+                params, cfg, batch, max_len, kv_quant=kv_quant,
+                kv_layout="paged", block_size=bs,
+                num_blocks=self.num_blocks, device=self.device)
+            self._bt = np.full((batch, self.nbmax), self._trash, np.int32)
+            self._bt_dirty = True
+            self._prefill_paged = make_paged_prefill(cfg, policy,
+                                                     kv_quant=kv_quant)
+        else:
+            self.cache = registry.make_cache(params, cfg, batch, max_len,
+                                             kv_quant=kv_quant,
+                                             device=self.device)
+            self._prefill, _ = make_serve_fns(cfg, policy, max_len=max_len,
+                                              kv_quant=kv_quant)
         self._fused = make_fused_decode(cfg, policy, n_ticks=1)
 
         self.scheduler = (Scheduler(scheduler) if isinstance(scheduler, str)
@@ -254,7 +356,19 @@ class Engine:
         self._dev_dirty = True
         self.stats = {"prefill_s": 0.0, "prefill_tokens": 0,
                       "prefill_calls": 0, "decode_s": 0.0,
-                      "decode_tokens": 0, "decode_calls": 0}
+                      "decode_tokens": 0, "decode_calls": 0,
+                      "prefix_hit_tokens": 0, "preemptions": 0}
+
+    # ------------------------------------------------------ pool aggregates
+
+    def pool_stats(self) -> dict:
+        """The pool's allocator stats plus its ``live``/``cached`` block
+        counts (the reference sums these over its data shards; a single
+        device has one)."""
+        if self.pool is None:
+            return {"live": 0, "cached": 0}
+        return {**self.pool.stats, "live": self.pool.live_blocks,
+                "cached": self.pool.cached_blocks}
 
     # ------------------------------------------------------------------ API
 
@@ -306,15 +420,20 @@ class Engine:
             }
             self._dev_dirty = False
 
+    def _reject(self, req: Request, reason: str = "rejected"):
+        req.done, req.finish_reason, req.state = True, reason, "done"
+        self.finished.append(req)
+
     def _admit_and_prefill(self):
+        if self.kv_layout == "paged":
+            return self._admit_and_prefill_paged()
         free = [i for i, s in enumerate(self.slots) if s is None]
         if not free:
             return
         admitted = []
         for req in self.scheduler.admit(len(free)):
             if len(req.prompt) > self.max_len:
-                req.done, req.finish_reason, req.state = True, "rejected", "done"
-                self.finished.append(req)
+                self._reject(req)
                 continue
             admitted.append(req)
         if not admitted:
@@ -325,16 +444,11 @@ class Engine:
         prompts = {}
         for req in admitted:
             i = free.pop(0)
-            sp = req.sampling
             self.slots[i] = req
             req.state, req.t_admit = "active", now
             prompts[i] = list(req.prompt) or [1]          # empty prompt → BOS
             lens[i] = len(prompts[i])
-            self._temps[i] = sp.temperature
-            self._topks[i] = sp.top_k
-            self._seeds[i] = sp.seed
-            self._offsets[i] = sp.counter_offset
-            self._counters[i] = sp.counter_offset
+            self._set_slot_sampling(i, req)
             self._slot_pos[i] = lens[i]
 
         s_bucket = _bucket(int(lens.max()))
@@ -365,9 +479,333 @@ class Engine:
         # re-sync the device copies before the first decode tick reads them
         self._dev_dirty = True
 
+    # ----------------------------------------------------- paged internals
+
+    def _tokens_written(self, req: Request) -> List[int]:
+        """Every token with (or about to get) a cache position: the prompt
+        (BOS-substituted if empty) followed by the generated stream —
+        position p holds ``seq[p]``, which is what block sealing and
+        resume-by-reprefill both rely on."""
+        return (list(req.prompt) or [1]) + list(req.out)
+
+    def _set_bt_row(self, i: int, table: List[int]):
+        self._bt[i, :] = self._trash
+        if table:
+            self._bt[i, : len(table)] = table
+        self._bt_dirty = True
+
+    def _sync_block_tables(self):
+        """Upload the host block table if it changed since the last upload;
+        a no-op in steady state."""
+        if self._bt_dirty:
+            self.cache["block_tables"] = self._tensor(self._bt)
+            self._bt_dirty = False
+
+    def _set_slot_sampling(self, i: int, req: Request):
+        sp = req.sampling
+        self._temps[i] = sp.temperature
+        self._topks[i] = sp.top_k
+        self._seeds[i] = sp.seed
+        self._offsets[i] = sp.counter_offset
+        self._counters[i] = sp.counter_offset + len(req.out)
+
+    def _set_device_pos(self, i: int, p: int):
+        self.cache["pos"][i] = p
+
+    def _release_slot_blocks(self, i: int, req: Request):
+        self.pool.release(req.rid)
+        self._set_bt_row(i, [])
+        self._set_device_pos(i, 0)
+        self._slot_pos[i] = 0
+
+    def _preempt_requeue(self, i: int, req: Request):
+        """Out-of-blocks preemption: freeze the slot's host state and send
+        the request back through the scheduler *with its blocks intact* —
+        re-admission resumes decode from the frozen position instead of
+        re-prefilling."""
+        req._resume = {"pos": int(self._slot_pos[i]),
+                       "last_token": int(self._last_token[i]),
+                       "t": time.time(), "reprefill": False,
+                       "prefilling": req.state == "prefilling"}
+        req.state = "queued"
+        self.slots[i] = None
+        self._set_bt_row(i, [])
+        self._set_device_pos(i, 0)
+        self.scheduler.requeue(req)
+        self.stats["preemptions"] += 1
+
+    def _release_for_reprefill(self, req: Request):
+        """Deadlock breaker (last resort): a *queued* preempted request
+        gives its blocks back to the pool; on re-admission it re-prefills
+        its full history (prompt + generated so far).  Counters replay
+        exactly — KV quantiser = absolute position + offset, sampling =
+        offset + emitted count — so the first layer's int8 codes are bit
+        for bit the same; deeper layers re-enter through the batched
+        prefill and agree with the decode-written cache to rounding only,
+        so a greedy near-tie after resume may break differently.  The
+        primary preemption path (blocks intact) has no such divergence."""
+        self.pool.forget(req.rid)
+        req._sealed = 0
+        if req._resume is None:
+            req._resume = {"pos": 0, "last_token": 0, "t": time.time()}
+        req._resume["reprefill"] = True
+        # 'preemptions' counts preemption *events*: a requeue-with-blocks
+        # and a later block reclamation are two events for one request
+        self.stats["preemptions"] += 1
+
+    def _resume_slot(self, i: int, req: Request):
+        st = req._resume
+        req._resume = None
+        self.slots[i] = req
+        # a request preempted mid-prefill rejoins the prefill waves where it
+        # stopped (its _pf_pos and blocks survived the round trip)
+        req.state = "prefilling" if st.get("prefilling") else "active"
+        self._set_slot_sampling(i, req)
+        self._last_token[i] = st["last_token"]
+        self._slot_pos[i] = st["pos"]
+        self._set_bt_row(i, self.pool.table(req.rid))
+        self._set_device_pos(i, st["pos"])
+        self._dev_dirty = True
+
+    def _seal_full_blocks(self, req: Request, n_tokens: int):
+        """Publish every full block below ``n_tokens`` into the prefix
+        cache (chained-hash order).  Callers only invoke this after the
+        device writes for those blocks were issued; work on one stream runs
+        in order, so a later gather reads them complete."""
+        if not self.pool.prefix_cache:
+            return
+        bs = self.block_size
+        seq = self._tokens_written(req)
+        while req._sealed < n_tokens // bs:
+            j = req._sealed
+            self.pool.seal_block(req.rid, j, seq[j * bs:(j + 1) * bs])
+            req._sealed += 1
+
+    def _admit_and_prefill_paged(self):
+        """Continuous-batching admission: admit while a slot *and* the pool
+        allow — prefix-hit requests only need blocks (and prefill compute)
+        for their unshared suffix; preempted requests resume in place.
+        Head-of-line order is kept: the first request the pool cannot serve
+        stops admission (after the deadlock breaker has had its chance).
+        The reference ranks data shards here; a single device has one."""
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        if not free:
+            self._prefill_wave_paged()
+            return
+        bs = self.block_size
+        pool = self.pool
+        admitted = []                       # (slot, req, start)
+        while free:
+            req = self.scheduler.peek()
+            if req is None:
+                break
+            if req._resume is not None and not req._resume.get("reprefill"):
+                # resume with blocks intact; may need one block to continue
+                pos = req._resume["pos"]
+                needs_block = (pos % bs == 0
+                               and pos // bs >= len(pool.table(req.rid)))
+                if needs_block and pool.free_blocks < 1:
+                    if self._break_deadlock(req, 1):
+                        continue
+                    break
+                self.scheduler.pop(req)
+                if needs_block:
+                    phys = pool.append_block(req.rid)
+                    assert phys is not None
+                self._resume_slot(free.pop(0), req)
+                continue
+
+            seq = self._tokens_written(req)      # prompt (+ out on reprefill)
+            if len(req.prompt) > self.max_len or \
+                    pool.blocks_needed(min(len(seq) + 1, self.max_len)) \
+                    > self.num_blocks:
+                self.scheduler.pop(req)
+                # a reprefill-resumed request whose grown history no longer
+                # fits was *served* up to the pool's capacity — that is a
+                # 'length' stop, not a rejection of an unserved request
+                self._reject(req, "length" if req.out else "rejected")
+                continue
+            seed = req.sampling.counter_offset if self.kv_quant else 0
+            shared, chain = pool.match_prefix(seq, seed)
+            table = pool.allocate(req.rid, len(seq), shared, chain)
+            if table is None:
+                if self._break_deadlock(
+                        req, pool.blocks_needed(len(seq)) - len(shared)):
+                    continue
+                break
+            self.scheduler.pop(req)
+            req._sealed = len(shared)
+            req._resume = None
+            admitted.append((free.pop(0), req, len(shared) * bs))
+
+        # place admitted requests into their slots in ``prefilling`` state:
+        # their blocks are allocated, the wave below only writes into them
+        now = time.time()
+        for i, req, start in admitted:
+            self.slots[i] = req
+            req.state = "prefilling"
+            req._pf_pos = start
+            if req.t_admit is None:
+                req.t_admit = now
+            self._set_slot_sampling(i, req)
+            self._slot_pos[i] = start
+            self._set_bt_row(i, pool.table(req.rid))
+            self.stats["prefix_hit_tokens"] += start
+
+        self._prefill_wave_paged()
+
+    def _prefill_wave_paged(self):
+        """One prefill wave over every ``prefilling`` slot: the whole
+        unshared suffix of each lands in one batched call (chunked waves
+        are ROADMAP Queue 1 item 6).  Prefix-hit rows gather their shared
+        blocks inside attention.  Each slot's full blocks are then sealed,
+        its first token sampled, and it turns ``active``."""
+        waving = [(i, s) for i, s in enumerate(self.slots)
+                  if s is not None and s.state == "prefilling"]
+        if not waving:
+            return
+        lens = np.zeros((self.batch,), np.int32)
+        starts = np.zeros((self.batch,), np.int32)
+        pieces = {}
+        any_prefix = False
+        for i, req in waving:
+            pf = req._pf_pos
+            pieces[i] = self._tokens_written(req)[pf:]
+            lens[i] = len(pieces[i])
+            starts[i] = pf
+            any_prefix = any_prefix or pf > 0
+
+        s_bucket = _bucket(int(lens.max()))
+        toks = np.zeros((self.batch, s_bucket), np.int32)
+        for i, p in pieces.items():
+            toks[i, : len(p)] = p
+
+        self._dev_dirty = True
+        self._refresh_device_state()
+        t0 = time.perf_counter()
+        bt_dev = self._tensor(self._bt)
+        self._bt_dirty = False
+        last_logits, self.cache = self._prefill_paged(
+            self.params, self._tensor(toks).long(), self._tensor(lens),
+            self._tensor(starts), bt_dev, self.cache, self._dev["offsets"],
+            self.tick, prefix_blocks=self.nbmax if any_prefix else 0)
+        first = sample_tokens(last_logits, self._dev["temps"],
+                              self._dev["topks"], self._dev["seeds"],
+                              self._dev["counters"]).cpu().numpy()
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self.stats["prefill_tokens"] += int(lens.sum())
+        self.stats["prefill_calls"] += 1
+
+        now = time.time()
+        for i, req in waving:
+            req._pf_pos += len(pieces[i])
+            self._slot_pos[i] = req._pf_pos
+            self._seal_full_blocks(req, req._pf_pos)
+            req.state = "active"
+            self._emit(i, req, int(first[i]), now)
+        self._dev_dirty = True
+
+    def _break_deadlock(self, head: Request, blocks_short: int) -> bool:
+        """Admission stalled on the queue head with every slot idle: make
+        room in the pool by taking blocks back from *queued* preempted
+        requests (youngest preemption first — the least progress to
+        re-prefill), or, if the head itself holds everything, flip it to
+        reprefill mode so its own blocks free up.  Returns True when the
+        caller should retry admission."""
+        if any(s is not None for s in self.slots):
+            return False     # active slots will finish/preempt and free blocks
+        pool = self.pool
+        holders = [r for r in self.scheduler.queued()
+                   if r is not head and r._resume is not None
+                   and pool.table(r.rid)]
+        holders.sort(key=lambda r: -r._resume["t"])
+        made_room = False
+        for victim in holders:
+            self._release_for_reprefill(victim)
+            made_room = True
+            if pool.free_blocks >= blocks_short:
+                return True
+        if (not made_room and head._resume is not None
+                and pool.table(head.rid)):
+            self._release_for_reprefill(head)
+            return True
+        return made_room
+
+    def _pre_decode_paged(self):
+        """Before each decode tick: the tick writes each active slot's next
+        position, so the block covering it must exist *now*.  Filled blocks
+        are sealed here (their device writes are issued); a slot the pool
+        cannot cover is preempted and requeued with its blocks (or, as the
+        pool's lone holder, stopped at 'length'); ``max_len`` is a hard
+        'length' stop (the pool has no ring wrap).  A slot left active has
+        its next position covered; the reference's per-window budget cap
+        (``_paged_cap``) matters only for windows of more than one tick
+        (ROADMAP Queue 1 item 6)."""
+        bs = self.block_size
+        pool = self.pool
+        for i, req in [(i, s) for i, s in enumerate(self.slots)
+                       if s is not None and s.state == "active"]:
+            p = int(self._slot_pos[i])
+            if p >= self.max_len:
+                self._finish(i, req, "length")
+                continue
+            self._seal_full_blocks(req, p)
+            pre = len(pool.table(req.rid))
+            need = p // bs + 1                    # the block of position p
+            while len(pool.table(req.rid)) < need:
+                phys = pool.append_block(req.rid)
+                if phys is None:
+                    break
+                self._bt[i, len(pool.table(req.rid)) - 1] = phys
+                self._bt_dirty = True
+            if len(pool.table(req.rid)) < need:
+                if pool.holders == 1:
+                    # nothing to evict or preempt — the pool itself is the
+                    # capacity limit for its lone request
+                    self._finish(i, req, "length")
+                else:
+                    self._preempt_requeue(i, req)
+                continue
+            if p // bs < pre:
+                # the tick writes into a pre-existing block (partial tail
+                # or a resume) — copy-on-write guard before writing
+                self._ensure_tail_writable(i, req, p // bs)
+
+    def _ensure_tail_writable(self, i: int, req: Request, logical: int):
+        """Copy-on-write guard before this tick's decode write: the tail
+        block is uniquely owned by construction (only full blocks are ever
+        sealed and shared), so this is normally a refcount check and
+        nothing more — but if a sharing path ever hands out a partial
+        block, the write copies it private instead of corrupting every
+        other holder.  Pool exhaustion during the copy preempts."""
+        old = int(self._bt[i, logical])
+        try:
+            phys, copied = self.pool.ensure_writable(req.rid, logical)
+        except MemoryError:
+            self._preempt_requeue(i, req)
+            return
+        if copied:
+            self._copy_pool_block(old, int(phys))
+            self._bt[i, logical] = phys
+            self._bt_dirty = True
+
+    def _copy_pool_block(self, src: int, dst: int):
+        """Duplicate one physical block's contents across every layer's
+        pool tensors, in place (stacked entries carry a leading repeat
+        axis)."""
+        for entry in self.cache["layers"]:
+            for t in entry.values():
+                t[:, dst] = t[:, src]
+        for entry in self.cache["remainder"]:
+            for t in entry.values():
+                t[dst] = t[src]
+
     def _decode_tick(self):
         """One decode tick over every slot; the host reads the sampled
         tokens back once and runs the per-token finish logic (``_emit``)."""
+        if self.kv_layout == "paged":
+            self._pre_decode_paged()
+            self._sync_block_tables()
         active = [(i, s) for i, s in enumerate(self.slots)
                   if s is not None and s.state == "active"]
         if not active:
@@ -416,12 +854,20 @@ class Engine:
             self._finish(i, req, "stop")
         elif len(req.out) >= req.effective_max_new():
             self._finish(i, req, "length")
-        elif self._slot_pos[i] >= self.max_len:
+        elif self.kv_layout == "ring" and self._slot_pos[i] >= self.max_len:
             # the slot's ring cache is full: preempt so the next admission
-            # wave can recycle it (the request keeps what it generated)
+            # wave can recycle it (the request keeps what it generated).
+            # The paged engine requeues-with-blocks on pool pressure
+            # instead and stops at max_len in _pre_decode_paged.
             self._finish(i, req, "preempted")
 
     def _finish(self, i: int, req: Request, reason: str):
         req.done, req.finish_reason, req.state = True, reason, "done"
         self.finished.append(req)
         self.slots[i] = None
+        if self.kv_layout == "paged":
+            # seal what the prompt + generation filled (future prefix hits),
+            # then drop the references — sealed blocks linger in the pool's
+            # LRU prefix cache until allocation pressure evicts them
+            self._seal_full_blocks(req, int(self._slot_pos[i]))
+            self._release_slot_blocks(i, req)

@@ -1,6 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA kernels against
-their plain versions, the wrappers' input checks, and the serving path's
-launch counts.  They import torch and the port only (the card's machine
+"""Tests of the port that need an NVIDIA GPU: the CUDA kernels (ring and
+paged flash-decode) against their plain versions, paged == ring bit for
+bit, the wrappers' input checks, and the serving path's launch counts.  They import torch and the port only (the card's machine
 has no JAX) and skip where ``torch.cuda.is_available()`` is false:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import ref
 from repro_torch.models import registry
 
@@ -124,3 +125,129 @@ def test_decode_step_launches_once_per_layer(cuda, kv_quant):
                                     backend="torch-ref")
     assert da.decode_attention.launches == before + cfg.n_layers
     torch.testing.assert_close(got, want, atol=2.0 ** -5, rtol=0)
+
+
+def _pool(seed, *, b, bs, nbmax, nkv, group, hd, quant, pos_vals, device,
+          share=False):
+    """A paged pool: each row's blocks drawn in a shuffled order, row 1
+    sharing row 0's first two blocks when ``share``, unused table entries
+    on the trailing trash block."""
+    rng = np.random.default_rng(seed)
+    nblk = b * nbmax + 1
+    if quant:
+        k, v = (torch.from_numpy(rng.integers(-127, 128, size=(
+            nblk, bs, nkv, hd)).astype(np.int8)) for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(0.1, 2.0, size=(
+            nblk, bs, nkv)).astype(np.float32)) for _ in range(2))
+    else:
+        k, v = (torch.from_numpy(rng.normal(size=(nblk, bs, nkv, hd)).astype(
+            np.float32)).bfloat16() for _ in range(2))
+        ks = vs = None
+    q = torch.from_numpy(rng.normal(size=(b, nkv, group, hd)).astype(
+        np.float32)).bfloat16()
+    ids = list(rng.permutation(nblk - 1))
+    bt = np.full((b, nbmax), nblk - 1, np.int32)
+    for i, p in enumerate(pos_vals):
+        for j in range(min(p // bs, nbmax - 1) + 1):
+            bt[i, j] = bt[0, j] if share and i == 1 and j < 2 else ids.pop()
+    out = [q, k, v, torch.from_numpy(bt),
+           torch.tensor(pos_vals, dtype=torch.int32), ks, vs]
+    return [None if t is None else t.to(device) for t in out]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nkv,group,hd", [(3, 3, 64), (2, 6, 128),
+                                          (4, 1, 64), (1, 16, 128)])
+def test_paged_kernel_matches_plain(cuda, quant, nkv, group, hd):
+    """Paged kernel vs its plain version: block sizes 64, 16 and 5, a
+    sliding window, shared prefix blocks, an idle row on the trash block;
+    f32 allclose at 1e-4 (summation order only)."""
+    for bs, window in ((64, 0), (16, 100), (5, 0)):
+        t = _pool(group + bs, b=4, bs=bs, nbmax=-(-640 // bs), nkv=nkv,
+                  group=group, hd=hd, quant=quant, pos_vals=[0, 70, 639, 0],
+                  device=cuda, share=True)
+        t[3][3].fill_(t[1].shape[0] - 1)                 # idle row: trash
+        before = pda.paged_decode_attention.launches
+        got = pda.paged_decode_attention(*t, window=window)
+        torch.cuda.synchronize()
+        assert pda.paged_decode_attention.launches == before + 1
+        want = ref.paged_decode_attention_ref(*t, window=window)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [0, 100])
+def test_paged_kernel_bitwise_equals_ring_kernel(cuda, quant, window):
+    """The same token stream in a ring (no wrap) and in a pool of 64-token
+    blocks: the two kernels share one tile body, so at bs == bk == 64 their
+    outputs are equal bit for bit."""
+    b, cap, nkv, group, hd, bs = 4, 512, 3, 3, 64, da.KERNEL_BLOCK
+    t = _ring(5, b=b, cap=cap, nkv=nkv, group=group, hd=hd, quant=quant,
+              pos_vals=[0, 70, 300, 511], device=cuda)
+    q, k, v, kp, pos, ks, vs = t
+    nbmax = cap // bs
+    perm = torch.randperm(b * nbmax, generator=torch.Generator().manual_seed(
+        0)).to(cuda)
+    bt = perm.reshape(b, nbmax).to(torch.int32)
+
+    def to_pool(x):
+        pool = torch.zeros((b * nbmax + 1, bs) + tuple(x.shape[2:]),
+                           dtype=x.dtype, device=cuda)
+        pool[perm] = x.reshape((b * nbmax, bs) + tuple(x.shape[2:]))
+        return pool
+
+    ring = da.decode_attention(*t, window=window)
+    paged = pda.paged_decode_attention(
+        q, to_pool(k), to_pool(v), bt, pos,
+        None if ks is None else to_pool(ks),
+        None if vs is None else to_pool(vs), window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(ring, paged)
+
+
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    t = _pool(3, b=2, bs=16, nbmax=4, nkv=2, group=2, hd=64, quant=True,
+              pos_vals=[5, 40], device=cuda)
+    q, k, v, bt, pos, ks, vs = t
+    big = _pool(3, b=2, bs=128, nbmax=2, nkv=2, group=2, hd=64, quant=False,
+                pos_vals=[5, 40], device=cuda)
+    with pytest.raises(ValueError, match=r"not in \[1, 64\]"):
+        pda.paged_decode_attention(*big)
+    bad = [dict(q=q.float()), dict(k_scale=None), dict(bt=bt.long()),
+           dict(pos=pos.cpu()), dict(bt=bt.t().contiguous().t())]
+    base = dict(q=q, k=k, v=v, bt=bt, pos=pos, k_scale=ks, v_scale=vs)
+    for change in bad:
+        a = {**base, **change}
+        with pytest.raises(ValueError):
+            pda.paged_decode_attention(a["q"], a["k"], a["v"], a["bt"],
+                                       a["pos"], a["k_scale"], a["v_scale"])
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_paged_engine_launches_once_per_layer_per_tick(cuda, kv_quant):
+    """The paged engine on the card decodes through the paged kernel only,
+    once per layer per tick, and its greedy streams equal the ring
+    engine's at the default block size (64, the ring kernel's tile)."""
+    from repro_torch.serve import Engine, Request
+
+    cfg = dataclasses.replace(get_config("smollm_135m").reduced(),
+                              n_heads=6, n_kv_heads=2, head_dim=64)
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    streams = {}
+    for layout in ("ring", "paged"):
+        eng = Engine(params, cfg, 2, 128, kv_quant=kv_quant,
+                     kv_layout=layout, device=cuda)
+        for r in range(3):
+            eng.submit(Request(rid=r, prompt=[1 + r, 2, 3, 4, 5] * (r + 1),
+                               max_new=6))
+        pda.paged_decode_attention.launches = 0
+        da.decode_attention.launches = 0
+        done = eng.run(100)
+        streams[layout] = [r.out for r in sorted(done, key=lambda r: r.rid)]
+        ticks = eng.stats["decode_calls"]
+        if layout == "paged":
+            assert pda.paged_decode_attention.launches == cfg.n_layers * ticks
+            assert da.decode_attention.launches == 0
+            assert eng.pool.live_blocks == 0
+    assert streams["paged"] == streams["ring"]

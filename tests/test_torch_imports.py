@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX, ``ml_dtypes`` nor
 anything of the JAX package ``repro``, so it runs where JAX is not
-installed.  Proved twice: in a subprocess with those modules blocked, and
-by a scan of its sources and ``chip_smoke.py``."""
+installed.  Proved twice: in a subprocess with those modules blocked — it
+imports every module of the port and serves a few requests over the ring
+and the paged cache — and by a scan of its sources and ``chip_smoke.py``."""
 
 import os
 import re
@@ -33,7 +34,19 @@ cache = registry.make_cache(params, cfg, 2, 16, kv_quant=True, device="cpu")
 logits, cache = registry.apply_decode(params, cfg,
                                       torch.tensor([1, 2]), cache)
 assert logits.shape == (2, cfg.vocab_size) and bool(logits.isfinite().all())
-import repro_torch.launch.serve, repro_torch.interop, repro_torch.serve
+from repro_torch.serve import Engine, Request
+eng = Engine(params, cfg, 2, 16, kv_quant=True, kv_layout="paged",
+             block_size=4, num_blocks=6, device="cpu")
+for r in range(3):
+    eng.submit(Request(rid=r, prompt=[1, 2, 3, 4, 5 + r], max_new=3))
+assert [len(r.out) for r in eng.run(50)] == [3, 3, 3]
+import importlib, pkgutil, repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert set(["repro_torch.serve.kvpool",
+            "repro_torch.kernels.paged_decode_attention"]) <= set(names)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")

@@ -214,12 +214,13 @@ def test_decode_from_reference_cache():
 
 
 def test_out_of_slice_knobs_raise():
-    """Paged caches, quantised-matmul policies and other families raise
-    NotImplementedError naming their ROADMAP item."""
+    """Quantised-matmul policies, other families and the engine knobs not
+    ported yet raise NotImplementedError naming their ROADMAP item.  (The
+    paged cache, once on this list, is ported: it needs a block size.)"""
     from repro_torch.numerics.policy import dense
     from repro_torch.serve import Engine
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="requires a positive block_size"):
         transformer.init_cache(PCFG, 2, 8, kv_layout="paged", device="cpu")
 
     class _Policy:
