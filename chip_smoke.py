@@ -14,21 +14,31 @@ printing JSON lines:
    int8, a sliding window; a wrapped ring; pool blocks of 16 and 64
    tokens in shuffled order, two slots sharing their first blocks), with
    its time, the plain version's, a PyTorch library call's and the bound
-   the card sets; and the paged kernel at 64-token blocks against the ring
-   kernel on the same stream, bit for bit;
+   the card sets; the paged kernel at 64-token blocks against the ring
+   kernel on the same stream, bit for bit; the speculative verify kernels
+   (ring and paged, 4 and 8 query rows, a slot two short of the cache's
+   end), every row equal to the decode kernel at its position, bit for
+   bit, and paged verify equal to ring verify;
 4. serve — full-width SmolLM-135M (random weights from seed 0) through the
    port's ``Engine``, with the bf16 and the int8-dither KV cache, over the
    ring cache (16 requests, prompts of 32–512 tokens) and over the paged
    pool (16 requests sharing a 256-token system prompt, a pool of 56
    blocks against the 128 a dense cache would take, so requests hit the
    prefix cache and get preempted), 64 new tokens each, mixed greedy and
-   sampled; each path's launch counts are set to 0 just before its run
-   and read just after; then steady decode ticks under ``torch.profiler``
-   (wall and device time per tick, launches, the heaviest kernels);
+   sampled; then each path again with speculative decoding (draft_k 4,
+   a replay drafter of the plain streams and the prompt-lookup drafter),
+   whose streams must equal the plain ones token for token; each path's
+   launch counts are set to 0 just before its run and read just after;
+   before the serve runs, a probe of which library ops of a verify
+   forward are row-pure; then steady decode ticks and speculative windows
+   under ``torch.profiler`` (wall and device time per tick, launches, the
+   heaviest kernels);
 5. parity — one prefill and three decode steps at full width per layout,
-   the CUDA kernel against the plain version passed explicitly; and the
+   the CUDA kernel against the plain version passed explicitly; the
    paged engine's greedy streams against the ring engine's, token for
-   token.
+   token; and a request's prefill unchanged by the other requests of a
+   wave at its own padded length (which the engine's prefill per length
+   bucket relies on), beside how far a longer padded wave moves it.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
@@ -63,17 +73,27 @@ LOGIT_ATOL, LOGIT_MEAN_ATOL = 2.0 ** -4, 2.0 ** -7
 REPLACES = "src/repro/kernels/decode_attention.py:139"
 PAGED_REPLACES = "src/repro/kernels/decode_attention.py:482"
 PAGED_BLOCKS = 56          # the paged serve phase's pool, against 8 × 16
+SERVE_REQUESTS = 16        # requests of each serve phase
+SPEC_K = 4                 # the speculative serve phases' draft_k
+VERIFY_REPLACES = "src/repro/kernels/decode_attention.py:316"
+PAGED_VERIFY_REPLACES = "src/repro/kernels/decode_attention.py:653"
+
+
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; phase lines carry the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` over ``iters`` calls, after warm-up."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -90,17 +110,21 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def ring_inputs(gen, *, b, cap, nkv, group, hd, quant, pos_vals,
-                device="cuda"):
+                kq=None, device="cuda"):
     """A ring-cache snapshot on the card: slot s of row i holds the latest
-    position p ≡ s (mod cap) with p ≤ pos_i; unwritten slots k_pos = -1."""
+    position p ≡ s (mod cap) with p ≤ pos_i; unwritten slots k_pos = -1.
+    With ``kq`` (a verify call), q is (B, kq, n_kv, group, hd) and the ring
+    holds positions up to pos_i + kq - 1, the draft rows' writes."""
     import torch
 
     pos = torch.tensor(pos_vals, dtype=torch.int32)
     kpos = torch.full((b, cap), -1, dtype=torch.int32)
     for i, p in enumerate(pos_vals):
-        ps = torch.arange(max(0, p - cap + 1), p + 1)
+        top = p + (kq or 1) - 1
+        ps = torch.arange(max(0, top - cap + 1), top + 1)
         kpos[i, ps % cap] = ps.to(torch.int32)
-    q = torch.randn((b, nkv, group, hd), generator=gen).to(torch.bfloat16)
+    q = torch.randn((b,) + ((kq,) if kq else ()) + (nkv, group, hd),
+                    generator=gen).to(torch.bfloat16)
     if quant:
         k = torch.randint(-127, 128, (b, cap, nkv, hd), generator=gen,
                           dtype=torch.int8)
@@ -186,7 +210,7 @@ def cold_times(t, kernel, plain, library, iters):
         return call
 
     return (cuda_ms(rotate(lambda i: kernel(*copies[i])), iters[0]),
-            cuda_ms(rotate(lambda i: plain(*copies[i])), iters[1]),
+            cuda_ms(rotate(lambda i: plain(*copies[i])), iters[1], warmup=1),
             cuda_ms(rotate(lambda i: libs[i]()), iters[2]), len(copies))
 
 
@@ -236,13 +260,15 @@ def kernel_phase(torch, da, ref):
 
 
 def pool_inputs(gen, *, b, nbmax, bs, nkv, group, hd, quant, pos_vals,
-                share, device="cuda"):
+                share, kq=None, device="cuda"):
     """A paged pool on the card: each row's blocks taken in a shuffled
     order, the rows in ``share`` reading the first row's first two blocks
-    (a shared prompt prefix), unused table entries on the trash block."""
+    (a shared prompt prefix), unused table entries on the trash block.
+    With ``kq`` (a verify call), q is (B, kq, n_kv, group, hd) and each row
+    holds blocks up to position pos_i + kq - 1 (within the table)."""
     import torch
 
-    need = [min(p // bs, nbmax - 1) + 1 for p in pos_vals]
+    need = [min((p + (kq or 1) - 1) // bs, nbmax - 1) + 1 for p in pos_vals]
     nblk = sum(need) + 1
     ids = torch.randperm(nblk - 1, generator=gen).tolist()
     bt = torch.full((b, nbmax), nblk - 1, dtype=torch.int32)
@@ -250,7 +276,8 @@ def pool_inputs(gen, *, b, nbmax, bs, nkv, group, hd, quant, pos_vals,
         for j in range(n):
             bt[i, j] = (bt[share[0], j] if i in share[1:] and j < 2
                         else ids.pop())
-    q = torch.randn((b, nkv, group, hd), generator=gen).to(torch.bfloat16)
+    q = torch.randn((b,) + ((kq,) if kq else ()) + (nkv, group, hd),
+                    generator=gen).to(torch.bfloat16)
     if quant:
         k = torch.randint(-127, 128, (nblk, bs, nkv, hd), generator=gen,
                           dtype=torch.int8)
@@ -274,18 +301,22 @@ def paged_bound(t, window, *, quant):
     flops over the peak rate of the pool's type.  Returns (ms, bound_by,
     distinct bytes, bytes counted per slot)."""
     q, k, _, bt, pos, _, _ = t
-    b, nkv, group, hd = q.shape
+    kq = q.shape[1] if q.dim() == 5 else 1         # verify: kq query rows
+    b, nkv, group, hd = q.shape[0], *q.shape[-3:]
     bs = k.shape[1]
+    top = bt.shape[1] * bs - 1                      # the table's last position
     per_pos = nkv * hd * (1 if quant else 2) * 2 + (nkv * 8 if quant else 0)
     seen, per_slot = set(), 0
     bt_h, pos_h = bt.cpu().tolist(), pos.cpu().tolist()
-    for row, p in zip(bt_h, pos_h):
-        lo = max(0, p - window + 1) if window else 0
-        for x in range(lo, p + 1):
-            seen.add((row[x // bs], x % bs))
-        per_slot += p + 1 - lo
-    fixed = (b * nkv * group * hd * (2 + 4) + b * 4
-             + sum(p // bs + 1 for p in pos_h) * 4)
+    for row, p0 in zip(bt_h, pos_h):
+        for p in range(p0, p0 + kq):
+            p = min(p, top)
+            lo = max(0, p - window + 1) if window else 0
+            for x in range(lo, p + 1):
+                seen.add((row[x // bs], x % bs))
+            per_slot += p + 1 - lo
+    fixed = (b * kq * nkv * group * hd * (2 + 4) + b * 4
+             + sum(min(p + kq - 1, top) // bs + 1 for p in pos_h) * 4)
     nbytes = len(seen) * per_pos + fixed
     ops = 4 * group * hd * nkv * per_slot
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -411,38 +442,326 @@ def paged_kernel_phase(torch, da, pda, ref):
     return results, bitwise
 
 
+def verify_bound(pos_vals, kq, *, b, cap, nkv, group, hd, quant, window):
+    """``decode_bound``'s model for a verify call: the distinct cache
+    positions the kq rows need (up to pos + kq - 1, each read once), the
+    queries and outputs of kq rows, and the flops of every row.  Returns
+    (ms, 'bytes'|'operations')."""
+    n = sum(needed_positions([p + kq - 1 for p in pos_vals], cap,
+                             window + kq - 1 if window else 0))
+    per_pos = nkv * hd * (1 if quant else 2) * 2 + 4     # K, V, k_pos
+    if quant:
+        per_pos += nkv * 4 * 2                           # k_scale, v_scale
+    nbytes = n * per_pos + b * kq * nkv * group * hd * (2 + 4) + b * 4
+    rows = [p + t for p in pos_vals for t in range(kq)]
+    ops = 4 * group * hd * nkv * sum(needed_positions(rows, cap, window))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS["int8" if quant else "bf16"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def verify_mask(kp, pos, kq, window):
+    """(B, 1, kq, n_keys) bool: row t of slot b sees keys at positions
+    kp ≥ 0, ≤ pos + t (and inside the window)."""
+    import torch
+
+    qp = pos[:, None] + torch.arange(kq, device=pos.device)[None, :]
+    kp = kp[:, None, :]
+    mask = (kp >= 0) & (kp <= qp[:, :, None])
+    if window:
+        mask = mask & (kp > qp[:, :, None] - window)
+    return mask[:, None]
+
+
+def verify_library_call(t, window):
+    """``F.scaled_dot_product_attention`` with a per-row causal mask over
+    the bf16 ring (an int8 one dequantised first, outside the timed call),
+    K/V expanded over the GQA group — a yardstick only; the port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, kp, pos, ks, vs = t
+    b, kq, nkv, group, hd = q.shape
+    if ks is not None:
+        k = (k.float() * (ks[..., None] / 127.0)).to(torch.bfloat16)
+        v = (v.float() * (vs[..., None] / 127.0)).to(torch.bfloat16)
+    kk = k.permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
+    vv = v.permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
+    qq = q.permute(0, 2, 3, 1, 4).reshape(b, nkv * group, kq, hd)
+    mask = verify_mask(kp, pos, kq, window)
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv,
+                                                  attn_mask=mask)
+
+
+def paged_verify_library_call(t, window):
+    """The paged verify yardstick: gather each row's blocks through the
+    table, dequantise an int8 pool, expand over the GQA group and run
+    ``F.scaled_dot_product_attention`` with the per-row mask, all inside
+    the timed call (as ``paged_library_call``)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, bt, pos, ks, vs = t
+    b, kq, nkv, group, hd = q.shape
+    nbmax, bs = bt.shape[1], k.shape[1]
+    kp = torch.arange(nbmax * bs, device=q.device)[None, :].expand(b, -1)
+    mask = verify_mask(kp, pos, kq, window)
+    qq = q.permute(0, 2, 3, 1, 4).reshape(b, nkv * group, kq, hd)
+    idx = bt.long()
+
+    def call():
+        kk, vv = k[idx], v[idx]                     # (B, nbmax, bs, nkv, hd)
+        if ks is not None:
+            kk = (kk.float() * (ks[idx][..., None] / 127.0)).to(torch.bfloat16)
+            vv = (vv.float() * (vs[idx][..., None] / 127.0)).to(torch.bfloat16)
+        kk = kk.reshape(b, nbmax * bs, nkv, hd).permute(0, 2, 1, 3)
+        vv = vv.reshape(b, nbmax * bs, nkv, hd).permute(0, 2, 1, 3)
+        kk = kk.repeat_interleave(group, dim=1)
+        vv = vv.repeat_interleave(group, dim=1)
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+
+    return call
+
+
+def verify_kernel_phase(torch, da, pda, va, pva, ref, timed=True):
+    """Kernels 3 and 4, each case on the card: the verify kernel against
+    its plain version (same tiles) within ``KERNEL_TOL``; every row t equal
+    to the decode kernel (ring or paged) at pos + t, bit for bit; then cold
+    times (``cold_times``) and the bound.  Positions are the decode cases'
+    plus one slot two short of the end (ring cap 1024, table 2048), so rows
+    run past the cache's end; K = 4, and K = 8 at Qwen2-1.5B's heads.
+    Then paged verify at 64-token blocks against ring verify at bk 64 on
+    one stream, bit for bit."""
+    shapes = {"smollm_135m": dict(nkv=3, group=3, hd=64),
+              "qwen2_1_5b": dict(nkv=2, group=6, hd=128)}
+    gen = torch.Generator().manual_seed(4)
+    cases = [(m, q, w, 4) for m in shapes for q in (False, True)
+             for w in (0, 256)]
+    cases.append(("qwen2_1_5b", True, 0, 8))
+    ring, paged = [], []
+
+    def rows_equal(got, decode, t, window):
+        """Row r of a verify output against ``decode`` at pos + r."""
+        q, k, v, index, pos, ks, vs = t
+        for r in range(q.shape[1]):
+            one = decode(q[:, r].contiguous(), k, v, index, pos + r, ks, vs,
+                         window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(got[:, r], one):
+                return False
+        return True
+
+    for model, quant, window, kq in cases:
+        pos_vals = [0, 37, 255, 511, 700, 1023, 1500, 2047, 1022]
+        dims = dict(b=9, cap=1024, **shapes[model])
+        t = ring_inputs(gen, quant=quant, pos_vals=pos_vals, kq=kq, **dims)
+        got = va.verify_attention(*t, window=window)
+        torch.cuda.synchronize()
+        want = ref.verify_attention_ref(*t, window=window,
+                                        block=(da.KERNEL_BLOCK,))
+        err = (got - want).abs().max().item()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=KERNEL_TOL,
+                                   rtol=KERNEL_TOL)
+        same = rows_equal(got, da.decode_attention, t, window)
+        assert same, (model, quant, window, kq)
+        res = {"name": f"verify_attention[{'int8' if quant else 'bf16'}]",
+               "model_shapes": model, "window": window, "kq": kq,
+               "shape": {"B": 9, "cap": 1024, "kq": kq, **shapes[model]},
+               "pos": pos_vals, "max_abs_err": err,
+               "rows_equal_decode_kernel_bitwise": same}
+        if timed:
+            ms, plain_ms, library_ms, n_copies = cold_times(
+                t, functools.partial(va.verify_attention, window=window),
+                functools.partial(ref.verify_attention_ref, window=window),
+                lambda c: verify_library_call(c, window), (200, 5, 100))
+            bound_ms, bound_by = verify_bound(pos_vals, kq, quant=quant,
+                                              window=window, **dims)
+            res.update(ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, share_of_bound=bound_ms / ms,
+                       copies_rotated=n_copies)
+        ring.append(res)
+
+    for model, quant, window, kq in cases:
+        for bs in ((16, 64) if kq == 4 else (64,)):
+            pos_vals = [0, 37, 255, 511, 700, 1023, 1500, 2047, 2046]
+            dims = dict(b=9, nbmax=2048 // bs, bs=bs, **shapes[model])
+            t = pool_inputs(gen, quant=quant, pos_vals=pos_vals,
+                            share=(5, 6), kq=kq, **dims)
+            got = pva.paged_verify_attention(*t, window=window)
+            torch.cuda.synchronize()
+            want = ref.paged_verify_attention_ref(*t, window=window)
+            err = (got - want).abs().max().item()
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(got, want, atol=KERNEL_TOL,
+                                       rtol=KERNEL_TOL)
+            same = rows_equal(got, pda.paged_decode_attention, t, window)
+            assert same, (model, quant, window, kq, bs)
+            res = {"name": "paged_verify_attention"
+                           f"[{'int8' if quant else 'bf16'}]",
+                   "model_shapes": model, "window": window, "kq": kq,
+                   "shape": {"B": 9, "bs": bs, "nbmax": 2048 // bs,
+                             "kq": kq, **shapes[model]},
+                   "pos": pos_vals, "max_abs_err": err,
+                   "rows_equal_decode_kernel_bitwise": same}
+            if timed:
+                ms, plain_ms, library_ms, n_copies = cold_times(
+                    t, functools.partial(pva.paged_verify_attention,
+                                         window=window),
+                    functools.partial(ref.paged_verify_attention_ref,
+                                      window=window),
+                    lambda c: paged_verify_library_call(c, window),
+                    (200, 2, 50))
+                bound_ms, bound_by, nbytes, slot_bytes = paged_bound(
+                    t, window, quant=quant)
+                res.update(ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, distinct_bytes=nbytes,
+                           per_slot_bytes=slot_bytes,
+                           share_of_bound=bound_ms / ms,
+                           copies_rotated=n_copies)
+            paged.append(res)
+
+    # paged verify == ring verify, bit for bit, at bs == bk == 64 on one
+    # stream (every row inside the 2048-slot ring, so nothing wraps)
+    bitwise = []
+    pos_vals = [0, 37, 255, 511, 700, 1023, 1500, 2044]
+    for quant in (False, True):
+        for window in (0, 256):
+            dims = dict(b=8, cap=2048, **shapes["smollm_135m"])
+            q, k, v, kp, pos, ks, vs = ring_inputs(
+                gen, quant=quant, pos_vals=pos_vals, kq=4, **dims)
+            bs, nb = da.KERNEL_BLOCK, 2048 // da.KERNEL_BLOCK
+            perm = torch.randperm(8 * nb, generator=gen).to(q.device)
+            bt = perm.reshape(8, nb).to(torch.int32)
+
+            def to_pool(x):
+                if x is None:
+                    return None
+                tail = tuple(x.shape[2:])
+                pool = torch.zeros((8 * nb + 1, bs) + tail, dtype=x.dtype,
+                                   device=x.device)
+                pool[perm] = x.reshape((8 * nb, bs) + tail)
+                return pool
+
+            r = va.verify_attention(q, k, v, kp, pos, ks, vs, window=window)
+            pg = pva.paged_verify_attention(
+                q, to_pool(k), to_pool(v), bt, pos, to_pool(ks), to_pool(vs),
+                window=window)
+            torch.cuda.synchronize()
+            same = torch.equal(r, pg)
+            assert same, (quant, window, (r - pg).abs().max().item())
+            bitwise.append({"kv": "int8" if quant else "bf16",
+                            "window": window, "bitwise_equal": same})
+    return ring, paged, bitwise
+
+
+def row_purity_phase(torch, cfg, params):
+    """Are the library ops of a verify forward row-pure on this card?  For
+    each projection of a full-width layer, the norm and the LM head:
+    ``transformer.row_purity`` — the op over (B, K) rows at once against
+    the op on each (B, 1, ·) row at decode's own shape, on inputs that make
+    a reordered f32 sum show — at batch 8 with K = 4 (the serve phases'
+    shape) and K = 8.  The engine fuses the ops at 0 and runs the others
+    per row."""
+    from repro_torch.models import transformer
+
+    out = {f"K{kq}": transformer.row_purity(params, cfg, 8, kq)
+           for kq in (SPEC_K, 8)}
+    torch.cuda.synchronize()
+    return {"phase": "row_purity", "B": 8, "differing_outputs": out,
+            "fused_at_serve_shape": sorted(
+                op for op, n in out[f"K{SPEC_K}"].items() if n == 0)}
+
+
 # ---------------------------------------------------------------- phase 4
 
 
-def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
+def ring_requests(cfg, n, lens, max_new):
+    """The ring serve phases' traffic: random prompts of ``lens`` tokens,
+    even requests greedy, odd ones at temperature 0.8 with top-k 40, one
+    counter offset per request."""
     import numpy as np
 
-    from repro_torch.serve import Engine, Request, SamplingParams
+    from repro_torch.serve import Request, SamplingParams
 
-    def requests(n, lens, max_new):
-        rng = np.random.default_rng(0)
-        out = []
-        for r in range(n):
-            prompt = rng.integers(1, cfg.vocab_size, size=int(lens[r]))
-            greedy = r % 2 == 0
-            out.append(Request(rid=r, prompt=prompt.tolist(),
-                               sampling=SamplingParams(
-                                   temperature=0.0 if greedy else 0.8,
-                                   top_k=0 if greedy else 40, seed=r,
-                                   max_new=max_new, counter_offset=1000 * r)))
-        return out
+    rng = np.random.default_rng(0)
+    out = []
+    for r in range(n):
+        prompt = rng.integers(1, cfg.vocab_size, size=int(lens[r]))
+        greedy = r % 2 == 0
+        out.append(Request(rid=r, prompt=prompt.tolist(),
+                           sampling=SamplingParams(
+                               temperature=0.0 if greedy else 0.8,
+                               top_k=0 if greedy else 40, seed=r,
+                               max_new=max_new, counter_offset=1000 * r)))
+    return out
 
-    # warm-up wave: loads the kernel library and PyTorch's own kernels
+
+def ring_lens():
+    import numpy as np
+
+    return np.random.default_rng(1).permutation(
+        np.linspace(32, 512, SERVE_REQUESTS).astype(int))
+
+
+def paged_requests(cfg, n, suffix_lens, max_new):
+    """The paged serve phases' traffic: a shared 256-token system prompt,
+    then a random suffix per request; the ring traffic's sampling mix, one
+    counter offset for all (so the int8 pool's prefix chain matches)."""
+    import numpy as np
+
+    from repro_torch.serve import Request, SamplingParams
+
+    rng = np.random.default_rng(0)
+    system = rng.integers(1, cfg.vocab_size, size=256).tolist()
+    out = []
+    for r in range(n):
+        suffix = rng.integers(1, cfg.vocab_size, size=int(suffix_lens[r]))
+        greedy = r % 2 == 0
+        out.append(Request(rid=r, prompt=system + suffix.tolist(),
+                           sampling=SamplingParams(
+                               temperature=0.0 if greedy else 0.8,
+                               top_k=0 if greedy else 40, seed=r,
+                               max_new=max_new, counter_offset=0)))
+    return out
+
+
+def paged_lens():
+    import numpy as np
+
+    return np.random.default_rng(1).permutation(
+        np.linspace(16, 256, SERVE_REQUESTS).astype(int))
+
+
+def paged_engine(cfg, params, kv_quant, device="cuda", **kw):
+    from repro_torch.serve import Engine
+
+    return Engine(params, cfg, 8, 1024, kv_quant=kv_quant, kv_layout="paged",
+                  block_size=64, num_blocks=PAGED_BLOCKS, device=device, **kw)
+
+
+def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
+    """The ring path: ``SERVE_REQUESTS`` requests (``ring_requests``),
+    prompts spread over 32–512 tokens, 64 new tokens each; batch 8.
+    Returns the phase's line and the streams {prompt: output}."""
+    from repro_torch.serve import Engine
+
+    # warm-up wave: loads the kernel library and PyTorch's own kernels, at
+    # every prefill length bucket the run meets
     warm = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device=device)
-    for req in requests(2, [40, 300], 4):
+    for req in ring_requests(cfg, 5, [20, 40, 100, 200, 300], 4):
         warm.submit(req)
     warm.run(50)
     del warm
 
-    lens = np.random.default_rng(1).permutation(
-        np.linspace(32, 512, 16).astype(int))
+    lens = ring_lens()
+    n = SERVE_REQUESTS
     eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device=device)
-    for req in requests(16, lens, 64):
+    for req in ring_requests(cfg, n, lens, 64):
         eng.submit(req)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
@@ -454,7 +773,7 @@ def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     wall = time.perf_counter() - t0
     launches = da.decode_attention.launches
     st = eng.stats
-    assert len(done) == 16, len(done)
+    assert len(done) == n, len(done)
     for r in done:
         assert r.finish_reason == "length" and len(r.out) == 64, (
             r.rid, r.finish_reason, len(r.out))
@@ -462,59 +781,37 @@ def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     assert launches == cfg.n_layers * st["decode_calls"], (
         launches, st["decode_calls"])
     assert pda.paged_decode_attention.launches == 0
+    streams = {tuple(r.prompt): list(r.out) for r in done}
     return {"phase": "serve", "layout": "ring",
             "kv": "int8" if kv_quant else "bf16",
-            "requests": 16, "prompt_tokens": int(sum(lens)),
+            "requests": n, "prompt_tokens": int(sum(lens)),
             "new_tokens_each": 64, "batch": 8, "max_len": 1024,
             "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
             "decode_tok_s": st["decode_tokens"] / st["decode_s"],
             "prefill_calls": st["prefill_calls"],
             "decode_ticks": st["decode_calls"], "wall_s": wall,
             "decode_attention_launches": launches,
-            "launches_per_tick": launches / st["decode_calls"]}
+            "launches_per_tick": launches / st["decode_calls"]}, streams
 
 
 def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
-    """The paged path: 16 requests sharing a 256-token system prompt, then
-    suffixes of 16–256 tokens, 64 new tokens each, even requests greedy,
-    odd ones at temperature 0.8 with top-k 40, one counter offset (so the
-    int8 pool's prefix chain matches across requests); batch 8, 64-token
-    blocks, a pool of ``PAGED_BLOCKS`` against the 8 × 16 a dense cache
-    would hold.  Later requests hit the prefix cache and the pool runs dry,
-    so requests are preempted with their blocks and resumed."""
-    import numpy as np
-
-    from repro_torch.serve import Engine, Request, SamplingParams
-
-    def requests(n, suffix_lens, max_new):
-        rng = np.random.default_rng(0)
-        system = rng.integers(1, cfg.vocab_size, size=256).tolist()
-        out = []
-        for r in range(n):
-            suffix = rng.integers(1, cfg.vocab_size, size=int(suffix_lens[r]))
-            greedy = r % 2 == 0
-            out.append(Request(rid=r, prompt=system + suffix.tolist(),
-                               sampling=SamplingParams(
-                                   temperature=0.0 if greedy else 0.8,
-                                   top_k=0 if greedy else 40, seed=r,
-                                   max_new=max_new, counter_offset=0)))
-        return out
-
-    def engine():
-        return Engine(params, cfg, 8, 1024, kv_quant=kv_quant,
-                      kv_layout="paged", block_size=64,
-                      num_blocks=PAGED_BLOCKS, device=device)
-
-    warm = engine()                                  # warm-up wave
-    for req in requests(2, [16, 200], 4):
+    """The paged path: ``SERVE_REQUESTS`` requests (``paged_requests``)
+    sharing a 256-token system prompt, then suffixes of 16–256 tokens, 64
+    new tokens each; batch 8, 64-token blocks, a pool of ``PAGED_BLOCKS``
+    against the 8 × 16 a dense cache would hold.  Later requests hit the
+    prefix cache and the pool runs dry, so requests are preempted with
+    their blocks and resumed.  Returns the phase's line and the streams."""
+    # warm-up waves, cold and with prefix hits, at every length bucket
+    warm = paged_engine(cfg, params, kv_quant, device)
+    for req in paged_requests(cfg, 12, [16, 30, 60, 120, 240] * 3, 4):
         warm.submit(req)
-    warm.run(50)
+    warm.run(100)
     del warm
 
-    lens = np.random.default_rng(1).permutation(
-        np.linspace(16, 256, 16).astype(int))
-    eng = engine()
-    for req in requests(16, lens, 64):
+    lens = paged_lens()
+    n = SERVE_REQUESTS
+    eng = paged_engine(cfg, params, kv_quant, device)
+    for req in paged_requests(cfg, n, lens, 64):
         eng.submit(req)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
@@ -527,7 +824,7 @@ def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     launches = pda.paged_decode_attention.launches
     ring_launches = da.decode_attention.launches
     st = eng.stats
-    assert len(done) == 16, len(done)
+    assert len(done) == n, len(done)
     for r in done:
         assert r.finish_reason == "length" and len(r.out) == 64, (
             r.rid, r.finish_reason, len(r.out))
@@ -538,9 +835,10 @@ def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     assert ring_launches == 0, ring_launches
     assert launches == cfg.n_layers * st["decode_calls"], (
         launches, st["decode_calls"])
+    streams = {tuple(r.prompt): list(r.out) for r in done}
     return {"phase": "serve", "layout": "paged",
-            "kv": "int8" if kv_quant else "bf16", "requests": 16,
-            "prompt_tokens": int(256 * 16 + sum(lens)),
+            "kv": "int8" if kv_quant else "bf16", "requests": n,
+            "prompt_tokens": int(256 * n + sum(lens)),
             "new_tokens_each": 64, "batch": 8, "max_len": 1024,
             "block_size": 64, "num_blocks": PAGED_BLOCKS,
             "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
@@ -551,27 +849,107 @@ def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
             "prefill_calls": st["prefill_calls"],
             "decode_ticks": st["decode_calls"], "wall_s": wall,
             "paged_decode_attention_launches": launches,
-            "launches_per_tick": launches / st["decode_calls"]}
+            "launches_per_tick": launches / st["decode_calls"]}, streams
+
+
+def spec_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain,
+                     streams, drafter, device="cuda"):
+    """The speculative path on a serve phase's own traffic: the same
+    requests through ``Engine(spec_decode=True, draft_k=SPEC_K)`` with
+    ``drafter`` "replay" (a ``ReplayDrafter`` of the plain streams, so most
+    drafts are accepted) or "lookup" (``PromptLookupDrafter``, the
+    default).  Every spec stream must equal the plain stream token for
+    token, every request finish its budget, the paged pool end with no live
+    block, the layout's verify kernel launch once per layer per window and
+    no decode kernel launch.  ``plain`` is the plain phase's line."""
+    from repro_torch.serve.draft import PromptLookupDrafter, ReplayDrafter
+
+    paged = layout == "paged"
+    dr = (ReplayDrafter(streams) if drafter == "replay"
+          else PromptLookupDrafter())
+    if paged:
+        eng = paged_engine(cfg, params, kv_quant, device, spec_decode=True,
+                           draft_k=SPEC_K, drafter=dr)
+        reqs = paged_requests(cfg, SERVE_REQUESTS, paged_lens(), 64)
+    else:
+        from repro_torch.serve import Engine
+
+        eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device=device,
+                     spec_decode=True, draft_k=SPEC_K, drafter=dr)
+        reqs = ring_requests(cfg, SERVE_REQUESTS, ring_lens(), 64)
+    for req in reqs:
+        eng.submit(req)
+    torch.cuda.synchronize()
+    for m in kmods.values():
+        setattr(m, "launches", 0)
+    t0 = time.perf_counter()
+    done = eng.run(10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: m.launches for n, m in kmods.items()}
+    st = eng.stats
+    assert len(done) == SERVE_REQUESTS, len(done)
+    for r in done:
+        assert r.finish_reason == "length" and len(r.out) == 64, (
+            r.rid, r.finish_reason, len(r.out))
+    differ = [r.rid for r in done if r.out != streams[tuple(r.prompt)]]
+    assert not differ, ("spec streams differ from plain", layout, kv_quant,
+                        drafter, differ)
+    kernel = "paged_verify_attention" if paged else "verify_attention"
+    windows = st["spec_windows"]
+    assert windows == st["decode_calls"] > 0, st
+    assert launches[kernel] == cfg.n_layers * windows, (launches, windows)
+    assert all(v == 0 for n, v in launches.items() if n != kernel), launches
+    if paged:
+        assert eng.pool.live_blocks == 0, eng.pool_stats()
+    slot_windows = st["spec_emitted_tokens"] - st["spec_accepted_tokens"]
+    if drafter == "replay":
+        assert st["spec_emitted_tokens"] > slot_windows, st
+    return {"phase": "spec_serve", "layout": layout,
+            "kv": "int8" if kv_quant else "bf16", "drafter": drafter,
+            "draft_k": SPEC_K, "requests": SERVE_REQUESTS,
+            "streams_equal_plain": True, "windows": windows,
+            "slot_windows": slot_windows,
+            "drafted": st["spec_draft_tokens"],
+            "accepted": st["spec_accepted_tokens"],
+            "emitted": st["spec_emitted_tokens"],
+            "acceptance": st["spec_accepted_tokens"]
+                          / max(1, st["spec_draft_tokens"]),
+            "tokens_per_window": st["spec_emitted_tokens"] / windows,
+            "tokens_per_slot_window": st["spec_emitted_tokens"]
+                                      / slot_windows,
+            "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+            "plain_decode_tok_s": plain["decode_tok_s"],
+            "plain_decode_ticks": plain["decode_ticks"],
+            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+            "prefix_hit_tokens": st["prefix_hit_tokens"],
+            "preemptions": st["preemptions"], "wall_s": wall,
+            "verify_fused_ops": sorted(eng.verify_fused_ops),
+            f"{kernel}_launches": launches[kernel],
+            "launches": launches}
 
 
 def profile_phase(torch, cfg, params, kv_quant, device="cuda",
-                  kv_layout="ring"):
-    """Where a decode tick's time goes: five steady ticks of batch-8
+                  kv_layout="ring", spec=False):
+    """Where a decode tick's time goes: three steady ticks of batch-8
     decoding under ``torch.profiler`` — wall time per tick, device time of
     all kernels per tick (their sum over wall is the busy share), kernel
-    launches per tick, and the kernels that take the most device time."""
+    launches per tick, and the kernels that take the most device time.
+    With ``spec``, three speculative windows of ``SPEC_K`` rows instead
+    (the default prompt-lookup drafter): the same numbers per window."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Engine, Request, SamplingParams
 
     eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device=device,
-                 kv_layout=kv_layout)
+                 kv_layout=kv_layout, spec_decode=spec, draft_k=SPEC_K)
     for r in range(8):
         eng.submit(Request(rid=r, prompt=list(range(1, 200 + 20 * r)),
                            sampling=SamplingParams(max_new=64)))
     for _ in range(4):                 # admission, prefill, warm ticks
         eng.step()
-    ticks = 5
+    ticks = 3
+    tokens0 = eng.stats["decode_tokens"]
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device == "cuda" else [])
     with profile(activities=activities) as prof:
@@ -585,7 +963,11 @@ def profile_phase(torch, cfg, params, kv_quant, device="cuda",
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return {"phase": "profile", "layout": kv_layout,
-            "kv": "int8" if kv_quant else "bf16", "ticks": ticks, "wall_ms_per_tick": wall_ms,
+            "kv": "int8" if kv_quant else "bf16",
+            "spec_decode": spec, "draft_k": SPEC_K if spec else None,
+            "verify_fused_ops": sorted(eng.verify_fused_ops),
+            "tokens_emitted": eng.stats["decode_tokens"] - tokens0,
+            "ticks": ticks, "wall_ms_per_tick": wall_ms,
             "device_ms_per_tick": device_us / 1e3 / ticks,
             "device_busy_share": device_us / 1e3 / ticks / wall_ms,
             "kernel_launches_per_tick": sum(e.count for e in kernels) / ticks,
@@ -660,6 +1042,53 @@ def parity_phase(torch, cfg, params, kv_quant, device="cuda"):
             "plain_reblocked_max_abs_logit_diff": drift["plain_reblocked"][0],
             "plain_reblocked_max_mean_abs_logit_diff":
                 drift["plain_reblocked"][1]}
+
+
+def prefill_invariance_phase(torch, cfg, params, kv_quant, device="cuda"):
+    """Full width: does a request's batched prefill depend on its wave?
+    Seven prompts of 33–63 tokens (length bucket 64): the first prefilled
+    alone at its own padded length (64) and beside the other six — which
+    must change no bit of its logits or cache row, as the engine's prefill
+    per length bucket relies on — then all seven padded to 128 and to 512,
+    where the library may sum in another order: how many of their logits
+    change is reported (the hazard the grouping avoids; speculation
+    changes which prompts share a wave).  A reordered f32 sum shows only
+    where it flips a bf16 rounding, so the count depends on the prompts."""
+    import numpy as np
+
+    from repro_torch.models import registry
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in (60, 33, 41, 47, 52, 57, 63)]
+
+    def prefill(rows, s):
+        toks = torch.zeros((8, s), dtype=torch.long, device=device)
+        lens = torch.zeros((8,), dtype=torch.int32, device=device)
+        for i, p in enumerate(rows):
+            toks[i, : len(p)] = torch.tensor(p, device=device)
+            lens[i] = len(p)
+        logits, cache = registry.apply_prefill(params, cfg, toks, lens, 1024,
+                                               kv_quant=kv_quant)
+        return logits[: len(rows)], [t[:, 0] for e in cache["layers"]
+                                     for t in e.values()]
+
+    alone, alone_kv = prefill(prompts[:1], 64)
+    shared, shared_kv = prefill(prompts, 64)
+    same = torch.equal(alone[0], shared[0]) and all(
+        torch.equal(x, y) for x, y in zip(alone_kv, shared_kv))
+    assert same, "a request's prefill changed with its wave at one length"
+    res = {"phase": "prefill_invariance", "kv": "int8" if kv_quant else "bf16",
+           "prompts": [len(p) for p in prompts], "own_length": 64,
+           "same_length_wave_bitwise_equal": same}
+    for s in (128, 512):
+        padded, _ = prefill(prompts, s)
+        res[f"padded_{s}"] = {
+            "prompts_changed": int((padded != shared).any(dim=-1).sum()),
+            "logits_differing": int((padded != shared).sum().item()),
+            "logits": shared.numel(),
+            "max_abs_logit_diff": (padded - shared).abs().max().item()}
+    return res
 
 
 def paged_parity_phase(torch, cfg, params, kv_quant, device="cuda"):
@@ -741,6 +1170,8 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_verify_attention as pva
+    from repro_torch.kernels import verify_attention as va
     from repro_torch.models import registry
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -773,24 +1204,46 @@ def main() -> int:
     paged_checks, bitwise = paged_kernel_phase(torch, da, pda, ref)
     emit({"phase": "kernels", "layout": "paged", "checks": paged_checks,
           "paged_equals_ring_bitwise": bitwise})
+    verify_checks, paged_verify_checks, verify_bitwise = verify_kernel_phase(
+        torch, da, pda, va, pva, ref)
+    emit({"phase": "kernels", "layout": "ring", "verify": True,
+          "checks": verify_checks})
+    emit({"phase": "kernels", "layout": "paged", "verify": True,
+          "checks": paged_verify_checks,
+          "paged_verify_equals_ring_verify_bitwise": verify_bitwise})
 
-    # 4 — serve, 5 — parity
+    # 4 — serve (plain, then speculative on the same traffic), 5 — parity
     cfg = get_config("smollm_135m")
     params = registry.init_model(cfg, seed=0, device="cuda")
-    serve, paged = {}, {}
+    emit(row_purity_phase(torch, cfg, params))
+    kmods = {"decode_attention": da.decode_attention,
+             "paged_decode_attention": pda.paged_decode_attention,
+             "verify_attention": va.verify_attention,
+             "paged_verify_attention": pva.paged_verify_attention}
+    serve, paged, spec = {}, {}, {}
     for kv_quant in (False, True):
-        serve[kv_quant] = serve_phase(torch, da, pda, cfg, params, kv_quant)
+        serve[kv_quant], ring_streams = serve_phase(torch, da, pda, cfg,
+                                                    params, kv_quant)
         emit(serve[kv_quant])
-    for kv_quant in (False, True):
-        paged[kv_quant] = paged_serve_phase(torch, da, pda, cfg, params,
-                                            kv_quant)
+        paged[kv_quant], paged_streams = paged_serve_phase(
+            torch, da, pda, cfg, params, kv_quant)
         emit(paged[kv_quant])
+        for layout, plain, streams in (("ring", serve, ring_streams),
+                                       ("paged", paged, paged_streams)):
+            for drafter in ("replay", "lookup"):
+                spec[layout, kv_quant, drafter] = res = spec_serve_phase(
+                    torch, kmods, cfg, params, kv_quant, layout,
+                    plain[kv_quant], streams, drafter)
+                emit(res)
     for kv_quant in (False, True):
         emit(profile_phase(torch, cfg, params, kv_quant))
     emit(profile_phase(torch, cfg, params, True, kv_layout="paged"))
     for kv_quant in (False, True):
+        emit(profile_phase(torch, cfg, params, kv_quant, spec=True))
+    for kv_quant in (False, True):
         emit(parity_phase(torch, cfg, params, kv_quant))
         emit(paged_parity_phase(torch, cfg, params, kv_quant))
+        emit(prefill_invariance_phase(torch, cfg, params, kv_quant))
 
     kernels = []
     for kv_quant in (False, True):
@@ -807,6 +1260,24 @@ def main() -> int:
             kernels.append({
                 "name": main["name"], "route": "cuda", "source": source,
                 "replaces": replaces, "launches": runs[kv_quant][key],
+                "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"],
+                "kernel_ms": main["kernel_ms"], "shape": main["shape"]})
+        for rows, source, replaces, layout in (
+                (verify_checks, va.SOURCE, VERIFY_REPLACES, "ring"),
+                ([c for c in paged_verify_checks if c["shape"]["bs"] == 64],
+                 pva.SOURCE, PAGED_VERIFY_REPLACES, "paged")):
+            main = next(c for c in rows
+                        if c["model_shapes"] == "smollm_135m"
+                        and c["window"] == 0 and c["kq"] == SPEC_K
+                        and c["name"].endswith("[int8]") == kv_quant)
+            run = spec[layout, kv_quant, "lookup"]
+            kernels.append({
+                "name": main["name"], "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": run["launches"][main["name"].split("[")[0]],
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],

@@ -27,8 +27,9 @@
 // bytes of bf16) and upcast in registers, with the scales folded in after
 // the dot, so no dequantised copy of the cache is ever written; the tile loop
 // stops at pos // bk, so a slot reads only the tiles it has written.  It is
-// a first, simple design, its tile body in flash_decode.cuh (shared with the
-// paged kernel): one thread block per (b, kv head), which stages
+// a first, simple design, its tile body and tile policy (RingTiles) in
+// flash_decode.cuh (shared with the paged and the verify kernels): one
+// thread block per (b, kv head), which stages
 // each tile of K, V, scales and k_pos in shared memory (single-buffered),
 // one warp per query row of the group, each keeping its own f32 m, s and acc.
 // B * n_kv is only 24 blocks at batch 8 on 132 SMs, and each block waits on
@@ -43,44 +44,7 @@
 
 #include "flash_decode.cuh"
 
-namespace {
-
-// Ring tiles: bk consecutive ring slots of row b (bk divides cap); key
-// positions come from k_pos (-1 for a slot never written).
-struct RingTiles {
-  const int* __restrict__ k_pos;
-  int cap;
-  int size;  // bk
-  __device__ __forceinline__ int ntiles(int b, int p) const {
-    const int last = p >= 0 ? p / size : -1;     // floor(p / bk)
-    return min(last, cap / size - 1) + 1;
-  }
-  __device__ __forceinline__ size_t base(int b, int t) const {
-    return static_cast<size_t>(b) * cap + static_cast<size_t>(t) * size;
-  }
-  __device__ __forceinline__ int key_pos(size_t base, int, int j) const {
-    return k_pos[base + j];
-  }
-};
-
-int launch_ring(bool quant, const void* q, const void* k, const void* v,
-                const void* k_scale, const void* v_scale, const void* k_pos,
-                const void* pos, void* out, int B, int cap, int nkv,
-                int group, int hd, int bk, int window, float inv_sqrt_hd,
-                void* stream) {
-  if (bk < 1 || cap % bk != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const RingTiles tiles{static_cast<const int*>(k_pos), cap, bk};
-  if (quant)
-    return flash_decode::launch<int8_t>(q, k, v, k_scale, v_scale, tiles,
-                                        pos, out, B, nkv, group, hd, window,
-                                        inv_sqrt_hd, stream);
-  return flash_decode::launch<uint16_t>(q, k, v, nullptr, nullptr, tiles,
-                                        pos, out, B, nkv, group, hd, window,
-                                        inv_sqrt_hd, stream);
-}
-
-}  // namespace
+using flash_decode::launch_ring;
 
 extern "C" {
 
@@ -91,7 +55,7 @@ int repro_decode_attention_bf16(const void* q, const void* k, const void* v,
                                 int bk, int window, float inv_sqrt_hd,
                                 void* stream) {
   return launch_ring(false, q, k, v, nullptr, nullptr, k_pos, pos, out, B,
-                     cap, nkv, group, hd, bk, window, inv_sqrt_hd, stream);
+                     cap, nkv, group, 1, hd, bk, window, inv_sqrt_hd, stream);
 }
 
 // int8 dither cache: k, v hold codes; k_scale, v_scale (B, cap, n_kv) f32.
@@ -102,7 +66,7 @@ int repro_decode_attention_int8(const void* q, const void* k, const void* v,
                                 int bk, int window, float inv_sqrt_hd,
                                 void* stream) {
   return launch_ring(true, q, k, v, k_scale, v_scale, k_pos, pos, out, B,
-                     cap, nkv, group, hd, bk, window, inv_sqrt_hd, stream);
+                     cap, nkv, group, 1, hd, bk, window, inv_sqrt_hd, stream);
 }
 
 }  // extern "C"

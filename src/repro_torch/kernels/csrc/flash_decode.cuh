@@ -1,11 +1,16 @@
-// The flash-decode tile body shared by the ring kernel (decode_attention.cu)
-// and the paged kernel (paged_decode_attention.cu), for Hopper (sm_90a).
+// The flash-decode tile body shared by the port's four attention kernels,
+// for Hopper (sm_90a): the ring and paged decode kernels
+// (decode_attention.cu, paged_decode_attention.cu) and the ring and paged
+// speculative verify kernels (verify_attention.cu,
+// paged_verify_attention.cu).
 //
-// One query token per slot, GQA groups of any size up to 16.  The two
-// kernels differ only in how a tile of the cache is addressed, which a
-// `Tiles` policy supplies:
+// kq query rows per slot (1 for decode), row t at position pos[b] + t; GQA
+// groups of any size up to 16.  The kernels differ only in how a tile of the
+// cache is addressed, which a `Tiles` policy supplies (RingTiles and
+// PagedTiles below):
 //
-//   ntiles(b, p)  tiles slot b reads at position p (the length-aware skip)
+//   ntiles(b, p)  tiles slot b reads at position p (the length-aware skip,
+//                 clamped to the tiles that exist)
 //   base(b, t)    cache row of tile t's first key: K/V element
 //                 (base + j) * nkv + h, scale (base + j) * nkv + h
 //   key_pos(base, t, j)  absolute position of key j of tile t
@@ -15,6 +20,9 @@
 // scale folding and the output — is this one template, so the ring and the
 // paged kernel run the same arithmetic in the same order on the same
 // tiles: paged == ring bit for bit when bs == bk and no ring slot wrapped.
+// A verify row is a decode block of its own (grid axis z), reading query
+// row t and attending at pos + t, so verify row t == decode at pos + t bit
+// for bit by construction.
 //
 // Per tile of bk keys: logits = (q . upcast(k)) * 1/sqrt(HD)
 // [* k_scale/127]; masked (key_pos >= 0, key_pos <= pos, key_pos > pos -
@@ -24,11 +32,13 @@
 // weights over the -1e30 logits it processed, as the plain version does,
 // never NaN.
 //
-// Design: one thread block per (KV head, slot), which stages each tile of
-// K, V, scales and key positions in shared memory (single-buffered), one
-// warp per query row of the group, each warp keeping its own f32 m, s and
-// acc in registers.  int8 codes stay codes in shared memory and are upcast
-// in registers; the scales fold in after the dot and after the sum update.
+// Design: one thread block per (KV head, slot, query row), which stages
+// each tile of K, V, scales and key positions in shared memory
+// (single-buffered), one warp per query row of the group, each warp keeping
+// its own f32 m, s and acc in registers.  int8 codes stay codes in shared
+// memory and are upcast in registers; the scales fold in after the dot and
+// after the sum update.  A verify call reads the cache once per query row
+// (kq times); sharing one tile load across the rows is later work.
 
 #pragma once
 
@@ -86,7 +96,7 @@ flash_decode_kernel(const uint16_t* __restrict__ q,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale, const Tiles tiles,
                     const int* __restrict__ pos, float* __restrict__ out,
-                    int nkv, int group, int window, float inv) {
+                    int nkv, int group, int kq, int window, float inv) {
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   constexpr int kRowBytes = HD * static_cast<int>(sizeof(KT));
   constexpr int kRowWords = kRowBytes / 4;
@@ -104,14 +114,16 @@ flash_decode_kernel(const uint16_t* __restrict__ q,
   int* kp_s = reinterpret_cast<int*>(vs_s + kMaxBk);
   float* p_s = reinterpret_cast<float*>(kp_s + kMaxBk);      // group * kMaxBk
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x, b = blockIdx.y, row = blockIdx.z;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int g = tid >> 5, lane = tid & 31;
-  const int p = pos[b];
+  const int p = pos[b] + row;        // this query row's absolute position
   const int bk = tiles.size;
   const int ntiles = tiles.ntiles(b, p);
+  // q and out are (B, kq, nkv, group, HD): this block's (b, row, h) group
+  const size_t qrow = (static_cast<size_t>(b) * kq + row) * nkv + h;
 
-  const uint16_t* qb = q + static_cast<size_t>(b * nkv + h) * group * HD;
+  const uint16_t* qb = q + qrow * group * HD;
   for (int i = tid; i < group * HD; i += nthreads)
     q_s[i] = __uint_as_float(static_cast<uint32_t>(qb[i]) << 16);
 
@@ -221,8 +233,7 @@ flash_decode_kernel(const uint16_t* __restrict__ q,
     __syncwarp();
   }
 
-  float* o = out + (static_cast<size_t>(b * nkv + h) * group + g) * HD +
-             lane * kVPL;
+  float* o = out + (qrow * group + g) * HD + lane * kVPL;
 #pragma unroll
   for (int d = 0; d < kVPL; ++d) o[d] = acc[d] / s;
 }
@@ -235,18 +246,19 @@ size_t smem_bytes(int hd, int group) {
                           3 * kMaxBk + static_cast<size_t>(group) * kMaxBk);
 }
 
-// Launch on `stream` with grid (nkv, B) and one warp per query row; returns
-// cudaGetLastError() (or cudaErrorInvalidValue for a shape it does not
-// take).  k_scale / v_scale are null for a bf16 cache.
+// Launch on `stream` with grid (nkv, B, kq) and one warp per query row of
+// the group; returns cudaGetLastError() (or cudaErrorInvalidValue for a
+// shape it does not take).  k_scale / v_scale are null for a bf16 cache.
 template <typename KT, typename Tiles>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const Tiles& tiles, const void* pos,
-           void* out, int B, int nkv, int group, int hd, int window,
+           void* out, int B, int nkv, int group, int kq, int hd, int window,
            float inv_sqrt_hd, void* stream) {
-  if (B <= 0 || nkv <= 0 || group < 1 || group > kMaxGroup ||
-      tiles.size < 1 || tiles.size > kMaxBk || window < 0)
+  if (B <= 0 || B > 65535 || nkv <= 0 || group < 1 || group > kMaxGroup ||
+      kq < 1 || kq > 65535 || tiles.size < 1 || tiles.size > kMaxBk ||
+      window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(nkv, B), block(32 * group);
+  const dim3 grid(nkv, B, kq), block(32 * group);
   const size_t smem = smem_bytes<KT>(hd, group);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qq = static_cast<const uint16_t*>(q);
@@ -258,14 +270,89 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   auto* oo = static_cast<float*>(out);
   if (hd == 64) {
     flash_decode_kernel<64, KT, Tiles><<<grid, block, smem, st>>>(
-        qq, kk, vv, ks, vs, tiles, ps, oo, nkv, group, window, inv_sqrt_hd);
+        qq, kk, vv, ks, vs, tiles, ps, oo, nkv, group, kq, window,
+        inv_sqrt_hd);
   } else if (hd == 128) {
     flash_decode_kernel<128, KT, Tiles><<<grid, block, smem, st>>>(
-        qq, kk, vv, ks, vs, tiles, ps, oo, nkv, group, window, inv_sqrt_hd);
+        qq, kk, vv, ks, vs, tiles, ps, oo, nkv, group, kq, window,
+        inv_sqrt_hd);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Ring tiles: bk consecutive ring slots of row b (bk divides cap); key
+// positions come from k_pos (-1 for a slot never written).  Past the ring's
+// last tile (a verify row beyond the write budget) the count clamps.
+struct RingTiles {
+  const int* __restrict__ k_pos;
+  int cap;
+  int size;  // bk
+  __device__ __forceinline__ int ntiles(int, int p) const {
+    const int last = p >= 0 ? p / size : -1;     // floor(p / bk)
+    return min(last, cap / size - 1) + 1;
+  }
+  __device__ __forceinline__ size_t base(int b, int t) const {
+    return static_cast<size_t>(b) * cap + static_cast<size_t>(t) * size;
+  }
+  __device__ __forceinline__ int key_pos(size_t base, int, int j) const {
+    return k_pos[base + j];
+  }
+};
+
+// Paged tiles: tile t of slot b is pool block block_tables[b, t], key
+// positions implicit.  Past the table's last entry (a verify row beyond the
+// write budget) the count clamps, so the table is never read out of bounds.
+struct PagedTiles {
+  const int* __restrict__ block_tables;
+  int nbmax;
+  int size;  // bs
+  __device__ __forceinline__ int ntiles(int, int p) const {
+    const int last = p >= 0 ? p / size : -1;     // floor(p / bs)
+    return min(last, nbmax - 1) + 1;
+  }
+  __device__ __forceinline__ size_t base(int b, int t) const {
+    const int phys = block_tables[static_cast<size_t>(b) * nbmax + t];
+    return static_cast<size_t>(phys) * size;
+  }
+  __device__ __forceinline__ int key_pos(size_t, int t, int j) const {
+    return t * size + j;
+  }
+};
+
+// Ring cache (B, cap, nkv, HD): bf16 when `quant` is false (scales null),
+// int8 codes with (B, cap, nkv) scales when true.  bk must divide cap.
+inline int launch_ring(bool quant, const void* q, const void* k,
+                       const void* v, const void* k_scale,
+                       const void* v_scale, const void* k_pos,
+                       const void* pos, void* out, int B, int cap, int nkv,
+                       int group, int kq, int hd, int bk, int window,
+                       float inv_sqrt_hd, void* stream) {
+  if (bk < 1 || cap % bk != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RingTiles tiles{static_cast<const int*>(k_pos), cap, bk};
+  if (quant)
+    return launch<int8_t>(q, k, v, k_scale, v_scale, tiles, pos, out, B, nkv,
+                          group, kq, hd, window, inv_sqrt_hd, stream);
+  return launch<uint16_t>(q, k, v, nullptr, nullptr, tiles, pos, out, B, nkv,
+                          group, kq, hd, window, inv_sqrt_hd, stream);
+}
+
+// Paged pool (n_blocks, bs, nkv, HD) through block_tables (B, nbmax).
+inline int launch_paged(bool quant, const void* q, const void* k,
+                        const void* v, const void* k_scale,
+                        const void* v_scale, const void* block_tables,
+                        const void* pos, void* out, int B, int bs, int nbmax,
+                        int nkv, int group, int kq, int hd, int window,
+                        float inv_sqrt_hd, void* stream) {
+  if (nbmax < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const PagedTiles tiles{static_cast<const int*>(block_tables), nbmax, bs};
+  if (quant)
+    return launch<int8_t>(q, k, v, k_scale, v_scale, tiles, pos, out, B, nkv,
+                          group, kq, hd, window, inv_sqrt_hd, stream);
+  return launch<uint16_t>(q, k, v, nullptr, nullptr, tiles, pos, out, B, nkv,
+                          group, kq, hd, window, inv_sqrt_hd, stream);
 }
 
 }  // namespace flash_decode

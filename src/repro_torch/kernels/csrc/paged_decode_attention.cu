@@ -42,44 +42,7 @@
 
 #include "flash_decode.cuh"
 
-namespace {
-
-// Paged tiles: tile t of slot b is pool block block_tables[b, t], key
-// positions implicit.
-struct PagedTiles {
-  const int* __restrict__ block_tables;
-  int nbmax;
-  int size;  // bs
-  __device__ __forceinline__ int ntiles(int, int p) const {
-    const int last = p >= 0 ? p / size : -1;     // floor(p / bs)
-    return min(last, nbmax - 1) + 1;
-  }
-  __device__ __forceinline__ size_t base(int b, int t) const {
-    const int phys = block_tables[static_cast<size_t>(b) * nbmax + t];
-    return static_cast<size_t>(phys) * size;
-  }
-  __device__ __forceinline__ int key_pos(size_t, int t, int j) const {
-    return t * size + j;
-  }
-};
-
-int launch_paged(bool quant, const void* q, const void* k, const void* v,
-                 const void* k_scale, const void* v_scale,
-                 const void* block_tables, const void* pos, void* out, int B,
-                 int bs, int nbmax, int nkv, int group, int hd, int window,
-                 float inv_sqrt_hd, void* stream) {
-  if (nbmax < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const PagedTiles tiles{static_cast<const int*>(block_tables), nbmax, bs};
-  if (quant)
-    return flash_decode::launch<int8_t>(q, k, v, k_scale, v_scale, tiles,
-                                        pos, out, B, nkv, group, hd, window,
-                                        inv_sqrt_hd, stream);
-  return flash_decode::launch<uint16_t>(q, k, v, nullptr, nullptr, tiles,
-                                        pos, out, B, nkv, group, hd, window,
-                                        inv_sqrt_hd, stream);
-}
-
-}  // namespace
+using flash_decode::launch_paged;
 
 extern "C" {
 
@@ -91,8 +54,8 @@ int repro_paged_decode_attention_bf16(const void* q, const void* k,
                                       int hd, int window, float inv_sqrt_hd,
                                       void* stream) {
   return launch_paged(false, q, k, v, nullptr, nullptr, block_tables, pos,
-                      out, B, bs, nbmax, nkv, group, hd, window, inv_sqrt_hd,
-                      stream);
+                      out, B, bs, nbmax, nkv, group, 1, hd, window,
+                      inv_sqrt_hd, stream);
 }
 
 // int8 dither pool: k, v hold codes; k_scale, v_scale (n_blocks, bs, n_kv).
@@ -105,8 +68,8 @@ int repro_paged_decode_attention_int8(const void* q, const void* k,
                                       int hd, int window, float inv_sqrt_hd,
                                       void* stream) {
   return launch_paged(true, q, k, v, k_scale, v_scale, block_tables, pos,
-                      out, B, bs, nbmax, nkv, group, hd, window, inv_sqrt_hd,
-                      stream);
+                      out, B, bs, nbmax, nkv, group, 1, hd, window,
+                      inv_sqrt_hd, stream);
 }
 
 }  // extern "C"

@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref, shrink_block
 
-__all__ = ["decode_attention", "KERNEL_BLOCK", "SOURCE"]
+__all__ = ["decode_attention", "check_ring", "KERNEL_BLOCK", "SOURCE"]
 
 KERNEL_BLOCK = 64     # cache slots per tile (csrc: kMaxBk), shrunk to divide cap
 SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
@@ -45,16 +45,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, k_pos, pos, k_scale, v_scale, window):
-    if k.dim() != 4 or q.dim() != 4:
+def check_ring(q, k, v, k_pos, pos, k_scale, v_scale, window):
+    """Raise ValueError on any input the ring kernels do not take: q is
+    (B, n_kv, group, hd) for decode or (B, kq, n_kv, group, hd) for
+    verify."""
+    if k.dim() != 4 or q.dim() not in (4, 5):
         raise ValueError(f"q must be (B, n_kv, group, hd) and k, v "
                          f"(B, cap, n_kv, hd); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
     b, cap, nkv, hd = k.shape
-    group = q.shape[2]
+    group = q.shape[-2]
     quantized = k.dtype == torch.int8
     want = {
-        "q": (q, (b, nkv, group, hd), torch.bfloat16),
+        "q": (q, (b,) + tuple(q.shape[1:-3]) + (nkv, group, hd),
+              torch.bfloat16),
         "k": (k, (b, cap, nkv, hd), torch.int8 if quantized else torch.bfloat16),
         "v": (v, (b, cap, nkv, hd), k.dtype),
         "k_pos": (k_pos, (b, cap), torch.int32),
@@ -106,7 +110,10 @@ def decode_attention(
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda (or cpu), not "
                          f"{q.device}")
-    _check(q, k, v, k_pos, pos, k_scale, v_scale, window)
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, n_kv, group, hd); got "
+                         f"{tuple(q.shape)}")
+    check_ring(q, k, v, k_pos, pos, k_scale, v_scale, window)
     b, cap, nkv, hd = k.shape
     group = q.shape[2]
     lib = _lib()

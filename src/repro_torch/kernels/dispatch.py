@@ -19,10 +19,13 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import paged_decode_attention as _pda
+from repro_torch.kernels import paged_verify_attention as _pva
 from repro_torch.kernels import ref
+from repro_torch.kernels import verify_attention as _va
 
 __all__ = ["BACKENDS", "resolve_backend", "decode_attention",
-           "paged_decode_attention"]
+           "paged_decode_attention", "verify_attention",
+           "paged_verify_attention"]
 
 BACKENDS = ("cuda", "torch-ref")
 
@@ -82,4 +85,49 @@ def paged_decode_attention(
         return _pda.paged_decode_attention(q, k, v, block_tables, pos,
                                            k_scale, v_scale, window=window)
     return ref.paged_decode_attention_ref(q, k, v, block_tables, pos,
+                                          k_scale, v_scale, window=window)
+
+
+def verify_attention(
+    q: torch.Tensor,        # (B, kq, n_kv_heads, group, hd) — post-RoPE
+    k: torch.Tensor,        # (B, cap, n_kv_heads, hd) int8 codes or bf16
+    v: torch.Tensor,        # (B, cap, n_kv_heads, hd)
+    k_pos: torch.Tensor,    # (B, cap) int32 absolute position per ring slot
+    pos: torch.Tensor,      # (B,) int32 per-slot first-row position
+    *,
+    k_scale: Optional[torch.Tensor] = None,   # (B, cap, n_kv) f32 when int8
+    v_scale: Optional[torch.Tensor] = None,
+    window: int = 0,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Speculative verify attention over the ring KV cache →
+    (B, kq, n_kv, group, hd) f32: row t attends as a decode at ``pos + t``.
+    ``torch-ref`` runs ``decode_attention``'s whole-cap recurrence once per
+    row (the reference's ``xla-ref`` default)."""
+    if resolve_backend(backend, q) == "cuda":
+        return _va.verify_attention(q, k, v, k_pos, pos, k_scale, v_scale,
+                                    window=window)
+    return ref.verify_attention_ref(q, k, v, k_pos, pos, k_scale, v_scale,
+                                    window=window)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,        # (B, kq, n_kv_heads, group, hd) — post-RoPE
+    k: torch.Tensor,        # (n_blocks, bs, n_kv_heads, hd) int8 codes or bf16
+    v: torch.Tensor,        # (n_blocks, bs, n_kv_heads, hd)
+    block_tables: torch.Tensor,   # (B, nbmax) int32 physical block per logical
+    pos: torch.Tensor,      # (B,) int32 per-slot first-row position
+    *,
+    k_scale: Optional[torch.Tensor] = None,   # (n_blocks, bs, n_kv) f32
+    v_scale: Optional[torch.Tensor] = None,
+    window: int = 0,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Speculative verify attention over the paged block pool →
+    (B, kq, n_kv, group, hd) f32: row t attends as a paged decode at
+    ``pos + t``, the tile pinned to the pool block on both backends."""
+    if resolve_backend(backend, q) == "cuda":
+        return _pva.paged_verify_attention(q, k, v, block_tables, pos,
+                                           k_scale, v_scale, window=window)
+    return ref.paged_verify_attention_ref(q, k, v, block_tables, pos,
                                           k_scale, v_scale, window=window)

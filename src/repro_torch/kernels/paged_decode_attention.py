@@ -26,7 +26,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
-__all__ = ["paged_decode_attention", "MAX_BLOCK_SIZE", "SOURCE"]
+__all__ = ["paged_decode_attention", "check_paged", "MAX_BLOCK_SIZE",
+           "SOURCE"]
 
 MAX_BLOCK_SIZE = 64   # csrc: kMaxBk — the tile is the pool block, never cut
 SOURCE = "src/repro_torch/kernels/csrc/paged_decode_attention.cu"
@@ -47,19 +48,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, block_tables, pos, k_scale, v_scale, window):
-    if k.dim() != 4 or q.dim() != 4 or block_tables.dim() != 2:
+def check_paged(q, k, v, block_tables, pos, k_scale, v_scale, window):
+    """Raise ValueError on any input the paged kernels do not take: q is
+    (B, n_kv, group, hd) for decode or (B, kq, n_kv, group, hd) for
+    verify."""
+    if k.dim() != 4 or q.dim() not in (4, 5) or block_tables.dim() != 2:
         raise ValueError(f"q must be (B, n_kv, group, hd), k and v "
                          f"(n_blocks, bs, n_kv, hd), block_tables (B, nbmax); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(block_tables.shape)}")
     nblk, bs, nkv, hd = k.shape
-    b, group = q.shape[0], q.shape[2]
+    b, group = q.shape[0], q.shape[-2]
     quantized = k.dtype == torch.int8
     if k.dtype not in (torch.int8, torch.bfloat16):
         raise ValueError(f"pool dtype {k.dtype} not int8 or bf16")
     want = {
-        "q": (q, (b, nkv, group, hd), torch.bfloat16),
+        "q": (q, (b,) + tuple(q.shape[1:-3]) + (nkv, group, hd),
+              torch.bfloat16),
         "k": (k, (nblk, bs, nkv, hd), k.dtype),
         "v": (v, (nblk, bs, nkv, hd), k.dtype),
         "block_tables": (block_tables, (b, block_tables.shape[1]),
@@ -116,7 +121,10 @@ def paged_decode_attention(
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda (or cpu), not "
                          f"{q.device}")
-    _check(q, k, v, block_tables, pos, k_scale, v_scale, window)
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, n_kv, group, hd); got "
+                         f"{tuple(q.shape)}")
+    check_paged(q, k, v, block_tables, pos, k_scale, v_scale, window)
     _, bs, nkv, hd = k.shape
     b, group = q.shape[0], q.shape[2]
     lib = _lib()

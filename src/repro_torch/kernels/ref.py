@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 __all__ = ["decode_attention_ref", "paged_decode_attention_ref",
+           "verify_attention_ref", "paged_verify_attention_ref",
            "shrink_block"]
 
 _NEG_BIG = -1e30   # the reference's mask value
@@ -168,3 +169,56 @@ def paged_decode_attention_ref(
 
     return _flash_decode(q, tile, nbmax, last, pos, hd=hd, window=window,
                          quantized=quantized)
+
+
+def verify_attention_ref(
+    q: torch.Tensor,        # (B, kq, n_kv, group, hd) post-RoPE draft queries
+    k: torch.Tensor,        # (B, cap, n_kv, hd) int8 codes or bf16
+    v: torch.Tensor,        # (B, cap, n_kv, hd)
+    k_pos: torch.Tensor,    # (B, cap) int32
+    pos: torch.Tensor,      # (B,) int32 per-slot base (first-row) position
+    k_scale: Optional[torch.Tensor] = None,   # (B, cap, n_kv) f32 when int8
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    window: int = 0,
+    block: Optional[tuple] = None,
+) -> torch.Tensor:
+    """Multi-token verify attention over the ring cache →
+    (B, kq, n_kv, group, hd) f32: the reference's ``verify_attention_ref``.
+
+    Literally ``decode_attention_ref`` once per query row: row t is the
+    one-token recurrence at position ``pos + t`` over the same cache, and
+    the rows stack on axis 1, so row t is bit for bit the plain decode at
+    ``pos + t``.  The rows are not fused into one (kq·group, bk) tile: a
+    batched product is not row-pure across its rows on every backend, and
+    the speculative stream contract needs each row to be exactly the
+    sequential decode's.
+    """
+    pos = pos.to(torch.int32)
+    return torch.stack(
+        [decode_attention_ref(q[:, t], k, v, k_pos, pos + t, k_scale,
+                              v_scale, window=window, block=block)
+         for t in range(q.shape[1])], dim=1)
+
+
+def paged_verify_attention_ref(
+    q: torch.Tensor,        # (B, kq, n_kv, group, hd) post-RoPE draft queries
+    k: torch.Tensor,        # (n_blocks, bs, n_kv, hd) int8 codes or bf16
+    v: torch.Tensor,        # (n_blocks, bs, n_kv, hd)
+    block_tables: torch.Tensor,   # (B, nbmax) int32 physical block ids
+    pos: torch.Tensor,      # (B,) int32 per-slot base (first-row) position
+    k_scale: Optional[torch.Tensor] = None,   # (n_blocks, bs, n_kv) f32
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    """Multi-token verify attention over the paged block pool →
+    (B, kq, n_kv, group, hd) f32: the reference's
+    ``paged_verify_attention_ref``, ``paged_decode_attention_ref`` once
+    per query row at ``pos + t``, stacked on axis 1 (see
+    ``verify_attention_ref`` on why the rows stay separate)."""
+    pos = pos.to(torch.int32)
+    return torch.stack(
+        [paged_decode_attention_ref(q[:, t], k, v, block_tables, pos + t,
+                                    k_scale, v_scale, window=window)
+         for t in range(q.shape[1])], dim=1)

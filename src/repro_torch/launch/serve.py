@@ -7,6 +7,8 @@ the paged KV cache:
       --sched priority
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
       --kv-layout paged --num-blocks 8 --kv-quant
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
+      --reduced --device cpu --spec-decode --draft-k 4
 
 Takes the subset of the reference launcher's flags that the port's engine
 serves, plus ``--device``.  Weights are random, drawn from seed 0 (the
@@ -47,6 +49,14 @@ def serve_main(argv=None):
                          "the dense ring, batch × ceil(max_len/bs))")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable cross-request prefix-block reuse")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="speculative draft-and-verify decode (DESIGN.md "
+                         "§14): prompt-lookup drafting + one multi-token "
+                         "verify call per window; the emitted stream stays "
+                         "bitwise the plain-decode stream")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="speculative window width: 1 pending token + "
+                         "draft-k - 1 drafted tokens per verify call")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 = softmax sampling")
     ap.add_argument("--top-k", type=int, default=0)
@@ -67,7 +77,8 @@ def serve_main(argv=None):
                     kv_quant=args.kv_quant, scheduler=args.sched,
                     kv_layout=args.kv_layout, device=args.device,
                     block_size=args.block_size, num_blocks=args.num_blocks,
-                    prefix_cache=not args.no_prefix_cache)
+                    prefix_cache=not args.no_prefix_cache,
+                    spec_decode=args.spec_decode, draft_k=args.draft_k)
     for r in range(args.requests):
         prompt = [(7 * r + i) % (cfg.vocab_size - 1) + 1
                   for i in range(args.prompt_len)]
@@ -97,6 +108,12 @@ def serve_main(argv=None):
               f"prefix_hit_tokens={st['prefix_hit_tokens']} "
               f"preemptions={st['preemptions']} "
               f"cow_copies={ps['cow_copies']} live_blocks={ps['live']}")
+    if args.spec_decode:
+        drafted, acc = st["spec_draft_tokens"], st["spec_accepted_tokens"]
+        rate = acc / drafted if drafted else 0.0
+        print(f"spec-decode: k={args.draft_k} windows={st['spec_windows']} "
+              f"drafted={drafted} accepted={acc} accept_rate={rate:.2f} "
+              f"emitted={st['spec_emitted_tokens']}")
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ ops, as the reference leaves it to XLA rather than a kernel.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -39,10 +39,13 @@ def _init(gen: torch.Generator, shape, scale=None, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
+             var: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RMSNorm in f32, cast back, times gamma.  ``var``: the mean square
+    over the last dim (keepdim), when the caller computed it already."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if var is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 

@@ -15,8 +15,10 @@ from repro_torch.models.config import ModelConfig
 Params = Dict[str, Any]
 
 __all__ = ["init_model", "make_cache", "apply_prefill", "apply_prefill_paged",
-           "apply_decode", "merge_prefill", "supports_batched_prefill",
-           "supports_paged_kv"]
+           "apply_decode", "apply_verify", "verify_row_purity",
+           "spec_commit", "merge_prefill",
+           "supports_batched_prefill", "supports_paged_kv",
+           "supports_spec_decode"]
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -38,6 +40,15 @@ def supports_paged_kv(cfg: ModelConfig) -> bool:
     """True when the arch can serve from the paged block-pool KV cache
     (DESIGN.md §6): attention-only decoders, as for batched prefill."""
     return supports_batched_prefill(cfg)
+
+
+def supports_spec_decode(cfg: ModelConfig) -> bool:
+    """True when draft-and-verify decode (DESIGN.md §14) keeps the bitwise
+    stream contract: attention-only decoders without MoE.  SSM / RG-LRU
+    recurrences have no multi-token verify form, and MoE capacity ranks are
+    a cumsum over every token of a dispatch, so a verify row would compete
+    for expert capacity with its own future draft positions."""
+    return supports_batched_prefill(cfg) and not cfg.n_experts
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0,
@@ -104,6 +115,35 @@ def apply_decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
     return transformer.decode_step(params, cfg, token, cache, policy=policy,
                                    counter=counter, kv_offset=kv_offset,
                                    backend=backend)
+
+
+def apply_verify(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 cache: Params, *, policy=None, counter=0, kv_offset=None,
+                 alive=None, wcap=None, backend: Optional[str] = None,
+                 fused_ops=frozenset()):
+    """Score K draft positions per slot in one forward
+    (``transformer.verify_step``); requires ``supports_spec_decode(cfg)``.
+    ``fused_ops``: the library ops ``verify_row_purity`` found row-pure."""
+    _check_family(cfg)
+    return transformer.verify_step(params, cfg, tokens, cache, policy=policy,
+                                   counter=counter, kv_offset=kv_offset,
+                                   alive=alive, wcap=wcap, backend=backend,
+                                   fused_ops=fused_ops)
+
+
+def verify_row_purity(params: Params, cfg: ModelConfig, batch: int,
+                      kq: int) -> Dict[str, int]:
+    """Per library op of the verify forward, the outputs in which running
+    it over (batch, kq) rows at once changes bits against decode's
+    per-row shape (``transformer.row_purity``); 0 = safe to fuse."""
+    _check_family(cfg)
+    return transformer.row_purity(params, cfg, batch, kq)
+
+
+def spec_commit(cache: Params, new_pos, written, *, draft_k: int) -> Params:
+    """Bulk-commit + rejected-suffix scrub after a verify forward, in
+    place (``transformer.spec_commit``)."""
+    return transformer.spec_commit(cache, new_pos, written, draft_k=draft_k)
 
 
 def merge_prefill(cfg: ModelConfig, old: Params, new: Params,

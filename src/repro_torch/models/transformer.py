@@ -13,9 +13,12 @@ codes with per-position scales (``_kv_q8``).  The paged layout
 (DESIGN.md §6) keeps per layer a pool of fixed-size token blocks plus a
 trailing trash block, shared by every slot through one ``block_tables``
 (B, nbmax) map; ``prefill_with_cache_paged`` writes prompt suffixes into
-it and joins prefix blocks other requests already wrote.  Unlike the
-reference's pure functions, ``decode_step``, ``merge_cache`` and
-``prefill_with_cache_paged`` update the cache tensors **in place**
+it and joins prefix blocks other requests already wrote.  Speculative
+decoding scores K draft positions per slot in one ``verify_step`` and
+commits the accepted prefix with ``spec_commit`` (DESIGN.md §14).  Unlike
+the reference's pure functions, ``decode_step``, ``verify_step``,
+``spec_commit``, ``merge_cache`` and ``prefill_with_cache_paged`` update
+the cache tensors **in place**
 (``index_put_`` / ``copy_``) and return a cache dict that shares them, so
 a step costs no copy of the cache; callers that need the old cache keep a
 clone.  Only attention layers (``kind="attn"``) of dense models are
@@ -37,7 +40,8 @@ from repro_torch.numerics.policy import dense
 Params = Dict[str, Any]
 
 __all__ = ["init_params", "init_cache", "prefill_with_cache",
-           "prefill_with_cache_paged", "merge_cache", "decode_step"]
+           "prefill_with_cache_paged", "merge_cache", "decode_step",
+           "verify_step", "spec_commit", "row_purity", "VERIFY_OPS"]
 
 
 def _kv_q8(t: torch.Tensor, ctr, idx, seed: int):
@@ -667,3 +671,324 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     if block_tables is not None:
         new_cache["block_tables"] = cache["block_tables"]
     return logits, new_cache
+
+
+# ---------------------------------------------------------------------------
+# speculative verify: K-token scoring + bulk commit (DESIGN.md §14)
+# ---------------------------------------------------------------------------
+
+
+# The library ops of a verify forward, each computed by torch (cuBLAS on the
+# card) with a summation order the library may choose by the row count.
+VERIFY_OPS = ("rms_norm", "wq", "wk", "wv", "wo", "wg", "wu", "wd",
+              "lm_head")
+
+
+def _rowwise(fn, x: torch.Tensor, fused: bool) -> torch.Tensor:
+    """``fn`` over the K rows of x (B, K, ·): at once when ``fused``, else
+    on each contiguous (B, 1, ·) row (decode's own shape), stacked."""
+    if fused:
+        return fn(x)
+    return torch.cat([fn(x[:, t:t + 1].contiguous())
+                      for t in range(x.shape[1])], dim=1)
+
+
+def _rms_norm_rows(x: torch.Tensor, gamma: torch.Tensor, eps: float,
+                   fused: bool) -> torch.Tensor:
+    """``layers.rms_norm`` over the K rows of x (B, K, d).  Its one
+    reduction, the mean square, runs over all rows at once when ``fused``,
+    else per row on a contiguous (B, d) block — decode's layout — and its
+    elementwise steps run over all rows either way."""
+    if fused:
+        return layers.rms_norm(x, gamma, eps)
+    xf = x.to(torch.float32)
+    sq = (xf * xf).transpose(0, 1).contiguous()                 # (K, B, d)
+    var = torch.stack([torch.mean(sq[t], dim=-1, keepdim=True)
+                       for t in range(sq.shape[0])], dim=1)     # (B, K, 1)
+    return layers.rms_norm(x, gamma, eps, var=var)
+
+
+def _verify_weights(params: Params, cfg: ModelConfig) -> Dict[str, Any]:
+    """op name → the weight each op of ``VERIFY_OPS`` multiplies by (None
+    for the norm), the first layer's (every layer has the same shapes)."""
+    bp = next(_layers(params, cfg))[0]
+    weights = {"rms_norm": None,
+               "lm_head": (params["embed"].T if cfg.tie_embeddings
+                           else params["lm_head"])}
+    weights.update({n: bp["attn"][n] for n in ("wq", "wk", "wv", "wo")})
+    weights.update({n: bp["mlp"][n] for n in ("wg", "wu", "wd")})
+    return weights
+
+
+def row_purity(params: Params, cfg: ModelConfig, batch: int, kq: int, *,
+               seed: int = 0) -> Dict[str, int]:
+    """For each op of ``VERIFY_OPS``: in how many outputs the op over
+    (batch, kq) rows at once differs in its bits from the op on each
+    (batch, 1, ·) row at decode's shape, on the params' device.  0 means
+    the library sums each row in the same order whatever the row count at
+    this shape, and ``verify_step`` may run that op fused (``fused_ops``).
+
+    The inputs are made so that the order shows: a product's bf16 output
+    hides most reorderings of its f32 sum, so each matmul gets operands of
+    its weight's shape and layout whose first and last products are ±2²⁴
+    around N(0, 1) terms — the f32 sum then depends on the order in nearly
+    every output.  The norm's sum of squares cannot cancel, so its f32
+    mean square is compared before rounding.  Inputs are seeded."""
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = {}
+    for name, w in _verify_weights(params, cfg).items():
+        width = cfg.d_model if w is None else w.shape[0]
+        x = torch.randn((batch, kq, width), generator=gen, device=dev)
+        if w is None:
+            def op(a):
+                af = a.to(torch.float32)
+                return torch.mean(af * af, dim=-1, keepdim=True)
+        else:
+            x[..., 0] = x[..., -1] = 4096.0
+            ws = torch.randn(w.shape, generator=gen, device=dev)
+            ws[0], ws[-1] = 4096.0, -4096.0
+            syn = torch.empty_like(w)                # w's strides (layout)
+            syn.copy_(ws)
+
+            def op(a, syn=syn):
+                return dense(a, syn)
+        x = x.to(params["embed"].dtype)
+        fused, rows = _rowwise(op, x, True), _rowwise(op, x, False)
+        out[name] = int((fused != rows).sum().item())
+    return out
+
+
+def _attention_verify(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                      cache: Params, pos: torch.Tensor, policy, counter,
+                      kv_offset=None, alive=None, wcap=None,
+                      backend: Optional[str] = None,
+                      block_tables: Optional[torch.Tensor] = None,
+                      fused_ops=frozenset()):
+    """K-token verify attention against one layer's cache entry: the
+    reference's ``_attention_verify``.  x: (B, K, d) normed hidden rows;
+    row t scores position ``pos + t``.  Returns (B, K, d).
+
+    Row purity: row t must be bit for bit what ``_attention_decode`` at
+    ``pos + t`` computes.  Rope, the KV quantiser and the writes are
+    elementwise per (row, position) and run over (B, K) at once; attention
+    goes through the verify kernel, whose row t is the decode kernel at
+    ``pos + t``; each projection runs fused over the K rows only when named
+    in ``fused_ops`` (see ``row_purity``), else per row at decode's own
+    (B, 1, d) shape.
+
+    All K positions are written first, **in place**; the per-row causal
+    mask hides later rows' positions from earlier rows as empty slots are
+    hidden in decode.  Row t of slot b writes only when ``alive[b]`` and
+    ``t < wcap[b]``: a gated ring write keeps the slot's old bytes, a gated
+    paged write lands in the trash block, so the verify forward never
+    dirties state the commit cannot account for.
+    """
+    b, kq = x.shape[0], x.shape[1]
+    hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
+    dev = x.device
+    paged = block_tables is not None
+
+    def proj(name, seed, heads):
+        out = _rowwise(lambda a: dense(a, params[name], policy, counter,
+                                       seed=seed), x, name in fused_ops)
+        return out.reshape(b, kq, heads, hd)
+
+    q, k, v = proj("wq", 1, nh), proj("wk", 2, nkv), proj("wv", 3, nkv)
+    if cfg.qkv_bias and "bq" in params:
+        q = q + params["bq"].reshape(1, 1, nh, hd)
+        k = k + params["bk"].reshape(1, 1, nkv, hd)
+        v = v + params["bv"].reshape(1, 1, nkv, hd)
+    offs = torch.arange(kq, dtype=torch.int32, device=dev)[None, :]
+    posv = pos[:, None] + offs                                  # (B, K)
+    q = layers.rope(q, posv, cfg.rope_theta)
+    k = layers.rope(k, posv, cfg.rope_theta)
+
+    if alive is None:
+        alive = torch.ones((b,), dtype=torch.bool, device=dev)
+    if wcap is None:
+        wcap = torch.full((b,), kq, dtype=torch.int32, device=dev)
+    writable = (offs < wcap.to(torch.int32)[:, None]) & alive[:, None]
+
+    width = cache["k"].shape[1]                     # ring cap or block size
+    if not paged and kq > width:
+        raise ValueError(f"{kq} verify rows do not fit a ring of {width} "
+                         "slots")
+    slot = torch.remainder(posv, width).long()
+    if paged:
+        trash = cache["k"].shape[0] - 1
+        logical = torch.clamp(torch.div(posv, width, rounding_mode="floor"),
+                              0, block_tables.shape[1] - 1)
+        index = torch.where(writable, block_tables.gather(1, logical.long()),
+                            trash).long()
+    else:
+        index = torch.arange(b, device=dev)[:, None].expand(b, kq)
+
+    def write(name, new):
+        """Position (b, t) of ``cache[name]`` ← new[b, t] where writable:
+        paged gated writes go to the trash block, ring ones keep the old
+        bytes (no two (b, t) share a ring slot: K ≤ cap)."""
+        t = cache[name]
+        if not paged:
+            gate = writable.reshape(writable.shape + (1,) * (new.dim() - 2))
+            new = torch.where(gate, new, t[index, slot])
+        t[index, slot] = new
+
+    if cache["k"].dtype == torch.int8:
+        ctr = posv if kv_offset is None else posv + kv_offset[:, None]
+        ctr4 = ctr.reshape(b, kq, 1, 1)
+        idx4 = _kv_elem_idx(nkv, hd, dev)
+        k8, ks = _kv_q8(k, ctr4, idx4, 101)
+        v8, vs = _kv_q8(v, ctr4, idx4, 102)
+        for name, new in (("k", k8), ("v", v8), ("k_scale", ks),
+                          ("v_scale", vs)):
+            write(name, new)
+    else:
+        write("k", k.to(cache["k"].dtype))
+        write("v", v.to(cache["v"].dtype))
+
+    qg = q.reshape(b, kq, nkv, nh // nkv, hd)
+    if paged:
+        attn = dispatch.paged_verify_attention(
+            qg, cache["k"], cache["v"], block_tables, pos,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            window=cfg.window or 0, backend=backend)
+    else:
+        write("k_pos", posv)
+        attn = dispatch.verify_attention(
+            qg, cache["k"], cache["v"], cache["k_pos"], pos,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            window=cfg.window or 0, backend=backend)
+    out = attn.to(x.dtype).reshape(b, kq, nh * hd)
+    return _rowwise(lambda a: dense(a, params["wo"], policy, counter, seed=4),
+                    out, "wo" in fused_ops)
+
+
+def _apply_verify_block(bp: Params, cfg: ModelConfig, kind: str,
+                        x: torch.Tensor, *, policy, counter,
+                        cache_entry: Params, pos: torch.Tensor, kv_offset,
+                        alive, wcap, backend: Optional[str], block_tables,
+                        fused_ops):
+    """One transformer block of the verify forward over the K hidden rows
+    x (B, K, d): ``_apply_block``'s decode ops — the norms and the SwiGLU
+    MLP's projections per row unless named in ``fused_ops``, its
+    elementwise ops over all rows — around the verify attention."""
+    _check_kind(kind)
+    norm = "rms_norm" in fused_ops
+
+    def rows(name, a, fn):
+        return _rowwise(fn, a, name in fused_ops)
+
+    h = _rms_norm_rows(x, bp["ln1"], cfg.norm_eps, norm)
+    x = x + _attention_verify(bp["attn"], cfg, h, cache_entry, pos, policy,
+                              counter, kv_offset=kv_offset, alive=alive,
+                              wcap=wcap, backend=backend,
+                              block_tables=block_tables, fused_ops=fused_ops)
+    h2 = _rms_norm_rows(x, bp["ln2"], cfg.norm_eps, norm)
+    mp = bp["mlp"]
+    layers._check_act(cfg.mlp_act)
+    g = rows("wg", h2, lambda a: dense(a, mp["wg"], policy, counter, seed=5))
+    u = rows("wu", h2, lambda a: dense(a, mp["wu"], policy, counter, seed=6))
+    gf = g.to(torch.float32)
+    hm = (gf * torch.sigmoid(gf)).to(h2.dtype) * u     # layers.mlp's SwiGLU
+    return x + rows("wd", hm, lambda a: dense(a, mp["wd"], policy, counter,
+                                              seed=7))
+
+
+def verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Params, *, policy=None, counter=0, kv_offset=None,
+                alive=None, wcap=None, backend: Optional[str] = None,
+                fused_ops=frozenset()):
+    """Score K draft positions per slot in one forward → ((B, K,
+    vocab_size) f32 logits, cache with the K positions written in place).
+
+    ``tokens`` (B, K): each slot's last committed token, then K - 1 drafts.
+    ``logits[:, t]`` is bit for bit the (B, vocab_size) logits
+    ``decode_step`` returns at position ``pos + t`` after sequentially
+    decoding ``tokens[:, 1..t]`` — what makes a speculative stream equal
+    to the plain one.  ``cache["pos"]`` is not advanced: the caller commits
+    the accepted prefix with ``spec_commit``.  ``alive`` (B,) bool and
+    ``wcap`` (B,) int bound the writes (see ``_attention_verify``).
+    ``fused_ops`` names the ops of ``VERIFY_OPS`` to run over all K rows at
+    once; the rest run per row at decode's shape (the default: all), which
+    is row-pure whatever the library does (see ``row_purity``).
+    """
+    b, kq = tokens.shape
+    pos = torch.broadcast_to(cache["pos"].to(torch.int32), (b,)).contiguous()
+    block_tables = cache.get("block_tables")
+    if block_tables is not None:
+        block_tables = block_tables.to(torch.int32).contiguous()
+    x = params["embed"][tokens]
+    for bp, kind, pos_i, r in _layers(params, cfg):
+        entry = (_index(cache["layers"][pos_i], r) if r is not None
+                 else cache["remainder"][pos_i])
+        x = _apply_verify_block(bp, cfg, kind, x, policy=policy,
+                                counter=counter, cache_entry=entry, pos=pos,
+                                kv_offset=kv_offset, alive=alive, wcap=wcap,
+                                backend=backend, block_tables=block_tables,
+                                fused_ops=fused_ops)
+    xn = _rms_norm_rows(x, params["final_norm"], cfg.norm_eps,
+                        "rms_norm" in fused_ops)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = _rowwise(lambda a: dense(a, head, None, 0, seed=9), xn,
+                      "lm_head" in fused_ops)
+    return logits.to(torch.float32)[:, :, : cfg.vocab_size], cache
+
+
+def spec_commit(cache: Params, new_pos: torch.Tensor, written: torch.Tensor,
+                *, draft_k: int) -> Params:
+    """Bulk-commit a verified window, **in place**: ``pos`` becomes
+    ``new_pos`` and the rejected suffix — draft positions in ``[new_pos,
+    pos + written)`` — is scrubbed back to the never-written state (codes,
+    scales and bf16 K/V 0, ring ``k_pos`` -1), so the cache holds the bytes
+    of one that only ever decoded the accepted tokens (the reference's
+    ``spec_commit``).
+
+    The accepted prefix needs no touch-up: the dither codes are
+    position-pure, so what the verify forward wrote below ``new_pos`` is
+    what sequential decode writes.  ``written`` (B,) is the per-row write
+    budget the verify forward ran with (0 for dead rows).
+    """
+    old = cache["pos"].to(torch.int32)
+    b = old.shape[0]
+    dev = old.device
+    new_pos = new_pos.to(torch.int32)
+    offs = torch.arange(draft_k, dtype=torch.int32, device=dev)[None, :]
+    p = old[:, None] + offs                                     # (B, K)
+    stale = ((offs < written.to(torch.int32)[:, None])
+             & (p >= new_pos[:, None]))
+    block_tables = cache.get("block_tables")
+    paged = block_tables is not None
+
+    def scrub(entry, lead):
+        pre = (slice(None),) if lead else ()
+        width = entry["k"].shape[len(pre) + 1]
+        slot = torch.remainder(p, width).long()
+        if paged:
+            # non-stale positions scrub the trash block, which nothing reads
+            trash = entry["k"].shape[len(pre)] - 1
+            logical = torch.clamp(torch.div(p, width, rounding_mode="floor"),
+                                  0, block_tables.shape[1] - 1)
+            index = torch.where(stale, block_tables.to(torch.int64).gather(
+                1, logical.long()), trash)
+        else:
+            index = torch.arange(b, device=dev)[:, None].expand(b, draft_k)
+        ix = pre + (index, slot)
+        for name, t in entry.items():
+            blank = torch.zeros((), dtype=t.dtype, device=dev)
+            if name == "k_pos":
+                blank = blank - 1
+            if not paged:
+                # ring: keep the bytes of positions that are not stale
+                gate = stale.reshape((1,) * len(pre) + stale.shape
+                                     + (1,) * (t.dim() - len(pre) - 2))
+                blank = torch.where(gate, blank, t[ix])
+            t[ix] = blank
+
+    for entry in cache["layers"]:
+        scrub(entry, True)
+    for entry in cache["remainder"]:
+        scrub(entry, False)
+    cache["pos"] = new_pos
+    return cache

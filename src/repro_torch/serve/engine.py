@@ -1,14 +1,16 @@
 """Serving engine of the port: batched prefill, then one decode tick at a
-time over the ring or the paged KV cache (counterpart of the reference's
+time — or, with ``spec_decode``, one draft-and-verify window at a time —
+over the ring or the paged KV cache (counterpart of the reference's
 ``serve/engine.py``, its single-device, ``decode_ticks=1`` subset;
-DESIGN.md §6).
+DESIGN.md §6, §14).
 
-``make_serve_fns`` and ``make_paged_prefill`` build the prefill and decode
-steps, ``Engine`` is the host-side loop that drives them: a
-:class:`Scheduler` admits queued requests into free decode slots, admitted
-prompts run through one batched prefill (right-padded prompts, KV written
-per slot into the cache, prefill logits seeding each request's first
-token), and each tick decodes and samples every active slot.  Per-request
+``make_serve_fns``, ``make_paged_prefill`` and ``make_spec_verify`` build
+the prefill, decode and verify steps; ``Engine`` is the host-side loop
+that drives them: a :class:`Scheduler` admits queued requests into free
+decode slots, admitted prompts run through batched prefills (right-padded
+prompts, one call per length bucket, KV written per slot into the cache,
+prefill logits seeding each request's first token), and each tick
+decodes and samples every active slot.  Per-request
 :class:`SamplingParams` drive greedy/temperature/top-k sampling, EOS/stop
 handling and the per-request dither-counter offsets.
 
@@ -45,12 +47,14 @@ import torch
 from repro_torch.kernels.paged_decode_attention import MAX_BLOCK_SIZE
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
+from repro_torch.serve.draft import Drafter, PromptLookupDrafter
 from repro_torch.serve.kvpool import KVPool
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 from repro_torch.serve.scheduler import Scheduler
 
 __all__ = ["make_serve_fns", "make_decode_and_sample", "make_fused_decode",
-           "make_paged_prefill", "Engine", "Request", "SamplingParams",
+           "make_paged_prefill", "make_spec_verify", "Engine", "Request",
+           "SamplingParams",
            "Scheduler", "KVPool", "DEFAULT_BLOCK_SIZE"]
 
 # The paged pool's default block size: the CUDA kernels' tile (64 keys), so
@@ -124,13 +128,10 @@ def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
         pos0 = cache["pos"]
         step_cache = cache
         if "block_tables" in cache:
-            leaf = (cache["layers"][0]["k"] if cache["layers"]
-                    else cache["remainder"][0]["k"])
-            # the pool's leading dim is blocks + 1; the last id is trash
-            trash = leaf.shape[1] - 1 if cache["layers"] else leaf.shape[0] - 1
             step_cache = dict(cache)
             step_cache["block_tables"] = torch.where(
-                alive[:, None], cache["block_tables"], trash).to(torch.int32)
+                alive[:, None], cache["block_tables"],
+                _trash_id(cache)).to(torch.int32)
         logits, new_cache = registry.apply_decode(
             params, cfg, token, step_cache, policy=policy, counter=counter,
             kv_offset=kv_offset)
@@ -143,6 +144,51 @@ def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
         return toks[None], toks, counters, new_cache
 
     return fused_decode
+
+
+def make_spec_verify(cfg: ModelConfig, policy=None, *, draft_k: int,
+                     fused_ops=frozenset()):
+    """The speculative verify step: ``spec_verify(params, drafts, cache,
+    kv_offset, counter, temps, topks, seeds, counters, alive, wcap)`` scores
+    ``draft_k`` positions per slot in one call and returns ``(sampled (B, K)
+    int32, cache)``.  ``drafts[:, 0]`` is each slot's last committed token
+    and ``drafts[:, 1:]`` the drafter's proposals; ``sampled[:, t]`` is what
+    the sampler — stateless in (seed, counter) — draws from row t's logits
+    with counter ``counters + t``, at decode's (B, vocab) shape, so it is
+    the plain tick's draw whenever rows 1..t matched.  All K positions are
+    written in place up to each row's ``wcap``; ``pos`` does not advance
+    (``registry.spec_commit`` follows).  Rows that are not ``alive`` write
+    nothing: on a paged cache their block tables read as the trash block.
+    ``fused_ops``: the verify forward's library ops to run over all K rows
+    at once (``registry.verify_row_purity``); the rest run per row."""
+    _check_policy(policy)
+
+    def spec_verify(params, drafts, cache, kv_offset, counter, temps, topks,
+                    seeds, counters, alive, wcap):
+        step_cache = cache
+        if "block_tables" in cache:
+            step_cache = dict(cache)
+            step_cache["block_tables"] = torch.where(
+                alive[:, None], cache["block_tables"],
+                _trash_id(cache)).to(torch.int32)
+        logits, new_cache = registry.apply_verify(
+            params, cfg, drafts, step_cache, policy=policy, counter=counter,
+            kv_offset=kv_offset, alive=alive, wcap=wcap, fused_ops=fused_ops)
+        if "block_tables" in cache:
+            new_cache["block_tables"] = cache["block_tables"]
+        sampled = torch.stack(
+            [sample_tokens(logits[:, t].contiguous(), temps, topks, seeds,
+                           counters + t) for t in range(draft_k)], dim=1)
+        return sampled, new_cache
+
+    return spec_verify
+
+
+def _trash_id(cache) -> int:
+    """The paged pool's trash block id: its leading dim is blocks + 1."""
+    if cache["layers"]:
+        return cache["layers"][0]["k"].shape[1] - 1
+    return cache["remainder"][0]["k"].shape[0] - 1
 
 
 def make_paged_prefill(cfg: ModelConfig, policy=None, *,
@@ -226,14 +272,28 @@ def _bucket(n: int) -> int:
     return b
 
 
+def _prefill_groups(rows: dict) -> List[List[int]]:
+    """Slots of one admission wave, grouped by (padded length bucket, prefix
+    hit or not) — ``rows`` maps slot → (tokens to prefill, has a prefix).
+    Each group is one prefill call, so a request's prefill runs at a shape
+    set by its own prompt, never by the other requests of its wave: on the
+    card a longer padded batch can change the bits of every row (the
+    library picks its summation order by shape), and which requests share
+    a wave depends on when slots free up — which speculative decoding
+    changes.  Groups come in ascending order."""
+    groups: dict = {}
+    for i, (n, hit) in sorted(rows.items()):
+        groups.setdefault((_bucket(n), hit), []).append(i)
+    return [groups[key] for key in sorted(groups)]
+
+
 # reference knob → (value that means "off", ROADMAP Queue 1 item porting it)
 _OUT_OF_SLICE = {
     "mesh": (None, 10), "metrics": (None, 8), "trace": (None, 8),
     "decode_ticks": (1, 6), "prefill_chunk": (None, 6),
     "queue_cap": (None, 8), "shed_policy": ("reject-new", 8),
     "queue_ttl_s": (None, 8), "injector": (None, 8),
-    "snapshot_path": (None, 8), "spec_decode": (False, 7),
-    "frames": (None, 11),
+    "snapshot_path": (None, 8), "frames": (None, 11),
 }
 
 
@@ -244,16 +304,24 @@ class Engine:
     Fixed decode batch B (the slot count).  Each :meth:`step`:
 
     1. asks the scheduler for requests to fill free slots; admitted prompts
-       are right-padded into a (B, S_bucket) batch and run through one
-       batched prefill, and the prefill logits seed each request's first
-       sampled token.  The ring layout merges the prefill's cache rows into
-       the admitted slots; the paged layout admits while the pool can
-       supply blocks, shares cached prefix blocks and prefills only the
-       suffix, and resumes preempted requests where they stopped;
+       are right-padded into (B, S_bucket) batches, one batched prefill per
+       length bucket (``_prefill_groups``), and the prefill logits seed
+       each request's first sampled token.  The ring layout merges the
+       prefill's cache rows into the admitted slots; the paged layout
+       admits while the pool can supply blocks, shares cached prefix
+       blocks and prefills only the suffix, and resumes preempted requests
+       where they stopped;
     2. decodes and samples every active slot once;
     3. retires slots on EOS/stop tokens, ``max_new``, or ``max_len``
        (ring: preempted; paged: a 'length' stop), freeing them for the
        next admission wave.
+
+    With ``spec_decode`` step 2 is a speculative window instead
+    (:meth:`_spec_decode_tick`): ``drafter`` (default
+    :class:`PromptLookupDrafter`) proposes ``draft_k - 1`` tokens per slot,
+    one verify call scores all ``draft_k`` positions, and the longest prefix
+    the engine's own sampler agrees with is committed — the stream stays
+    bit for bit the plain one.
 
     ``device`` is where the cache and the per-slot state live; ``params``
     must be there already.  Paged knobs: ``block_size`` (default
@@ -272,16 +340,45 @@ class Engine:
                  prefill_chunk=None, queue_cap=None,
                  shed_policy: str = "reject-new", queue_ttl_s=None,
                  injector=None, snapshot_path=None,
-                 spec_decode: bool = False, frames=None):
-        _check_policy(policy)
+                 spec_decode: bool = False, draft_k: int = 4,
+                 drafter: Optional[Drafter] = None, frames=None):
         if kv_layout not in ("ring", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        # speculative decoding (DESIGN.md §14): each gate protects the
+        # bitwise stream contract, and raises as the reference's does
+        self.spec_decode = bool(spec_decode)
+        self.draft_k = int(draft_k)
+        self.drafter = (drafter if drafter is not None
+                        else PromptLookupDrafter())
+        if self.spec_decode:
+            if self.draft_k < 2:
+                raise ValueError(f"draft_k must be >= 2, got {draft_k}")
+            if not registry.supports_spec_decode(cfg):
+                raise ValueError(
+                    "spec_decode requires an attention-only decoder without "
+                    f"MoE; {cfg.name!r} is not one (SSM/RG-LRU recurrences "
+                    "have no multi-token verify form, and MoE capacity ranks "
+                    "couple a verify row to its own future draft positions)")
+            if policy is not None and getattr(policy, "enabled", True):
+                raise ValueError(
+                    "spec_decode requires policy=None: the activation "
+                    "quantiser's tensor-global absmax couples verify rows, "
+                    "so they would not be bitwise the sequential steps")
+            if kv_layout == "ring" and cfg.window and cfg.window < max_len:
+                raise ValueError(
+                    "spec_decode over the ring layout needs ring capacity "
+                    f"= max_len; window={cfg.window} < max_len={max_len} "
+                    "would let the verify forward overwrite positions its "
+                    "own earlier rows still attend (use kv_layout='paged')")
+            if kv_layout == "ring" and self.draft_k > max_len:
+                raise ValueError(f"draft_k={draft_k} exceeds the ring's "
+                                 f"{max_len} slots")
+        _check_policy(policy)
         given = dict(mesh=mesh, metrics=metrics, trace=trace,
                      decode_ticks=decode_ticks, prefill_chunk=prefill_chunk,
                      queue_cap=queue_cap, shed_policy=shed_policy,
                      queue_ttl_s=queue_ttl_s, injector=injector,
-                     snapshot_path=snapshot_path, spec_decode=spec_decode,
-                     frames=frames)
+                     snapshot_path=snapshot_path, frames=frames)
         for name, (off, item) in _OUT_OF_SLICE.items():
             if given[name] != off:
                 raise NotImplementedError(
@@ -337,6 +434,19 @@ class Engine:
             self._prefill, _ = make_serve_fns(cfg, policy, max_len=max_len,
                                               kv_quant=kv_quant)
         self._fused = make_fused_decode(cfg, policy, n_ticks=1)
+        self._spec = None
+        # the verify forward's library ops that this device sums in the same
+        # order over K rows as over decode's one: probed once at this
+        # engine's shapes, they run fused; the others run per row
+        self.verify_fused_ops = frozenset()
+        if self.spec_decode:
+            self.verify_fused_ops = frozenset(
+                op for op, n in registry.verify_row_purity(
+                    params, cfg, batch, self.draft_k).items() if n == 0)
+            self._spec = make_spec_verify(cfg, policy, draft_k=self.draft_k,
+                                          fused_ops=self.verify_fused_ops)
+        # per-window write budget of each paged slot (``_pre_decode_paged``)
+        self._paged_cap = {}
 
         self.scheduler = (Scheduler(scheduler) if isinstance(scheduler, str)
                           else scheduler)
@@ -354,10 +464,14 @@ class Engine:
         self._counters = np.zeros((batch,), np.int32)
         self._dev = {}
         self._dev_dirty = True
+        # speculative windows count in decode_calls; the spec_* counters
+        # stand here until the metrics surface is ported (item 8)
         self.stats = {"prefill_s": 0.0, "prefill_tokens": 0,
                       "prefill_calls": 0, "decode_s": 0.0,
                       "decode_tokens": 0, "decode_calls": 0,
-                      "prefix_hit_tokens": 0, "preemptions": 0}
+                      "prefix_hit_tokens": 0, "preemptions": 0,
+                      "spec_windows": 0, "spec_draft_tokens": 0,
+                      "spec_accepted_tokens": 0, "spec_emitted_tokens": 0}
 
     # ------------------------------------------------------ pool aggregates
 
@@ -387,7 +501,10 @@ class Engine:
         Returns the requests still active."""
         self._admit_and_prefill()
         if any(s is not None for s in self.slots):
-            self._decode_tick()
+            if self.spec_decode:
+                self._spec_decode_tick()
+            else:
+                self._decode_tick()
         return [s for s in self.slots if s is not None]
 
     def run(self, ticks: int) -> List[Request]:
@@ -451,26 +568,31 @@ class Engine:
             self._set_slot_sampling(i, req)
             self._slot_pos[i] = lens[i]
 
-        s_bucket = _bucket(int(lens.max()))
-        toks = np.zeros((self.batch, s_bucket), np.int32)
-        for i, p in prompts.items():
-            toks[i, : len(p)] = p
-
         self._dev_dirty = True            # admission changed per-slot state
         self._refresh_device_state()
-        t0 = time.perf_counter()
-        lens_dev = self._tensor(lens)
-        last_logits, pf_cache = self._prefill(
-            self.params, self._tensor(toks).long(), lens_dev,
-            self._dev["offsets"], self.tick)
-        self.cache = registry.merge_prefill(self.cfg, self.cache, pf_cache,
-                                            lens_dev > 0)
-        first = sample_tokens(last_logits, self._dev["temps"],
-                              self._dev["topks"], self._dev["seeds"],
-                              self._dev["counters"]).cpu().numpy()
-        self.stats["prefill_s"] += time.perf_counter() - t0
-        self.stats["prefill_tokens"] += int(lens.sum())
-        self.stats["prefill_calls"] += 1
+        first = np.zeros((self.batch,), np.int32)
+        for group in _prefill_groups({i: (len(p), False)
+                                      for i, p in prompts.items()}):
+            g_lens = np.zeros((self.batch,), np.int32)
+            g_lens[group] = lens[group]
+            toks = np.zeros((self.batch, _bucket(int(g_lens.max()))),
+                            np.int32)
+            for i in group:
+                toks[i, : lens[i]] = prompts[i]
+            t0 = time.perf_counter()
+            lens_dev = self._tensor(g_lens)
+            last_logits, pf_cache = self._prefill(
+                self.params, self._tensor(toks).long(), lens_dev,
+                self._dev["offsets"], self.tick)
+            self.cache = registry.merge_prefill(self.cfg, self.cache,
+                                                pf_cache, lens_dev > 0)
+            sampled = sample_tokens(last_logits, self._dev["temps"],
+                                    self._dev["topks"], self._dev["seeds"],
+                                    self._dev["counters"]).cpu().numpy()
+            first[group] = sampled[group]
+            self.stats["prefill_s"] += time.perf_counter() - t0
+            self.stats["prefill_tokens"] += int(g_lens.sum())
+            self.stats["prefill_calls"] += 1
 
         now = time.time()
         for i in prompts:
@@ -656,45 +778,48 @@ class Engine:
 
     def _prefill_wave_paged(self):
         """One prefill wave over every ``prefilling`` slot: the whole
-        unshared suffix of each lands in one batched call (chunked waves
-        are ROADMAP Queue 1 item 6).  Prefix-hit rows gather their shared
-        blocks inside attention.  Each slot's full blocks are then sealed,
-        its first token sampled, and it turns ``active``."""
+        unshared suffix of each lands in one batched call per group of
+        ``_prefill_groups`` (chunked waves are ROADMAP Queue 1 item 6).
+        Prefix-hit rows gather their shared blocks inside attention.  Each
+        slot's full blocks are then sealed, its first token sampled, and it
+        turns ``active``."""
         waving = [(i, s) for i, s in enumerate(self.slots)
                   if s is not None and s.state == "prefilling"]
         if not waving:
             return
-        lens = np.zeros((self.batch,), np.int32)
-        starts = np.zeros((self.batch,), np.int32)
         pieces = {}
-        any_prefix = False
         for i, req in waving:
-            pf = req._pf_pos
-            pieces[i] = self._tokens_written(req)[pf:]
-            lens[i] = len(pieces[i])
-            starts[i] = pf
-            any_prefix = any_prefix or pf > 0
-
-        s_bucket = _bucket(int(lens.max()))
-        toks = np.zeros((self.batch, s_bucket), np.int32)
-        for i, p in pieces.items():
-            toks[i, : len(p)] = p
+            pieces[i] = self._tokens_written(req)[req._pf_pos:]
 
         self._dev_dirty = True
         self._refresh_device_state()
-        t0 = time.perf_counter()
         bt_dev = self._tensor(self._bt)
         self._bt_dirty = False
-        last_logits, self.cache = self._prefill_paged(
-            self.params, self._tensor(toks).long(), self._tensor(lens),
-            self._tensor(starts), bt_dev, self.cache, self._dev["offsets"],
-            self.tick, prefix_blocks=self.nbmax if any_prefix else 0)
-        first = sample_tokens(last_logits, self._dev["temps"],
-                              self._dev["topks"], self._dev["seeds"],
-                              self._dev["counters"]).cpu().numpy()
-        self.stats["prefill_s"] += time.perf_counter() - t0
-        self.stats["prefill_tokens"] += int(lens.sum())
-        self.stats["prefill_calls"] += 1
+        first = np.zeros((self.batch,), np.int32)
+        for group in _prefill_groups({
+                i: (len(pieces[i]), req._pf_pos > 0) for i, req in waving}):
+            lens = np.zeros((self.batch,), np.int32)
+            starts = np.zeros((self.batch,), np.int32)
+            toks = np.zeros((self.batch, _bucket(max(len(pieces[i])
+                                                     for i in group))),
+                            np.int32)
+            for i in group:
+                lens[i] = len(pieces[i])
+                starts[i] = self.slots[i]._pf_pos
+                toks[i, : lens[i]] = pieces[i]
+            t0 = time.perf_counter()
+            last_logits, self.cache = self._prefill_paged(
+                self.params, self._tensor(toks).long(), self._tensor(lens),
+                self._tensor(starts), bt_dev, self.cache,
+                self._dev["offsets"], self.tick,
+                prefix_blocks=self.nbmax if starts.any() else 0)
+            sampled = sample_tokens(last_logits, self._dev["temps"],
+                                    self._dev["topks"], self._dev["seeds"],
+                                    self._dev["counters"]).cpu().numpy()
+            first[group] = sampled[group]
+            self.stats["prefill_s"] += time.perf_counter() - t0
+            self.stats["prefill_tokens"] += int(lens.sum())
+            self.stats["prefill_calls"] += 1
 
         now = time.time()
         for i, req in waving:
@@ -731,18 +856,21 @@ class Engine:
             return True
         return made_room
 
-    def _pre_decode_paged(self):
-        """Before each decode tick: the tick writes each active slot's next
-        position, so the block covering it must exist *now*.  Filled blocks
-        are sealed here (their device writes are issued); a slot the pool
-        cannot cover is preempted and requeued with its blocks (or, as the
-        pool's lone holder, stopped at 'length'); ``max_len`` is a hard
-        'length' stop (the pool has no ring wrap).  A slot left active has
-        its next position covered; the reference's per-window budget cap
-        (``_paged_cap``) matters only for windows of more than one tick
-        (ROADMAP Queue 1 item 6)."""
+    def _pre_decode_paged(self, window: int = 1):
+        """Before each decode window: the window writes each active slot's
+        next ``w = min(window, max_len - p, tokens left)`` positions, so the
+        blocks covering ``[p, p + w)`` must exist *now*.  Filled blocks are
+        sealed here (their device writes are issued).  When the pool covers
+        only part of the window, the slot's budget for it is capped
+        (``_paged_cap``, the reference's per-window budget); a slot the pool
+        cannot cover at all is preempted and requeued with its blocks (or,
+        as the pool's lone holder, stopped at 'length'); ``max_len`` is a
+        hard 'length' stop (the pool has no ring wrap).  ``window`` is 1 for
+        a decode tick and ``draft_k`` for a speculative window, whose
+        rollback gives surplus blocks back."""
         bs = self.block_size
         pool = self.pool
+        self._paged_cap = {}
         for i, req in [(i, s) for i, s in enumerate(self.slots)
                        if s is not None and s.state == "active"]:
             p = int(self._slot_pos[i])
@@ -750,15 +878,18 @@ class Engine:
                 self._finish(i, req, "length")
                 continue
             self._seal_full_blocks(req, p)
+            w = min(window, self.max_len - p,
+                    max(1, req.effective_max_new() - len(req.out)))
             pre = len(pool.table(req.rid))
-            need = p // bs + 1                    # the block of position p
+            need = (p + w - 1) // bs + 1          # the block of p + w - 1
             while len(pool.table(req.rid)) < need:
                 phys = pool.append_block(req.rid)
                 if phys is None:
                     break
                 self._bt[i, len(pool.table(req.rid)) - 1] = phys
                 self._bt_dirty = True
-            if len(pool.table(req.rid)) < need:
+            covered = len(pool.table(req.rid)) * bs - p
+            if covered <= 0:
                 if pool.holders == 1:
                     # nothing to evict or preempt — the pool itself is the
                     # capacity limit for its lone request
@@ -766,6 +897,7 @@ class Engine:
                 else:
                     self._preempt_requeue(i, req)
                 continue
+            self._paged_cap[i] = covered
             if p // bs < pre:
                 # the tick writes into a pre-existing block (partial tail
                 # or a resume) — copy-on-write guard before writing
@@ -834,6 +966,111 @@ class Engine:
             self._slot_pos[i] += 1
             self._emit(i, req, int(toks[i]), now)
             self.stats["decode_tokens"] += 1
+
+    def _spec_decode_tick(self):
+        """One speculative window (DESIGN.md §14), the reference's
+        ``_spec_decode_tick``: draft ``draft_k - 1`` tokens per slot on the
+        host, score all ``draft_k`` positions in one verify call, then
+        commit the longest prefix each slot's own sampler agrees with.
+        Acceptance is exact token match — row t's logits are bit for bit
+        the sequential decode's whenever rows 1..t matched, and the sampler
+        is stateless in (seed, counter) — so the stream is the plain one,
+        greedy and sampled alike; a window always commits at least row 0's
+        token (the plain tick's).  The rejected suffix is scrubbed in one
+        commit call; paged slots then give surplus blocks back with
+        ``KVPool.truncate``, leaving the pool as if it never drafted."""
+        K = self.draft_k
+        if self.kv_layout == "paged":
+            self._pre_decode_paged(window=K)
+            self._sync_block_tables()
+        active = [(i, s) for i, s in enumerate(self.slots)
+                  if s is not None and s.state == "active"]
+        if not active:
+            return
+        # a window's decode time spans drafting, verify, the accept walk
+        # and the commit call
+        t0 = time.perf_counter()
+        alive = np.zeros((self.batch,), bool)
+        budgets = np.zeros((self.batch,), np.int32)
+        drafts = np.zeros((self.batch, K), np.int32)
+        for i, req in active:
+            b = min(K, req.effective_max_new() - len(req.out),
+                    self.max_len - int(self._slot_pos[i]))
+            if self.kv_layout == "paged":
+                b = min(b, self._paged_cap[i])
+            alive[i] = True
+            budgets[i] = b
+            drafts[i, 0] = self._last_token[i]
+            prop = self.drafter.propose(list(req.prompt) + req.out, K - 1)
+            nd = min(len(prop), K - 1)
+            if nd:
+                drafts[i, 1:1 + nd] = prop[:nd]
+
+        self._refresh_device_state()
+        toks_dev, self.cache = self._spec(
+            self.params, self._tensor(drafts), self.cache,
+            self._dev["offsets"], self.tick, self._dev["temps"],
+            self._dev["topks"], self._dev["seeds"], self._dev["counters"],
+            self._tensor(alive), self._tensor(budgets))
+        toks = toks_dev.cpu().numpy()                 # (B, K) sampled per row
+
+        # host accept walk: row t commits iff its *input* draft matched row
+        # t-1's sampled token (what sequential decode would have fed), cut
+        # at the first stop/EOS hit
+        accept = {}
+        for i, req in active:
+            b = int(budgets[i])
+            m = 1
+            while m < b and drafts[i, m] == toks[i, m - 1]:
+                m += 1
+            stops = req.sampling.stop_set()
+            for j in range(m):
+                if int(toks[i, j]) in stops:
+                    m = j + 1
+                    break
+            accept[i] = m
+        # bulk commit + rejected-suffix scrub, against the pre-truncation
+        # block tables (the scrub needs the draft mapping)
+        new_pos = np.asarray(self._slot_pos, np.int32)
+        for i, _ in active:
+            new_pos[i] += accept[i]
+        self.cache = registry.spec_commit(self.cache, self._tensor(new_pos),
+                                          self._tensor(budgets), draft_k=K)
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_calls"] += 1
+        self.tick += 1
+        if self.kv_layout == "paged":
+            bs = self.block_size
+            # reverse slot order, each truncate returning newest-first: the
+            # pushes onto the free list mirror the pops of this window's
+            # allocations, so the free list (order included) is as if the
+            # window never drafted
+            for i, req in reversed(active):
+                keep = max(1, -(-int(new_pos[i]) // bs))
+                have = len(self.pool.table(req.rid))
+                if have > keep:
+                    self.pool.truncate(req.rid, keep)
+                    self._bt[i, keep:have] = self._trash
+                    self._bt_dirty = True
+
+        now = time.time()
+        for i, req in active:
+            m = accept[i]
+            # a window's m tokens surface together: each is stamped at an
+            # even share of the interval since the slot's last token
+            t_prev = req.t_last if req.t_last is not None else now
+            for j in range(m):
+                self._slot_pos[i] += 1
+                self._emit(i, req, int(toks[i, j]),
+                           t_prev + (now - t_prev) * (j + 1) / m)
+            self.stats["decode_tokens"] += m
+            self.stats["spec_draft_tokens"] += int(budgets[i]) - 1
+            self.stats["spec_accepted_tokens"] += m - 1
+            self.stats["spec_emitted_tokens"] += m
+        self.stats["spec_windows"] += 1
+        # the device sampling counters ran ahead (all K rows drew); the host
+        # mirrors advanced by the accept length in _emit: re-upload
+        self._dev_dirty = True
 
     def _emit(self, i: int, req: Request, tok: int, now: float):
         req.out.append(tok)

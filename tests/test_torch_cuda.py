@@ -1,7 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (ring and
-paged flash-decode) against their plain versions, paged == ring bit for
-bit, the wrappers' input checks, and the serving path's launch counts.  They import torch and the port only (the card's machine
-has no JAX) and skip where ``torch.cuda.is_available()`` is false:
+paged flash-decode, ring and paged speculative verify) against their plain
+versions, paged == ring bit for bit, every verify row equal to the decode
+kernel at its position bit for bit, the wrappers' input checks, and the
+serving path's launch counts and streams.  They import torch and the port
+only (the card's machine has no JAX) and skip where
+``torch.cuda.is_available()`` is false:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -16,7 +19,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import paged_decode_attention as pda
+from repro_torch.kernels import paged_verify_attention as pva
 from repro_torch.kernels import ref
+from repro_torch.kernels import verify_attention as va
 from repro_torch.models import registry
 
 pytestmark = pytest.mark.cuda
@@ -29,15 +34,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ring(seed, *, b, cap, nkv, group, hd, quant, pos_vals, device):
+def _ring(seed, *, b, cap, nkv, group, hd, quant, pos_vals, device,
+          kq=None):
     """A ring-cache snapshot: slot s of row i holds the latest position
-    p ≡ s (mod cap) with p ≤ pos_i; unwritten slots carry k_pos = -1."""
+    p ≡ s (mod cap) with p ≤ pos_i (pos_i + kq - 1 for a verify call, whose
+    q is (B, kq, n_kv, group, hd)); unwritten slots carry k_pos = -1."""
     rng = np.random.default_rng(seed)
     kpos = np.full((b, cap), -1, np.int32)
     for i, p in enumerate(pos_vals):
-        ps = np.arange(max(0, p - cap + 1), p + 1)
+        top = p + (kq or 1) - 1
+        ps = np.arange(max(0, top - cap + 1), top + 1)
         kpos[i, ps % cap] = ps
-    q = torch.from_numpy(rng.normal(size=(b, nkv, group, hd)).astype(
+    q = torch.from_numpy(rng.normal(
+        size=(b,) + ((kq,) if kq else ()) + (nkv, group, hd)).astype(
         np.float32)).bfloat16()
     if quant:
         k, v = (torch.from_numpy(rng.integers(-127, 128, size=(
@@ -128,10 +137,11 @@ def test_decode_step_launches_once_per_layer(cuda, kv_quant):
 
 
 def _pool(seed, *, b, bs, nbmax, nkv, group, hd, quant, pos_vals, device,
-          share=False):
+          share=False, kq=None):
     """A paged pool: each row's blocks drawn in a shuffled order, row 1
     sharing row 0's first two blocks when ``share``, unused table entries
-    on the trailing trash block."""
+    on the trailing trash block; with ``kq`` (a verify call) q is
+    (B, kq, n_kv, group, hd) and rows hold blocks up to pos_i + kq - 1."""
     rng = np.random.default_rng(seed)
     nblk = b * nbmax + 1
     if quant:
@@ -143,12 +153,13 @@ def _pool(seed, *, b, bs, nbmax, nkv, group, hd, quant, pos_vals, device,
         k, v = (torch.from_numpy(rng.normal(size=(nblk, bs, nkv, hd)).astype(
             np.float32)).bfloat16() for _ in range(2))
         ks = vs = None
-    q = torch.from_numpy(rng.normal(size=(b, nkv, group, hd)).astype(
+    q = torch.from_numpy(rng.normal(
+        size=(b,) + ((kq,) if kq else ()) + (nkv, group, hd)).astype(
         np.float32)).bfloat16()
     ids = list(rng.permutation(nblk - 1))
     bt = np.full((b, nbmax), nblk - 1, np.int32)
     for i, p in enumerate(pos_vals):
-        for j in range(min(p // bs, nbmax - 1) + 1):
+        for j in range(min((p + (kq or 1) - 1) // bs, nbmax - 1) + 1):
             bt[i, j] = bt[0, j] if share and i == 1 and j < 2 else ids.pop()
     out = [q, k, v, torch.from_numpy(bt),
            torch.tensor(pos_vals, dtype=torch.int32), ks, vs]
@@ -251,3 +262,224 @@ def test_paged_engine_launches_once_per_layer_per_tick(cuda, kv_quant):
             assert da.decode_attention.launches == 0
             assert eng.pool.live_blocks == 0
     assert streams["paged"] == streams["ring"]
+
+
+# ---------------------------------------------------------------------------
+# speculative verify kernels
+# ---------------------------------------------------------------------------
+
+
+def _rows_equal_decode(got, decode, t, window):
+    """Verify row r against ``decode`` at pos + r, bit for bit."""
+    q, k, v, index, pos, ks, vs = t
+    for r in range(q.shape[1]):
+        one = decode(q[:, r].contiguous(), k, v, index, pos + r, ks, vs,
+                     window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, r], one), r
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nkv,group,hd,kq", [(3, 3, 64, 4), (2, 6, 128, 4),
+                                             (2, 6, 128, 8), (1, 16, 128, 3)])
+def test_verify_kernel_matches_plain_and_decode_rows(cuda, quant, nkv, group,
+                                                     hd, kq):
+    """Ring verify kernel vs its plain version (64-slot blocks) at 1e-4, and
+    every row equal to the ring decode kernel at pos + t bit for bit: a
+    wrapped ring, a window, a cap that is not a multiple of the block, and
+    a slot at cap - 2 whose last rows run past the ring's end."""
+    for cap, window in ((256, 0), (256, 100), (96, 0)):
+        t = _ring(group + cap + kq, b=5, cap=cap, nkv=nkv, group=group, hd=hd,
+                  quant=quant, pos_vals=[0, 70, cap - 2, 600, 5], kq=kq,
+                  device=cuda)
+        before = va.verify_attention.launches
+        got = va.verify_attention(*t, window=window)
+        torch.cuda.synchronize()
+        assert va.verify_attention.launches == before + 1
+        want = ref.verify_attention_ref(*t, window=window,
+                                        block=(da.KERNEL_BLOCK,))
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        _rows_equal_decode(got, da.decode_attention, t, window)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nkv,group,hd,kq", [(3, 3, 64, 4), (2, 6, 128, 8),
+                                             (1, 16, 128, 3)])
+def test_paged_verify_kernel_matches_plain_and_decode_rows(cuda, quant, nkv,
+                                                           group, hd, kq):
+    """Paged verify kernel vs its plain version at 1e-4 and every row equal
+    to the paged decode kernel at pos + t bit for bit: blocks of 64, 16
+    and 5 tokens, a window, shared prefix blocks, an idle row on the trash
+    block, and a slot two short of the table's end."""
+    for bs, window in ((64, 0), (16, 100), (5, 0)):
+        nbmax = -(-640 // bs)
+        t = _pool(group + bs + kq, b=5, bs=bs, nbmax=nbmax, nkv=nkv,
+                  group=group, hd=hd, quant=quant,
+                  pos_vals=[0, 70, nbmax * bs - 2, 0, 300], device=cuda,
+                  share=True, kq=kq)
+        t[3][3].fill_(t[1].shape[0] - 1)                 # idle row: trash
+        before = pva.paged_verify_attention.launches
+        got = pva.paged_verify_attention(*t, window=window)
+        torch.cuda.synchronize()
+        assert pva.paged_verify_attention.launches == before + 1
+        want = ref.paged_verify_attention_ref(*t, window=window)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        _rows_equal_decode(got, pda.paged_decode_attention, t, window)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [0, 100])
+def test_paged_verify_bitwise_equals_ring_verify(cuda, quant, window):
+    """One token stream in a ring (no wrap) and in 64-token pool blocks:
+    paged verify equals ring verify bit for bit, as the decode kernels
+    do."""
+    b, cap, nkv, group, hd, bs, kq = 4, 512, 3, 3, 64, da.KERNEL_BLOCK, 4
+    t = _ring(6, b=b, cap=cap, nkv=nkv, group=group, hd=hd, quant=quant,
+              pos_vals=[0, 70, 300, 508], device=cuda, kq=kq)
+    q, k, v, kp, pos, ks, vs = t
+    nbmax = cap // bs
+    perm = torch.randperm(b * nbmax, generator=torch.Generator().manual_seed(
+        1)).to(cuda)
+    bt = perm.reshape(b, nbmax).to(torch.int32)
+
+    def to_pool(x):
+        if x is None:
+            return None
+        pool = torch.zeros((b * nbmax + 1, bs) + tuple(x.shape[2:]),
+                           dtype=x.dtype, device=cuda)
+        pool[perm] = x.reshape((b * nbmax, bs) + tuple(x.shape[2:]))
+        return pool
+
+    ring = va.verify_attention(*t, window=window)
+    paged = pva.paged_verify_attention(q, to_pool(k), to_pool(v), bt, pos,
+                                       to_pool(ks), to_pool(vs),
+                                       window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(ring, paged)
+
+
+def test_verify_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v, kp, pos, ks, vs = _ring(7, b=2, cap=128, nkv=2, group=2, hd=64,
+                                     quant=True, pos_vals=[5, 9], kq=4,
+                                     device=cuda)
+    bad = [dict(q=q.float()), dict(q=q[:, 0].contiguous()),
+           dict(q=q.transpose(1, 2).contiguous().transpose(1, 2)),
+           dict(k_scale=None), dict(k_pos=kp.long()), dict(pos=pos.cpu()),
+           dict(q=q[..., :32].contiguous(), k=k[..., :32].contiguous(),
+                v=v[..., :32].contiguous())]
+    base = dict(q=q, k=k, v=v, k_pos=kp, pos=pos, k_scale=ks, v_scale=vs)
+    for change in bad:
+        a = {**base, **change}
+        with pytest.raises(ValueError):
+            va.verify_attention(a["q"], a["k"], a["v"], a["k_pos"], a["pos"],
+                                a["k_scale"], a["v_scale"])
+    t = _pool(8, b=2, bs=16, nbmax=4, nkv=2, group=2, hd=64, quant=False,
+              pos_vals=[5, 40], kq=3, device=cuda)
+    q, k, v, bt, pos, _, _ = t
+    big = _pool(8, b=2, bs=128, nbmax=2, nkv=2, group=2, hd=64, quant=False,
+                pos_vals=[5, 40], kq=3, device=cuda)
+    with pytest.raises(ValueError, match=r"not in \[1, 64\]"):
+        pva.paged_verify_attention(*big)
+    for change in (dict(q=q[:, 0].contiguous()), dict(bt=bt.long()),
+                   dict(q=q.float())):
+        a = {**dict(q=q, bt=bt), **change}
+        with pytest.raises(ValueError):
+            pva.paged_verify_attention(a["q"], k, v, a["bt"], pos)
+    with pytest.raises(ValueError):                 # a 5-D q to decode
+        pda.paged_decode_attention(q, k, v, bt, pos)
+
+
+def _hd64_config():
+    """The reduced model with the kernels' head dim (they take 64 and 128)."""
+    return dataclasses.replace(get_config("smollm_135m").reduced(),
+                               n_heads=6, n_kv_heads=2, head_dim=64)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_verify_step_rows_equal_decode_steps_on_the_card(cuda, kv_quant,
+                                                         layout):
+    """A verify step runs its layout's verify kernel once per layer, and
+    its row t is bit for bit the decode step at pos + t after the drafts
+    before it: the row purity the speculative stream rests on."""
+    from repro_torch.models import transformer
+
+    cfg = _hd64_config()
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    kw = (dict(kv_layout="paged", block_size=16, num_blocks=24)
+          if layout == "paged" else {})
+    toks = torch.randint(1, cfg.vocab_size, (4, 24), device=cuda)
+    lens = torch.tensor([24, 10, 3, 17], dtype=torch.int32, device=cuda)
+    off = torch.tensor([0, 7, 1000, 3], dtype=torch.int32, device=cuda)
+    cache = registry.make_cache(params, cfg, 4, 64, kv_quant=kv_quant,
+                                device=cuda, **kw)
+    if layout == "paged":
+        bt = torch.arange(16, dtype=torch.int32, device=cuda).reshape(4, 4)
+        _, cache = registry.apply_prefill_paged(
+            params, cfg, toks, lens, torch.zeros_like(lens), bt, cache,
+            kv_quant=kv_quant, kv_offset=off)
+    else:
+        _, pf = registry.apply_prefill(params, cfg, toks, lens, 64,
+                                       kv_quant=kv_quant, kv_offset=off)
+        cache = registry.merge_prefill(cfg, cache, pf, lens > 0)
+    seq_cache = copy.deepcopy(cache)
+    drafts = torch.randint(1, cfg.vocab_size, (4, 4), device=cuda)
+    kernel = pva.paged_verify_attention if layout == "paged" \
+        else va.verify_attention
+    before = kernel.launches
+    logits, _ = registry.apply_verify(params, cfg, drafts, cache,
+                                      kv_offset=off)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + cfg.n_layers
+    for t in range(4):
+        want, seq_cache = registry.apply_decode(params, cfg, drafts[:, t],
+                                                seq_cache, kv_offset=off)
+        torch.cuda.synchronize()
+        assert torch.equal(logits[:, t], want), t
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_spec_engine_streams_equal_plain_on_the_card(cuda, kv_quant, layout):
+    """The speculative engine on the card: greedy and sampled streams equal
+    the plain engine's token for token, with a replay drafter (most drafts
+    accepted) and the default prompt lookup; one verify launch per layer
+    per window and no decode-kernel launch."""
+    from repro_torch.serve import Engine, Request, SamplingParams
+    from repro_torch.serve.draft import ReplayDrafter
+
+    cfg = _hd64_config()
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    kw = dict(kv_layout="paged", block_size=8) if layout == "paged" else {}
+
+    def serve(**spec):
+        eng = Engine(params, cfg, 2, 64, kv_quant=kv_quant, device=cuda,
+                     **kw, **spec)
+        for r in range(3):
+            eng.submit(Request(rid=r, prompt=[1 + r, 2, 3, 4, 5] * (r + 1),
+                               sampling=SamplingParams(
+                                   temperature=0.8 * (r % 2), top_k=20,
+                                   seed=r, max_new=9,
+                                   counter_offset=100 * r)))
+        for m in (da.decode_attention, pda.paged_decode_attention,
+                  va.verify_attention, pva.paged_verify_attention):
+            m.launches = 0
+        done = sorted(eng.run(200), key=lambda r: r.rid)
+        return eng, {tuple(r.prompt): r.out for r in done}
+
+    _, plain = serve()
+    for drafter in (ReplayDrafter(plain), None):
+        eng, spec = serve(spec_decode=True, draft_k=4, drafter=drafter)
+        assert spec == plain
+        windows = eng.stats["spec_windows"]
+        kernel = pva.paged_verify_attention if layout == "paged" \
+            else va.verify_attention
+        assert kernel.launches == cfg.n_layers * windows > 0
+        assert da.decode_attention.launches == 0
+        assert pda.paged_decode_attention.launches == 0
+        if drafter is not None:
+            assert eng.stats["spec_accepted_tokens"] > 0
+        if layout == "paged":
+            assert eng.pool.live_blocks == 0

@@ -216,7 +216,9 @@ def test_decode_from_reference_cache():
 def test_out_of_slice_knobs_raise():
     """Quantised-matmul policies, other families and the engine knobs not
     ported yet raise NotImplementedError naming their ROADMAP item.  (The
-    paged cache, once on this list, is ported: it needs a block size.)"""
+    paged cache, once on this list, is ported: it needs a block size.
+    Speculative decoding, once on it too, is ported: its gates raise
+    ValueError, as the reference's do.)"""
     from repro_torch.numerics.policy import dense
     from repro_torch.serve import Engine
 
@@ -232,8 +234,10 @@ def test_out_of_slice_knobs_raise():
         registry.init_model(dataclasses.replace(PCFG, family="ssm"),
                             device="cpu")
     for knob, item in [("decode_ticks", 6), ("mesh", 10), ("metrics", 8),
-                       ("spec_decode", 7), ("prefill_chunk", 6)]:
-        value = {"decode_ticks": 4, "spec_decode": True,
-                 "prefill_chunk": 8}.get(knob, "x")
+                       ("prefill_chunk", 6)]:
+        value = {"decode_ticks": 4, "prefill_chunk": 8}.get(knob, "x")
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", **{knob: value})
+    with pytest.raises(ValueError, match="draft_k must be >= 2"):
+        Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", spec_decode=True,
+               draft_k=1)
