@@ -748,6 +748,8 @@ def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     """The ring path: ``SERVE_REQUESTS`` requests (``ring_requests``),
     prompts spread over 32–512 tokens, 64 new tokens each; batch 8.
     Returns the phase's line and the streams {prompt: output}."""
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.kernels import quantize as qk
     from repro_torch.serve import Engine
 
     # warm-up wave: loads the kernel library and PyTorch's own kernels, at
@@ -767,6 +769,7 @@ def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     sync()
     da.decode_attention.launches = 0
     pda.paged_decode_attention.launches = 0
+    dm.dither_matmul.launches = qk.quantize.launches = 0
     t0 = time.perf_counter()
     done = eng.run(10_000)
     sync()
@@ -781,6 +784,7 @@ def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     assert launches == cfg.n_layers * st["decode_calls"], (
         launches, st["decode_calls"])
     assert pda.paged_decode_attention.launches == 0
+    assert dm.dither_matmul.launches == qk.quantize.launches == 0
     streams = {tuple(r.prompt): list(r.out) for r in done}
     return {"phase": "serve", "layout": "ring",
             "kv": "int8" if kv_quant else "bf16",
@@ -801,6 +805,8 @@ def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     against the 8 × 16 a dense cache would hold.  Later requests hit the
     prefix cache and the pool runs dry, so requests are preempted with
     their blocks and resumed.  Returns the phase's line and the streams."""
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.kernels import quantize as qk
     # warm-up waves, cold and with prefix hits, at every length bucket
     warm = paged_engine(cfg, params, kv_quant, device)
     for req in paged_requests(cfg, 12, [16, 30, 60, 120, 240] * 3, 4):
@@ -817,6 +823,7 @@ def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     sync()
     da.decode_attention.launches = 0
     pda.paged_decode_attention.launches = 0
+    dm.dither_matmul.launches = qk.quantize.launches = 0
     t0 = time.perf_counter()
     done = eng.run(10_000)
     sync()
@@ -833,6 +840,7 @@ def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     assert st["preemptions"] >= 1, st
     assert eng.pool.live_blocks == 0, eng.pool_stats()
     assert ring_launches == 0, ring_launches
+    assert dm.dither_matmul.launches == qk.quantize.launches == 0
     assert launches == cfg.n_layers * st["decode_calls"], (
         launches, st["decode_calls"])
     streams = {tuple(r.prompt): list(r.out) for r in done}
@@ -930,19 +938,22 @@ def spec_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain,
 
 
 def profile_phase(torch, cfg, params, kv_quant, device="cuda",
-                  kv_layout="ring", spec=False):
+                  kv_layout="ring", spec=False, policy=None):
     """Where a decode tick's time goes: three steady ticks of batch-8
     decoding under ``torch.profiler`` — wall time per tick, device time of
     all kernels per tick (their sum over wall is the busy share), kernel
     launches per tick, and the kernels that take the most device time.
     With ``spec``, three speculative windows of ``SPEC_K`` rows instead
-    (the default prompt-lookup drafter): the same numbers per window."""
+    (the default prompt-lookup drafter): the same numbers per window.
+    With a matmul ``policy``, also the dither matmul's device time per
+    tick and its share of the tick's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Engine, Request, SamplingParams
 
     eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device=device,
-                 kv_layout=kv_layout, spec_decode=spec, draft_k=SPEC_K)
+                 kv_layout=kv_layout, spec_decode=spec, draft_k=SPEC_K,
+                 policy=policy)
     for r in range(8):
         eng.submit(Request(rid=r, prompt=list(range(1, 200 + 20 * r)),
                            sampling=SamplingParams(max_new=64)))
@@ -962,7 +973,13 @@ def profile_phase(torch, cfg, params, kv_quant, device="cuda",
                and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return {"phase": "profile", "layout": kv_layout,
+    dither_us = sum(e.self_device_time_total for e in kernels
+                    if any(n in e.key for n in DITHER_KERNELS))
+    extra = {} if policy is None else {
+        "policy": policy.scheme,
+        "dither_matmul_device_ms_per_tick": dither_us / 1e3 / ticks,
+        "dither_matmul_device_share": dither_us / max(device_us, 1e-9)}
+    return {"phase": "profile", "layout": kv_layout, **extra,
             "kv": "int8" if kv_quant else "bf16",
             "spec_decode": spec, "draft_k": SPEC_K if spec else None,
             "verify_fused_ops": sorted(eng.verify_fused_ops),
@@ -1160,6 +1177,306 @@ def paged_parity_phase(torch, cfg, params, kv_quant, device="cuda"):
             "stream_tokens_each": 32}
 
 
+# ------------------------------------------------ kernels 5–6, policy serving
+
+
+DITHER_SCHEMES = ("deterministic", "stochastic", "dither")
+QUANTIZE_REPLACES = "src/repro/kernels/quantize.py:84"
+MATMUL_REPLACES = "src/repro/kernels/dither_matmul.py:128"
+PEAK_F32 = 67e12          # H100 SXM, f32 outside the tensor cores
+QUANT_F32_OPS = 12        # f32 ops of one dither code (dither_quant.cuh)
+DITHER_KERNELS = ("quantize_a", "quantize_b", "gemm_u8")   # kernel 6's
+# decode shapes of the serve path (batch 8: q, k/v, o; gate/up; down; LM
+# head) and a 4096-row prefill's gate/up
+MATMUL_SHAPES = ((8, 576, 576), (8, 576, 192), (8, 576, 1536),
+                 (8, 1536, 576), (8, 576, 49152), (4096, 576, 1536))
+
+
+def device_ms(torch, fn, calls, names):
+    """Device time per call of the CUDA kernels whose names contain one of
+    ``names``, summed, from ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA")
+             and any(n in e.key for n in names))
+    return us / 1e3 / calls
+
+
+def quantize_bound(m, n):
+    """Least time for kernel 5: 4 bytes read and 4 written per element over
+    HBM; its f32 ops over the non-tensor f32 rate (the hash's integer
+    instructions have no rate in the card's table and are not counted)."""
+    t_bytes = 8 * m * n / HBM_BYTES_PER_S
+    t_ops = QUANT_F32_OPS * m * n / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def matmul_bound(m, k, n):
+    """Least time for kernel 6: both f32 operands read once and the f32
+    output written once over HBM; the 2·M·K·N int8 tensor-core operations
+    at 1,979 TOPS plus the quantiser's f32 ops over the f32 rate."""
+    t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
+    t_ops = (2 * m * k * n / PEAK_OPS["int8"]
+             + QUANT_F32_OPS * (m * k + k * n) / PEAK_F32)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def dither_kernel_phase(torch, qk, dm, ref):
+    """Kernels 5 and 6 on the card against their plain versions passed
+    explicitly, bit for bit (int32 codes; f32 outputs of two exact integer
+    products through one epilogue): kernel 5 at the serve path's operand
+    shapes and a ragged one, every scheme, both formats, bits 2/4/8;
+    kernel 6 at the serve path's decode shapes and a prefill shape, every
+    scheme, ranges (−1, 1) and (0, 1).  Then each case timed (dither,
+    spread, 8 bits, (−1, 1)): event time over many calls, the kernels'
+    device time from the profiler, the plain version's, the bound.  No
+    single PyTorch call quantises with a hash-driven rounding, so there is
+    no library time; beside kernel 6 stands the unquantised bf16
+    ``torch.matmul`` of the same operands, the policy-free path's
+    product."""
+    gen = torch.Generator().manual_seed(5)
+    qrows, mrows = [], []
+    for m, n in ((8, 576), (576, 1536), (37, 1000)):
+        x = (torch.rand((m, n), generator=gen) * 2.4 - 1.2).cuda()
+        cases = 0
+        for scheme in DITHER_SCHEMES:
+            for fmt in ("spread", "unary"):
+                for bits in (2, 4, 8):
+                    kw = dict(scale=((1 << bits) - 1) / 2.0, zero=-1.0,
+                              bits=bits, scheme=scheme, counter=12345,
+                              seed=7, n_pulses=16, fmt=fmt)
+                    got = qk.quantize(x, **kw)
+                    torch.cuda.synchronize()
+                    want = ref.quantize_codes_ref(x, **kw)
+                    assert torch.equal(got, want), ((m, n), scheme, fmt,
+                                                    bits)
+                    cases += 1
+        kw = dict(scale=127.5, zero=-1.0, bits=8, scheme="dither",
+                  counter=12345, seed=7, n_pulses=16, fmt="spread")
+        bound_ms, bound_by = quantize_bound(m, n)
+        ms = cuda_ms(lambda: qk.quantize(x, **kw), 200)
+        qrows.append({
+            "name": "quantize", "shape": [m, n], "cases_bitwise": cases,
+            "max_abs_err": 0, "ms": ms, "kernel_ms": ms,
+            "device_ms": device_ms(torch, lambda: qk.quantize(x, **kw), 20,
+                                   ("quantize_kernel",)),
+            "plain_ms": cuda_ms(lambda: ref.quantize_codes_ref(x, **kw), 5,
+                                warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    for m, k, n in MATMUL_SHAPES:
+        a = (torch.rand((m, k), generator=gen) * 2 - 1).cuda()
+        b = (torch.rand((k, n), generator=gen) * 2 - 1).cuda()
+        cases = 0
+        for scheme in DITHER_SCHEMES:
+            for rg in ((-1.0, 1.0), (0.0, 1.0)):
+                kw = dict(bits=8, scheme=scheme, a_range=rg, b_range=rg,
+                          counter=77, seed=3)
+                got = dm.dither_matmul(a, b, **kw)
+                torch.cuda.synchronize()
+                want = ref.dither_matmul_ref(a, b, **kw)
+                assert torch.isfinite(got).all()
+                assert torch.equal(got, want), ((m, k, n), scheme, rg)
+                cases += 1
+        kw = dict(bits=8, scheme="dither", a_range=(-1.0, 1.0),
+                  b_range=(-1.0, 1.0), counter=77, seed=3)
+        bound_ms, bound_by = matmul_bound(m, k, n)
+        ab, bb = a.bfloat16(), b.bfloat16()
+        ms = cuda_ms(lambda: dm.dither_matmul(a, b, **kw), 100)
+        mrows.append({
+            "name": "dither_matmul", "shape": [m, k, n],
+            "cases_bitwise": cases, "max_abs_err": 0.0, "ms": ms,
+            "kernel_ms": ms,
+            "device_ms": device_ms(torch, lambda: dm.dither_matmul(a, b, **kw),
+                                   10, DITHER_KERNELS),
+            "plain_ms": cuda_ms(lambda: ref.dither_matmul_ref(a, b, **kw), 2,
+                                warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "unquantised_bf16_matmul_ms": cuda_ms(lambda: ab @ bb, 100)})
+    return qrows, mrows
+
+
+def policy_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain):
+    """The quantised-matmul path: the serve phase's own traffic (ring: the
+    16 requests over 32–512-token prompts; paged: the 16 sharing a system
+    prompt) through ``Engine(policy=QuantPolicy(scheme="dither",
+    backend="auto"))``: every dense product through the CUDA dither matmul
+    (the paged prefix cache off, as under the reference's policy).  Gates:
+    every budget emitted, dither-matmul launches = (7 × layers + 1) ×
+    (prefill calls + ticks), one attention launch per layer per tick, no
+    standalone-quantiser launch, no prefix hit, no live block at the end.
+    ``plain`` is the policy-free phase's line."""
+    from repro_torch.numerics.policy import QuantPolicy
+    from repro_torch.serve import Engine
+
+    pol = QuantPolicy(scheme="dither", backend="auto")
+    paged = layout == "paged"
+
+    def engine():
+        if paged:
+            return paged_engine(cfg, params, kv_quant, policy=pol)
+        return Engine(params, cfg, 8, 1024, kv_quant=kv_quant,
+                      device="cuda", policy=pol)
+
+    warm = engine()                   # the policy path's first calls
+    for req in ring_requests(cfg, 2, [40, 300], 3):
+        warm.submit(req)
+    warm.run(20)
+    del warm
+    eng = engine()
+    assert eng.policy.backend == "cuda"
+    reqs = (paged_requests(cfg, SERVE_REQUESTS, paged_lens(), 64) if paged
+            else ring_requests(cfg, SERVE_REQUESTS, ring_lens(), 64))
+    for req in reqs:
+        eng.submit(req)
+    torch.cuda.synchronize()
+    for m in kmods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run(10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: m.launches for n, m in kmods.items()}
+    st = eng.stats
+    assert len(done) == SERVE_REQUESTS, len(done)
+    for r in done:
+        assert r.finish_reason == "length" and len(r.out) == 64, (
+            r.rid, r.finish_reason, len(r.out))
+        assert all(0 <= t < cfg.vocab_size for t in r.out)
+    per_forward = 7 * cfg.n_layers + 1
+    calls = st["prefill_calls"] + st["decode_calls"]
+    assert launches["dither_matmul"] == per_forward * calls, (launches, st)
+    attn = "paged_decode_attention" if paged else "decode_attention"
+    assert launches[attn] == cfg.n_layers * st["decode_calls"], launches
+    assert launches["quantize"] == 0, launches
+    if paged:
+        assert not eng.pool.prefix_cache and st["prefix_hit_tokens"] == 0
+        assert eng.pool.live_blocks == 0, eng.pool_stats()
+    return {"phase": "policy_serve", "layout": layout,
+            "kv": "int8" if kv_quant else "bf16", "policy": "dither",
+            "backend": eng.policy.backend, "requests": SERVE_REQUESTS,
+            "new_tokens_each": 64, "batch": 8, "max_len": 1024,
+            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+            "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+            "plain_prefill_tok_s": plain["prefill_tok_s"],
+            "plain_decode_tok_s": plain["decode_tok_s"],
+            "prefill_calls": st["prefill_calls"],
+            "plain_prefill_calls": plain["prefill_calls"],
+            "decode_ticks": st["decode_calls"], "wall_s": wall,
+            "preemptions": st["preemptions"],
+            "dither_matmul_launches": launches["dither_matmul"],
+            "dither_matmul_launches_per_forward": per_forward,
+            "launches": launches}
+
+
+def policy_restart_phase(torch, cfg, params):
+    """Restart determinism under the policy: the ring traffic's first four
+    requests (int8 KV), served twice on fresh engines, give the same
+    streams token for token (the counter is the engine tick, the hash
+    stateless)."""
+    from repro_torch.numerics.policy import QuantPolicy
+    from repro_torch.serve import Engine
+
+    streams = []
+    for _ in range(2):
+        eng = Engine(params, cfg, 8, 1024, kv_quant=True, device="cuda",
+                     policy=QuantPolicy(scheme="dither", backend="auto"))
+        for req in ring_requests(cfg, 4, ring_lens()[:4], 64):
+            eng.submit(req)
+        streams.append([r.out for r in sorted(eng.run(1000),
+                                              key=lambda r: r.rid)])
+    assert streams[0] == streams[1]
+    assert all(len(s) == 64 for s in streams[0])
+    return {"phase": "policy_restart", "kv": "int8", "requests": 4,
+            "streams_equal": True}
+
+
+def policy_parity_phase(torch, cfg, params, kv_quant):
+    """Full width under the dither policy: one prefill (8 prompts of 16–128
+    tokens) and three decode steps with the matmul backend ``cuda``
+    against ``torch-ref`` (the plain version, passed explicitly), the
+    attention kernels shared: logits bit for bit."""
+    import numpy as np
+
+    from repro_torch.models import registry
+    from repro_torch.numerics.policy import QuantPolicy
+
+    rng = np.random.default_rng(6)
+    lens = np.array([16, 33, 47, 64, 80, 97, 111, 128], np.int32)
+    toks = np.zeros((8, 128), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(1, cfg.vocab_size, size=n)
+    toks_d = torch.from_numpy(toks).cuda()
+    lens_d = torch.from_numpy(lens).cuda()
+    off = torch.arange(8, dtype=torch.int32, device="cuda") * 1000
+    out = {}
+    for backend in ("cuda", "torch-ref"):
+        pol = QuantPolicy(scheme="dither", backend=backend)
+        logits, cache = registry.apply_prefill(
+            params, cfg, toks_d, lens_d, 1024, policy=pol, counter=0,
+            kv_quant=kv_quant, kv_offset=off)
+        seq = [logits]
+        for step in range(3):
+            logits, cache = registry.apply_decode(
+                params, cfg, torch.argmax(logits, -1), cache, policy=pol,
+                counter=1 + step, kv_offset=off)
+            seq.append(logits)
+        torch.cuda.synchronize()
+        out[backend] = seq
+    for got, want in zip(out["cuda"], out["torch-ref"]):
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, want), (got - want).abs().max().item()
+    return {"phase": "policy_parity", "kv": "int8" if kv_quant else "bf16",
+            "prefill_prompts": lens.tolist(), "decode_steps": 3,
+            "logits_bitwise_equal": True}
+
+
+def policy_error_phase(torch, cfg, params):
+    """Report only: the paper's bias and MSE claim on the served model.
+    One full-width decode step (8 slots after 64-token prompts) per scheme
+    at counters 0–15, each from the same cache: the relative error
+    ‖logits − policy-free logits‖ / ‖policy-free logits‖ at counter 0, its
+    mean over the 16 counters, and the error of the mean logits over the
+    16 counters (dither's time average should cancel more of its error
+    than stochastic rounding's; deterministic rounding has none to
+    cancel)."""
+    import numpy as np
+
+    from repro_torch.models import registry
+    from repro_torch.numerics.policy import QuantPolicy
+
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         size=(8, 64))).cuda()
+    lens = torch.full((8,), 64, dtype=torch.int32, device="cuda")
+    logits, cache = registry.apply_prefill(params, cfg, toks, lens, 1024)
+    cur = torch.argmax(logits, -1)
+    base, _ = registry.apply_decode(params, cfg, cur, copy.deepcopy(cache))
+    norm = base.norm().item()
+    res = {"phase": "policy_error", "counters": 16, "schemes": {}}
+    for scheme in DITHER_SCHEMES:
+        pol = QuantPolicy(scheme=scheme, backend="cuda")
+        outs = [registry.apply_decode(params, cfg, cur, copy.deepcopy(cache),
+                                      policy=pol, counter=c)[0]
+                for c in range(16)]
+        errs = [(o - base).norm().item() / norm for o in outs]
+        mean = torch.stack(outs).mean(0)
+        res["schemes"][scheme] = {
+            "rel_err_counter0": errs[0],
+            "rel_err_mean_over_counters": sum(errs) / len(errs),
+            "rel_err_of_mean_logits": (mean - base).norm().item() / norm}
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1169,7 +1486,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import dither_matmul as dm
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import quantize as qk
     from repro_torch.kernels import paged_verify_attention as pva
     from repro_torch.kernels import verify_attention as va
     from repro_torch.models import registry
@@ -1211,6 +1530,9 @@ def main() -> int:
     emit({"phase": "kernels", "layout": "paged", "verify": True,
           "checks": paged_verify_checks,
           "paged_verify_equals_ring_verify_bitwise": verify_bitwise})
+    quantize_checks, matmul_checks = dither_kernel_phase(torch, qk, dm, ref)
+    emit({"phase": "kernels", "dither": True, "quantize": quantize_checks,
+          "dither_matmul": matmul_checks})
 
     # 4 — serve (plain, then speculative on the same traffic), 5 — parity
     cfg = get_config("smollm_135m")
@@ -1219,7 +1541,8 @@ def main() -> int:
     kmods = {"decode_attention": da.decode_attention,
              "paged_decode_attention": pda.paged_decode_attention,
              "verify_attention": va.verify_attention,
-             "paged_verify_attention": pva.paged_verify_attention}
+             "paged_verify_attention": pva.paged_verify_attention,
+             "quantize": qk.quantize, "dither_matmul": dm.dither_matmul}
     serve, paged, spec = {}, {}, {}
     for kv_quant in (False, True):
         serve[kv_quant], ring_streams = serve_phase(torch, da, pda, cfg,
@@ -1235,15 +1558,32 @@ def main() -> int:
                     torch, kmods, cfg, params, kv_quant, layout,
                     plain[kv_quant], streams, drafter)
                 emit(res)
+    # the quantised-matmul policy path on the ring and paged traffic
+    pol_runs = {}
+    for layout, kv_quant in (("ring", False), ("ring", True),
+                             ("paged", True)):
+        plain = (serve if layout == "ring" else paged)[kv_quant]
+        pol_runs[layout, kv_quant] = res = policy_serve_phase(
+            torch, kmods, cfg, params, kv_quant, layout, plain)
+        emit(res)
+    emit(policy_restart_phase(torch, cfg, params))
     for kv_quant in (False, True):
         emit(profile_phase(torch, cfg, params, kv_quant))
     emit(profile_phase(torch, cfg, params, True, kv_layout="paged"))
     for kv_quant in (False, True):
         emit(profile_phase(torch, cfg, params, kv_quant, spec=True))
+    from repro_torch.numerics.policy import QuantPolicy
+
+    for kv_quant in (False, True):
+        emit(profile_phase(torch, cfg, params, kv_quant,
+                           policy=QuantPolicy(scheme="dither",
+                                              backend="auto")))
     for kv_quant in (False, True):
         emit(parity_phase(torch, cfg, params, kv_quant))
         emit(paged_parity_phase(torch, cfg, params, kv_quant))
         emit(prefill_invariance_phase(torch, cfg, params, kv_quant))
+        emit(policy_parity_phase(torch, cfg, params, kv_quant))
+    emit(policy_error_phase(torch, cfg, params))
 
     kernels = []
     for kv_quant in (False, True):
@@ -1283,6 +1623,31 @@ def main() -> int:
                 "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"],
                 "kernel_ms": main["kernel_ms"], "shape": main["shape"]})
+    qmain = next(c for c in quantize_checks if c["shape"] == [576, 1536])
+    kernels.append({
+        "name": "quantize", "route": "cuda", "source": qk.SOURCE,
+        "replaces": QUANTIZE_REPLACES,
+        "launches": pol_runs["ring", True]["launches"]["quantize"],
+        "launches_note": "not on the serve path: the dither matmul "
+                         "quantises its operands itself",
+        "max_abs_err": qmain["max_abs_err"], "ms": qmain["ms"],
+        "plain_ms": qmain["plain_ms"], "bound_ms": qmain["bound_ms"],
+        "bound_by": qmain["bound_by"], "library_ms": None,
+        "device_ms": qmain["device_ms"], "shape": qmain["shape"]})
+    mmain = next(c for c in matmul_checks if c["shape"] == [8, 576, 1536])
+    for (layout, kv_quant), run in pol_runs.items():
+        kernels.append({
+            "name": "dither_matmul", "route": "cuda", "source": dm.SOURCE,
+            "replaces": MATMUL_REPLACES,
+            "run": f"{layout} {'int8' if kv_quant else 'bf16'} policy serve",
+            "launches": run["dither_matmul_launches"],
+            "max_abs_err": mmain["max_abs_err"], "ms": mmain["ms"],
+            "plain_ms": mmain["plain_ms"], "bound_ms": mmain["bound_ms"],
+            "bound_by": mmain["bound_by"], "library_ms": None,
+            "device_ms": mmain["device_ms"],
+            "unquantised_bf16_matmul_ms":
+                mmain["unquantised_bf16_matmul_ms"],
+            "shape": mmain["shape"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -27,6 +27,9 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "deterministic_round",
+    "stochastic_round",
+    "dither_round",
     "hash_uniform",
     "lcg_slot",
     "slot_index",
@@ -150,3 +153,41 @@ def dither_bit(frac: torch.Tensor, slot: torch.Tensor, u: torch.Tensor,
         torch.where(head, 1.0 - delta_hi, 0.0),
     )
     return (u < p).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# rounding schemes
+# ---------------------------------------------------------------------------
+
+
+def _flat_index(x: torch.Tensor) -> torch.Tensor:
+    """Row-major element index of every element of x (uint32 in int64)."""
+    return torch.arange(x.numel(), dtype=torch.int64,
+                        device=x.device).reshape(x.shape)
+
+
+def deterministic_round(x: torch.Tensor) -> torch.Tensor:
+    """round(x) = ⌊x + 0.5⌋ (the paper's half-up rounding, not banker's)."""
+    return torch.floor(x + 0.5)
+
+
+def stochastic_round(x: torch.Tensor, seed, counter=0) -> torch.Tensor:
+    """⌊x⌋ + Bernoulli(frac(x)), driven by the hash of (seed, element
+    index, counter) (§II-C)."""
+    x = x.to(torch.float32)
+    u = hash_uniform(seed, _flat_index(x), counter)
+    fl = torch.floor(x)
+    return fl + (u < x - fl).to(torch.float32)
+
+
+def dither_round(x: torch.Tensor, counter, seed, n_pulses: int
+                 ) -> torch.Tensor:
+    """Dither rounding d(α, i_s) = ⌊α⌋ + X_{σ(i_s mod N)} (§VII): the
+    reference's ``dither_round``.  ``counter`` is the use-counter i_s, a
+    scalar or a tensor broadcastable to x."""
+    x = x.to(torch.float32)
+    fl = torch.floor(x)
+    idx = _flat_index(x)
+    slot = lcg_slot(counter, idx, n_pulses, seed=seed)
+    u = hash_uniform(_u32(seed) ^ 0xD1CE, idx, counter)
+    return fl + dither_bit(x - fl, slot, u, n_pulses)

@@ -32,7 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 KERNELS = {"decode_attention": "decode_attention.cu",
            "paged_decode_attention": "paged_decode_attention.cu",
            "verify_attention": "verify_attention.cu",
-           "paged_verify_attention": "paged_verify_attention.cu"}
+           "paged_verify_attention": "paged_verify_attention.cu",
+           "quantize": "quantize.cu",
+           "dither_matmul": "dither_matmul.cu"}
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

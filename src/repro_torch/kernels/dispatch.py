@@ -2,13 +2,15 @@
 ``kernels/dispatch.py``): two backends per kernel.
 
 * ``cuda`` — the hand-written kernel; raises on CPU tensors.
-* ``torch-ref`` — the plain-torch recurrence of ``kernels/ref.py``, on any
+* ``torch-ref`` — the plain-torch version in ``kernels/ref.py``, on any
   device.
 
-``backend=None`` picks ``cuda`` for CUDA tensors and ``torch-ref`` for CPU
-tensors.  ``torch-ref`` on CUDA tensors runs only when a caller names it, as
-the card's checks do; nothing on the serving path does.  No environment
-variable takes part.
+``backend=None`` (or ``"auto"``) picks ``cuda`` for CUDA tensors and
+``torch-ref`` for CPU tensors.  ``torch-ref`` on CUDA tensors runs only when
+a caller names it, as the card's checks do; nothing on the serving path
+does.  No environment variable takes part.  ``matmul`` and ``quantize``
+keep the reference's signatures; their ``block`` is accepted and ignored,
+as the reference's ``xla-ref`` ignores it.
 """
 
 from __future__ import annotations
@@ -18,22 +20,27 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import dither_matmul as _dm
 from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import paged_verify_attention as _pva
+from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels import verify_attention as _va
 
-__all__ = ["BACKENDS", "resolve_backend", "decode_attention",
+__all__ = ["BACKENDS", "UNFUSED", "resolve_backend",
+           "resolve_policy_backend", "matmul", "quantize", "decode_attention",
            "paged_decode_attention", "verify_attention",
            "paged_verify_attention"]
 
 BACKENDS = ("cuda", "torch-ref")
+# QuantPolicy.backend of the unfused fake-quant matmul (the reference's "jnp")
+UNFUSED = "torch"
 
 
 def resolve_backend(backend: Optional[str], t: torch.Tensor) -> str:
     """The concrete backend for an operand ``t``; raises on an unknown name
     and on ``cuda`` for a tensor that is not on a CUDA device."""
-    name = backend if backend is not None else (
+    name = backend if backend not in (None, "auto") else (
         "cuda" if t.is_cuda else "torch-ref")
     if name not in BACKENDS:
         raise ValueError(f"unknown kernel backend {name!r}; available: "
@@ -41,6 +48,75 @@ def resolve_backend(backend: Optional[str], t: torch.Tensor) -> str:
     if name == "cuda" and not t.is_cuda:
         raise ValueError(f"backend 'cuda' needs CUDA tensors, got {t.device}")
     return name
+
+
+def resolve_policy_backend(name: str, device=None) -> str:
+    """``QuantPolicy.backend`` resolution: the unfused path's name
+    (``UNFUSED``) passes through; ``"auto"`` becomes ``cuda`` on a CUDA
+    ``device`` and ``torch-ref`` on the CPU (with no device it stays
+    ``"auto"``, which each call resolves by its operands' device); a
+    concrete backend name is checked and kept."""
+    if name == UNFUSED:
+        return name
+    if name in (None, "auto"):
+        if device is None:
+            return "auto"
+        return "cuda" if torch.device(device).type == "cuda" else "torch-ref"
+    if name not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {name!r}; available: "
+                         f"{(UNFUSED, 'auto') + BACKENDS}")
+    return name
+
+
+def matmul(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    bits: int,
+    scheme: str = "dither",
+    counter=0,
+    seed: int = 0,
+    a_range: tuple = (0.0, 1.0),
+    b_range: tuple = (0.0, 1.0),
+    fmt: str = "spread",
+    block: Optional[tuple] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Quantised A @ B (§VIII 'separate') → (M, N) f32 through the selected
+    backend; the operands are taken in f32."""
+    del block            # the reference's xla-ref ignores it too
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    kw = dict(bits=bits, scheme=scheme, a_range=a_range, b_range=b_range,
+              counter=counter, seed=seed, fmt=fmt)
+    if resolve_backend(backend, a) == "cuda":
+        return _dm.dither_matmul(a.contiguous(), b.contiguous(), **kw)
+    return ref.dither_matmul_ref(a, b, **kw)
+
+
+def quantize(
+    x: torch.Tensor,
+    *,
+    bits: int,
+    lo: float = 0.0,
+    hi: float = 1.0,
+    scheme: str = "dither",
+    counter=0,
+    seed: int = 0,
+    n_pulses: int = 16,
+    fmt: str = "spread",
+    block: Optional[tuple] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """k-bit int32 codes of a 2-D ``x`` over [lo, hi] through the selected
+    backend; ``x`` is taken in f32."""
+    del block
+    x = x.to(torch.float32)
+    kw = dict(scale=((1 << bits) - 1) / (hi - lo), zero=lo, bits=bits,
+              scheme=scheme, counter=counter, seed=seed, n_pulses=n_pulses,
+              fmt=fmt)
+    if resolve_backend(backend, x) == "cuda":
+        return _q.quantize(x.contiguous(), **kw)
+    return ref.quantize_codes_ref(x, **kw)
 
 
 def decode_attention(

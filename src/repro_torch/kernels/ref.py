@@ -11,13 +11,160 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
-__all__ = ["decode_attention_ref", "paged_decode_attention_ref",
-           "verify_attention_ref", "paged_verify_attention_ref",
-           "shrink_block"]
+from repro_torch.core import rounding
+
+__all__ = ["quantize_codes_ref", "dither_round_ref", "stochastic_round_ref",
+           "dither_matmul_ref", "dequant_constants", "fma_f32",
+           "decode_attention_ref",
+           "paged_decode_attention_ref", "verify_attention_ref",
+           "paged_verify_attention_ref", "shrink_block"]
 
 _NEG_BIG = -1e30   # the reference's mask value
+
+
+def _f32(v: float) -> float:
+    """A Python float rounded to f32 (kept as a Python float, exactly)."""
+    return float(np.float32(v))
+
+
+def quantize_codes_ref(
+    x: torch.Tensor,
+    *,
+    scale: float,
+    zero: float,
+    bits: int,
+    scheme: str,
+    counter,
+    seed: int,
+    n_pulses: int,
+    fmt: str = "spread",
+) -> torch.Tensor:
+    """k-bit integer codes of a 2-D tensor (the reference's
+    ``quantize_codes_ref``): ``clip(round_scheme((x - zero) * scale), 0,
+    2^bits - 1)`` as int32, where the hash's element index is the
+    unpadded global row-major index.  Every step is the reference's f32
+    op in its order, so the codes are bitwise the reference's."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
+    levels = (1 << bits) - 1
+    scaled = (x.to(torch.float32) - _f32(zero)) * _f32(scale)
+    idx = rounding._flat_index(scaled)
+    if scheme == "deterministic":
+        codes = rounding.deterministic_round(scaled)
+    elif scheme == "stochastic":
+        u = rounding.hash_uniform(seed, idx, counter)
+        fl = torch.floor(scaled)
+        codes = fl + (u < scaled - fl).to(torch.float32)
+    elif scheme == "dither":
+        fl = torch.floor(scaled)
+        slot = rounding.slot_index(counter, idx, n_pulses, seed=seed, fmt=fmt)
+        u = rounding.hash_uniform(rounding._u32(seed) ^ 0xD1CE, idx, counter)
+        codes = fl + rounding.dither_bit(scaled - fl, slot, u, n_pulses)
+    else:
+        raise ValueError(f"unknown rounding scheme {scheme!r}")
+    return torch.clamp(codes, 0.0, float(levels)).to(torch.int32)
+
+
+def dither_round_ref(x, *, scale, zero, bits, counter, seed, n_pulses):
+    return quantize_codes_ref(
+        x, scale=scale, zero=zero, bits=bits, scheme="dither",
+        counter=counter, seed=seed, n_pulses=n_pulses)
+
+
+def stochastic_round_ref(x, *, scale, zero, bits, counter, seed):
+    return quantize_codes_ref(
+        x, scale=scale, zero=zero, bits=bits, scheme="stochastic",
+        counter=counter, seed=seed, n_pulses=2)
+
+
+def dequant_constants(bits: int, a_range, b_range, k: int):
+    """The f32 constants of the dither matmul's dequantisation, as the
+    reference computes it: ``(sa, sb, r_acc, c_col, c_row, c_k)``.
+
+    The reference writes ``cc / (sa·sb) + a0·colsum / sb + b0·rowsum / sa
+    + K·a0·b0``.  Compiled (its ``xla-ref`` backend, and its Pallas body in
+    interpret mode), each division by a constant becomes a multiplication
+    by the f32 reciprocal with the zero folded in, and the first sum is
+    contracted into a fused multiply-add, so what runs is
+    ``fma(cc, r_acc, colsum·c_col) + rowsum·c_row + c_k``, left to right,
+    every other op rounded to f32, with ``r_acc = 1/f32(sa·sb)``,
+    ``c_col = f32(a0)·(1/f32(sb))``, ``c_row = f32(b0)·(1/f32(sa))`` and
+    ``c_k = f32(K·a0·b0)`` (pinned bitwise in
+    ``tests/test_torch_dither_kernels.py``).  With both zeros 0 the
+    reference skips the cross terms: ``cc·r_acc``.
+    """
+    levels = float((1 << bits) - 1)
+    sa = levels / (a_range[1] - a_range[0])
+    sb = levels / (b_range[1] - b_range[0])
+    one = np.float32(1.0)
+    r_acc = one / np.float32(sa * sb)
+    c_col = np.float32(a_range[0]) * (one / np.float32(sb))
+    c_row = np.float32(b_range[0]) * (one / np.float32(sa))
+    c_k = np.float32(k * a_range[0] * b_range[0])
+    return sa, sb, float(r_acc), float(c_col), float(c_row), float(c_k)
+
+
+def dither_matmul_ref(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    bits: int,
+    scheme: str = "dither",
+    a_range=(0.0, 1.0),
+    b_range=(0.0, 1.0),
+    counter=0,
+    seed: int = 0,
+    fmt: str = "spread",
+) -> torch.Tensor:
+    """Quantise-and-multiply, §VIII 'separate' (the reference's
+    ``dither_matmul_ref``): A quantised with ``seed`` and N_A =
+    max(N, 2) pulses, B with ``seed + 1`` and N_B = max(M, 2), multiplied
+    on the integer grid and mapped back → (M, N) f32.
+
+    The integer product is exact (codes in float64, whose sums of
+    integers below 2^53 are exact in any order) and rounded once to f32;
+    the reference's f32 HIGHEST dot is the same wherever K·(2^bits−1)²
+    < 2^24.  Then the reference's dequantisation (``dequant_constants``).
+    """
+    (p, q), (q2, r) = a.shape, b.shape
+    if q != q2:
+        raise ValueError(f"inner dims differ: {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    sa, sb, r_acc, c_col, c_row, c_k = dequant_constants(bits, a_range,
+                                                         b_range, q)
+    ca = quantize_codes_ref(a, scale=sa, zero=a_range[0], bits=bits,
+                            scheme=scheme, counter=counter, seed=seed,
+                            n_pulses=max(r, 2), fmt=fmt)
+    cb = quantize_codes_ref(b, scale=sb, zero=b_range[0], bits=bits,
+                            scheme=scheme, counter=counter, seed=seed + 1,
+                            n_pulses=max(p, 2), fmt=fmt)
+    acc = (ca.double() @ cb.double()).to(torch.float32)
+    if a_range[0] == 0.0 and b_range[0] == 0.0:
+        return acc * r_acc
+    colsum = cb.sum(dim=0, dtype=torch.int64).to(torch.float32)
+    rowsum = ca.sum(dim=1, dtype=torch.int64).to(torch.float32)
+    out = fma_f32(acc, r_acc, (colsum * c_col)[None, :])
+    out = out + (rowsum * c_row)[:, None]
+    return out + c_k
+
+
+def fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a·b + c`` rounded once (a fused multiply-add), emulated exactly
+    in float64 on any device: ``a·b`` of two f32 values is exact in f64,
+    TwoSum gives the f64 sum's rounding error, and rounding the sum to odd
+    before the cast to f32 avoids a double rounding."""
+    p = a.double() * b
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
 
 
 def shrink_block(bk: int, cap: int) -> int:

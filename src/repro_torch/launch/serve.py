@@ -9,6 +9,8 @@ the paged KV cache:
       --kv-layout paged --num-blocks 8 --kv-quant
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
       --reduced --device cpu --spec-decode --draft-k 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
+      --policy dither --kernel-backend auto
 
 Takes the subset of the reference launcher's flags that the port's engine
 serves, plus ``--device``.  Weights are random, drawn from seed 0 (the
@@ -22,6 +24,7 @@ import time
 
 from repro_torch.configs import get_config
 from repro_torch.models import registry
+from repro_torch.numerics.policy import QuantPolicy
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.sampling import SamplingParams
 
@@ -35,6 +38,12 @@ def serve_main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=5)
+    ap.add_argument("--policy", default="none",
+                    choices=["none", "dither", "stochastic", "deterministic"])
+    ap.add_argument("--kernel-backend", default="torch",
+                    help="policy matmul backend: 'torch' (unfused fake-quant, "
+                         "the reference's 'jnp') or a kernel-dispatch backend "
+                         "(auto, cuda, torch-ref)")
     ap.add_argument("--kv-quant", action="store_true",
                     help="dither-quantised int8 KV cache")
     ap.add_argument("--kv-layout", default="ring", choices=["ring", "paged"],
@@ -72,8 +81,10 @@ def serve_main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    policy = (None if args.policy == "none"
+              else QuantPolicy(scheme=args.policy, backend=args.kernel_backend))
     params = registry.init_model(cfg, seed=0, device=args.device)
-    engine = Engine(params, cfg, args.batch, args.max_len,
+    engine = Engine(params, cfg, args.batch, args.max_len, policy=policy,
                     kv_quant=args.kv_quant, scheduler=args.sched,
                     kv_layout=args.kv_layout, device=args.device,
                     block_size=args.block_size, num_blocks=args.num_blocks,

@@ -347,10 +347,13 @@ def _layers(params: Params, cfg: ModelConfig):
         yield bp, cfg.layer_kind(rep * p_ + i), i, None
 
 
-def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor, policy,
+            counter):
+    """The LM head over every row of x (under a policy its quantiser sees
+    them all, as the reference's does), f32."""
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return dense(x, head, None, 0, seed=9).to(torch.float32)
+    return dense(x, head, policy, counter, seed=9).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -414,7 +417,7 @@ def prefill_with_cache(params: Params, cfg: ModelConfig,
         x, kv = _apply_block(bp, cfg, kind, x, positions, policy=policy,
                              counter=counter, collect_kv=True)
         kvs.setdefault((r is None, pos_i), []).append(kv)
-    logits = _logits(params, cfg, x)[:, :, : cfg.vocab_size]
+    logits = _logits(params, cfg, x, policy, counter)[:, :, : cfg.vocab_size]
 
     cap = min(cfg.window, max_len) if cfg.window else max_len
 
@@ -606,7 +609,7 @@ def prefill_with_cache_paged(params: Params, cfg: ModelConfig,
         x = _paged_prefill_block(bp, cfg, x, positions, lengths, starts,
                                  block_tables, entry, policy, counter,
                                  kv_quant, kv_offset, prefix_blocks)
-    logits = _logits(params, cfg, x)[:, :, : cfg.vocab_size]
+    logits = _logits(params, cfg, x, policy, counter)[:, :, : cfg.vocab_size]
     return logits, {"pos": torch.where(lengths > 0, starts + lengths,
                                        cache["pos"].to(torch.int32)),
                     "block_tables": block_tables,
@@ -665,7 +668,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                             counter=counter, cache_entry=entry, pos=pos,
                             kv_offset=kv_offset, backend=backend,
                             block_tables=block_tables)
-    logits = _logits(params, cfg, x)[:, 0, : cfg.vocab_size]
+    logits = _logits(params, cfg, x, policy, counter)[:, 0, : cfg.vocab_size]
     new_cache = {"pos": pos + 1, "layers": cache["layers"],
                  "remainder": cache["remainder"]}
     if block_tables is not None:
@@ -931,7 +934,7 @@ def verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     xn = _rms_norm_rows(x, params["final_norm"], cfg.norm_eps,
                         "rms_norm" in fused_ops)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = _rowwise(lambda a: dense(a, head, None, 0, seed=9), xn,
+    logits = _rowwise(lambda a: dense(a, head, policy, counter, seed=9), xn,
                       "lm_head" in fused_ops)
     return logits.to(torch.float32)[:, :, : cfg.vocab_size], cache
 

@@ -1,1 +1,2 @@
-"""Numerics of the port: the matmul entry point."""
+"""Numerics of the port: the quantisation policy and the matmul entry
+point of every model layer."""

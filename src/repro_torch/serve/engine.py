@@ -8,9 +8,12 @@ DESIGN.md §6, §14).
 the prefill, decode and verify steps; ``Engine`` is the host-side loop
 that drives them: a :class:`Scheduler` admits queued requests into free
 decode slots, admitted prompts run through batched prefills (right-padded
-prompts, one call per length bucket, KV written per slot into the cache,
-prefill logits seeding each request's first token), and each tick
-decodes and samples every active slot.  Per-request
+prompts, one call per length bucket — or, under a matmul policy, one per
+wave — KV written per slot into the cache, prefill logits seeding each
+request's first token), and each tick decodes and samples every active
+slot.  Under a ``QuantPolicy`` every dense product is quantised (on the
+card through the CUDA dither-matmul kernel) with the engine tick as its
+counter.  Per-request
 :class:`SamplingParams` drive greedy/temperature/top-k sampling, EOS/stop
 handling and the per-request dither-counter offsets.
 
@@ -64,10 +67,10 @@ __all__ = ["make_serve_fns", "make_decode_and_sample", "make_fused_decode",
 DEFAULT_BLOCK_SIZE = MAX_BLOCK_SIZE
 
 
-def _check_policy(policy) -> None:
-    if policy is not None and getattr(policy, "enabled", True):
-        raise NotImplementedError("quantised-matmul serving is not ported "
-                                  "yet (ROADMAP Queue 1 item 9)")
+def _resolved(policy):
+    """``policy.resolved()`` once at build, as the reference's builders do
+    (an engine passes a policy it already resolved for its device)."""
+    return policy.resolved() if policy is not None else None
 
 
 def make_serve_fns(cfg: ModelConfig, policy=None, *, max_len: int,
@@ -76,8 +79,9 @@ def make_serve_fns(cfg: ModelConfig, policy=None, *, max_len: int,
     kv_offset, counter)`` maps a right-padded (B, S) prompt batch and its
     (B,) true lengths to the last-prompt-token logits and a ring cache whose
     positions equal ``lengths``; ``decode_step(params, token, cache,
-    kv_offset, counter)`` is one token for every slot."""
-    _check_policy(policy)
+    kv_offset, counter)`` is one token for every slot.  Under an enabled
+    ``policy`` every dense product is quantised with the given counter."""
+    policy = _resolved(policy)
 
     def prefill_step(params, tokens, lengths, kv_offset=None, counter=0):
         return registry.apply_prefill(
@@ -95,7 +99,7 @@ def make_decode_and_sample(cfg: ModelConfig, policy=None):
     """``decode_and_sample(params, token, cache, kv_offset, counter, temps,
     topks, seeds, counters)`` → ``(tokens (B,) int32, counters + 1,
     cache)``: the model decode step and the per-slot sampler in one call."""
-    _check_policy(policy)
+    policy = _resolved(policy)
 
     def decode_and_sample(params, token, cache, kv_offset, counter,
                           temps, topks, seeds, counters):
@@ -118,7 +122,7 @@ def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
     the trash block, so their writes land there — as in the reference's
     window at one tick.  Windows of more than one tick are ROADMAP Queue 1
     item 6."""
-    _check_policy(policy)
+    policy = _resolved(policy)
     if n_ticks != 1:
         raise NotImplementedError("fused decode windows (n_ticks > 1) are "
                                   "not ported yet (ROADMAP Queue 1 item 6)")
@@ -161,7 +165,7 @@ def make_spec_verify(cfg: ModelConfig, policy=None, *, draft_k: int,
     nothing: on a paged cache their block tables read as the trash block.
     ``fused_ops``: the verify forward's library ops to run over all K rows
     at once (``registry.verify_row_purity``); the rest run per row."""
-    _check_policy(policy)
+    policy = _resolved(policy)
 
     def spec_verify(params, drafts, cache, kv_offset, counter, temps, topks,
                     seeds, counters, alive, wcap):
@@ -200,7 +204,7 @@ def make_paged_prefill(cfg: ModelConfig, policy=None, *,
     ``(last_logits, cache)``.  ``prefix_blocks`` is 0 on cold waves —
     exactly the cold batched prefill — or the table width when an admitted
     request hit the prefix cache."""
-    _check_policy(policy)
+    policy = _resolved(policy)
 
     def paged_prefill(params, tokens, lengths, starts, block_tables, cache,
                       kv_offset, counter, *, prefix_blocks: int = 0):
@@ -305,8 +309,9 @@ class Engine:
 
     1. asks the scheduler for requests to fill free slots; admitted prompts
        are right-padded into (B, S_bucket) batches, one batched prefill per
-       length bucket (``_prefill_groups``), and the prefill logits seed
-       each request's first sampled token.  The ring layout merges the
+       length bucket, or per wave under a policy (``_prefill_waves``), and
+       the prefill logits seed each request's first sampled token.  The
+       ring layout merges the
        prefill's cache rows into the admitted slots; the paged layout
        admits while the pool can supply blocks, shares cached prefix
        blocks and prefills only the suffix, and resumes preempted requests
@@ -328,7 +333,13 @@ class Engine:
     ``DEFAULT_BLOCK_SIZE`` = 64, the CUDA kernels' tile, so ring == paged
     bit for bit on the card at the defaults; the CUDA paged kernel takes
     1 ≤ block_size ≤ 64), ``num_blocks`` (default batch × ceil(max_len /
-    block_size), the dense ring's token count) and ``prefix_cache``.
+    block_size), the dense ring's token count) and ``prefix_cache`` (on
+    only without a matmul policy or under its deterministic scheme, as the
+    reference's).
+
+    ``policy``: a ``QuantPolicy`` for every dense product, resolved once
+    for ``device``; its counter is ``tick``.  Speculative decoding refuses
+    an enabled policy.
     """
 
     def __init__(self, params, cfg: ModelConfig, batch: int, max_len: int,
@@ -373,7 +384,6 @@ class Engine:
             if kv_layout == "ring" and self.draft_k > max_len:
                 raise ValueError(f"draft_k={draft_k} exceeds the ring's "
                                  f"{max_len} slots")
-        _check_policy(policy)
         given = dict(mesh=mesh, metrics=metrics, trace=trace,
                      decode_ticks=decode_ticks, prefill_chunk=prefill_chunk,
                      queue_cap=queue_cap, shed_policy=shed_policy,
@@ -397,6 +407,10 @@ class Engine:
                              f"{self.device}")
         self.params, self.cfg, self.batch, self.max_len = (
             params, cfg, batch, max_len)
+        # the matmul policy, resolved once for this engine's device; its
+        # counter is the engine tick ("rounding in time", §VII)
+        policy = policy.resolved(self.device) if policy is not None else None
+        self.policy = policy
         self.kv_quant = kv_quant
         self.kv_layout = kv_layout
         # the paged layout's block pool (None on the ring layout): one pool,
@@ -413,11 +427,13 @@ class Engine:
             self.nbmax = -(-max_len // bs)
             self.num_blocks = (int(num_blocks) if num_blocks is not None
                                else batch * self.nbmax)
-            # prefix reuse is sound because prefill numerics depend only on
-            # token identity + absolute position (no matmul policy; the int8
-            # KV quantiser's per-request offset seeds the hash chain)
-            self.pool = KVPool(self.num_blocks, bs,
-                               prefix_cache=bool(prefix_cache))
+            # prefix reuse needs prefill numerics that depend only on token
+            # identity + absolute position: no matmul policy, or the
+            # counter-independent deterministic scheme (the int8 KV
+            # quantiser's per-request offset seeds the hash chain)
+            self.pool = KVPool(self.num_blocks, bs, prefix_cache=bool(
+                prefix_cache) and (policy is None
+                                   or policy.scheme == "deterministic"))
             self._trash = self.num_blocks
             self.cache = registry.make_cache(
                 params, cfg, batch, max_len, kv_quant=kv_quant,
@@ -537,6 +553,19 @@ class Engine:
             }
             self._dev_dirty = False
 
+    def _prefill_waves(self, rows: dict) -> List[List[int]]:
+        """The prefill calls of one admission wave (``rows``: slot → (tokens
+        to prefill, has a prefix)).  Under an enabled matmul policy: one
+        call for the whole wave at its longest prompt's bucket, as the
+        reference makes — the quantiser's absmax, hash indices and pulse
+        count cover every row of a call, so a row's codes depend on the
+        others either way, and splitting would change every stream against
+        the reference's.  Otherwise one call per length bucket
+        (``_prefill_groups``)."""
+        if self.policy is not None and self.policy.enabled:
+            return [sorted(rows)]
+        return _prefill_groups(rows)
+
     def _reject(self, req: Request, reason: str = "rejected"):
         req.done, req.finish_reason, req.state = True, reason, "done"
         self.finished.append(req)
@@ -571,8 +600,8 @@ class Engine:
         self._dev_dirty = True            # admission changed per-slot state
         self._refresh_device_state()
         first = np.zeros((self.batch,), np.int32)
-        for group in _prefill_groups({i: (len(p), False)
-                                      for i, p in prompts.items()}):
+        for group in self._prefill_waves({i: (len(p), False)
+                                          for i, p in prompts.items()}):
             g_lens = np.zeros((self.batch,), np.int32)
             g_lens[group] = lens[group]
             toks = np.zeros((self.batch, _bucket(int(g_lens.max()))),
@@ -779,7 +808,7 @@ class Engine:
     def _prefill_wave_paged(self):
         """One prefill wave over every ``prefilling`` slot: the whole
         unshared suffix of each lands in one batched call per group of
-        ``_prefill_groups`` (chunked waves are ROADMAP Queue 1 item 6).
+        ``_prefill_waves`` (chunked waves are ROADMAP Queue 1 item 6).
         Prefix-hit rows gather their shared blocks inside attention.  Each
         slot's full blocks are then sealed, its first token sampled, and it
         turns ``active``."""
@@ -796,7 +825,7 @@ class Engine:
         bt_dev = self._tensor(self._bt)
         self._bt_dirty = False
         first = np.zeros((self.batch,), np.int32)
-        for group in _prefill_groups({
+        for group in self._prefill_waves({
                 i: (len(pieces[i]), req._pf_pos > 0) for i, req in waving}):
             lens = np.zeros((self.batch,), np.int32)
             starts = np.zeros((self.batch,), np.int32)

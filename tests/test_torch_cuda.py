@@ -483,3 +483,161 @@ def test_spec_engine_streams_equal_plain_on_the_card(cuda, kv_quant, layout):
             assert eng.stats["spec_accepted_tokens"] > 0
         if layout == "paged":
             assert eng.pool.live_blocks == 0
+
+
+# ---------------------------------------------------------------------------
+# kernels 5–6: the quantiser and the quantise-and-multiply
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fmt", ["spread", "unary"])
+@pytest.mark.parametrize("scheme", ["deterministic", "stochastic", "dither"])
+def test_quantize_kernel_matches_plain_bitwise(cuda, scheme, fmt):
+    """The CUDA quantiser's int32 codes equal the plain version's bit for
+    bit: the serve path's operand shapes and a ragged one, bits 1–16,
+    counters and seeds past 2^31."""
+    from repro_torch.kernels import quantize as qk
+
+    gen = torch.Generator().manual_seed(0)
+    for shape in ((8, 576), (576, 1536), (37, 1000), (1, 3)):
+        x = (torch.rand(shape, generator=gen) * 2.6 - 1.3).to(cuda)
+        for bits, counter, seed, n in ((8, 0, 1, 16), (4, 2**31 + 9, 7, 576),
+                                       (2, 5, 2**32 - 1, 3), (16, 77, 3, 49),
+                                       (1, 1, 0, 2)):
+            kw = dict(scale=((1 << bits) - 1) / 2.0, zero=-1.0, bits=bits,
+                      scheme=scheme, counter=counter, seed=seed, n_pulses=n,
+                      fmt=fmt)
+            before = qk.quantize.launches
+            got = qk.quantize(x, **kw)
+            torch.cuda.synchronize()
+            assert qk.quantize.launches == before + 1
+            assert torch.equal(got, ref.quantize_codes_ref(x, **kw)), (
+                shape, bits, counter)
+
+
+@pytest.mark.parametrize("scheme", ["deterministic", "stochastic", "dither"])
+def test_dither_matmul_kernel_matches_plain_bitwise(cuda, scheme):
+    """The CUDA dither matmul equals the plain version bit for bit (both
+    exact integer products, the same epilogue): decode and prefill shapes
+    of the serve path, ragged shapes off every tile multiple, signed and
+    unsigned ranges, bits 1–8, both pulse formats."""
+    from repro_torch.kernels import dither_matmul as dm
+
+    gen = torch.Generator().manual_seed(1)
+    for (m, k, n) in ((8, 576, 576), (8, 1536, 576), (8, 576, 49152),
+                      (512, 576, 1536), (37, 100, 53), (5, 7, 3),
+                      (129, 65, 130)):
+        a = (torch.rand((m, k), generator=gen) * 2 - 1).to(cuda)
+        b = (torch.rand((k, n), generator=gen) * 2 - 1).to(cuda)
+        for rg, bits, fmt in (((-1.0, 1.0), 8, "spread"),
+                              ((0.0, 1.0), 4, "unary"),
+                              ((-0.7, 1.3), 1, "spread")):
+            kw = dict(bits=bits, scheme=scheme, a_range=rg, b_range=rg,
+                      counter=41, seed=6, fmt=fmt)
+            before = dm.dither_matmul.launches
+            got = dm.dither_matmul(a, b, **kw)
+            torch.cuda.synchronize()
+            assert dm.dither_matmul.launches == before + 1
+            want = ref.dither_matmul_ref(a, b, **kw)
+            assert torch.equal(got, want), ((m, k, n), rg, bits,
+                                            (got - want).abs().max().item())
+
+
+def test_dither_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.kernels import quantize as qk
+
+    a = torch.rand((8, 64), device=cuda)
+    b = torch.rand((64, 16), device=cuda)
+    kw = dict(bits=8, scheme="dither", counter=0, seed=0)
+    for bad_a, bad_b, bad_kw in ((a.half(), b, {}), (a, b.T.contiguous().T, {}),
+                                 (a, b[:32], {}), (a, b, {"bits": 9}),
+                                 (a, b, {"scheme": "bogus"}),
+                                 (a, b.cpu(), {})):
+        with pytest.raises(ValueError):
+            dm.dither_matmul(bad_a, bad_b, **{**kw, **bad_kw})
+    with pytest.raises(ValueError, match="int32 accumulator"):
+        dm.dither_matmul(torch.rand((2, 33100), device=cuda),
+                         torch.rand((33100, 2), device=cuda), **kw)
+    qkw = dict(scale=255.0, zero=0.0, bits=8, scheme="dither", counter=0,
+               seed=0, n_pulses=16)
+    for bad in (a.half(), a[:, ::2], a[None]):
+        with pytest.raises(ValueError):
+            qk.quantize(bad, **qkw)
+    with pytest.raises(ValueError):
+        qk.quantize(a, **{**qkw, "bits": 17})
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_policy_forward_on_the_card(cuda, kv_quant, layout):
+    """Under the dither policy a prefill and a decode step run the CUDA
+    dither matmul once per dense product (7 per layer + the LM head), and
+    their logits equal the plain-version matmul backend's bit for bit (the
+    attention kernels shared)."""
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.numerics.policy import QuantPolicy
+
+    cfg = _hd64_config()
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    toks = torch.randint(1, cfg.vocab_size, (4, 24), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(0))
+    lens = torch.tensor([24, 10, 3, 17], dtype=torch.int32, device=cuda)
+    out = {}
+    for backend in ("cuda", "torch-ref"):
+        pol = QuantPolicy(scheme="dither", backend=backend)
+        dm.dither_matmul.launches = 0
+        if layout == "paged":
+            cache = registry.make_cache(params, cfg, 4, 64, kv_quant=kv_quant,
+                                        kv_layout="paged", block_size=8,
+                                        device=cuda)
+            bt = torch.arange(32, dtype=torch.int32,
+                              device=cuda).reshape(4, 8)
+            pf, cache = registry.apply_prefill_paged(
+                params, cfg, toks, lens, torch.zeros_like(lens), bt, cache,
+                policy=pol, counter=3, kv_quant=kv_quant)
+        else:
+            pf, cache = registry.apply_prefill(params, cfg, toks, lens, 64,
+                                               policy=pol, counter=3,
+                                               kv_quant=kv_quant)
+        dec, _ = registry.apply_decode(params, cfg, torch.argmax(pf, -1),
+                                       cache, policy=pol, counter=4)
+        torch.cuda.synchronize()
+        per_forward = 7 * cfg.n_layers + 1
+        assert dm.dither_matmul.launches == (2 * per_forward
+                                             if backend == "cuda" else 0)
+        out[backend] = (pf, dec)
+    for got, want in zip(out["cuda"], out["torch-ref"]):
+        assert torch.equal(got, want)
+
+
+def test_policy_engine_on_the_card(cuda):
+    """The dither-policy engine on the card: every budget emitted, dither
+    matmul launches = (7 per layer + 1) × (prefill calls + ticks), one
+    prefill call per wave, and a restart replays the streams."""
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.numerics.policy import QuantPolicy
+    from repro_torch.serve import Engine, Request, SamplingParams
+
+    cfg = _hd64_config()
+    params = registry.init_model(cfg, seed=0, device=cuda)
+
+    def serve():
+        eng = Engine(params, cfg, 2, 64, kv_quant=True, device=cuda,
+                     policy=QuantPolicy(scheme="dither", backend="auto"))
+        for r in range(3):
+            eng.submit(Request(rid=r, prompt=[1 + r, 2, 3, 4, 5] * (r + 1),
+                               sampling=SamplingParams(
+                                   temperature=0.8 * (r % 2), top_k=20,
+                                   seed=r, max_new=7)))
+        dm.dither_matmul.launches = 0
+        done = sorted(eng.run(200), key=lambda r: r.rid)
+        torch.cuda.synchronize()
+        st = eng.stats
+        assert eng.policy.backend == "cuda"
+        assert [len(r.out) for r in done] == [7, 7, 7]
+        assert dm.dither_matmul.launches == (7 * cfg.n_layers + 1) * (
+            st["prefill_calls"] + st["decode_calls"])
+        return [r.out for r in done]
+
+    assert serve() == serve()

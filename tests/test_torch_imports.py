@@ -2,8 +2,8 @@
 anything of the JAX package ``repro``, so it runs where JAX is not
 installed.  Proved twice: in a subprocess with those modules blocked — it
 imports every module of the port and serves a few requests over the ring
-and the paged cache, and speculatively — and by a scan of its sources and
-``chip_smoke.py``."""
+and the paged cache, speculatively and under the dither matmul policy —
+and by a scan of its sources and ``chip_smoke.py``."""
 
 import os
 import re
@@ -47,6 +47,15 @@ for r in range(3):
     eng.submit(Request(rid=r, prompt=[1, 2, 1, 2, 5 + r], max_new=4))
 assert [len(r.out) for r in eng.run(50)] == [4, 4, 4]
 assert eng.stats["spec_windows"] > 0
+from repro_torch.numerics.policy import QuantPolicy
+for layout in ("ring", "paged"):
+    eng = Engine(params, cfg, 2, 16, kv_quant=True, kv_layout=layout,
+                 block_size=4, device="cpu",
+                 policy=QuantPolicy(scheme="dither", backend="auto"))
+    for r in range(3):
+        eng.submit(Request(rid=r, prompt=[1, 2, 3, 4, 5 + r], max_new=3))
+    assert [len(r.out) for r in eng.run(50)] == [3, 3, 3]
+    assert eng.policy.backend == "torch-ref"
 import importlib, pkgutil, repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -55,7 +64,11 @@ for name in names:
 assert set(["repro_torch.serve.kvpool", "repro_torch.serve.draft",
             "repro_torch.kernels.paged_decode_attention",
             "repro_torch.kernels.verify_attention",
-            "repro_torch.kernels.paged_verify_attention"]) <= set(names)
+            "repro_torch.kernels.paged_verify_attention",
+            "repro_torch.kernels.quantize",
+            "repro_torch.kernels.dither_matmul",
+            "repro_torch.core.quantizers",
+            "repro_torch.core.matmul"]) <= set(names)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")

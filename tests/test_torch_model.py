@@ -214,22 +214,20 @@ def test_decode_from_reference_cache():
 
 
 def test_out_of_slice_knobs_raise():
-    """Quantised-matmul policies, other families and the engine knobs not
-    ported yet raise NotImplementedError naming their ROADMAP item.  (The
-    paged cache, once on this list, is ported: it needs a block size.
-    Speculative decoding, once on it too, is ported: its gates raise
-    ValueError, as the reference's do.)"""
-    from repro_torch.numerics.policy import dense
+    """Other families and the engine knobs not ported yet raise
+    NotImplementedError naming their ROADMAP item.  (The paged cache, once
+    on this list, is ported: it needs a block size.  Speculative decoding,
+    once on it too, is ported: its gates raise ValueError, as the
+    reference's do.  So is the quantised-matmul policy: an unknown scheme
+    raises ValueError, as the reference's does.)"""
+    from repro_torch.numerics.policy import QuantPolicy, dense
     from repro_torch.serve import Engine
 
     with pytest.raises(ValueError, match="requires a positive block_size"):
         transformer.init_cache(PCFG, 2, 8, kv_layout="paged", device="cpu")
-
-    class _Policy:
-        enabled = True
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        dense(torch.zeros(2, 4), torch.zeros(4, 4), _Policy())
+    with pytest.raises(ValueError, match="unknown rounding scheme"):
+        dense(torch.zeros(2, 4), torch.zeros(4, 4),
+              QuantPolicy(scheme="bogus"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         registry.init_model(dataclasses.replace(PCFG, family="ssm"),
                             device="cpu")
