@@ -12,13 +12,17 @@ printing JSON lines:
 3. kernels — every kernel against its plain PyTorch version on the card at
    the serving path's shapes (and at qwen2-1.5b's head shapes, bf16 and
    int8, a sliding window; a wrapped ring; pool blocks of 16 and 64
-   tokens in shuffled order, two slots sharing their first blocks), with
-   its time, the plain version's, a PyTorch library call's and the bound
-   the card sets; the paged kernel at 64-token blocks against the ring
-   kernel on the same stream, bit for bit; the speculative verify kernels
-   (ring and paged, 4 and 8 query rows, a slot two short of the cache's
-   end), every row equal to the decode kernel at its position, bit for
-   bit, and paged verify equal to ring verify;
+   tokens in shuffled order, two slots sharing their first blocks; the
+   attention kernels against the plain version in their own split order
+   and in the default one, also on rows either side of a split boundary),
+   with its time — event ms per call and the profiler's device ms — the
+   plain version's, a PyTorch library call's (event and device ms) and the
+   bound the card sets; kernels 1-4 again at the serve profile's shapes;
+   the paged kernel at 64-token blocks against the ring kernel on the same
+   stream, bit for bit; the speculative verify kernels (ring and paged, 4
+   and 8 query rows, a slot two short of the cache's end), every row equal
+   to the decode kernel at its position, bit for bit, and paged verify
+   equal to ring verify;
 4. serve — full-width SmolLM-135M (random weights from seed 0) through the
    port's ``Engine``, with the bf16 and the int8-dither KV cache, over the
    ring cache (16 requests, prompts of 32–512 tokens) and over the paged
@@ -42,6 +46,13 @@ printing JSON lines:
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
+
+  PYTHONPATH=src python chip_smoke.py --attention-times TREE [TREE ...]
+
+times kernels 1-4 alone (``attention_times``) for each TREE — a checkout's
+root, such as a parent commit unpacked under ``build/``, or ``split=N``,
+this checkout's port with a split span of N tiles — each in a process of
+its own, in the order given, so that versions compare on one card.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ import copy
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -77,6 +89,17 @@ SERVE_REQUESTS = 16        # requests of each serve phase
 SPEC_K = 4                 # the speculative serve phases' draft_k
 VERIFY_REPLACES = "src/repro/kernels/decode_attention.py:316"
 PAGED_VERIFY_REPLACES = "src/repro/kernels/decode_attention.py:653"
+ATTN_KERNELS = ("flash_decode",)   # kernels 1-4's device kernels (and merge)
+SDPA_OP = "aten::scaled_dot_product_attention"
+ATTN_SHAPES = {"smollm_135m": dict(nkv=3, group=3, hd=64),
+               "qwen2_1_5b": dict(nkv=2, group=6, hd=128)}
+LONG_POS = [0, 37, 255, 511, 700, 1023, 1500, 2047]   # ring wrap >= 1024
+# the profile phase's steady ticks: 8 prompts of 199 + 20 r tokens
+SERVE_POS = [203 + 20 * r for r in range(8)]
+# rows either side of split boundaries (multiples of S tiles of 64 keys)
+# and of the ring's end
+SPLIT_POS = [255, 256, 257, 511, 512, 1023, 1024, 1025]
+VERIFY_SPLIT_POS = [252, 253, 255, 256, 509, 512, 1021, 1024]
 
 
 T_START = time.perf_counter()
@@ -190,12 +213,74 @@ def library_call(t, window):
                                                   attn_mask=mask)
 
 
-def cold_times(t, kernel, plain, library, iters):
-    """Mean device ms of ``kernel(*t)``, ``plain(*t)`` and the call that
-    ``library(t)`` returns, over ``iters`` = (kernel, plain, library)
-    launches, with the inputs rotated over copies that exceed the 50 MB L2,
-    as the serving path finds each layer's cache cold.  Returns the three
-    times and the number of copies."""
+def host_ms(torch, fn, calls: int = 200) -> float:
+    """Host time per call of ``fn`` (what the caller waits before its next
+    call: checks, allocation, launches), over ``calls`` calls that the card
+    keeps up with, without a sync inside."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / calls
+
+
+def device_ms(torch, fn, calls, names=None, op=None, by_kernel=None):
+    """Device time per call of ``fn`` from ``torch.profiler`` over ``calls``
+    calls (after one outside the trace): the summed self time of the CUDA
+    kernels whose names contain one of ``names`` or, with ``op``, the device
+    time of everything launched under that operator.  With a dict
+    ``by_kernel``, also each matching kernel's share, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):         # a trace that caught no kernel is retaken
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if op is not None:
+            us = sum(e.device_time_total for e in events if e.key == op)
+        else:
+            hits = [e for e in events if str(e.device_type).endswith("CUDA")
+                    and any(n in e.key for n in names)]
+            us = sum(e.self_device_time_total for e in hits)
+            if by_kernel is not None:
+                for e in hits:
+                    name = "merge" if "merge_kernel" in e.key else "main"
+                    by_kernel[name] = (by_kernel.get(name, 0.0)
+                                       + e.self_device_time_total / 1e3
+                                       / calls)
+        if us > 0:
+            return us / 1e3 / calls
+    return None
+
+
+def share_of(bound_ms, res):
+    """The bound over the kernel's device time (None where the profiler
+    caught none)."""
+    return bound_ms / res["device_ms"] if res["device_ms"] else None
+
+
+def cold_times(t, kernel, plain, library, iters, profiled=True):
+    """Times of ``kernel(*t)``, ``plain(*t)`` (``None``: not timed) and the
+    call that ``library(t)`` returns, with the inputs rotated over copies
+    that exceed the 50 MB L2, as the serving path finds each layer's cache
+    cold: event ms, the mean over ``iters`` = (kernel, plain, library)
+    back-to-back calls, which is the wrapper's host time where that is the
+    longer; the kernel's host ms (``host_ms``); device ms, the profiler's
+    time of the attention kernel's own device kernels (``ATTN_KERNELS``,
+    also by kernel) and of what SDPA launches (``SDPA_OP``; the library
+    call's dequantise and GQA expand stay outside it, a paged gather inside
+    the call outside SDPA), over 50 and 20 calls — the host and device
+    numbers only when ``profiled`` (None otherwise).  Returns a dict."""
+    import torch
+
     nbytes = sum(x.numel() * x.element_size() for x in t[1:3])
     copies = [t] + [[None if x is None else x.clone() for x in t]
                     for _ in range(max(1, math.ceil(120e6 / nbytes)))]
@@ -209,54 +294,84 @@ def cold_times(t, kernel, plain, library, iters):
             return fn(turn["i"])
         return call
 
-    return (cuda_ms(rotate(lambda i: kernel(*copies[i])), iters[0]),
-            cuda_ms(rotate(lambda i: plain(*copies[i])), iters[1], warmup=1),
-            cuda_ms(rotate(lambda i: libs[i]()), iters[2]), len(copies))
+    run_kernel = rotate(lambda i: kernel(*copies[i]))
+    run_library = rotate(lambda i: libs[i]())
+    by_kernel = {}
+    res = {"ms": cuda_ms(run_kernel, iters[0]),
+           "library_ms": cuda_ms(run_library, iters[2]),
+           "copies_rotated": len(copies), "host_ms": None,
+           "device_ms": None, "device_ms_by_kernel": None,
+           "library_device_ms": None}
+    if profiled:
+        res.update(host_ms=host_ms(torch, run_kernel),
+                   device_ms=device_ms(torch, run_kernel, 50, ATTN_KERNELS,
+                                       by_kernel=by_kernel),
+                   device_ms_by_kernel=by_kernel,
+                   library_device_ms=device_ms(torch, run_library, 20,
+                                               op=SDPA_OP))
+    if plain is not None:
+        res["plain_ms"] = cuda_ms(rotate(lambda i: plain(*copies[i])),
+                                  iters[1], warmup=1)
+    return res
 
 
 def kernel_phase(torch, da, ref):
-    """Each case: kernel vs plain version (same 64-slot block) on the card;
-    then cold times (``cold_times``)."""
-    pos_vals = [0, 37, 255, 511, 700, 1023, 1500, 2047]   # ring wrap ≥ 1024
-    shapes = {"smollm_135m": dict(nkv=3, group=3, hd=64),
-              "qwen2_1_5b": dict(nkv=2, group=6, hd=128)}
-    cases = [(m, q, 0) for m in shapes for q in (False, True)]
+    """Each case: kernel vs plain version on the card, with the kernel's
+    64-slot tiles and split, and vs the whole-cap plain version; then cold
+    times (``cold_times``).  Then the split-boundary rows (``SPLIT_POS``),
+    checked the same way, untimed."""
+    cases = [(m, q, 0) for m in ATTN_SHAPES for q in (False, True)]
     cases.append(("smollm_135m", True, 256))
+    ring_kw = dict(block=(da.KERNEL_BLOCK,), split=da.SPLIT_TILES)
     gen = torch.Generator().manual_seed(0)
     results = []
     for model, quant, window in cases:
-        dims = dict(b=8, cap=1024, **shapes[model])
-        t = ring_inputs(gen, quant=quant, pos_vals=pos_vals, **dims)
-        got = da.decode_attention(*t, window=window)
-        torch.cuda.synchronize()
-        want = ref.decode_attention_ref(*t, window=window,
-                                        block=(da.KERNEL_BLOCK,))
-        whole = ref.decode_attention_ref(*t, window=window)
-        err = (got - want).abs().max().item()
-        err_whole = (got - whole).abs().max().item()
-        assert torch.isfinite(got).all()
-        torch.testing.assert_close(got, want, atol=KERNEL_TOL,
-                                   rtol=KERNEL_TOL)
-        torch.testing.assert_close(got, whole, atol=KERNEL_TOL,
-                                   rtol=KERNEL_TOL)
-
-        ms, plain_ms, library_ms, n_copies = cold_times(
+        dims = dict(b=8, cap=1024, **ATTN_SHAPES[model])
+        t = ring_inputs(gen, quant=quant, pos_vals=LONG_POS, **dims)
+        _, res = check_kernel(torch, da.decode_attention,
+                              ref.decode_attention_ref, t, window, ring_kw)
+        res.update(cold_times(
             t, functools.partial(da.decode_attention, window=window),
             functools.partial(ref.decode_attention_ref, window=window),
-            lambda c: library_call(c, window), (200, 20, 200))
-        bound_ms, bound_by = decode_bound(pos_vals, quant=quant,
+            lambda c: library_call(c, window), (200, 20, 200),
+            profiled=window == 0))
+        bound_ms, bound_by = decode_bound(LONG_POS, quant=quant,
                                           window=window, **dims)
         results.append({
             "name": f"decode_attention[{'int8' if quant else 'bf16'}]",
             "model_shapes": model, "window": window,
-            "shape": {"B": 8, "cap": 1024, **shapes[model]},
-            "pos": pos_vals, "max_abs_err": err,
-            "max_abs_err_vs_whole_cap_plain": err_whole,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "share_of_bound": bound_ms / ms,
-            "copies_rotated": n_copies})
+            "shape": {"B": 8, "cap": 1024, **ATTN_SHAPES[model]},
+            "pos": LONG_POS, **res, "kernel_ms": res["ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": share_of(bound_ms, res)})
+    for model in ATTN_SHAPES:
+        for quant in (False, True):
+            t = ring_inputs(gen, quant=quant, pos_vals=SPLIT_POS, b=8,
+                            cap=1024, **ATTN_SHAPES[model])
+            results.append({
+                "name": f"decode_attention[{'int8' if quant else 'bf16'}]",
+                "model_shapes": model, "window": 0, "pos": SPLIT_POS,
+                "split_boundaries": True,
+                **check_kernel(torch, da.decode_attention,
+                               ref.decode_attention_ref, t, 0, ring_kw)[1]})
     return results
+
+
+def check_kernel(torch, kernel, plain, t, window, split_kw):
+    """``kernel(*t)`` on the card against ``plain(*t)`` with the kernel's
+    tiles and split (``split_kw``) and against the plain version's default
+    order (the ring's whole cap, the pool block, no split), both within
+    ``KERNEL_TOL``; returns the output and the two max errors."""
+    got = kernel(*t, window=window)
+    torch.cuda.synchronize()
+    want = plain(*t, window=window, **split_kw)
+    whole = plain(*t, window=window)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+    torch.testing.assert_close(got, whole, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+    return got, {"max_abs_err": (got - want).abs().max().item(),
+                 "max_abs_err_vs_default_plain":
+                     (got - whole).abs().max().item()}
 
 
 def pool_inputs(gen, *, b, nbmax, bs, nkv, group, hd, quant, pos_vals,
@@ -360,39 +475,58 @@ def paged_library_call(t, window):
     return call
 
 
+def ring_as_pool(torch, gen, t):
+    """The ring snapshot ``t`` (no wrap) as a pool of KERNEL_BLOCK-token
+    blocks in shuffled order, with its block table: (q, k, v, block_tables,
+    pos, k_scale, v_scale)."""
+    from repro_torch.kernels.decode_attention import KERNEL_BLOCK
+
+    q, k, v, _, pos, ks, vs = t
+    b, cap = k.shape[:2]
+    bs, nb = KERNEL_BLOCK, cap // KERNEL_BLOCK
+    perm = torch.randperm(b * nb, generator=gen).to(q.device)
+
+    def to_pool(x):
+        if x is None:
+            return None
+        tail = tuple(x.shape[2:])
+        pool = torch.zeros((b * nb + 1, bs) + tail, dtype=x.dtype,
+                           device=x.device)
+        pool[perm] = x.reshape((b * nb, bs) + tail)
+        return pool
+
+    return [q, to_pool(k), to_pool(v), perm.reshape(b, nb).to(torch.int32),
+            pos, to_pool(ks), to_pool(vs)]
+
+
 def paged_kernel_phase(torch, da, pda, ref):
-    """Each case: the paged kernel vs its plain version on the card, then
-    cold times (``cold_times``).
+    """Each case: the paged kernel vs its plain version on the card (with
+    the kernels' split and without), then cold times (``cold_times``).
     Positions are the ring case's, unwrapped (a table of 2048 tokens);
     row 6 shares row 5's first two blocks.  Then the bitwise check:
     paged at 64-token blocks against the ring kernel at bk = 64 on one
-    stream."""
-    pos_vals = [0, 37, 255, 511, 700, 1023, 1500, 2047]
-    shapes = {"smollm_135m": dict(nkv=3, group=3, hd=64),
-              "qwen2_1_5b": dict(nkv=2, group=6, hd=128)}
+    stream, at ``LONG_POS`` and at the split-boundary rows."""
     gen = torch.Generator().manual_seed(1)
     results = []
-    for model in shapes:
+    for model in ATTN_SHAPES:
         for quant in (False, True):
             for bs in (16, 64):
                 for window in (0, 256):
-                    dims = dict(b=8, nbmax=2048 // bs, bs=bs, **shapes[model])
-                    t = pool_inputs(gen, quant=quant, pos_vals=pos_vals,
+                    dims = dict(b=8, nbmax=2048 // bs, bs=bs,
+                                **ATTN_SHAPES[model])
+                    t = pool_inputs(gen, quant=quant, pos_vals=LONG_POS,
                                     share=(5, 6), **dims)
-                    got = pda.paged_decode_attention(*t, window=window)
-                    torch.cuda.synchronize()
-                    want = ref.paged_decode_attention_ref(*t, window=window)
-                    err = (got - want).abs().max().item()
-                    assert torch.isfinite(got).all()
-                    torch.testing.assert_close(got, want, atol=KERNEL_TOL,
-                                               rtol=KERNEL_TOL)
-                    ms, plain_ms, library_ms, n_copies = cold_times(
+                    _, res = check_kernel(
+                        torch, pda.paged_decode_attention,
+                        ref.paged_decode_attention_ref, t, window,
+                        dict(split=da.SPLIT_TILES))
+                    res.update(cold_times(
                         t, functools.partial(pda.paged_decode_attention,
                                              window=window),
                         functools.partial(ref.paged_decode_attention_ref,
                                           window=window),
                         lambda c: paged_library_call(c, window),
-                        (200, 10, 50))
+                        (200, 10, 50), profiled=window == 0 and bs == 64))
                     bound_ms, bound_by, nbytes, slot_bytes = paged_bound(
                         t, window, quant=quant)
                     results.append({
@@ -400,45 +534,30 @@ def paged_kernel_phase(torch, da, pda, ref):
                                 f"[{'int8' if quant else 'bf16'}]",
                         "model_shapes": model, "window": window,
                         "shape": {"B": 8, "bs": bs, "nbmax": 2048 // bs,
-                                  **shapes[model]},
-                        "pos": pos_vals, "max_abs_err": err,
-                        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-                        "library_ms": library_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "distinct_bytes": nbytes,
+                                  **ATTN_SHAPES[model]},
+                        "pos": LONG_POS, **res, "kernel_ms": res["ms"],
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "distinct_bytes": nbytes,
                         "per_slot_bytes": slot_bytes,
-                        "share_of_bound": bound_ms / ms,
-                        "copies_rotated": n_copies})
+                        "share_of_bound": share_of(bound_ms, res)})
 
     # paged == ring, bit for bit, at bs == bk == 64 on one stream
     bitwise = []
-    for quant in (False, True):
-        for window in (0, 256):
-            dims = dict(b=8, cap=2048, **shapes["smollm_135m"])
-            q, k, v, kp, pos, ks, vs = ring_inputs(
-                gen, quant=quant, pos_vals=pos_vals, **dims)
-            bs, nb = da.KERNEL_BLOCK, 2048 // da.KERNEL_BLOCK
-            perm = torch.randperm(8 * nb, generator=gen).to(q.device)
-            bt = perm.reshape(8, nb).to(torch.int32)
-
-            def to_pool(x):
-                if x is None:
-                    return None
-                tail = tuple(x.shape[2:])
-                pool = torch.zeros((8 * nb + 1, bs) + tail, dtype=x.dtype,
-                                   device=x.device)
-                pool[perm] = x.reshape((8 * nb, bs) + tail)
-                return pool
-
-            ring = da.decode_attention(q, k, v, kp, pos, ks, vs,
-                                       window=window)
-            paged = pda.paged_decode_attention(
-                q, to_pool(k), to_pool(v), bt, pos, to_pool(ks), to_pool(vs),
-                window=window)
-            torch.cuda.synchronize()
-            same = torch.equal(ring, paged)
-            assert same, (quant, window, (ring - paged).abs().max().item())
-            bitwise.append({"kv": "int8" if quant else "bf16",
-                            "window": window, "bitwise_equal": same})
+    for pos_vals in (LONG_POS, SPLIT_POS):
+        for quant in (False, True):
+            for window in (0, 256):
+                t = ring_inputs(gen, quant=quant, pos_vals=pos_vals, b=8,
+                                cap=2048, **ATTN_SHAPES["smollm_135m"])
+                ring = da.decode_attention(*t, window=window)
+                paged = pda.paged_decode_attention(
+                    *ring_as_pool(torch, gen, t), window=window)
+                torch.cuda.synchronize()
+                same = torch.equal(ring, paged)
+                assert same, (quant, window,
+                              (ring - paged).abs().max().item())
+                bitwise.append({"kv": "int8" if quant else "bf16",
+                                "window": window, "pos": pos_vals,
+                                "bitwise_equal": same})
     return results, bitwise
 
 
@@ -525,138 +644,259 @@ def paged_verify_library_call(t, window):
     return call
 
 
-def verify_kernel_phase(torch, da, pda, va, pva, ref, timed=True):
+def rows_equal(torch, got, decode, t, window):
+    """Row r of a verify output against ``decode`` at pos + r, bit for
+    bit."""
+    q, k, v, index, pos, ks, vs = t
+    for r in range(q.shape[1]):
+        one = decode(q[:, r].contiguous(), k, v, index, pos + r, ks, vs,
+                     window=window)
+        torch.cuda.synchronize()
+        if not torch.equal(got[:, r], one):
+            return False
+    return True
+
+
+def verify_kernel_phase(torch, da, pda, va, pva, ref):
     """Kernels 3 and 4, each case on the card: the verify kernel against
-    its plain version (same tiles) within ``KERNEL_TOL``; every row t equal
-    to the decode kernel (ring or paged) at pos + t, bit for bit; then cold
-    times (``cold_times``) and the bound.  Positions are the decode cases'
-    plus one slot two short of the end (ring cap 1024, table 2048), so rows
-    run past the cache's end; K = 4, and K = 8 at Qwen2-1.5B's heads.
-    Then paged verify at 64-token blocks against ring verify at bk 64 on
-    one stream, bit for bit."""
-    shapes = {"smollm_135m": dict(nkv=3, group=3, hd=64),
-              "qwen2_1_5b": dict(nkv=2, group=6, hd=128)}
+    its plain version with the kernels' tiles and split, and without the
+    split, within ``KERNEL_TOL``; every row t equal to the decode kernel
+    (ring or paged) at pos + t, bit for bit; then cold times
+    (``cold_times``) and the bound.  Positions are the decode cases' plus
+    one slot two short of the end (ring cap 1024, table 2048), so rows run
+    past the cache's end; K = 4, and K = 8 at Qwen2-1.5B's heads (48 rows
+    a block).  Then the ring kernel's rows either side of the split
+    boundaries (``VERIFY_SPLIT_POS``), untimed.  Then paged verify at
+    64-token blocks against ring verify at bk 64 on one stream, bit for
+    bit."""
     gen = torch.Generator().manual_seed(4)
-    cases = [(m, q, w, 4) for m in shapes for q in (False, True)
+    cases = [(m, q, w, 4) for m in ATTN_SHAPES for q in (False, True)
              for w in (0, 256)]
     cases.append(("qwen2_1_5b", True, 0, 8))
+    ring_kw = dict(block=(da.KERNEL_BLOCK,), split=da.SPLIT_TILES)
     ring, paged = [], []
 
-    def rows_equal(got, decode, t, window):
-        """Row r of a verify output against ``decode`` at pos + r."""
-        q, k, v, index, pos, ks, vs = t
-        for r in range(q.shape[1]):
-            one = decode(q[:, r].contiguous(), k, v, index, pos + r, ks, vs,
-                         window=window)
-            torch.cuda.synchronize()
-            if not torch.equal(got[:, r], one):
-                return False
-        return True
-
     for model, quant, window, kq in cases:
-        pos_vals = [0, 37, 255, 511, 700, 1023, 1500, 2047, 1022]
-        dims = dict(b=9, cap=1024, **shapes[model])
+        pos_vals = LONG_POS + [1022]
+        dims = dict(b=9, cap=1024, **ATTN_SHAPES[model])
         t = ring_inputs(gen, quant=quant, pos_vals=pos_vals, kq=kq, **dims)
-        got = va.verify_attention(*t, window=window)
-        torch.cuda.synchronize()
-        want = ref.verify_attention_ref(*t, window=window,
-                                        block=(da.KERNEL_BLOCK,))
-        err = (got - want).abs().max().item()
-        assert torch.isfinite(got).all()
-        torch.testing.assert_close(got, want, atol=KERNEL_TOL,
-                                   rtol=KERNEL_TOL)
-        same = rows_equal(got, da.decode_attention, t, window)
+        got, res = check_kernel(torch, va.verify_attention,
+                                ref.verify_attention_ref, t, window, ring_kw)
+        same = rows_equal(torch, got, da.decode_attention, t, window)
         assert same, (model, quant, window, kq)
-        res = {"name": f"verify_attention[{'int8' if quant else 'bf16'}]",
-               "model_shapes": model, "window": window, "kq": kq,
-               "shape": {"B": 9, "cap": 1024, "kq": kq, **shapes[model]},
-               "pos": pos_vals, "max_abs_err": err,
-               "rows_equal_decode_kernel_bitwise": same}
-        if timed:
-            ms, plain_ms, library_ms, n_copies = cold_times(
-                t, functools.partial(va.verify_attention, window=window),
-                functools.partial(ref.verify_attention_ref, window=window),
-                lambda c: verify_library_call(c, window), (200, 5, 100))
-            bound_ms, bound_by = verify_bound(pos_vals, kq, quant=quant,
-                                              window=window, **dims)
-            res.update(ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, share_of_bound=bound_ms / ms,
-                       copies_rotated=n_copies)
-        ring.append(res)
+        res.update(cold_times(
+            t, functools.partial(va.verify_attention, window=window),
+            functools.partial(ref.verify_attention_ref, window=window),
+            lambda c: verify_library_call(c, window), (200, 5, 100),
+            profiled=window == 0))
+        bound_ms, bound_by = verify_bound(pos_vals, kq, quant=quant,
+                                          window=window, **dims)
+        ring.append({
+            "name": f"verify_attention[{'int8' if quant else 'bf16'}]",
+            "model_shapes": model, "window": window, "kq": kq,
+            "shape": {"B": 9, "cap": 1024, "kq": kq, **ATTN_SHAPES[model]},
+            "pos": pos_vals, **res, "kernel_ms": res["ms"],
+            "rows_equal_decode_kernel_bitwise": same,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": share_of(bound_ms, res)})
+    for model, quant, kq in [(m, q, 4) for m in ATTN_SHAPES
+                             for q in (False, True)] + [("qwen2_1_5b", True,
+                                                         8)]:
+        t = ring_inputs(gen, quant=quant, pos_vals=VERIFY_SPLIT_POS, kq=kq,
+                        b=8, cap=1024, **ATTN_SHAPES[model])
+        got, res = check_kernel(torch, va.verify_attention,
+                                ref.verify_attention_ref, t, 0, ring_kw)
+        same = rows_equal(torch, got, da.decode_attention, t, 0)
+        assert same, (model, quant, kq)
+        ring.append({
+            "name": f"verify_attention[{'int8' if quant else 'bf16'}]",
+            "model_shapes": model, "window": 0, "kq": kq,
+            "pos": VERIFY_SPLIT_POS, "split_boundaries": True, **res,
+            "rows_equal_decode_kernel_bitwise": same})
 
     for model, quant, window, kq in cases:
         for bs in ((16, 64) if kq == 4 else (64,)):
-            pos_vals = [0, 37, 255, 511, 700, 1023, 1500, 2047, 2046]
-            dims = dict(b=9, nbmax=2048 // bs, bs=bs, **shapes[model])
+            pos_vals = LONG_POS + [2046]
+            dims = dict(b=9, nbmax=2048 // bs, bs=bs, **ATTN_SHAPES[model])
             t = pool_inputs(gen, quant=quant, pos_vals=pos_vals,
                             share=(5, 6), kq=kq, **dims)
-            got = pva.paged_verify_attention(*t, window=window)
-            torch.cuda.synchronize()
-            want = ref.paged_verify_attention_ref(*t, window=window)
-            err = (got - want).abs().max().item()
-            assert torch.isfinite(got).all()
-            torch.testing.assert_close(got, want, atol=KERNEL_TOL,
-                                       rtol=KERNEL_TOL)
-            same = rows_equal(got, pda.paged_decode_attention, t, window)
+            got, res = check_kernel(
+                torch, pva.paged_verify_attention,
+                ref.paged_verify_attention_ref, t, window,
+                dict(split=da.SPLIT_TILES))
+            same = rows_equal(torch, got, pda.paged_decode_attention, t,
+                              window)
             assert same, (model, quant, window, kq, bs)
-            res = {"name": "paged_verify_attention"
-                           f"[{'int8' if quant else 'bf16'}]",
-                   "model_shapes": model, "window": window, "kq": kq,
-                   "shape": {"B": 9, "bs": bs, "nbmax": 2048 // bs,
-                             "kq": kq, **shapes[model]},
-                   "pos": pos_vals, "max_abs_err": err,
-                   "rows_equal_decode_kernel_bitwise": same}
-            if timed:
-                ms, plain_ms, library_ms, n_copies = cold_times(
-                    t, functools.partial(pva.paged_verify_attention,
-                                         window=window),
-                    functools.partial(ref.paged_verify_attention_ref,
-                                      window=window),
-                    lambda c: paged_verify_library_call(c, window),
-                    (200, 2, 50))
-                bound_ms, bound_by, nbytes, slot_bytes = paged_bound(
-                    t, window, quant=quant)
-                res.update(ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, distinct_bytes=nbytes,
-                           per_slot_bytes=slot_bytes,
-                           share_of_bound=bound_ms / ms,
-                           copies_rotated=n_copies)
-            paged.append(res)
+            res.update(cold_times(
+                t, functools.partial(pva.paged_verify_attention,
+                                     window=window),
+                functools.partial(ref.paged_verify_attention_ref,
+                                  window=window),
+                lambda c: paged_verify_library_call(c, window),
+                (200, 2, 50), profiled=window == 0 and bs == 64))
+            bound_ms, bound_by, nbytes, slot_bytes = paged_bound(
+                t, window, quant=quant)
+            paged.append({
+                "name": "paged_verify_attention"
+                        f"[{'int8' if quant else 'bf16'}]",
+                "model_shapes": model, "window": window, "kq": kq,
+                "shape": {"B": 9, "bs": bs, "nbmax": 2048 // bs, "kq": kq,
+                          **ATTN_SHAPES[model]},
+                "pos": pos_vals, **res, "kernel_ms": res["ms"],
+                "rows_equal_decode_kernel_bitwise": same,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "distinct_bytes": nbytes, "per_slot_bytes": slot_bytes,
+                "share_of_bound": share_of(bound_ms, res)})
 
     # paged verify == ring verify, bit for bit, at bs == bk == 64 on one
     # stream (every row inside the 2048-slot ring, so nothing wraps)
     bitwise = []
-    pos_vals = [0, 37, 255, 511, 700, 1023, 1500, 2044]
-    for quant in (False, True):
-        for window in (0, 256):
-            dims = dict(b=8, cap=2048, **shapes["smollm_135m"])
-            q, k, v, kp, pos, ks, vs = ring_inputs(
-                gen, quant=quant, pos_vals=pos_vals, kq=4, **dims)
-            bs, nb = da.KERNEL_BLOCK, 2048 // da.KERNEL_BLOCK
-            perm = torch.randperm(8 * nb, generator=gen).to(q.device)
-            bt = perm.reshape(8, nb).to(torch.int32)
-
-            def to_pool(x):
-                if x is None:
-                    return None
-                tail = tuple(x.shape[2:])
-                pool = torch.zeros((8 * nb + 1, bs) + tail, dtype=x.dtype,
-                                   device=x.device)
-                pool[perm] = x.reshape((8 * nb, bs) + tail)
-                return pool
-
-            r = va.verify_attention(q, k, v, kp, pos, ks, vs, window=window)
-            pg = pva.paged_verify_attention(
-                q, to_pool(k), to_pool(v), bt, pos, to_pool(ks), to_pool(vs),
-                window=window)
-            torch.cuda.synchronize()
-            same = torch.equal(r, pg)
-            assert same, (quant, window, (r - pg).abs().max().item())
-            bitwise.append({"kv": "int8" if quant else "bf16",
-                            "window": window, "bitwise_equal": same})
+    for pos_vals in ([0, 37, 255, 511, 700, 1023, 1500, 2044],
+                     VERIFY_SPLIT_POS):
+        for quant in (False, True):
+            for window in (0, 256):
+                t = ring_inputs(gen, quant=quant, pos_vals=pos_vals, kq=4,
+                                b=8, cap=2048, **ATTN_SHAPES["smollm_135m"])
+                r = va.verify_attention(*t, window=window)
+                pg = pva.paged_verify_attention(*ring_as_pool(torch, gen, t),
+                                                window=window)
+                torch.cuda.synchronize()
+                same = torch.equal(r, pg)
+                assert same, (quant, window, (r - pg).abs().max().item())
+                bitwise.append({"kv": "int8" if quant else "bf16",
+                                "window": window, "pos": pos_vals,
+                                "bitwise_equal": same})
     return ring, paged, bitwise
+
+
+def attention_times(torch, sets=("long", "serve")):
+    """Kernels 1-4 timed alone (``cold_times``, no plain version), bf16 and
+    int8, window 0, K 4: at the kernels phase's shapes ("long": B 8, a
+    1024-slot ring or a 2048-token table of 64-token blocks, ``LONG_POS``,
+    SmolLM-135M's and Qwen2-1.5B's heads) and at the serve profile's
+    ("serve": B 8, ``SERVE_POS``, a 1024-token cache, SmolLM-135M's heads;
+    the paged slots share their first two blocks, as the profile's prompts
+    share a prefix).  Decode and verify take the same positions.  It calls
+    only the wrappers, so it times any tree of the port
+    (``--attention-times``)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_verify_attention as pva
+    from repro_torch.kernels import verify_attention as va
+
+    gen = torch.Generator().manual_seed(7)
+    rows = []
+    for shape_set in sets:
+        pos_vals = LONG_POS if shape_set == "long" else SERVE_POS
+        models = (list(ATTN_SHAPES) if shape_set == "long"
+                  else ["smollm_135m"])
+        nbmax = 32 if shape_set == "long" else 16
+        share = (5, 6) if shape_set == "long" else tuple(range(8))
+        for model in models:
+            heads = ATTN_SHAPES[model]
+            for quant in (False, True):
+                ring = dict(b=8, cap=1024, quant=quant, pos_vals=pos_vals,
+                            **heads)
+                pool = dict(b=8, nbmax=nbmax, bs=64, quant=quant,
+                            pos_vals=pos_vals, share=share, **heads)
+                for name, fn, t, library in (
+                        ("decode_attention", da.decode_attention,
+                         ring_inputs(gen, **ring), library_call),
+                        ("verify_attention", va.verify_attention,
+                         ring_inputs(gen, kq=SPEC_K, **ring),
+                         verify_library_call),
+                        ("paged_decode_attention", pda.paged_decode_attention,
+                         pool_inputs(gen, **pool), paged_library_call),
+                        ("paged_verify_attention", pva.paged_verify_attention,
+                         pool_inputs(gen, kq=SPEC_K, **pool),
+                         paged_verify_library_call)):
+                    res = cold_times(t, fn, None,
+                                     lambda c, lib=library: lib(c, 0),
+                                     (200, 0, 100))
+                    if name.startswith("paged"):
+                        bound_ms, bound_by = paged_bound(t, 0,
+                                                         quant=quant)[:2]
+                    elif name == "verify_attention":
+                        bound_ms, bound_by = verify_bound(
+                            pos_vals, SPEC_K, window=0,
+                            **{k: v for k, v in ring.items()
+                               if k != "pos_vals"})
+                    else:
+                        bound_ms, bound_by = decode_bound(
+                            pos_vals, window=0,
+                            **{k: v for k, v in ring.items()
+                               if k != "pos_vals"})
+                    kv = "int8" if quant else "bf16"
+                    rows.append({"name": f"{name}[{kv}]", "shapes": shape_set,
+                                 "model_shapes": model, "pos": pos_vals,
+                                 **res, "bound_ms": bound_ms,
+                                 "bound_by": bound_by})
+    return rows
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def attention_times_worker(root: str, label: str) -> int:
+    """One tree's ``attention_times``, in this process: the port under
+    ``root/src`` is imported, its kernels 1-4 built and timed, and one
+    ``{"attention_times": label, ...}`` line printed."""
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    from repro_torch.kernels import _build
+
+    secs = _build.build(["decode_attention", "verify_attention",
+                         "paged_decode_attention", "paged_verify_attention"])
+    emit({"attention_times": label, "root": str(root),
+          "nvidia_smi": nvidia_smi(), "build_s": secs,
+          "rows": attention_times(torch)})
+    return 0
+
+
+def split_tree(n: int) -> Path:
+    """A copy of this checkout's port under ``build/split_sweep/S<n>`` with
+    the split span ``kSplitTiles`` (and the wrappers' ``SPLIT_TILES``) set
+    to ``n`` tiles: the trees ``--attention-times split=<n>`` times."""
+    import shutil
+
+    dst = ROOT / "build" / "split_sweep" / f"S{n}"
+    shutil.rmtree(dst, ignore_errors=True)
+    pkg = dst / "src" / "repro_torch"
+    shutil.copytree(ROOT / "src" / "repro_torch", pkg,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for rel, pattern in (
+            ("kernels/csrc/flash_decode.cuh",
+             r"(constexpr int kSplitTiles = )\d+;"),
+            ("kernels/decode_attention.py", r"(SPLIT_TILES = )\d+ ")):
+        path = pkg / rel
+        text, count = re.subn(pattern, lambda m: f"{m.group(1)}{n}"
+                              + m.group(0)[-1], path.read_text())
+        assert count == 1, (rel, pattern)
+        path.write_text(text)
+    return dst
+
+
+def attention_times_main(trees) -> int:
+    """``--attention-times TREE ...``: each TREE — a checkout's root, or
+    ``split=N`` for this checkout's port at a split span of N tiles
+    (``split_tree``) — timed by ``attention_times`` in a process of its
+    own, one after the other in the order given (for a comparison on one
+    card: parent, change, change, parent)."""
+    for tree in trees:
+        root = (split_tree(int(tree.split("=")[1]))
+                if tree.startswith("split=") else Path(tree))
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--attention-times-of", str(root), tree],
+                       check=True, timeout=900)
+    return 0
 
 
 def row_purity_phase(torch, cfg, params):
@@ -1192,24 +1432,6 @@ MATMUL_SHAPES = ((8, 576, 576), (8, 576, 192), (8, 576, 1536),
                  (8, 1536, 576), (8, 576, 49152), (4096, 576, 1536))
 
 
-def device_ms(torch, fn, calls, names):
-    """Device time per call of the CUDA kernels whose names contain one of
-    ``names``, summed, from ``torch.profiler`` over ``calls`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA")
-             and any(n in e.key for n in names))
-    return us / 1e3 / calls
-
-
 def quantize_bound(m, n):
     """Least time for kernel 5: 4 bytes read and 4 written per element over
     HBM; its f32 ops over the non-tensor f32 rate (the hash's integer
@@ -1477,6 +1699,18 @@ def policy_error_phase(torch, cfg, params):
     return res
 
 
+def device_fields(main, serve_times):
+    """A kernels-line entry's device numbers: the kernels phase's device ms
+    of the kernel and of its library call, and the same at the serve
+    profile's shapes (``attention_times``)."""
+    serve = next(r for r in serve_times if r["name"] == main["name"])
+    return {"device_ms": main["device_ms"],
+            "library_device_ms": main["library_device_ms"],
+            "serve_shapes": {k: serve[k] for k in (
+                "pos", "ms", "device_ms", "library_ms", "library_device_ms",
+                "bound_ms")}}
+
+
 def main() -> int:
     import torch
 
@@ -1498,10 +1732,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # 1 — device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
@@ -1530,6 +1761,8 @@ def main() -> int:
     emit({"phase": "kernels", "layout": "paged", "verify": True,
           "checks": paged_verify_checks,
           "paged_verify_equals_ring_verify_bitwise": verify_bitwise})
+    serve_times = attention_times(torch, ("serve",))
+    emit({"phase": "kernels", "serve_shapes": True, "times": serve_times})
     quantize_checks, matmul_checks = dither_kernel_phase(torch, qk, dm, ref)
     emit({"phase": "kernels", "dither": True, "quantize": quantize_checks,
           "dither_matmul": matmul_checks})
@@ -1595,7 +1828,7 @@ def main() -> int:
                  "paged_decode_attention_launches")):
             main = next(c for c in rows
                         if c["model_shapes"] == "smollm_135m"
-                        and c["window"] == 0
+                        and c["window"] == 0 and "ms" in c
                         and c["name"].endswith("[int8]") == kv_quant)
             kernels.append({
                 "name": main["name"], "route": "cuda", "source": source,
@@ -1604,6 +1837,7 @@ def main() -> int:
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"],
+                **device_fields(main, serve_times),
                 "kernel_ms": main["kernel_ms"], "shape": main["shape"]})
         for rows, source, replaces, layout in (
                 (verify_checks, va.SOURCE, VERIFY_REPLACES, "ring"),
@@ -1612,6 +1846,7 @@ def main() -> int:
             main = next(c for c in rows
                         if c["model_shapes"] == "smollm_135m"
                         and c["window"] == 0 and c["kq"] == SPEC_K
+                        and "ms" in c
                         and c["name"].endswith("[int8]") == kv_quant)
             run = spec[layout, kv_quant, "lookup"]
             kernels.append({
@@ -1622,6 +1857,7 @@ def main() -> int:
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"],
+                **device_fields(main, serve_times),
                 "kernel_ms": main["kernel_ms"], "shape": main["shape"]})
     qmain = next(c for c in quantize_checks if c["shape"] == [576, 1536])
     kernels.append({
@@ -1633,7 +1869,8 @@ def main() -> int:
         "max_abs_err": qmain["max_abs_err"], "ms": qmain["ms"],
         "plain_ms": qmain["plain_ms"], "bound_ms": qmain["bound_ms"],
         "bound_by": qmain["bound_by"], "library_ms": None,
-        "device_ms": qmain["device_ms"], "shape": qmain["shape"]})
+        "device_ms": qmain["device_ms"], "library_device_ms": None,
+        "shape": qmain["shape"]})
     mmain = next(c for c in matmul_checks if c["shape"] == [8, 576, 1536])
     for (layout, kv_quant), run in pol_runs.items():
         kernels.append({
@@ -1644,7 +1881,7 @@ def main() -> int:
             "max_abs_err": mmain["max_abs_err"], "ms": mmain["ms"],
             "plain_ms": mmain["plain_ms"], "bound_ms": mmain["bound_ms"],
             "bound_by": mmain["bound_by"], "library_ms": None,
-            "device_ms": mmain["device_ms"],
+            "device_ms": mmain["device_ms"], "library_device_ms": None,
             "unquantised_bf16_matmul_ms":
                 mmain["unquantised_bf16_matmul_ms"],
             "shape": mmain["shape"]})
@@ -1657,4 +1894,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--attention-times"]:
+        sys.exit(attention_times_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--attention-times-of"]:
+        sys.exit(attention_times_worker(*sys.argv[2:4]))
     sys.exit(main())

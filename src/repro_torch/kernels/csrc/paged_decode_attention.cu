@@ -29,12 +29,16 @@
 // distinct block once.  The work is 4 * group * HD flops per position and
 // head, far below the card's arithmetic rate.
 //
-// What this design does about it: the same as the ring kernel — codes are
-// read as codes and upcast in registers, the tile loop stops at pos // bs.
-// A tile is one pool block, so bs keys (1 <= bs <= 64) come from one
-// contiguous bs * n_kv * HD run of the pool, read as 16-byte words.  It is a
-// first, simple design: B * n_kv blocks, single-buffered tiles; split-K over
-// blocks, cp.async/TMA double-buffering and tensor cores are later work.
+// What this design does about it: the ring kernel's tile body
+// (flash_decode.cuh) — codes are read as codes and upcast in registers, the
+// tile loop stops at pos // bs, a slot's tiles are cut into splits of S = 2
+// tiles over (n_kv, B, ceil(nbmax / S)) blocks merged by a second kernel,
+// and cp.async keeps two tiles in flight.  A tile is one pool block, so bs
+// keys (1 <= bs <= 64) come from one contiguous bs * n_kv * HD run of the
+// pool; at small blocks a split covers only S * bs keys.  A tile that is
+// not the pool block (several blocks per tile) is later work (ROADMAP
+// Queue 2).  `part` is f32 scratch (B, 1, n_kv, group, splits, HD + 2),
+// null when splits == ceil(nbmax / S) is 1.
 //
 // The C entry points return cudaGetLastError() after the launch; the
 // wrapper (kernels/paged_decode_attention.py) checks shapes, dtypes and
@@ -49,13 +53,14 @@ extern "C" {
 // bf16 pool: k, v hold bf16 bits; no scales.
 int repro_paged_decode_attention_bf16(const void* q, const void* k,
                                       const void* v, const void* block_tables,
-                                      const void* pos, void* out, int B,
-                                      int bs, int nbmax, int nkv, int group,
-                                      int hd, int window, float inv_sqrt_hd,
+                                      const void* pos, void* out, void* part,
+                                      int B, int bs, int nbmax, int nkv,
+                                      int group, int hd, int window,
+                                      int splits, float inv_sqrt_hd,
                                       void* stream) {
-  return launch_paged(false, q, k, v, nullptr, nullptr, block_tables, pos,
-                      out, B, bs, nbmax, nkv, group, 1, hd, window,
-                      inv_sqrt_hd, stream);
+  return launch_paged<1>(false, q, k, v, nullptr, nullptr, block_tables, pos,
+      out, part, B, bs, nbmax, nkv, group, 1, hd, window, splits, inv_sqrt_hd,
+      stream);
 }
 
 // int8 dither pool: k, v hold codes; k_scale, v_scale (n_blocks, bs, n_kv).
@@ -63,13 +68,14 @@ int repro_paged_decode_attention_int8(const void* q, const void* k,
                                       const void* v, const void* k_scale,
                                       const void* v_scale,
                                       const void* block_tables,
-                                      const void* pos, void* out, int B,
-                                      int bs, int nbmax, int nkv, int group,
-                                      int hd, int window, float inv_sqrt_hd,
+                                      const void* pos, void* out, void* part,
+                                      int B, int bs, int nbmax, int nkv,
+                                      int group, int hd, int window,
+                                      int splits, float inv_sqrt_hd,
                                       void* stream) {
-  return launch_paged(true, q, k, v, k_scale, v_scale, block_tables, pos,
-                      out, B, bs, nbmax, nkv, group, 1, hd, window,
-                      inv_sqrt_hd, stream);
+  return launch_paged<1>(true, q, k, v, k_scale, v_scale, block_tables, pos,
+      out, part, B, bs, nbmax, nkv, group, 1, hd, window, splits, inv_sqrt_hd,
+      stream);
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@
 tensors to the plain version ``ref.paged_decode_attention_ref``; any other
 device raises.  For CUDA tensors it checks device, dtype, shape, contiguity
 and alignment, raises on anything the kernel does not take (the limits are
-in the messages), allocates the output with ``torch.empty``, launches on
-the current stream without synchronising, and adds one to
+in the messages), allocates the output (and the f32 scratch of the split
+partials, when a row can span several splits) with ``torch.empty``,
+launches on the current stream without synchronising, and adds one to
 ``paged_decode_attention.launches``.  Block-table entries must be ids of
 the pool (idle rows point at its trailing trash block); the kernel reads
 them unchecked.
@@ -24,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import SPLIT_TILES, launch_on
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 __all__ = ["paged_decode_attention", "check_paged", "MAX_BLOCK_SIZE",
@@ -39,10 +41,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_decode_attention")
-    # pointers, then B, bs, nbmax, nkv, group, hd, window, 1/sqrt(hd), stream
-    dims = [_I] * 7 + [_F, _P]
-    lib.repro_paged_decode_attention_bf16.argtypes = [_P] * 6 + dims
-    lib.repro_paged_decode_attention_int8.argtypes = [_P] * 8 + dims
+    # pointers (.., out, part), then B, bs, nbmax, nkv, group, hd, window,
+    # splits, 1/sqrt(hd), stream
+    dims = [_I] * 8 + [_F, _P]
+    lib.repro_paged_decode_attention_bf16.argtypes = [_P] * 7 + dims
+    lib.repro_paged_decode_attention_int8.argtypes = [_P] * 9 + dims
     lib.repro_paged_decode_attention_bf16.restype = _I
     lib.repro_paged_decode_attention_int8.restype = _I
     return lib
@@ -128,22 +131,27 @@ def paged_decode_attention(
     _, bs, nkv, hd = k.shape
     b, group = q.shape[0], q.shape[2]
     lib = _lib()
+    nbmax = block_tables.shape[1]
+    splits = -(-nbmax // SPLIT_TILES)
     out = torch.empty((b, nkv, group, hd), dtype=torch.float32,
                       device=q.device)
-    dims = (b, bs, block_tables.shape[1], nkv, group, hd, int(window),
+    scratch = (torch.empty((b, nkv, group, splits, hd + 2),
+                           dtype=torch.float32, device=q.device)
+               if splits > 1 else None)
+    part = None if scratch is None else scratch.data_ptr()
+    dims = (b, bs, nbmax, nkv, group, hd, int(window), splits,
             float(1.0 / math.sqrt(hd)))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if k.dtype == torch.int8:
-            rc = lib.repro_paged_decode_attention_int8(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-                v_scale.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
-                out.data_ptr(), *dims, stream)
-        else:
-            rc = lib.repro_paged_decode_attention_bf16(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                *dims, stream)
+    if k.dtype == torch.int8:
+        rc = launch_on(q.device, lib.repro_paged_decode_attention_int8,
+                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       k_scale.data_ptr(), v_scale.data_ptr(),
+                       block_tables.data_ptr(), pos.data_ptr(),
+                       out.data_ptr(), part, *dims)
+    else:
+        rc = launch_on(q.device, lib.repro_paged_decode_attention_bf16,
+                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       block_tables.data_ptr(), pos.data_ptr(),
+                       out.data_ptr(), part, *dims)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {rc} for shapes q={tuple(q.shape)} "

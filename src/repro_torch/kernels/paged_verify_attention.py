@@ -7,7 +7,8 @@
 to the plain version ``ref.paged_verify_attention_ref``; any other device
 raises.  For CUDA tensors it checks device, dtype, shape, contiguity and
 alignment, raises on anything the kernel does not take, allocates the
-output with ``torch.empty``, launches on the current stream without
+output (and the f32 scratch of the split partials, when a row can span
+several splits) with ``torch.empty``, launches on the current stream without
 synchronising, and adds one to ``paged_verify_attention.launches``.  Row t
 of the output is the paged decode kernel at ``pos + t``, bit for bit.
 Block-table entries must be ids of the pool; the kernel reads them
@@ -24,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import SPLIT_TILES, launch_on
 from repro_torch.kernels.paged_decode_attention import check_paged
 from repro_torch.kernels.ref import paged_verify_attention_ref
 
@@ -37,11 +39,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_verify_attention")
-    # pointers, then B, bs, nbmax, nkv, group, kq, hd, window, 1/sqrt(hd),
-    # stream
-    dims = [_I] * 8 + [_F, _P]
-    lib.repro_paged_verify_attention_bf16.argtypes = [_P] * 6 + dims
-    lib.repro_paged_verify_attention_int8.argtypes = [_P] * 8 + dims
+    # pointers (.., out, part), then B, bs, nbmax, nkv, group, kq, hd,
+    # window, splits, 1/sqrt(hd), stream
+    dims = [_I] * 9 + [_F, _P]
+    lib.repro_paged_verify_attention_bf16.argtypes = [_P] * 7 + dims
+    lib.repro_paged_verify_attention_int8.argtypes = [_P] * 9 + dims
     lib.repro_paged_verify_attention_bf16.restype = _I
     lib.repro_paged_verify_attention_int8.restype = _I
     return lib
@@ -76,22 +78,27 @@ def paged_verify_attention(
     check_paged(q, k, v, block_tables, pos, k_scale, v_scale, window)
     bs = k.shape[1]
     lib = _lib()
+    nbmax = block_tables.shape[1]
+    splits = -(-nbmax // SPLIT_TILES)
     out = torch.empty((b, kq, nkv, group, hd), dtype=torch.float32,
                       device=q.device)
-    dims = (b, bs, block_tables.shape[1], nkv, group, kq, hd, int(window),
+    scratch = (torch.empty((b, kq, nkv, group, splits, hd + 2),
+                           dtype=torch.float32, device=q.device)
+               if splits > 1 else None)
+    part = None if scratch is None else scratch.data_ptr()
+    dims = (b, bs, nbmax, nkv, group, kq, hd, int(window), splits,
             float(1.0 / math.sqrt(hd)))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if k.dtype == torch.int8:
-            rc = lib.repro_paged_verify_attention_int8(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-                v_scale.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
-                out.data_ptr(), *dims, stream)
-        else:
-            rc = lib.repro_paged_verify_attention_bf16(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                *dims, stream)
+    if k.dtype == torch.int8:
+        rc = launch_on(q.device, lib.repro_paged_verify_attention_int8,
+                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       k_scale.data_ptr(), v_scale.data_ptr(),
+                       block_tables.data_ptr(), pos.data_ptr(),
+                       out.data_ptr(), part, *dims)
+    else:
+        rc = launch_on(q.device, lib.repro_paged_verify_attention_bf16,
+                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       block_tables.data_ptr(), pos.data_ptr(),
+                       out.data_ptr(), part, *dims)
     if rc != 0:
         raise RuntimeError(f"paged_verify_attention kernel launch failed: "
                            f"CUDA error {rc} for shapes q={tuple(q.shape)} "

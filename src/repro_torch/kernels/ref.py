@@ -178,7 +178,8 @@ def shrink_block(bk: int, cap: int) -> int:
 
 
 def _flash_decode(q, tile, nb: int, last, pos, *, hd: int, window: int,
-                  quantized: bool) -> torch.Tensor:
+                  quantized: bool, split: Optional[int] = None
+                  ) -> torch.Tensor:
     """The split-K online-softmax recurrence both plain versions share.
 
     ``tile(j)`` returns block j's ``(kb, vb, kp, ksb, vsb)``: K and V
@@ -190,42 +191,73 @@ def _flash_decode(q, tile, nb: int, last, pos, *, hd: int, window: int,
     update.  Rows whose ``last`` block is below j keep their state (the
     length-aware skip).  One body for the ring and the paged cache, so the
     two agree bit for bit on the same tiles.
+
+    ``split`` is the CUDA kernels' split order (``None``: one recurrence
+    over all blocks).  With ``split=S``, blocks ``[s·S, (s+1)·S)`` are
+    recurrence s of their own; a row with at most S blocks to read (up to
+    ``min(last, nb - 1)``) returns its first recurrence's ``acc / s``, bit
+    for bit the unsplit result, and a longer row merges its recurrences in
+    ascending s: ``M = max m_s``, ``w_s = exp(m_s − M)``, ``Σ w_s·acc_s /
+    Σ w_s·s_s``, each product and sum rounded to f32.
     """
     bsz, nkv, group = q.shape[0], q.shape[1], q.shape[2]
     dev = q.device
     inv = float(1.0 / math.sqrt(hd))
     qf = q.to(torch.float32)
-    m = torch.full((bsz, nkv, group, 1), -math.inf, dtype=torch.float32,
-                   device=dev)
-    s = torch.zeros((bsz, nkv, group, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((bsz, nkv, group, hd), dtype=torch.float32, device=dev)
     pb = pos[:, None, None, None]
-    for j in range(nb):
-        kb, vb, kpb, ksb, vsb = tile(j)
-        kp = kpb[:, None, None, :]
-        kc = kb.to(q.dtype).to(torch.float32)
-        logits = torch.einsum("bhgd,bkhd->bhgk", qf, kc) * inv
-        if quantized:
-            logits = logits * (ksb.transpose(1, 2)[:, :, None, :]
-                               * (1.0 / 127.0))
-        valid = (kp >= 0) & (kp <= pb)
-        if window:
-            valid = valid & (kp > pb - window)
-        logits = torch.where(valid, logits, _NEG_BIG)
+    span = nb if split is None else split
 
-        m_new = torch.maximum(m, torch.amax(logits, dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(logits - m_new)
-        s_new = s * alpha + torch.sum(p, dim=-1, keepdim=True)
-        if quantized:
-            p = p * (vsb.transpose(1, 2)[:, :, None, :] * (1.0 / 127.0))
-        acc_new = acc * alpha + torch.einsum("bhgk,bkhd->bhgd", p,
-                                             vb.to(torch.float32))
-        act = (j <= last)[:, None, None, None]
-        m = torch.where(act, m_new, m)
-        s = torch.where(act, s_new, s)
-        acc = torch.where(act, acc_new, acc)
-    return acc / s
+    def recurrence(j0, j1):
+        m = torch.full((bsz, nkv, group, 1), -math.inf, dtype=torch.float32,
+                       device=dev)
+        s = torch.zeros((bsz, nkv, group, 1), dtype=torch.float32,
+                        device=dev)
+        acc = torch.zeros((bsz, nkv, group, hd), dtype=torch.float32,
+                          device=dev)
+        for j in range(j0, j1):
+            kb, vb, kpb, ksb, vsb = tile(j)
+            kp = kpb[:, None, None, :]
+            kc = kb.to(q.dtype).to(torch.float32)
+            logits = torch.einsum("bhgd,bkhd->bhgk", qf, kc) * inv
+            if quantized:
+                logits = logits * (ksb.transpose(1, 2)[:, :, None, :]
+                                   * (1.0 / 127.0))
+            valid = (kp >= 0) & (kp <= pb)
+            if window:
+                valid = valid & (kp > pb - window)
+            logits = torch.where(valid, logits, _NEG_BIG)
+
+            m_new = torch.maximum(m, torch.amax(logits, dim=-1,
+                                                keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new)
+            s_new = s * alpha + torch.sum(p, dim=-1, keepdim=True)
+            if quantized:
+                p = p * (vsb.transpose(1, 2)[:, :, None, :] * (1.0 / 127.0))
+            acc_new = acc * alpha + torch.einsum("bhgk,bkhd->bhgd", p,
+                                                 vb.to(torch.float32))
+            act = (j <= last)[:, None, None, None]
+            m = torch.where(act, m_new, m)
+            s = torch.where(act, s_new, s)
+            acc = torch.where(act, acc_new, acc)
+        return m, s, acc
+
+    parts = [recurrence(j0, min(j0 + span, nb)) for j0 in range(0, nb, span)]
+    m0, s0, acc0 = parts[0]
+    if len(parts) == 1:
+        return acc0 / s0
+    # a row's recurrences: those that hold one of its blocks
+    nsplit = (torch.clamp(last, max=nb - 1) // span + 1)[:, None, None, None]
+    mx = parts[0][0]
+    for i, (m, _, _) in enumerate(parts[1:], 1):
+        mx = torch.where(i < nsplit, torch.maximum(mx, m), mx)
+    num = torch.zeros_like(acc0)
+    den = torch.zeros_like(s0)
+    for i, (m, s, acc) in enumerate(parts):
+        w = torch.where(i < nsplit, torch.exp(m - mx), 0.0)
+        num = num + w * acc
+        den = den + w * s
+    return torch.where(nsplit == 1, acc0 / s0, num / den)
 
 
 def decode_attention_ref(
@@ -239,6 +271,7 @@ def decode_attention_ref(
     *,
     window: int = 0,
     block: Optional[tuple] = None,
+    split: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash-decode attention over the ring cache → (B, n_kv, group, hd) f32.
 
@@ -246,7 +279,8 @@ def decode_attention_ref(
     ``decode_attention_ref`` (``_flash_decode``) over cache blocks of
     ``bk`` ring slots, with key positions read from ``k_pos``.  Blocks past
     ``pos // bk`` are skipped (the length-aware skip).  ``block=None`` is
-    one whole-cap block.
+    one whole-cap block.  ``split`` is the CUDA kernel's split order
+    (``_flash_decode``; ``None``, the reference's, is one recurrence).
     """
     bsz, cap, nkv, hd = k.shape
     quantized = k_scale is not None
@@ -271,7 +305,7 @@ def decode_attention_ref(
                 gather(v_scale, jc) if quantized else None)
 
     return _flash_decode(q, tile, nb, last, pos, hd=hd, window=window,
-                         quantized=quantized)
+                         quantized=quantized, split=split)
 
 
 def paged_decode_attention_ref(
@@ -284,6 +318,7 @@ def paged_decode_attention_ref(
     v_scale: Optional[torch.Tensor] = None,
     *,
     window: int = 0,
+    split: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash-decode attention over the paged block pool →
     (B, n_kv, group, hd) f32: the reference's
@@ -294,7 +329,8 @@ def paged_decode_attention_ref(
     b is physical block ``block_tables[b, min(j, pos // bs)]``, and the key
     position of in-block slot t is the implicit ``j·bs + t`` (the pool is
     append-only, so there is no stored k_pos).  For ``bs == bk`` it is bit
-    for bit the ring recurrence on the same token stream.
+    for bit the ring recurrence on the same token stream, with or without
+    the kernels' ``split`` (``_flash_decode``).
     """
     bs, hd = k.shape[1], k.shape[3]
     bsz = q.shape[0]
@@ -315,7 +351,7 @@ def paged_decode_attention_ref(
                 v_scale[phys] if quantized else None)
 
     return _flash_decode(q, tile, nbmax, last, pos, hd=hd, window=window,
-                         quantized=quantized)
+                         quantized=quantized, split=split)
 
 
 def verify_attention_ref(
@@ -329,6 +365,7 @@ def verify_attention_ref(
     *,
     window: int = 0,
     block: Optional[tuple] = None,
+    split: Optional[int] = None,
 ) -> torch.Tensor:
     """Multi-token verify attention over the ring cache →
     (B, kq, n_kv, group, hd) f32: the reference's ``verify_attention_ref``.
@@ -344,7 +381,8 @@ def verify_attention_ref(
     pos = pos.to(torch.int32)
     return torch.stack(
         [decode_attention_ref(q[:, t], k, v, k_pos, pos + t, k_scale,
-                              v_scale, window=window, block=block)
+                              v_scale, window=window, block=block,
+                              split=split)
          for t in range(q.shape[1])], dim=1)
 
 
@@ -358,6 +396,7 @@ def paged_verify_attention_ref(
     v_scale: Optional[torch.Tensor] = None,
     *,
     window: int = 0,
+    split: Optional[int] = None,
 ) -> torch.Tensor:
     """Multi-token verify attention over the paged block pool →
     (B, kq, n_kv, group, hd) f32: the reference's
@@ -367,5 +406,6 @@ def paged_verify_attention_ref(
     pos = pos.to(torch.int32)
     return torch.stack(
         [paged_decode_attention_ref(q[:, t], k, v, block_tables, pos + t,
-                                    k_scale, v_scale, window=window)
+                                    k_scale, v_scale, window=window,
+                                    split=split)
          for t in range(q.shape[1])], dim=1)

@@ -79,6 +79,46 @@ def test_kernel_matches_plain(cuda, quant, nkv, group, hd):
         want = ref.decode_attention_ref(*t, window=window,
                                         block=(da.KERNEL_BLOCK,))
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        split = ref.decode_attention_ref(*t, window=window,
+                                         block=(da.KERNEL_BLOCK,),
+                                         split=da.SPLIT_TILES)
+        torch.testing.assert_close(got, split, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nkv,group,hd,kq", [(3, 3, 64, 4), (2, 6, 128, 8)])
+def test_kernels_at_split_boundaries(cuda, quant, nkv, group, hd, kq):
+    """Rows either side of the first two split boundaries (multiples of
+    SPLIT_TILES tiles of 64 keys) and of the ring's end (1023/1024/1025)
+    in a 1024-slot ring: decode and verify (K 4 at SmolLM-135M's heads, K 8 at
+    Qwen2-1.5B's: 48 rows a block) against the plain version with the same
+    tiles and split and against the whole-cap plain version, at 1e-4, and
+    every verify row equal to the decode kernel at its position, bit for
+    bit."""
+    span = da.KERNEL_BLOCK * da.SPLIT_TILES
+    pos_vals = [span - 1, span, span + 1, 2 * span - 1, 2 * span, 1023, 1024,
+                1025]
+    kw = dict(block=(da.KERNEL_BLOCK,), split=da.SPLIT_TILES)
+    t = _ring(11 + kq, b=8, cap=1024, nkv=nkv, group=group, hd=hd,
+              quant=quant, pos_vals=pos_vals, device=cuda)
+    got = da.decode_attention(*t)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref.decode_attention_ref(*t, **kw),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got, ref.decode_attention_ref(*t), atol=1e-4,
+                               rtol=1e-4)
+    t = _ring(12 + kq, b=8, cap=1024, nkv=nkv, group=group, hd=hd,
+              quant=quant, pos_vals=[p - 2 for p in pos_vals], kq=kq,
+              device=cuda)
+    got = va.verify_attention(*t)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref.verify_attention_ref(*t, **kw),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got, ref.verify_attention_ref(*t), atol=1e-4,
+                               rtol=1e-4)
+    _rows_equal_decode(got, da.decode_attention, t, 0)
 
 
 def test_fully_masked_row_matches_plain(cuda):
@@ -300,6 +340,10 @@ def test_verify_kernel_matches_plain_and_decode_rows(cuda, quant, nkv, group,
                                         block=(da.KERNEL_BLOCK,))
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        split = ref.verify_attention_ref(*t, window=window,
+                                         block=(da.KERNEL_BLOCK,),
+                                         split=da.SPLIT_TILES)
+        torch.testing.assert_close(got, split, atol=1e-4, rtol=1e-4)
         _rows_equal_decode(got, da.decode_attention, t, window)
 
 

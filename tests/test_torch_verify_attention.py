@@ -190,3 +190,101 @@ def test_paged_verify_equals_ring_verify_at_the_ring_block(quantized):
     paged = ref.paged_verify_attention_ref(q, to_pool(k), to_pool(v), bt, pos,
                                            to_pool(ks), to_pool(vs))
     assert torch.equal(ring, paged)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' split order (``split=``): reduced widths (head dim 32,
+# 8-slot ring tiles or 4-token pool blocks, spans of 2 tiles), so the rows
+# of a window straddle span boundaries and take up to 4 splits
+# ---------------------------------------------------------------------------
+
+SPAN = 2
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [0, 16], ids=["full", "window16"])
+def test_split_verify_matches_reference_oracle(quantized, window):
+    """Ring verify in the split order (8-slot tiles, spans of 2) against the
+    reference's ``verify_attention_ref`` and against the same tiles
+    unsplit, allclose: rows straddling span boundaries (15 → 16, 31 → 32)
+    and, in the slot at cap - 2, rows past the ring's end."""
+    arrs = _ring(21, b=3, quantized=quantized, pos_vals=(13, 29, 30))
+    q, k, v, kp, pos, ks, vs = _to_jax(arrs, True)
+    want = ref_dispatch.verify_attention(q, k, v, kp, pos, k_scale=ks,
+                                         v_scale=vs, window=window,
+                                         backend="xla-ref")
+    q, k, v, kp, pos, ks, vs = _to_torch(arrs, True)
+    got = ref.verify_attention_ref(q, k, v, kp, pos, ks, vs, window=window,
+                                   block=(8,), split=SPAN)
+    unsplit = ref.verify_attention_ref(q, k, v, kp, pos, ks, vs,
+                                       window=window, block=(8,))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), unsplit.numpy(), atol=ATOL,
+                               rtol=RTOL)
+    # slot 0's rows 13, 14, 15 read two tiles (one split), bit for bit
+    assert torch.equal(got[0, :3], unsplit[0, :3])
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_split_verify_row_equals_decode_row(quantized, layout):
+    """Under the split order verify row t is still bit for bit the decode
+    at ``pos + t`` (the partition depends only on the absolute tile index):
+    ring at 8-slot tiles, paged at 4-token blocks, rows across span
+    boundaries and past the cache's end."""
+    if layout == "ring":
+        arrs = _to_torch(_ring(27, quantized=quantized, pos_vals=(13, 29, 30)),
+                         True)
+        kw = dict(block=(8,), split=SPAN)
+        verify, decode = ref.verify_attention_ref, ref.decode_attention_ref
+    else:
+        arrs = _to_torch(_pool(28, quantized=quantized, pos_vals=(5, 13, 30)),
+                         True)
+        kw = dict(split=SPAN)
+        verify = ref.paged_verify_attention_ref
+        decode = ref.paged_decode_attention_ref
+    q, k, v, index, pos, ks, vs = arrs
+    ver = verify(q, k, v, index, pos, ks, vs, **kw)
+    assert torch.isfinite(ver).all()
+    for t in range(q.shape[1]):
+        one = decode(q[:, t].contiguous(), k, v, index, pos + t, ks, vs,
+                     **kw)
+        assert torch.equal(ver[:, t], one), t
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [0, 12])
+def test_split_paged_equals_ring_at_the_ring_block(quantized, window):
+    """One token stream in a ring (no wrap) and in 8-token pool blocks:
+    under the split order paged verify and decode equal ring verify and
+    decode at 8-slot tiles, bit for bit (windows of 12 mask whole
+    splits)."""
+    b, cap, bs, kq = 3, 64, 8, 4
+    q, k, v, kp, pos, ks, vs = _to_torch(
+        _ring(29, b=b, cap=cap, kq=kq, quantized=quantized,
+              pos_vals=(14, 33, 59)), True)
+    nbmax = cap // bs
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(b * nbmax))
+    bt = perm.reshape(b, nbmax).to(torch.int32)
+
+    def to_pool(x):
+        if x is None:
+            return None
+        pool = torch.zeros((b * nbmax + 1, bs) + tuple(x.shape[2:]),
+                           dtype=x.dtype)
+        pool[perm] = x.reshape((b * nbmax, bs) + tuple(x.shape[2:]))
+        return pool
+
+    pool = (to_pool(k), to_pool(v), bt, pos, to_pool(ks), to_pool(vs))
+    ring = ref.verify_attention_ref(q, k, v, kp, pos, ks, vs, window=window,
+                                    block=(bs,), split=SPAN)
+    paged = ref.paged_verify_attention_ref(q, *pool, window=window,
+                                           split=SPAN)
+    assert torch.equal(ring, paged)
+    q0 = q[:, 0].contiguous()
+    assert torch.equal(
+        ref.decode_attention_ref(q0, k, v, kp, pos, ks, vs, window=window,
+                                 block=(bs,), split=SPAN),
+        ref.paged_decode_attention_ref(q0, *pool, window=window, split=SPAN))
