@@ -53,6 +53,12 @@ times kernels 1-4 alone (``attention_times``) for each TREE — a checkout's
 root, such as a parent commit unpacked under ``build/``, or ``split=N``,
 this checkout's port with a split span of N tiles — each in a process of
 its own, in the order given, so that versions compare on one card.
+
+  PYTHONPATH=src python chip_smoke.py --dither-times TREE [TREE ...]
+
+does the same for kernels 5-6 (``dither_times``: the quantiser, the f32
+dither matmul and the policy's bf16 product) and a dither-policy decode
+tick under the profiler (bf16 and int8 KV).
 """
 
 from __future__ import annotations
@@ -230,35 +236,46 @@ def host_ms(torch, fn, calls: int = 200) -> float:
 def device_ms(torch, fn, calls, names=None, op=None, by_kernel=None):
     """Device time per call of ``fn`` from ``torch.profiler`` over ``calls``
     calls (after one outside the trace): the summed self time of the CUDA
-    kernels whose names contain one of ``names`` or, with ``op``, the device
-    time of everything launched under that operator.  With a dict
-    ``by_kernel``, also each matching kernel's share, by name."""
+    kernels whose names contain one of ``names`` (``None``: every device
+    kernel and memset in the trace, that is all ``fn`` launches) or, with
+    ``op``, the device time of everything launched under that operator.
+    With a dict ``by_kernel``, also each matching kernel's share, by name.
+    The larger of two traces that caught some (a trace may drop events);
+    raises when three traces catch no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):         # a trace that caught no kernel is retaken
+    traces = []                # (us, by kernel) of traces that caught some
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
+        split = {}
         if op is not None:
             us = sum(e.device_time_total for e in events if e.key == op)
         else:
             hits = [e for e in events if str(e.device_type).endswith("CUDA")
-                    and any(n in e.key for n in names)]
+                    and (names is None or any(n in e.key for n in names))]
             us = sum(e.self_device_time_total for e in hits)
-            if by_kernel is not None:
-                for e in hits:
-                    name = "merge" if "merge_kernel" in e.key else "main"
-                    by_kernel[name] = (by_kernel.get(name, 0.0)
-                                       + e.self_device_time_total / 1e3
-                                       / calls)
+            for e in hits:
+                name = "merge" if "merge_kernel" in e.key else "main"
+                split[name] = (split.get(name, 0.0)
+                               + e.self_device_time_total / 1e3 / calls)
         if us > 0:
-            return us / 1e3 / calls
-    return None
+            traces.append((us, split))
+        if len(traces) == 2:   # the larger of two: a trace may drop events
+            break
+    if not traces:
+        raise RuntimeError(f"the profiler caught no device time of "
+                           f"{op or names or 'any kernel'} in three traces")
+    us, split = max(traces, key=lambda t: t[0])
+    if by_kernel is not None:
+        by_kernel.update(split)
+    return us / 1e3 / calls
 
 
 def share_of(bound_ms, res):
@@ -884,18 +901,51 @@ def split_tree(n: int) -> Path:
     return dst
 
 
-def attention_times_main(trees) -> int:
-    """``--attention-times TREE ...``: each TREE — a checkout's root, or
-    ``split=N`` for this checkout's port at a split span of N tiles
-    (``split_tree``) — timed by ``attention_times`` in a process of its
-    own, one after the other in the order given (for a comparison on one
-    card: parent, change, change, parent)."""
+def times_main(mode: str, trees) -> int:
+    """``--attention-times TREE ...`` / ``--dither-times TREE ...``: each
+    TREE — a checkout's root, or (attention) ``split=N`` for this
+    checkout's port at a split span of N tiles (``split_tree``) — timed in
+    a process of its own, one after the other in the order given (for a
+    comparison on one card: parent, change, change, parent)."""
     for tree in trees:
         root = (split_tree(int(tree.split("=")[1]))
                 if tree.startswith("split=") else Path(tree))
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--attention-times-of", str(root), tree],
+                        f"{mode}-of", str(root), tree],
                        check=True, timeout=900)
+    return 0
+
+
+def dither_times_worker(root: str, label: str) -> int:
+    """One tree's ``dither_times`` and its dither-policy decode tick
+    (``profile_phase``, bf16 and int8 KV, full-width SmolLM-135M), in this
+    process: the port under ``root/src`` is imported, its kernels built,
+    and one ``{"dither_times": label, ...}`` line printed."""
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.kernels import quantize as qk
+    from repro_torch.models import registry
+    from repro_torch.numerics import policy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    secs = _build.build(["quantize", "dither_matmul", "decode_attention"])
+    rows = dither_times(torch, qk, dm, policy)
+    cfg = get_config("smollm_135m")
+    params = registry.init_model(cfg, seed=0, device="cuda")
+    ticks = [profile_phase(torch, cfg, params, kv_quant,
+                           policy=policy.QuantPolicy(scheme="dither",
+                                                     backend="auto"))
+             for kv_quant in (False, True)]
+    emit({"dither_times": label, "root": str(root),
+          "nvidia_smi": nvidia_smi(), "build_s": secs,
+          "int32_ops_per_s": int32_ops_per_s()[0], "rows": rows,
+          "policy_ticks": ticks})
     return 0
 
 
@@ -1214,7 +1264,8 @@ def profile_phase(torch, cfg, params, kv_quant, device="cuda",
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     dither_us = sum(e.self_device_time_total for e in kernels
-                    if any(n in e.key for n in DITHER_KERNELS))
+                    if any(n in e.key
+                           for n in DITHER_KERNELS + THREE_PASS_KERNELS))
     extra = {} if policy is None else {
         "policy": policy.scheme,
         "dither_matmul_device_ms_per_tick": dither_us / 1e3 / ticks,
@@ -1425,52 +1476,192 @@ QUANTIZE_REPLACES = "src/repro/kernels/quantize.py:84"
 MATMUL_REPLACES = "src/repro/kernels/dither_matmul.py:128"
 PEAK_F32 = 67e12          # H100 SXM, f32 outside the tensor cores
 QUANT_F32_OPS = 12        # f32 ops of one dither code (dither_quant.cuh)
-DITHER_KERNELS = ("quantize_a", "quantize_b", "gemm_u8")   # kernel 6's
+# uint32 operations of one dither code that depend on the element, in the
+# reference's formula (src/repro/core/rounding.py): hash_uniform's
+# idx * M1, the xor into the first round and two fmix32 rounds (three
+# shift-xors and two multiplies: 8 each), the xor with counter * M2 and
+# the >> 8 (20); lcg_slot's phase, one xor and an fmix32 (9), (counter +
+# phase) % N (2) and (a * q + (phase >> 8)) % N (4).  mix(seed ^ golden)
+# and counter * M2 are constants of the operand.
+QUANT_INT_OPS = 35
+NORM_F32_OPS = 2          # the policy entry's bf16(v / absmax) per code
+EPILOGUE_F32_OPS = 5      # fma, 2 mul, 2 add per output (+1: the rescale)
+SMS, INT32_LANES = 132, 64   # H100 SXM: INT32 lanes per SM
+DITHER_KERNELS = ("prep_rows", "fused_decode", "absmax_rows", "quantize_bt",
+                  "gemm_u8")   # kernel 6's device kernels
+# the device kernels of kernel 6's earlier three-pass design (quantise A,
+# quantise B, multiply), which --dither-times may time in an older tree
+THREE_PASS_KERNELS = ("quantize_a", "quantize_b", "gemm_u8")
+QUANTIZE_SHAPES = ((8, 576), (576, 1536), (37, 1000))
 # decode shapes of the serve path (batch 8: q, k/v, o; gate/up; down; LM
 # head) and a 4096-row prefill's gate/up
 MATMUL_SHAPES = ((8, 576, 576), (8, 576, 192), (8, 576, 1536),
                  (8, 1536, 576), (8, 576, 49152), (4096, 576, 1536))
+# checked, not timed: the regime boundary (M 128 / 129), a K of 19 chunks
+# (a split remainder), ragged shapes off every tile multiple
+EDGE_MATMUL_SHAPES = ((128, 576, 200), (129, 576, 200), (8, 600, 576),
+                      (37, 100, 53), (5, 7, 3))
+# the policy entry at the same shapes; the LM head is the transposed view
+# of the (49152, 576) embedding, as the tied head passes it, and so are
+# the weights of these edge shapes (prefill regime; unaligned rows)
+TRANS_N = 49152
+TRANS_EDGE = ((129, 576, 200), (37, 100, 53))
+
+
+@functools.lru_cache(maxsize=None)
+def int32_ops_per_s():
+    """(INT32 operations a second, the SM clock in MHz): 132 SMs × 64
+    INT32 lanes × the clock ``nvidia-smi --query-gpu=clocks.max.sm``
+    reports."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    return SMS * INT32_LANES * mhz * 1e6, mhz
+
+
+def least_time(terms):
+    """(bound ms, the term that sets it): the largest of the terms'
+    seconds, not their sum."""
+    name = max(terms, key=terms.get)
+    return 1e3 * terms[name], name
 
 
 def quantize_bound(m, n):
-    """Least time for kernel 5: 4 bytes read and 4 written per element over
-    HBM; its f32 ops over the non-tensor f32 rate (the hash's integer
-    instructions have no rate in the card's table and are not counted)."""
-    t_bytes = 8 * m * n / HBM_BYTES_PER_S
-    t_ops = QUANT_F32_OPS * m * n / PEAK_F32
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """Least time for kernel 5 (dither codes): 4 bytes read and 4 written
+    per element over HBM; its INT32 ops at ``int32_ops_per_s``; its f32 ops
+    over the non-tensor f32 rate."""
+    e = m * n
+    return least_time({"bytes": 8 * e / HBM_BYTES_PER_S,
+                       "INT32 ops": QUANT_INT_OPS * e / int32_ops_per_s()[0],
+                       "f32 ops": QUANT_F32_OPS * e / PEAK_F32})
 
 
-def matmul_bound(m, k, n):
-    """Least time for kernel 6: both f32 operands read once and the f32
-    output written once over HBM; the 2·M·K·N int8 tensor-core operations
-    at 1,979 TOPS plus the quantiser's f32 ops over the f32 rate."""
-    t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
-    t_ops = (2 * m * k * n / PEAK_OPS["int8"]
-             + QUANT_F32_OPS * (m * k + k * n) / PEAK_F32)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def matmul_bound(m, k, n, policy=False):
+    """Least time for kernel 6: both operands read once and the output
+    written once over HBM (f32, or bf16 for the policy entry); the
+    2·M·K·N int8 tensor-core operations at 1,979 TOPS; each code's INT32
+    ops; the codes' f32 ops (with the policy entry's normalisation) and the
+    epilogue's."""
+    codes, outs = m * k + k * n, m * n
+    return least_time({
+        "bytes": (2 if policy else 4) * (codes + outs) / HBM_BYTES_PER_S,
+        "int8 tensor ops": 2 * m * k * n / PEAK_OPS["int8"],
+        "INT32 ops": QUANT_INT_OPS * codes / int32_ops_per_s()[0],
+        "f32 ops": ((QUANT_F32_OPS + NORM_F32_OPS * policy) * codes
+                    + (EPILOGUE_F32_OPS + policy) * outs) / PEAK_F32})
 
 
-def dither_kernel_phase(torch, qk, dm, ref):
+def rotated(torch, fn, args):
+    """``fn`` over copies of ``args`` that together exceed the 50 MB L2,
+    one copy a call in turn (the serving path finds each layer's weight
+    cold), after one call on each copy."""
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    copies = [args] + [[a.clone() if isinstance(a, torch.Tensor) else a
+                        for a in args]
+                       for _ in range(max(1, math.ceil(120e6 / nbytes)))]
+    for c in copies:
+        fn(*c)
+    turn = {"i": 0}
+
+    def call():
+        turn["i"] = (turn["i"] + 1) % len(copies)
+        return fn(*copies[turn["i"]])
+    return call
+
+
+def dither_times(torch, qk, dm, policy):
+    """Kernels 5–6 timed alone through their wrappers, so any tree of the
+    port can be timed (``--dither-times``): the quantiser at
+    ``QUANTIZE_SHAPES`` (dither, spread, 8 bits), the f32 dither matmul and
+    the policy's product (``policy._fused_matmul`` on bf16 operands, the
+    dither scheme on the ``cuda`` backend: the kernel's policy entry, or in
+    a tree that has none, torch ops around the f32 kernel) at ``MATMUL_SHAPES``.  Event ms:
+    the mean over back-to-back calls on inputs rotated past the L2
+    (``rotated``); device ms: everything the calls launch, from the
+    profiler; the bound and what sets it."""
+    gen = torch.Generator().manual_seed(5)
+    rows = []
+    for m, n in QUANTIZE_SHAPES:
+        x = (torch.rand((m, n), generator=gen) * 2.4 - 1.2).cuda()
+        kw = dict(scale=127.5, zero=-1.0, bits=8, scheme="dither",
+                  counter=12345, seed=7, n_pulses=16, fmt="spread")
+        run = rotated(torch, lambda t: qk.quantize(t, **kw), [x])
+        bound_ms, term = quantize_bound(m, n)
+        rows.append({"name": "quantize", "shape": [m, n],
+                     "ms": cuda_ms(run, 200),
+                     "device_ms": device_ms(torch, run, 20),
+                     "bound_ms": bound_ms, "bound_term": term})
+    pol = policy.QuantPolicy(scheme="dither", backend="cuda")
+    for m, k, n in MATMUL_SHAPES:
+        a = (torch.rand((m, k), generator=gen) * 2 - 1).cuda()
+        b = (torch.rand((k, n), generator=gen) * 2 - 1).cuda()
+        kw = dict(bits=8, scheme="dither", a_range=(-1.0, 1.0),
+                  b_range=(-1.0, 1.0), counter=77, seed=3)
+        run = rotated(torch, lambda s, t: dm.dither_matmul(s, t, **kw),
+                      [a, b])
+        bound_ms, term = matmul_bound(m, k, n)
+        rows.append({"name": "dither_matmul", "shape": [m, k, n],
+                     "ms": cuda_ms(run, 100),
+                     "device_ms": device_ms(torch, run, 10),
+                     "bound_ms": bound_ms, "bound_term": term})
+        x, w = policy_operands(torch, gen, m, k, n)
+        run = rotated(torch, lambda s, t: policy._fused_matmul(
+            s, t, pol, 3, 77.0), [x, w])
+        bound_ms, term = matmul_bound(m, k, n, policy=True)
+        rows.append({"name": "policy_product", "shape": [m, k, n],
+                     "weight": "transposed view" if n == TRANS_N else "row",
+                     "ms": cuda_ms(run, 100),
+                     "device_ms": device_ms(torch, run, 10),
+                     "bound_ms": bound_ms, "bound_term": term})
+    return rows
+
+
+def policy_operands(torch, gen, m, k, n):
+    """bf16 x (M, K) and w (K, N) as the policy sees them: w the
+    transposed view of an (N, K) embedding at the LM head's width."""
+    x = torch.randn((m, k), generator=gen).to(torch.bfloat16).cuda()
+    if n == TRANS_N:
+        w = (torch.randn((n, k), generator=gen) * 0.05).to(
+            torch.bfloat16).cuda().T
+    else:
+        w = (torch.randn((k, n), generator=gen) * 0.05).to(
+            torch.bfloat16).cuda()
+    return x, w
+
+
+def policy_route(torch, dm, x, w, **kw):
+    """The policy's product as ``policy._fused_matmul`` computes it for
+    operands its policy entry does not take (and for every operand in a
+    tree without that entry): torch ops for both absmaxes, the normalised
+    operands and the rescale around the f32 CUDA kernel."""
+    ax = torch.clamp_min(torch.amax(torch.abs(x)), 1e-6)
+    aw = torch.clamp_min(torch.amax(torch.abs(w)), 1e-6)
+    out = dm.dither_matmul((x / ax).to(torch.float32).contiguous(),
+                           (w / aw).to(torch.float32).contiguous(),
+                           a_range=(-1.0, 1.0), b_range=(-1.0, 1.0), **kw)
+    return (out * (ax * aw)).to(x.dtype)
+
+
+def dither_kernel_phase(torch, qk, dm, ref, policy):
     """Kernels 5 and 6 on the card against their plain versions passed
     explicitly, bit for bit (int32 codes; f32 outputs of two exact integer
     products through one epilogue): kernel 5 at the serve path's operand
     shapes and a ragged one, every scheme, both formats, bits 2/4/8;
-    kernel 6 at the serve path's decode shapes and a prefill shape, every
-    scheme, ranges (−1, 1) and (0, 1).  Then each case timed (dither,
-    spread, 8 bits, (−1, 1)): event time over many calls, the kernels'
-    device time from the profiler, the plain version's, the bound.  No
-    single PyTorch call quantises with a hash-driven rounding, so there is
-    no library time; beside kernel 6 stands the unquantised bf16
-    ``torch.matmul`` of the same operands, the policy-free path's
-    product."""
+    kernel 6 at the serve path's decode shapes, a prefill shape and the
+    edge shapes, every scheme, ranges (−1, 1) and (0, 1); its policy entry
+    at the same shapes (the LM head as the transposed view) against the
+    plain version and against ``policy_route`` (torch ops around the f32
+    kernel), every scheme.  Then ``dither_times`` with the plain versions'
+    times beside, and ``policy_route``'s.  No single PyTorch call quantises
+    with a hash-driven rounding, so there is no library time; beside
+    kernel 6 stands the unquantised bf16 ``torch.matmul`` of the same
+    operands, the policy-free path's product."""
     gen = torch.Generator().manual_seed(5)
-    qrows, mrows = [], []
-    for m, n in ((8, 576), (576, 1536), (37, 1000)):
+    cases = {"quantize": 0, "dither_matmul": 0, "policy_product": 0}
+    for m, n in QUANTIZE_SHAPES:
         x = (torch.rand((m, n), generator=gen) * 2.4 - 1.2).cuda()
-        cases = 0
         for scheme in DITHER_SCHEMES:
             for fmt in ("spread", "unary"):
                 for bits in (2, 4, 8):
@@ -1482,23 +1673,10 @@ def dither_kernel_phase(torch, qk, dm, ref):
                     want = ref.quantize_codes_ref(x, **kw)
                     assert torch.equal(got, want), ((m, n), scheme, fmt,
                                                     bits)
-                    cases += 1
-        kw = dict(scale=127.5, zero=-1.0, bits=8, scheme="dither",
-                  counter=12345, seed=7, n_pulses=16, fmt="spread")
-        bound_ms, bound_by = quantize_bound(m, n)
-        ms = cuda_ms(lambda: qk.quantize(x, **kw), 200)
-        qrows.append({
-            "name": "quantize", "shape": [m, n], "cases_bitwise": cases,
-            "max_abs_err": 0, "ms": ms, "kernel_ms": ms,
-            "device_ms": device_ms(torch, lambda: qk.quantize(x, **kw), 20,
-                                   ("quantize_kernel",)),
-            "plain_ms": cuda_ms(lambda: ref.quantize_codes_ref(x, **kw), 5,
-                                warmup=1),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-    for m, k, n in MATMUL_SHAPES:
+                    cases["quantize"] += 1
+    for m, k, n in MATMUL_SHAPES + EDGE_MATMUL_SHAPES:
         a = (torch.rand((m, k), generator=gen) * 2 - 1).cuda()
         b = (torch.rand((k, n), generator=gen) * 2 - 1).cuda()
-        cases = 0
         for scheme in DITHER_SCHEMES:
             for rg in ((-1.0, 1.0), (0.0, 1.0)):
                 kw = dict(bits=8, scheme=scheme, a_range=rg, b_range=rg,
@@ -1508,23 +1686,57 @@ def dither_kernel_phase(torch, qk, dm, ref):
                 want = ref.dither_matmul_ref(a, b, **kw)
                 assert torch.isfinite(got).all()
                 assert torch.equal(got, want), ((m, k, n), scheme, rg)
-                cases += 1
-        kw = dict(bits=8, scheme="dither", a_range=(-1.0, 1.0),
-                  b_range=(-1.0, 1.0), counter=77, seed=3)
-        bound_ms, bound_by = matmul_bound(m, k, n)
-        ab, bb = a.bfloat16(), b.bfloat16()
-        ms = cuda_ms(lambda: dm.dither_matmul(a, b, **kw), 100)
-        mrows.append({
-            "name": "dither_matmul", "shape": [m, k, n],
-            "cases_bitwise": cases, "max_abs_err": 0.0, "ms": ms,
-            "kernel_ms": ms,
-            "device_ms": device_ms(torch, lambda: dm.dither_matmul(a, b, **kw),
-                                   10, DITHER_KERNELS),
-            "plain_ms": cuda_ms(lambda: ref.dither_matmul_ref(a, b, **kw), 2,
-                                warmup=1),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "unquantised_bf16_matmul_ms": cuda_ms(lambda: ab @ bb, 100)})
-    return qrows, mrows
+                cases["dither_matmul"] += 1
+        x, w = policy_operands(torch, gen, m, k, n)
+        if (m, k, n) in TRANS_EDGE:
+            w = w.T.contiguous().T
+        for scheme in DITHER_SCHEMES:
+            kw = dict(bits=8, scheme=scheme, counter=77, seed=3)
+            got = dm.dither_matmul_scaled(x, w, dm.weight_absmax(w), **kw)
+            torch.cuda.synchronize()
+            want = ref.dither_matmul_scaled_ref(x, w, **kw)
+            assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+            assert torch.equal(got, want), ((m, k, n), scheme)
+            assert torch.equal(got, policy_route(torch, dm, x, w, **kw)), (
+                (m, k, n), scheme)
+            cases["policy_product"] += 1
+    rows = dither_times(torch, qk, dm, policy)
+    for row in rows:
+        row["bound_by"] = ("bytes" if row["bound_term"] == "bytes"
+                           else "operations")
+        row["max_abs_err"] = 0
+        row["cases_bitwise"] = cases[row["name"]]
+        row["library_ms"] = None
+    gen = torch.Generator().manual_seed(6)
+    for row in rows:
+        if row["name"] == "quantize":
+            m, n = row["shape"]
+            x = (torch.rand((m, n), generator=gen) * 2.4 - 1.2).cuda()
+            kw = dict(scale=127.5, zero=-1.0, bits=8, scheme="dither",
+                      counter=12345, seed=7, n_pulses=16, fmt="spread")
+            row["plain_ms"] = cuda_ms(
+                lambda: ref.quantize_codes_ref(x, **kw), 5, warmup=1)
+            continue
+        m, k, n = row["shape"]
+        kw = dict(bits=8, scheme="dither", counter=77, seed=3)
+        if row["name"] == "dither_matmul":
+            a = (torch.rand((m, k), generator=gen) * 2 - 1).cuda()
+            b = (torch.rand((k, n), generator=gen) * 2 - 1).cuda()
+            rk = dict(a_range=(-1.0, 1.0), b_range=(-1.0, 1.0), **kw)
+            row["plain_ms"] = cuda_ms(
+                lambda: ref.dither_matmul_ref(a, b, **rk), 2, warmup=1)
+            ab, bb = a.bfloat16(), b.bfloat16()
+            row["unquantised_bf16_matmul_ms"] = cuda_ms(lambda: ab @ bb, 100)
+        else:
+            x, w = policy_operands(torch, gen, m, k, n)
+            row["plain_ms"] = cuda_ms(
+                lambda: ref.dither_matmul_scaled_ref(x, w, **kw), 2,
+                warmup=1)
+            run = rotated(torch, lambda s, t: policy_route(torch, dm, s, t,
+                                                           **kw), [x, w])
+            row["torch_ops_route_ms"] = cuda_ms(run, 50)
+            row["torch_ops_route_device_ms"] = device_ms(torch, run, 10)
+    return rows, cases
 
 
 def policy_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain):
@@ -1577,6 +1789,9 @@ def policy_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain):
     per_forward = 7 * cfg.n_layers + 1
     calls = st["prefill_calls"] + st["decode_calls"]
     assert launches["dither_matmul"] == per_forward * calls, (launches, st)
+    # bf16 serving: every product through the kernel's policy entry
+    assert launches["dither_matmul_scaled"] == launches["dither_matmul"], (
+        launches)
     attn = "paged_decode_attention" if paged else "decode_attention"
     assert launches[attn] == cfg.n_layers * st["decode_calls"], launches
     assert launches["quantize"] == 0, launches
@@ -1726,6 +1941,7 @@ def main() -> int:
     from repro_torch.kernels import paged_verify_attention as pva
     from repro_torch.kernels import verify_attention as va
     from repro_torch.models import registry
+    from repro_torch.numerics import policy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1763,9 +1979,11 @@ def main() -> int:
           "paged_verify_equals_ring_verify_bitwise": verify_bitwise})
     serve_times = attention_times(torch, ("serve",))
     emit({"phase": "kernels", "serve_shapes": True, "times": serve_times})
-    quantize_checks, matmul_checks = dither_kernel_phase(torch, qk, dm, ref)
-    emit({"phase": "kernels", "dither": True, "quantize": quantize_checks,
-          "dither_matmul": matmul_checks})
+    dither_rows, dither_cases = dither_kernel_phase(torch, qk, dm, ref,
+                                                    policy)
+    emit({"phase": "kernels", "dither": True, "cases_bitwise": dither_cases,
+          "int32_ops_per_s": int32_ops_per_s()[0],
+          "clocks_max_sm_mhz": int32_ops_per_s()[1], "times": dither_rows})
 
     # 4 — serve (plain, then speculative on the same traffic), 5 — parity
     cfg = get_config("smollm_135m")
@@ -1775,7 +1993,8 @@ def main() -> int:
              "paged_decode_attention": pda.paged_decode_attention,
              "verify_attention": va.verify_attention,
              "paged_verify_attention": pva.paged_verify_attention,
-             "quantize": qk.quantize, "dither_matmul": dm.dither_matmul}
+             "quantize": qk.quantize, "dither_matmul": dm.dither_matmul,
+             "dither_matmul_scaled": dm.dither_matmul_scaled}
     serve, paged, spec = {}, {}, {}
     for kv_quant in (False, True):
         serve[kv_quant], ring_streams = serve_phase(torch, da, pda, cfg,
@@ -1859,32 +2078,40 @@ def main() -> int:
                 "library_ms": main["library_ms"],
                 **device_fields(main, serve_times),
                 "kernel_ms": main["kernel_ms"], "shape": main["shape"]})
-    qmain = next(c for c in quantize_checks if c["shape"] == [576, 1536])
+    qmain = next(c for c in dither_rows if c["name"] == "quantize"
+                 and c["shape"] == [576, 1536])
     kernels.append({
         "name": "quantize", "route": "cuda", "source": qk.SOURCE,
         "replaces": QUANTIZE_REPLACES,
         "launches": pol_runs["ring", True]["launches"]["quantize"],
         "launches_note": "not on the serve path: the dither matmul "
                          "quantises its operands itself",
-        "max_abs_err": qmain["max_abs_err"], "ms": qmain["ms"],
-        "plain_ms": qmain["plain_ms"], "bound_ms": qmain["bound_ms"],
-        "bound_by": qmain["bound_by"], "library_ms": None,
-        "device_ms": qmain["device_ms"], "library_device_ms": None,
-        "shape": qmain["shape"]})
-    mmain = next(c for c in matmul_checks if c["shape"] == [8, 576, 1536])
+        **{k: qmain[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "bound_term", "library_ms",
+                                 "device_ms", "shape")},
+        "library_device_ms": None})
+    mmain = {c["name"]: c for c in dither_rows
+             if c["shape"] == [8, 576, 1536]}
     for (layout, kv_quant), run in pol_runs.items():
-        kernels.append({
-            "name": "dither_matmul", "route": "cuda", "source": dm.SOURCE,
-            "replaces": MATMUL_REPLACES,
-            "run": f"{layout} {'int8' if kv_quant else 'bf16'} policy serve",
-            "launches": run["dither_matmul_launches"],
-            "max_abs_err": mmain["max_abs_err"], "ms": mmain["ms"],
-            "plain_ms": mmain["plain_ms"], "bound_ms": mmain["bound_ms"],
-            "bound_by": mmain["bound_by"], "library_ms": None,
-            "device_ms": mmain["device_ms"], "library_device_ms": None,
-            "unquantised_bf16_matmul_ms":
-                mmain["unquantised_bf16_matmul_ms"],
-            "shape": mmain["shape"]})
+        for entry in ("policy_product", "dither_matmul"):
+            row = mmain[entry]
+            kernels.append({
+                "name": "dither_matmul" + ("_scaled" if entry ==
+                                           "policy_product" else ""),
+                "route": "cuda", "source": dm.SOURCE,
+                "replaces": MATMUL_REPLACES,
+                "run": f"{layout} {'int8' if kv_quant else 'bf16'} policy "
+                       "serve",
+                "launches": run["launches"]["dither_matmul"
+                                            if entry == "dither_matmul"
+                                            else "dither_matmul_scaled"],
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "bound_term",
+                                       "library_ms", "device_ms", "shape")},
+                "library_device_ms": None,
+                **{k: row[k] for k in ("unquantised_bf16_matmul_ms",
+                                       "torch_ops_route_ms",
+                                       "torch_ops_route_device_ms") if k in row}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -1894,8 +2121,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--attention-times"]:
-        sys.exit(attention_times_main(sys.argv[2:]))
+    if sys.argv[1:2] in (["--attention-times"], ["--dither-times"]):
+        sys.exit(times_main(sys.argv[1], sys.argv[2:]))
     if sys.argv[1:2] == ["--attention-times-of"]:
         sys.exit(attention_times_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--dither-times-of"]:
+        sys.exit(dither_times_worker(*sys.argv[2:4]))
     sys.exit(main())

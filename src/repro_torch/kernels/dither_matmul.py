@@ -3,54 +3,205 @@
 ``dither_matmul_kernel_call`` of the reference's
 ``kernels/dither_matmul.py``.
 
-``dither_matmul`` takes CUDA tensors to the kernel and CPU tensors to the
-plain version ``ref.dither_matmul_ref``; any other device raises.  For CUDA
-tensors it checks device, dtype, shape and contiguity, raises on anything
-the kernel does not take (the limits are in the messages), allocates the
-output and the kernel's scratch (u8 code buffers padded to its tiles, the
-row and column code sums) with ``torch.empty``, launches on the current
-stream without synchronising, and adds one to ``dither_matmul.launches``
-per call.
+Two entries, one kernel source:
+
+* ``dither_matmul(a, b, ...)`` — f32 operands and static ranges → f32, what
+  ``dispatch.matmul`` and the reference's kernel compute;
+* ``dither_matmul_scaled(x, w, w_absmax, ...)`` — the quantised-matmul
+  policy's product whole (``numerics/policy.py:_fused_matmul``): bf16
+  operands normalised by their absmax in the kernel, the product over
+  (-1, 1), rescaled to bf16.  The weight may be row-major (K, N) or the
+  transposed view of a row-major (N, K) tensor (the tied LM head);
+  ``weight_absmax`` computes its absmax once per weight.
+
+Each takes CUDA tensors to the kernel and CPU tensors to its plain version
+(``ref.dither_matmul_ref``, ``ref.dither_matmul_scaled_ref``); any other
+device raises.  For CUDA tensors it checks device, dtype, shape and layout,
+raises on anything the kernel does not take (the limits are in the
+messages), plans the grid (``plan``: the decode regime at M <= 128, else
+prefill), allocates the output and the per-call scratch with
+``torch.empty``, keeps the decode regime's split scratch (zero between
+calls; the kernel leaves it so) per device and stream, launches on the
+current stream without synchronising, and adds one to
+``dither_matmul.launches`` per call of either entry (the policy entry also
+to ``dither_matmul_scaled.launches``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import torch
 
-from repro_torch.core import rounding
 from repro_torch.kernels import _build
-from repro_torch.kernels.quantize import FMTS, SCHEMES, check_scheme, u32
-from repro_torch.kernels.ref import dequant_constants, dither_matmul_ref
+from repro_torch.kernels.decode_attention import launch_on
+from repro_torch.kernels.quantize import QuantParams, check_scheme, quant_params
+from repro_torch.kernels.ref import (dequant_constants, dither_matmul_ref,
+                                     dither_matmul_scaled_ref, policy_absmax)
 
-__all__ = ["dither_matmul", "SOURCE", "MAX_BITS"]
+__all__ = ["dither_matmul", "dither_matmul_scaled", "weight_absmax", "plan",
+           "SOURCE", "MAX_BITS", "DECODE_MAX_M", "MIN_BLOCKS",
+           "TARGET_BLOCKS", "normalise_mismatches"]
 
 SOURCE = "src/repro_torch/kernels/csrc/dither_matmul.cu"
 MAX_BITS = 8                 # codes are u8 in the tensor-core product
-_TILE_MN, _TILE_K = 128, 64  # csrc: kBM = kBN, kBK
+DECODE_MAX_M = 128           # the decode regime: one row tile of the MMA
+MIN_BLOCKS = 132             # the H100's SMs: the decode plan's floor
+TARGET_BLOCKS = 4 * 132      # at most: 4 blocks of 256 an SM, one wave
+_ROW_TILES = (1, 4, 16)      # csrc launch_decode_mt: 8-row MMA tiles
+_STRIP, _CHUNK = 16, 32      # decode: weight columns a block, K a chunk
+_TILE_MN, _TILE_K = 128, 64  # prefill: kBM = kBN, kBK
 _GRID_MAX = 65535            # CUDA's limit on gridDim.y
+_KINDS = {"f32": 0, "row": 1, "trans": 2}
 
-_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dither_matmul")
+    params = ctypes.POINTER(QuantParams)
     lib.repro_dither_matmul.argtypes = (
-        [_P] * 7                      # a, b, out, codes_a, codes_bt, sums
-        + [_I] * 6                    # M, K, N, Mp, Np, Kp
-        + [_F] * 5                    # sa, za, sb, zb, levels
-        + [_I] * 2                    # scheme, fmt
-        + [_U] * 7                    # seeds, pulses, multipliers, counter
+        [_P] * 11                     # a, b, out, scratch, absmaxes
+        + [_I] * 3                    # M, K, N
+        + [_I] * 5                    # kind, mt, cps, splits, async
+        + [_I] * 3                    # Mp, Np, Kp
+        + [params] * 2                # A's and B's quantiser
         + [_F] * 4 + [_I, _P])        # epilogue constants, cross, stream
     lib.repro_dither_matmul.restype = _I
+    lib.repro_div_check.argtypes = [_P, _P]
+    lib.repro_div_check.restype = _I
     return lib
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(m: int, k: int, n: int) -> dict:
+    """The grid of an (m, k) @ (k, n) product.
+
+    Decode (``m <= DECODE_MAX_M``): ``mt`` 8-row MMA tiles hold every row;
+    one block of 256 threads per 16-column weight strip and split, each
+    split ``cps`` 32-deep K chunks (the last may be shorter), with as many
+    splits as K's chunks allow up to ``TARGET_BLOCKS`` blocks, one wave
+    (a second wave would wait out the split merge's round trips again); at
+    least ``MIN_BLOCKS`` at every serve shape.  Prefill:
+    128 x 128 output tiles over operands padded to (mp, kp) and (np, kp).
+    """
+    if m > DECODE_MAX_M:
+        mp, np_ = _round_up(m, _TILE_MN), _round_up(n, _TILE_MN)
+        return {"regime": "prefill", "mp": mp, "np": np_,
+                "kp": _round_up(k, _TILE_K),
+                "blocks": (mp // _TILE_MN) * (np_ // _TILE_MN)}
+    mt = next(t for t in _ROW_TILES if 8 * t >= m)
+    strips, chunks = -(-n // _STRIP), -(-k // _CHUNK)
+    cps = -(-chunks // max(1, TARGET_BLOCKS // strips))
+    splits = -(-chunks // cps)
+    return {"regime": "decode", "mt": mt, "strips": strips, "chunks": chunks,
+            "cps": cps, "splits": splits, "blocks": strips * splits}
+
+
+class _Scratch:
+    """One device and stream's reusable scratch, grown on demand.  The
+    ``zero`` buffers (the decode split's partial sums and arrival counts)
+    are zero between calls: allocated so, and left so by the kernel."""
+
+    def __init__(self, device):
+        self.device = device
+        self.bufs = {}
+
+    def get(self, name: str, numel: int, dtype, zero: bool = False):
+        t = self.bufs.get(name)
+        if t is None or t.numel() < numel:
+            make = torch.zeros if zero else torch.empty
+            t = self.bufs[name] = make(max(numel, 1), dtype=dtype,
+                                       device=self.device)
+        return t
+
+
+_SCRATCH = {}
+
+
+def _scratch(device, stream: int) -> _Scratch:
+    key = (device.index, stream)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = _Scratch(device)
+    return _SCRATCH[key]
+
+
+def _check_common(bits: int, scheme: str, fmt: str, k: int) -> None:
+    check_scheme(scheme, fmt)
+    if not 1 <= bits <= MAX_BITS:
+        raise ValueError(f"bits {bits} not in [1, {MAX_BITS}] (the kernel "
+                         "multiplies u8 codes)")
+    levels = (1 << bits) - 1
+    if k * levels * levels >= 2 ** 31:
+        raise ValueError(f"K={k} at {bits} bits can overflow the kernel's "
+                         f"int32 accumulator (K·(2^bits−1)² ≥ 2^31)")
+
+
+_constants = functools.lru_cache(maxsize=1024)(dequant_constants)
+
+
+def _launch(kind: str, a, b, out, w_absmax, m: int, k: int, n: int, *,
+            bits, scheme, a_range, b_range, counter, seed, fmt) -> None:
+    """One call of the C entry: the plan, the scratch and both quantisers
+    (A: ``seed``, N_A = max(N, 2) pulses; B: ``seed + 1``, N_B = max(M, 2))."""
+    p = plan(m, k, n)
+    a_range, b_range = tuple(a_range), tuple(b_range)
+    sa, sb, r_acc, c_col, c_row, c_k = _constants(bits, a_range, b_range, k)
+    cross = a_range[0] != 0.0 or b_range[0] != 0.0
+    q = dict(bits=bits, scheme=scheme, fmt=fmt, counter=counter)
+    pa = quant_params(scale=sa, zero=a_range[0], seed=seed,
+                      n_pulses=max(n, 2), **q)
+    pb = quant_params(scale=sb, zero=b_range[0], seed=seed + 1,
+                      n_pulses=max(m, 2), **q)
+    dev = a.device
+    s = _scratch(dev, torch._C._cuda_getCurrentRawStream(dev.index))
+    x_absmax = s.get("x_absmax", 1, torch.float32)
+    if p["regime"] == "decode":
+        mt, cps, splits = p["mt"], p["cps"], p["splits"]
+        mp = np_ = kp = 0
+        codes_a = s.get("codes_a", 8 * mt * _CHUNK * p["chunks"], torch.uint8)
+        codes_bt = None
+        rowsum = s.get("rowsum", m, torch.int32)
+        if splits > 1:
+            colsum = s.get("colacc", n, torch.int32, zero=True)
+            acc = s.get("acc", m * n, torch.int32, zero=True)
+            arrivals = s.get("arrivals", p["strips"], torch.int32, zero=True)
+        else:
+            colsum = acc = arrivals = None
+        row_bytes = (k if kind == "trans" else n) * b.element_size()
+        aligned = b.data_ptr() % 16 == 0 and row_bytes % 16 == 0
+    else:
+        mt = cps = splits = aligned = 0
+        mp, np_, kp = p["mp"], p["np"], p["kp"]
+        if mp // _TILE_MN > _GRID_MAX:
+            raise ValueError(f"M={m} too large for the kernel's grid")
+        codes_a = torch.empty((mp, kp), dtype=torch.uint8, device=dev)
+        codes_bt = torch.empty((np_, kp), dtype=torch.uint8, device=dev)
+        rowsum = torch.empty((m,), dtype=torch.int32, device=dev)
+        colsum = torch.empty((n,), dtype=torch.int32, device=dev)
+        acc = arrivals = None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = launch_on(
+        dev, _lib().repro_dither_matmul, a.data_ptr(), b.data_ptr(),
+        out.data_ptr(), ptr(codes_a), ptr(codes_bt), ptr(rowsum),
+        ptr(colsum), ptr(acc), ptr(arrivals), x_absmax.data_ptr(),
+        ptr(w_absmax), m, k, n, _KINDS[kind], mt, cps, splits, int(aligned),
+        mp, np_, kp, ctypes.byref(pa), ctypes.byref(pb), r_acc, c_col, c_row,
+        c_k, int(cross))
+    if rc != 0:
+        raise RuntimeError(f"dither_matmul kernel launch failed: CUDA error "
+                           f"{rc} for {tuple(a.shape)} @ {tuple(b.shape)}")
+    dither_matmul.launches += 1
 
 
 def dither_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int,
@@ -66,7 +217,6 @@ def dither_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int,
     if a.device.type != "cuda":
         raise ValueError(f"dither_matmul runs on cuda (or cpu), not "
                          f"{a.device}")
-    check_scheme(scheme, fmt)
     for name, t in (("a", a), ("b", b)):
         if t.dim() != 2 or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 2-D float32 "
@@ -80,42 +230,107 @@ def dither_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int,
     if min(m, k, n) < 1:
         raise ValueError(f"empty operand: {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
-    if not 1 <= bits <= MAX_BITS:
-        raise ValueError(f"bits {bits} not in [1, {MAX_BITS}] (the kernel "
-                         "multiplies u8 codes)")
-    levels = (1 << bits) - 1
-    if k * levels * levels >= 2 ** 31:
-        raise ValueError(f"K={k} at {bits} bits can overflow the kernel's "
-                         f"int32 accumulator (K·(2^bits−1)² ≥ 2^31)")
-    mp, np_, kp = (_round_up(m, _TILE_MN), _round_up(n, _TILE_MN),
-                   _round_up(k, _TILE_K))
-    if mp // 8 > _GRID_MAX or kp // 32 > _GRID_MAX:
-        raise ValueError(f"M={m} or K={k} too large for the kernel's grid")
-    sa, sb, r_acc, c_col, c_row, c_k = dequant_constants(bits, a_range,
-                                                         b_range, k)
-    cross = a_range[0] != 0.0 or b_range[0] != 0.0
-    n_a, n_b = max(n, 2), max(m, 2)
-    dev = a.device
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    codes_a = torch.empty((mp, kp), dtype=torch.uint8, device=dev)
-    codes_bt = torch.empty((np_, kp), dtype=torch.uint8, device=dev)
-    rowsum = torch.empty((m,), dtype=torch.int32, device=dev)
-    colsum = torch.empty((n,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().repro_dither_matmul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), codes_a.data_ptr(),
-            codes_bt.data_ptr(), rowsum.data_ptr(), colsum.data_ptr(),
-            m, k, n, mp, np_, kp, sa, a_range[0], sb, b_range[0],
-            float(levels), SCHEMES[scheme], FMTS[fmt], u32(seed),
-            u32(seed + 1), n_a, rounding._coprime_multiplier(n_a), n_b,
-            rounding._coprime_multiplier(n_b), u32(counter), r_acc, c_col,
-            c_row, c_k, int(cross), stream)
-    if rc != 0:
-        raise RuntimeError(f"dither_matmul kernel launch failed: CUDA error "
-                           f"{rc} for {tuple(a.shape)} @ {tuple(b.shape)}")
-    dither_matmul.launches += 1
+    _check_common(bits, scheme, fmt, k)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _launch("f32", a, b, out, None, m, k, n, bits=bits, scheme=scheme,
+            a_range=a_range, b_range=b_range, counter=counter, seed=seed,
+            fmt=fmt)
     return out
 
 
 dither_matmul.launches = 0
+
+
+def _weight_layout(w: torch.Tensor) -> str:
+    """``"row"`` for a row-major (K, N) weight, ``"trans"`` for the
+    transposed view of a row-major (N, K) one; raises on any other."""
+    if w.is_contiguous():
+        return "row"
+    if w.T.is_contiguous():
+        return "trans"
+    raise ValueError(f"w must be row-major (K, N) or the transposed view of "
+                     f"a row-major (N, K) tensor; got strides {w.stride()}")
+
+
+def dither_matmul_scaled(x: torch.Tensor, w: torch.Tensor,
+                         w_absmax: torch.Tensor, *, bits: int,
+                         scheme: str = "dither", counter=0, seed: int = 0,
+                         fmt: str = "spread") -> torch.Tensor:
+    """The policy's product → (M, N) bf16: x (M, K) and w (K, N) bf16, each
+    normalised by its absmax (x's reduced in the kernel, w's given as the
+    0-dim bf16 ``w_absmax``, see ``weight_absmax``), quantised over (-1, 1)
+    with ``seed`` / ``seed + 1``, multiplied, dequantised and scaled by
+    ``bf16(ax · aw)``: the CUDA kernel for CUDA tensors, the plain version
+    (``ref.dither_matmul_scaled_ref``) for CPU tensors."""
+    if x.device.type == "cpu":
+        return dither_matmul_scaled_ref(x, w, w_absmax, bits=bits,
+                                        scheme=scheme, counter=counter,
+                                        seed=seed, fmt=fmt)
+    if x.device.type != "cuda":
+        raise ValueError(f"dither_matmul_scaled runs on cuda (or cpu), not "
+                         f"{x.device}")
+    for name, t in (("x", x), ("w", w), ("w_absmax", w_absmax)):
+        if t.dtype != torch.bfloat16 or t.device != x.device:
+            raise ValueError(f"{name} must be bfloat16 on {x.device}; got "
+                             f"{t.dtype} on {t.device}")
+    if x.dim() != 2 or w.dim() != 2 or w_absmax.dim() != 0:
+        raise ValueError(f"x and w must be 2-D and w_absmax 0-D; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(w_absmax.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"x must be contiguous; got strides {x.stride()}")
+    (m, k), (k2, n) = x.shape, w.shape
+    if k != k2:
+        raise ValueError(f"inner dims differ: {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    if min(m, k, n) < 1:
+        raise ValueError(f"empty operand: {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    _check_common(bits, scheme, fmt, k)
+    kind = _weight_layout(w)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    _launch(kind, x, w, out, w_absmax, m, k, n, bits=bits, scheme=scheme,
+            a_range=(-1.0, 1.0), b_range=(-1.0, 1.0), counter=counter,
+            seed=seed, fmt=fmt)
+    dither_matmul_scaled.launches += 1
+    return out
+
+
+dither_matmul_scaled.launches = 0
+
+_ABSMAX = {}
+_ABSMAX_MAX = 4096
+
+
+def weight_absmax(w: torch.Tensor) -> torch.Tensor:
+    """The policy's range of a weight, ``ref.policy_absmax(w)``, computed
+    once per weight: it does not depend on the counter.  Cached on the
+    tensor's storage address, shape, strides and dtype, and checked against
+    the tensor that owns the storage (alive, the same object) and its
+    ``_version``, so an in-place update recomputes it and a new tensor at a
+    freed address does not inherit it."""
+    if w.is_inference():
+        return policy_absmax(w)
+    base = w if w._base is None else w._base
+    key = (w.device, w.data_ptr(), tuple(w.shape), w.stride(), w.dtype)
+    hit = _ABSMAX.get(key)
+    if hit is not None and hit[0]() is base and hit[1] == w._version:
+        return hit[2]
+    absmax = policy_absmax(w)
+    if len(_ABSMAX) >= _ABSMAX_MAX:
+        _ABSMAX.clear()
+    _ABSMAX[key] = (weakref.ref(base), w._version, absmax)
+    return absmax
+
+
+def normalise_mismatches(device="cuda"):
+    """How many pairs of a bf16 value x and a finite bf16 absmax >=
+    bf16(1e-6) the kernel's reciprocal normalisation
+    (``dither_quant.cuh:normalise_rcp``) gets wrong against
+    ``bf16(x / absmax)``: (among |x| <= absmax, the policy's case; among
+    all pairs), counted on the card."""
+    bad = torch.zeros(2, dtype=torch.int64, device=device)
+    rc = launch_on(bad.device, _lib().repro_div_check, bad.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"division check launch failed: CUDA error {rc}")
+    return tuple(int(v) for v in bad.tolist())

@@ -17,7 +17,8 @@ import torch
 from repro_torch.core import rounding
 
 __all__ = ["quantize_codes_ref", "dither_round_ref", "stochastic_round_ref",
-           "dither_matmul_ref", "dequant_constants", "fma_f32",
+           "dither_matmul_ref", "dither_matmul_scaled_ref", "policy_absmax",
+           "dequant_constants", "fma_f32",
            "decode_attention_ref",
            "paged_decode_attention_ref", "verify_attention_ref",
            "paged_verify_attention_ref", "shrink_block"]
@@ -149,6 +150,38 @@ def dither_matmul_ref(
     out = fma_f32(acc, r_acc, (colsum * c_col)[None, :])
     out = out + (rowsum * c_row)[:, None]
     return out + c_k
+
+
+def policy_absmax(t: torch.Tensor) -> torch.Tensor:
+    """The quantised-matmul policy's operand range: ``clamp_min(max |t|,
+    1e-6)`` as a 0-dim tensor in t's dtype."""
+    return torch.clamp_min(torch.amax(torch.abs(t)), 1e-6)
+
+
+def dither_matmul_scaled_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    w_absmax: Optional[torch.Tensor] = None,
+    *,
+    bits: int,
+    scheme: str = "dither",
+    counter=0,
+    seed: int = 0,
+    fmt: str = "spread",
+) -> torch.Tensor:
+    """The quantised-matmul policy's product (``numerics/policy.py``
+    ``_fused_matmul``), the plain version of ``dither_matmul_scaled``: both
+    operands normalised by their absmax (``policy_absmax``; the weight's
+    may be given) in their own dtype, taken in f32 through
+    ``dither_matmul_ref`` over the range (-1, 1), and the product scaled
+    back by ``ax * aw`` and cast to x's dtype."""
+    ax = policy_absmax(x)
+    aw = policy_absmax(w) if w_absmax is None else w_absmax
+    out = dither_matmul_ref(
+        (x / ax).to(torch.float32), (w / aw).to(torch.float32), bits=bits,
+        scheme=scheme, a_range=(-1.0, 1.0), b_range=(-1.0, 1.0),
+        counter=counter, seed=seed, fmt=fmt)
+    return (out * (ax * aw)).to(x.dtype)
 
 
 def fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:

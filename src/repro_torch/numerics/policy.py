@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core import rounding
 from repro_torch.kernels import dispatch
+from repro_torch.kernels import dither_matmul as _dm
 
 __all__ = ["QuantPolicy", "qmatmul", "dense", "fake_quant", "matmul"]
 
@@ -123,14 +124,23 @@ def _fused_matmul(x: torch.Tensor, w: torch.Tensor, policy: QuantPolicy,
     the dynamic absmax, so both operands are normalised to [-1, 1] first
     (the grid is ``_fake_quant``'s) and the product is scaled back.
     Dither pulse counts follow §VII (N_A = N, N_B = M), not
-    ``policy.n_pulses``."""
+    ``policy.n_pulses``.  bf16 operands on the card take the CUDA kernel's
+    policy entry, which normalises and rescales inside the kernel, with
+    the weight's absmax computed once per weight
+    (``dither_matmul.dither_matmul_scaled``, bit for bit this function's
+    other route); anything else runs the torch ops around
+    ``dispatch.matmul``."""
+    kw = dict(bits=policy.bits, scheme=policy.scheme, counter=int(counter),
+              seed=seed)
+    if (x.dtype == w.dtype == torch.bfloat16
+            and dispatch.resolve_backend(policy.backend, x) == "cuda"):
+        return _dm.dither_matmul_scaled(x, w, _dm.weight_absmax(w), **kw)
     ax = torch.clamp_min(torch.amax(torch.abs(x)), 1e-6)
     aw = torch.clamp_min(torch.amax(torch.abs(w)), 1e-6)
     out = dispatch.matmul(
         (x / ax).to(torch.float32), (w / aw).to(torch.float32),
-        bits=policy.bits, scheme=policy.scheme, counter=int(counter),
-        seed=seed, a_range=(-1.0, 1.0), b_range=(-1.0, 1.0),
-        backend=policy.backend)
+        a_range=(-1.0, 1.0), b_range=(-1.0, 1.0), backend=policy.backend,
+        **kw)
     return (out * (ax * aw)).to(x.dtype)
 
 

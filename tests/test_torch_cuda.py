@@ -1,8 +1,11 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (ring and
-paged flash-decode, ring and paged speculative verify) against their plain
+paged flash-decode, ring and paged speculative verify, the dither
+quantiser and the dither matmul's two entries) against their plain
 versions, paged == ring bit for bit, every verify row equal to the decode
-kernel at its position bit for bit, the wrappers' input checks, and the
-serving path's launch counts and streams.  They import torch and the port
+kernel at its position bit for bit, the policy entry equal to the
+torch-ops route around the f32 kernel bit for bit, the kernels' modulo over all 2^32
+numerators, the wrappers' input checks, and the serving path's launch
+counts and streams.  They import torch and the port
 only (the card's machine has no JAX) and skip where
 ``torch.cuda.is_available()`` is false:
 
@@ -610,6 +613,150 @@ def test_dither_kernels_reject_what_they_do_not_take(cuda):
             qk.quantize(bad, **qkw)
     with pytest.raises(ValueError):
         qk.quantize(a, **{**qkw, "bits": 17})
+
+
+def _torch_ops_route(x, w, **kw):
+    """The policy's product the way ``_fused_matmul`` computes it for
+    operands the policy entry does not take: torch ops for the
+    absmaxes, the normalised f32 operands and the rescale around the f32
+    CUDA kernel."""
+    from repro_torch.kernels import dispatch
+
+    ax = torch.clamp_min(torch.amax(torch.abs(x)), 1e-6)
+    aw = torch.clamp_min(torch.amax(torch.abs(w)), 1e-6)
+    out = dispatch.matmul((x / ax).to(torch.float32),
+                          (w / aw).to(torch.float32), a_range=(-1.0, 1.0),
+                          b_range=(-1.0, 1.0), backend="cuda", **kw)
+    return (out * (ax * aw)).to(x.dtype)
+
+
+@pytest.mark.parametrize("scheme", ["deterministic", "stochastic", "dither"])
+def test_policy_entry_matches_the_torch_ops_route_bitwise(cuda, scheme):
+    """The dither matmul's policy entry equals the torch-ops route (torch ops
+    around the f32 kernel, on the card: torch's bf16 division by a 0-dim
+    CUDA tensor and its f32 rescale) and the plain version bit for bit: the
+    serve path's decode shapes with the tied LM head as a transposed view,
+    a 4096-row prefill, the regime boundary M = 128 / 129 in both weight
+    layouts, K-split remainders and ragged shapes; and ``_fused_matmul``
+    takes it for bf16 operands, one launch a product."""
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.numerics import policy
+
+    gen = torch.Generator().manual_seed(2)
+    cases = [(8, 576, 576, False), (8, 576, 192, False),
+             (8, 576, 1536, False), (8, 1536, 576, False),
+             (8, 576, 49152, True), (4096, 576, 1536, False),
+             (128, 576, 200, False), (128, 576, 200, True),
+             (129, 576, 200, False), (129, 576, 200, True),
+             (8, 600, 576, False), (8, 1000, 192, True), (37, 100, 53, True),
+             (5, 7, 3, False), (1, 33, 17, True)]
+    for m, k, n, trans in cases:
+        x = torch.randn((m, k), generator=gen).bfloat16().to(cuda)
+        w = (torch.randn((n, k) if trans else (k, n), generator=gen)
+             * 0.05).bfloat16().to(cuda)
+        w = w.T if trans else w
+        for counter, seed in ((3, 1), (2 ** 31 + 5, 9)):
+            kw = dict(bits=8, scheme=scheme, counter=counter, seed=seed)
+            before = (dm.dither_matmul.launches,
+                      dm.dither_matmul_scaled.launches)
+            got = dm.dither_matmul_scaled(x, w, dm.weight_absmax(w), **kw)
+            torch.cuda.synchronize()
+            assert (dm.dither_matmul.launches,
+                    dm.dither_matmul_scaled.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+            want = _torch_ops_route(x, w, **kw)
+            assert torch.equal(got, want), ((m, k, n, trans), (
+                got.float() - want.float()).abs().max().item())
+            assert torch.equal(got, ref.dither_matmul_scaled_ref(x, w, **kw))
+        pol = policy.QuantPolicy(scheme=scheme, backend="cuda")
+        before = dm.dither_matmul_scaled.launches
+        via = policy._fused_matmul(x, w, pol, seed, float(counter))
+        assert dm.dither_matmul_scaled.launches == before + 1
+        assert torch.equal(via, got)
+
+
+def test_decode_split_scratch_returns_to_zero(cuda):
+    """The decode regime's split merge leaves its partial sums, column sums
+    and arrival counters at 0 after every call, so the next call starts
+    clean: repeated products give the same bits."""
+    from repro_torch.kernels import dither_matmul as dm
+
+    gen = torch.Generator().manual_seed(3)
+    a = (torch.rand((8, 576), generator=gen) * 2 - 1).to(cuda)
+    for n in (576, 192, 1536):
+        assert dm.plan(8, 576, n)["splits"] > 1
+        b = (torch.rand((576, n), generator=gen) * 2 - 1).to(cuda)
+        kw = dict(bits=8, scheme="dither", a_range=(-1.0, 1.0),
+                  b_range=(-1.0, 1.0), counter=7, seed=2)
+        outs = [dm.dither_matmul(a, b, **kw) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, outs[0]) for o in outs)
+        assert torch.equal(outs[0], ref.dither_matmul_ref(a, b, **kw))
+    for s in dm._SCRATCH.values():
+        for name in ("acc", "colacc", "arrivals"):
+            if name in s.bufs:
+                assert not s.bufs[name].any(), name
+
+
+def test_modulo_magic_exhaustive(cuda):
+    """The kernels' multiply-high ``x % N`` (``dither_quant.cuh:mod_n``)
+    equals ``%`` for all 2^32 uint32 numerators, at the serve path's pulse
+    counts and odd divisors up to 2^32 − 1."""
+    from repro_torch.kernels import quantize as qk
+
+    for d in (2, 3, 7, 192, 576, 1536, 49152, 641, 2 ** 31 - 1, 2 ** 31 + 1,
+              2 ** 32 - 1):
+        assert qk.fastmod_mismatches(d) == 0, d
+
+
+@pytest.mark.parametrize("scheme", ["deterministic", "stochastic", "dither"])
+def test_quantize_kernel_far_outside_the_range(cuda, scheme):
+    """Values whose scaled code lies far outside [0, 2^bits − 1] (past
+    2^22, where the kernels' fast floor no longer is floor, and at ±inf)
+    clip as the plain version's do, and pulse counts above 2^22 take the
+    general path: the plain version's codes bit for bit."""
+    from repro_torch.kernels import quantize as qk
+
+    vals = torch.tensor([[0.0, -0.0, 1e-30, -1e-30, 0.5, 4194303.5, 4194304.0,
+                          4194304.5, -4194304.5, 8388609.0, 1e7, -1e7, 1e30,
+                          -1e30, 3e38, -3e38, float("inf"), float("-inf")]])
+    x = torch.cat([vals, vals / 127.5 - 1.0], 0).to(cuda)
+    for n_pulses in (16, 49152, 2 ** 22, 2 ** 22 + 1, 2 ** 23 + 5):
+        kw = dict(scale=127.5, zero=-1.0, bits=8, scheme=scheme, counter=3,
+                  seed=1, n_pulses=n_pulses)
+        got = qk.quantize(x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.quantize_codes_ref(x, **kw)), n_pulses
+
+
+def test_reciprocal_normalisation_is_the_division(cuda):
+    """The policy entry's normalisation by a reciprocal (three instructions
+    in place of an IEEE division) gives ``bf16(x / absmax)`` bit for bit
+    for every bf16 x with |x| <= absmax and every finite bf16 absmax >=
+    bf16(1e-6) — the only pairs the kernel meets, since absmax is the
+    clamped max |x| of x's own weight — out of all 1.24e9 pairs, on the
+    card."""
+    from repro_torch.kernels import dither_matmul as dm
+
+    in_range, everywhere = dm.normalise_mismatches(cuda)
+    assert in_range == 0, (in_range, everywhere)
+
+
+def test_quantize_kernel_unaligned_and_ragged(cuda):
+    """Kernel 5 on a tensor whose storage is not 16-byte aligned (one
+    element at a time) and on element counts off a multiple of 4 (the
+    vector path's tail): the plain version's codes bit for bit."""
+    from repro_torch.kernels import quantize as qk
+
+    gen = torch.Generator().manual_seed(4)
+    big = (torch.rand(40_001, generator=gen) * 2.6 - 1.3).to(cuda)
+    kw = dict(scale=127.5, zero=-1.0, bits=8, scheme="dither", counter=9,
+              seed=3, n_pulses=576)
+    for x in (big[1:].view(200, 200), big[:39_999].view(3, 13_333),
+              big[:7].view(1, 7), big[1:7].view(2, 3)):
+        got = qk.quantize(x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.quantize_codes_ref(x, **kw))
 
 
 @pytest.mark.parametrize("kv_quant", [False, True])
