@@ -32,11 +32,21 @@ printing JSON lines:
    sampled; then each path again with speculative decoding (draft_k 4,
    a replay drafter of the plain streams and the prompt-lookup drafter),
    whose streams must equal the plain ones token for token; each path's
-   launch counts are set to 0 just before its run and read just after;
-   before the serve runs, a probe of which library ops of a verify
-   forward are row-pure; then steady decode ticks and speculative windows
-   under ``torch.profiler`` (wall and device time per tick, launches, the
-   heaviest kernels);
+   launch counts are set to 0 just before its run and read just after
+   (a policy-free decode window is one CUDA-graph replay, so its launches
+   are the graph's times its replays, ``launch_gates``); before the serve
+   runs, a probe of which library ops of a verify forward are row-pure;
+   then the ring (bf16, int8) and paged (int8) traffic in windows of 8
+   ticks, whose streams must equal the one-tick streams; graph ≡ eager:
+   one window replayed and the same window run eagerly on a clone of its
+   state, byte for byte, for ring and paged, bf16 and int8, also right
+   after an admission rebinds the positions and block tables; chunked
+   prefill (chunks of 128 tokens) against whole-prompt prefill within the
+   logit tolerance, and the ring int8 traffic served in chunks and
+   windows; then steady decode ticks, speculative windows, and 8-tick
+   windows replayed and run eagerly from one state, under
+   ``torch.profiler`` (wall and device time per tick or window, busy
+   share, launches, the heaviest kernels);
 5. parity — one prefill and three decode steps at full width per layout,
    the CUDA kernel against the plain version passed explicitly; the
    paged engine's greedy streams against the ring engine's, token for
@@ -1034,17 +1044,47 @@ def paged_engine(cfg, params, kv_quant, device="cuda", **kw):
                   block_size=64, num_blocks=PAGED_BLOCKS, device=device, **kw)
 
 
-def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
-    """The ring path: ``SERVE_REQUESTS`` requests (``ring_requests``),
-    prompts spread over 32–512 tokens, 64 new tokens each; batch 8.
-    Returns the phase's line and the streams {prompt: output}."""
-    from repro_torch.kernels import dither_matmul as dm
-    from repro_torch.kernels import quantize as qk
-    from repro_torch.serve import Engine
+def launch_gates(eng, host, kernel, cfg):
+    """The launch gates of a policy-free serve run, whose windows are
+    CUDA-graph replays: one replay per window, each graph holding one
+    ``kernel`` launch per layer and tick, so the run launched it
+    ``n_layers × n × windows`` times (replays × launches per graph) and no
+    other kernel; the host counts (``host``: kernel → count, set to 0 just
+    before the run) saw one eager warm-up window and one capture per graph
+    and nothing else, so no window ran eagerly.  Returns the launches each
+    kernel really made: the host's less what the captures recorded, plus
+    the replays'.  (Eager windows on the CPU: the host counts.)"""
+    n, windows = eng.decode_ticks, eng.stats["decode_calls"]
+    g = eng._graphs
+    if g is None:
+        assert host[kernel] == cfg.n_layers * n * windows, (host, windows)
+        return dict(host)
+    replayed, recorded = g.launches(), g.recorded()
+    assert g.replays == windows, (g.replays, windows)
+    for key, w in g.windows().items():
+        assert w["launches"][kernel] == cfg.n_layers * key[0], (key, w)
+    assert replayed[kernel] == cfg.n_layers * n * windows, (replayed,
+                                                             windows)
+    assert all(v == 0 for k, v in replayed.items() if k != kernel), replayed
+    assert all(host[k] == 2 * recorded[k] for k in host), (host, recorded)
+    return {k: host[k] - recorded[k] + replayed[k] for k in host}
 
+
+def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda",
+                decode_ticks=1, prefill_chunk=None):
+    """The ring path: ``SERVE_REQUESTS`` requests (``ring_requests``),
+    prompts spread over 32–512 tokens, 64 new tokens each; batch 8;
+    windows of ``decode_ticks`` ticks (one CUDA-graph replay each),
+    prompts in chunks of ``prefill_chunk`` tokens if given.  Returns the
+    phase's line and the streams {prompt: output}."""
+    from repro_torch.serve import Engine
+    from repro_torch.serve.graphs import KERNEL_WRAPPERS
+
+    knobs = dict(kv_quant=kv_quant, device=device, decode_ticks=decode_ticks,
+                 prefill_chunk=prefill_chunk)
     # warm-up wave: loads the kernel library and PyTorch's own kernels, at
     # every prefill length bucket the run meets
-    warm = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device=device)
+    warm = Engine(params, cfg, 8, 1024, **knobs)
     for req in ring_requests(cfg, 5, [20, 40, 100, 200, 300], 4):
         warm.submit(req)
     warm.run(50)
@@ -1052,53 +1092,62 @@ def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
 
     lens = ring_lens()
     n = SERVE_REQUESTS
-    eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device=device)
+    eng = Engine(params, cfg, 8, 1024, **knobs)
     for req in ring_requests(cfg, n, lens, 64):
         eng.submit(req)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
-    da.decode_attention.launches = 0
-    pda.paged_decode_attention.launches = 0
-    dm.dither_matmul.launches = qk.quantize.launches = 0
+    for m in KERNEL_WRAPPERS.values():
+        m.launches = 0
     t0 = time.perf_counter()
     done = eng.run(10_000)
     sync()
     wall = time.perf_counter() - t0
-    launches = da.decode_attention.launches
+    host = {k: m.launches for k, m in KERNEL_WRAPPERS.items()}
     st = eng.stats
     assert len(done) == n, len(done)
     for r in done:
         assert r.finish_reason == "length" and len(r.out) == 64, (
             r.rid, r.finish_reason, len(r.out))
         assert all(0 <= t < cfg.vocab_size for t in r.out)
-    assert launches == cfg.n_layers * st["decode_calls"], (
-        launches, st["decode_calls"])
-    assert pda.paged_decode_attention.launches == 0
-    assert dm.dither_matmul.launches == qk.quantize.launches == 0
+    launches = launch_gates(eng, host, "decode_attention", cfg)
     streams = {tuple(r.prompt): list(r.out) for r in done}
+    capture_s = eng._graphs.capture_s if eng._graphs is not None else 0.0
     return {"phase": "serve", "layout": "ring",
             "kv": "int8" if kv_quant else "bf16",
             "requests": n, "prompt_tokens": int(sum(lens)),
             "new_tokens_each": 64, "batch": 8, "max_len": 1024,
+            "decode_ticks_per_window": decode_ticks,
+            "prefill_chunk": eng.prefill_chunk,
             "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
             "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+            "decode_tok_s_after_capture": st["decode_tokens"]
+                                          / (st["decode_s"] - capture_s),
+            "capture_s": capture_s,
             "prefill_calls": st["prefill_calls"],
-            "decode_ticks": st["decode_calls"], "wall_s": wall,
-            "decode_attention_launches": launches,
-            "launches_per_tick": launches / st["decode_calls"]}, streams
+            "decode_ticks": st["decode_calls"] * decode_ticks,
+            "windows": st["decode_calls"], "wall_s": wall,
+            "graph_replays": (eng._graphs.replays
+                              if eng._graphs is not None else 0),
+            "decode_attention_launches": launches["decode_attention"],
+            "launches_per_window": cfg.n_layers * decode_ticks}, streams
 
 
-def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
+def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda",
+                      decode_ticks=1):
     """The paged path: ``SERVE_REQUESTS`` requests (``paged_requests``)
     sharing a 256-token system prompt, then suffixes of 16–256 tokens, 64
     new tokens each; batch 8, 64-token blocks, a pool of ``PAGED_BLOCKS``
-    against the 8 × 16 a dense cache would hold.  Later requests hit the
-    prefix cache and the pool runs dry, so requests are preempted with
-    their blocks and resumed.  Returns the phase's line and the streams."""
-    from repro_torch.kernels import dither_matmul as dm
-    from repro_torch.kernels import quantize as qk
+    against the 8 × 16 a dense cache would hold; windows of
+    ``decode_ticks`` ticks (one CUDA-graph replay each).  Later requests
+    hit the prefix cache and the pool runs dry, so requests are preempted
+    with their blocks and resumed.  Returns the phase's line and the
+    streams."""
+    from repro_torch.serve.graphs import KERNEL_WRAPPERS
+
     # warm-up waves, cold and with prefix hits, at every length bucket
-    warm = paged_engine(cfg, params, kv_quant, device)
+    warm = paged_engine(cfg, params, kv_quant, device,
+                        decode_ticks=decode_ticks)
     for req in paged_requests(cfg, 12, [16, 30, 60, 120, 240] * 3, 4):
         warm.submit(req)
     warm.run(100)
@@ -1106,20 +1155,19 @@ def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
 
     lens = paged_lens()
     n = SERVE_REQUESTS
-    eng = paged_engine(cfg, params, kv_quant, device)
+    eng = paged_engine(cfg, params, kv_quant, device,
+                       decode_ticks=decode_ticks)
     for req in paged_requests(cfg, n, lens, 64):
         eng.submit(req)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
-    da.decode_attention.launches = 0
-    pda.paged_decode_attention.launches = 0
-    dm.dither_matmul.launches = qk.quantize.launches = 0
+    for m in KERNEL_WRAPPERS.values():
+        m.launches = 0
     t0 = time.perf_counter()
     done = eng.run(10_000)
     sync()
     wall = time.perf_counter() - t0
-    launches = pda.paged_decode_attention.launches
-    ring_launches = da.decode_attention.launches
+    host = {k: m.launches for k, m in KERNEL_WRAPPERS.items()}
     st = eng.stats
     assert len(done) == n, len(done)
     for r in done:
@@ -1129,25 +1177,31 @@ def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda"):
     assert st["prefix_hit_tokens"] > 0, st
     assert st["preemptions"] >= 1, st
     assert eng.pool.live_blocks == 0, eng.pool_stats()
-    assert ring_launches == 0, ring_launches
-    assert dm.dither_matmul.launches == qk.quantize.launches == 0
-    assert launches == cfg.n_layers * st["decode_calls"], (
-        launches, st["decode_calls"])
+    launches = launch_gates(eng, host, "paged_decode_attention", cfg)
     streams = {tuple(r.prompt): list(r.out) for r in done}
+    capture_s = eng._graphs.capture_s if eng._graphs is not None else 0.0
     return {"phase": "serve", "layout": "paged",
             "kv": "int8" if kv_quant else "bf16", "requests": n,
             "prompt_tokens": int(256 * n + sum(lens)),
             "new_tokens_each": 64, "batch": 8, "max_len": 1024,
             "block_size": 64, "num_blocks": PAGED_BLOCKS,
+            "decode_ticks_per_window": decode_ticks,
             "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
             "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+            "decode_tok_s_after_capture": st["decode_tokens"]
+                                          / (st["decode_s"] - capture_s),
+            "capture_s": capture_s,
             "prefill_tokens_computed": st["prefill_tokens"],
             "prefix_hit_tokens": st["prefix_hit_tokens"],
             "preemptions": st["preemptions"], "pool": eng.pool_stats(),
             "prefill_calls": st["prefill_calls"],
-            "decode_ticks": st["decode_calls"], "wall_s": wall,
-            "paged_decode_attention_launches": launches,
-            "launches_per_tick": launches / st["decode_calls"]}, streams
+            "decode_ticks": st["decode_calls"] * decode_ticks,
+            "windows": st["decode_calls"], "wall_s": wall,
+            "graph_replays": (eng._graphs.replays
+                              if eng._graphs is not None else 0),
+            "paged_decode_attention_launches":
+                launches["paged_decode_attention"],
+            "launches_per_window": cfg.n_layers * decode_ticks}, streams
 
 
 def spec_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain,
@@ -1284,6 +1338,321 @@ def profile_phase(torch, cfg, params, kv_quant, device="cuda",
                                  e.self_device_time_total / 1e3 / ticks,
                              "launches_per_tick": e.count / ticks}
                             for e in top]}
+
+
+# ------------------------------------------- phase 4: windows and chunks
+
+
+WINDOW = 8                 # decode ticks per window in the window phases
+CHUNK = 128                # prefill chunk of the chunked phase
+# Chunked against whole-prompt logits: a chunk's history join sums the
+# attention output in two bf16 products and adds them, one more bf16
+# rounding than the whole prompt's one product, and that moves the logits
+# through 30 layers as far as the plain path's re-blocking does (bf16:
+# held to LOGIT_ATOL, LOGIT_MEAN_ATOL).  With the int8 cache the history
+# is moreover read back dequantised, as the reference reads it (and as an
+# int8 prefix hit does), while the whole prompt attends its unrounded
+# K/V: the int8 step (1/127 of a row's absmax) is twice a bf16 rounding
+# step (2^-8 relative), so int8 is held to twice the tolerance.
+CHUNK_INT8_FACTOR = 2
+
+
+def clone_tree(x):
+    """A deep copy of a dict / list of tensors (on their device)."""
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [clone_tree(v) for v in x]
+    return x.clone()
+
+
+def graph_against_eager(torch, eng, cfg, params):
+    """The engine's next window twice from one state: replayed from its
+    CUDA graph (on the engine) and eagerly (``make_fused_decode``, called
+    directly, on a clone).  The (n, B) tokens, next tokens, counters,
+    ``pos`` and every cache tensor must be byte-equal; the paged pool's
+    trash block is compared apart and only reported (dead rows write
+    there, several to one slot, and nothing reads it).  The engine then
+    drains the window as it would.  Returns the window's host times."""
+    from repro_torch.serve import make_fused_decode
+
+    plan = eng._window_plan()
+    dev, cache = clone_tree(eng._dev), clone_tree(eng.cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = eng._run_window(plan)
+    graph_ms = 1e3 * (time.perf_counter() - t0)
+    t = lambda a: torch.from_numpy(a).to(eng.device)   # noqa: E731
+    t0 = time.perf_counter()
+    want, last, counters, new = make_fused_decode(cfg, n_ticks=plan.n)(
+        params, dev["last_token"], cache, dev["offsets"], eng.tick,
+        dev["temps"], dev["topks"], dev["seeds"], dev["counters"],
+        t(plan.alive), t(plan.budgets), t(plan.stops))
+    want = want.cpu().numpy()
+    eager_ms = 1e3 * (time.perf_counter() - t0)
+    paged = "block_tables" in cache
+    same = {"tokens": bool((toks == want).all()),
+            "next_tokens": torch.equal(last, eng._dev["last_token"]),
+            "counters": torch.equal(counters, eng._dev["counters"]),
+            "pos": torch.equal(new["pos"], eng.cache["pos"])}
+    trash_equal = True
+    for li, (got_e, want_e) in enumerate(zip(eng.cache["layers"],
+                                             new["layers"])):
+        for name, got_t in got_e.items():
+            want_t = want_e[name]
+            if paged:
+                trash_equal &= torch.equal(got_t[:, -1], want_t[:, -1])
+                got_t, want_t = got_t[:, :-1], want_t[:, :-1]
+            same[f"layers[{li}].{name}"] = torch.equal(got_t, want_t)
+    assert all(same.values()), same
+    eng.stats["decode_calls"] += 1
+    eng.tick += plan.n
+    eng._drain(plan, toks)
+    return {"alive": int(plan.alive.sum()), "graph_ms": graph_ms,
+            "eager_ms": eager_ms,
+            "trash_block_equal": trash_equal if paged else None}
+
+
+def graph_phase(torch, cfg, params, layout, kv_quant):
+    """Graph ≡ eager, bit for bit, at full width, batch 8, windows of
+    ``WINDOW`` ticks: the first window of a wave (its capture included),
+    then again right after an admission that rebinds ``pos`` and (paged)
+    the block table, so the static buffers take fresh values.  The
+    traffic: 12 of the layout's serve requests, 16 new tokens each."""
+    from repro_torch.serve import Engine
+
+    paged = layout == "paged"
+    if paged:
+        eng = paged_engine(cfg, params, kv_quant, decode_ticks=WINDOW)
+        reqs = paged_requests(cfg, 12, paged_lens()[:12], 16)
+    else:
+        eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device="cuda",
+                     decode_ticks=WINDOW)
+        reqs = ring_requests(cfg, 12, ring_lens()[:12], 16)
+    for req in reqs:
+        eng.submit(req)
+    eng._admit_and_prefill()
+    first = graph_against_eager(torch, eng, cfg, params)
+    while all(s is not None for s in eng.slots):
+        eng._decode_tick()
+    eng._admit_and_prefill()
+    rebound = {"pos": eng.cache["pos"] is not eng._graphs.pos}
+    if paged:
+        rebound["block_tables"] = (eng.cache["block_tables"]
+                                   is not eng._graphs.block_tables)
+    assert all(rebound.values()), rebound
+    after = graph_against_eager(torch, eng, cfg, params)
+    done = eng.run(1000)
+    assert len(done) == 12 and all(len(r.out) == 16 for r in done)
+    return {"phase": "graph", "layout": layout,
+            "kv": "int8" if kv_quant else "bf16", "batch": 8,
+            "window": WINDOW, "bitwise_equal_eager": True,
+            "first_window": first, "after_admission": after,
+            "rebound_before_replay": rebound,
+            "graphs": {str(k): v for k, v in eng._graphs.windows().items()},
+            "capture_s": eng._graphs.capture_s}
+
+
+def window_serve_phase(torch, da, pda, cfg, params, layout, kv_quant,
+                       plain, streams):
+    """The serve traffic again in windows of ``WINDOW`` ticks, each one
+    CUDA-graph replay: every stream equals the W = 1 stream of the plain
+    phase (``plain``, ``streams``), token for token."""
+    if layout == "paged":
+        res, got = paged_serve_phase(torch, da, pda, cfg, params, kv_quant,
+                                     decode_ticks=WINDOW)
+    else:
+        res, got = serve_phase(torch, da, pda, cfg, params, kv_quant,
+                               decode_ticks=WINDOW)
+    differ = [i for i, p in enumerate(streams) if got[p] != streams[p]]
+    assert not differ, ("W = 8 streams differ from W = 1", layout, differ)
+    return {**res, "phase": "window_serve", "streams_equal_w1": True,
+            "w1_decode_tok_s": plain["decode_tok_s"],
+            "w1_windows": plain["windows"]}
+
+
+def chunked_logits(torch, cfg, params, layout, kv_quant, toks, lens, off):
+    """Each row's last-prompt-token logits from a whole-prompt prefill and
+    from chunks of ``CHUNK`` tokens (the ring's chunked prefill; the
+    paged prefill's block-aligned suffix calls), batch 8."""
+    import numpy as np
+
+    from repro_torch.models import registry
+
+    b, dev = toks.shape[0], "cuda"
+    kw = (dict(kv_layout="paged", block_size=64, num_blocks=b * 16)
+          if layout == "paged" else {})
+    bt = torch.arange(b * 16, dtype=torch.int32, device=dev).reshape(b, 16)
+    whole_cache = registry.make_cache(params, cfg, b, 1024,
+                                      kv_quant=kv_quant, device=dev, **kw)
+    t = lambda a: torch.from_numpy(a).to(dev)         # noqa: E731
+    zeros = np.zeros(b, np.int32)
+    if layout == "paged":
+        whole, _ = registry.apply_prefill_paged(
+            params, cfg, t(toks), t(lens), t(zeros), bt, whole_cache,
+            kv_quant=kv_quant, kv_offset=off)
+    else:
+        whole, _ = registry.apply_prefill(params, cfg, t(toks), t(lens),
+                                          1024, kv_quant=kv_quant,
+                                          kv_offset=off)
+    cache = registry.make_cache(params, cfg, b, 1024, kv_quant=kv_quant,
+                                device=dev, **kw)
+    starts = zeros.copy()
+    last = [None] * b
+    while (starts < lens).any():
+        clen = np.minimum(CHUNK, lens - starts).astype(np.int32)
+        piece = np.zeros((b, CHUNK), np.int64)
+        for i in range(b):
+            piece[i, :clen[i]] = toks[i, starts[i]:starts[i] + clen[i]]
+        if layout == "paged":
+            logits, cache = registry.apply_prefill_paged(
+                params, cfg, t(piece), t(clen), t(starts), bt, cache,
+                kv_quant=kv_quant, kv_offset=off,
+                prefix_blocks=16 if starts.any() else 0)
+        else:
+            logits, cache = registry.apply_prefill_chunked(
+                params, cfg, t(piece), t(clen), t(starts), cache,
+                kv_quant=kv_quant, kv_offset=off)
+        for i in range(b):
+            if clen[i] and starts[i] + clen[i] == lens[i]:
+                last[i] = logits[i]
+        starts = starts + clen
+    return whole, torch.stack(last)
+
+
+def chunked_phase(torch, da, pda, cfg, params, ring_streams_int8):
+    """Chunked prefill at full width.  (1) For ring and paged, bf16 and
+    int8, the ring serve traffic's 16 prompts (32–512 tokens, batch 8):
+    last-chunk logits of chunks of ``CHUNK`` tokens within the plain
+    path's logit tolerance (``LOGIT_ATOL`` max, ``LOGIT_MEAN_ATOL`` mean)
+    of whole-prompt prefill's — the history join re-associates the
+    softmax, so they agree to rounding.  (2) The ring int8 traffic served
+    with ``prefill_chunk=CHUNK, decode_ticks=WINDOW``: every request ends
+    with its full budget; how many streams equal the unchunked W = 1 ones
+    is reported, not gated."""
+    import numpy as np
+
+    lens_all = ring_lens().astype(np.int32)
+    prompts = [r.prompt for r in ring_requests(cfg, SERVE_REQUESTS,
+                                               lens_all, 1)]
+    off = torch.arange(8, dtype=torch.int32, device="cuda") * 1000
+    logits = {}
+    for layout in ("ring", "paged"):
+        for kv_quant in (False, True):
+            worst = mean = 0.0
+            rows = []
+            for g in range(0, SERVE_REQUESTS, 8):
+                lens = lens_all[g:g + 8]
+                toks = np.zeros((8, 512), np.int64)
+                for i, n in enumerate(lens):
+                    toks[i, :n] = prompts[g + i]
+                whole, chunked = chunked_logits(torch, cfg, params, layout,
+                                                kv_quant, toks, lens, off)
+                assert torch.isfinite(chunked).all()
+                assert chunked.shape == (8, cfg.vocab_size)
+                d = (chunked - whole).abs()
+                worst = max(worst, d.max().item())
+                mean = max(mean, d.mean().item())
+                rows += [[int(n), d[i].max().item(), d[i].mean().item()]
+                         for i, n in enumerate(lens)]
+            logits[f"{layout} {'int8' if kv_quant else 'bf16'}"] = {
+                "max_abs_diff": worst, "max_mean_abs_diff": mean,
+                "rows_len_max_mean": sorted(rows)}
+    tol = {kv: (LOGIT_ATOL * f, LOGIT_MEAN_ATOL * f)
+           for kv, f in (("bf16", 1), ("int8", CHUNK_INT8_FACTOR))}
+    emit({"phase": "chunked_logits", "chunk": CHUNK, "tolerance": tol,
+          "logits_vs_whole_prompt": logits})
+    for key, r in logits.items():
+        atol, mean_atol = tol[key.split()[1]]
+        assert (r["max_abs_diff"] <= atol
+                and r["max_mean_abs_diff"] <= mean_atol), (key, r)
+    res, got = serve_phase(torch, da, pda, cfg, params, True,
+                           decode_ticks=WINDOW, prefill_chunk=CHUNK)
+    equal = sum(got[p] == ring_streams_int8[p] for p in ring_streams_int8)
+    for r in logits.values():
+        del r["rows_len_max_mean"]
+    return {**res, "phase": "chunked", "chunk": CHUNK,
+            "logits_vs_whole_prompt": logits, "tolerance": tol,
+            "streams_equal_unchunked_w1": int(equal),
+            "streams": len(ring_streams_int8)}
+
+
+def window_profile_phase(torch, cfg, params, kv_quant):
+    """Where a window's time goes: a ring engine at windows of ``WINDOW``
+    ticks (8 prompts of 199 + 20 r tokens, 64 new tokens each, batch 8),
+    warmed by two steps; then from one state a window replayed from the
+    engine's graph and an eager window (``make_fused_decode``, called
+    directly) on a clone of it, each under ``torch.profiler`` (device
+    activity only): wall ms (the window's call and its token drain),
+    device ms (all kernels), the busy share, kernel launches and tokens;
+    then three more of each without the profiler, whose tracing of every
+    kernel slows the host (their mean wall ms, and the device ms over it
+    as the busy share).  Both paths' last tokens must be equal."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import (Engine, Request, SamplingParams,
+                                   make_fused_decode)
+
+    eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device="cuda",
+                 decode_ticks=WINDOW)
+    for r in range(8):
+        eng.submit(Request(rid=r, prompt=list(range(1, 200 + 20 * r)),
+                           sampling=SamplingParams(max_new=64)))
+    for _ in range(2):                 # admission, prefill, capture, a window
+        eng.step()
+    plan = eng._window_plan()
+    assert plan.alive.all() and (plan.budgets == WINDOW).all()
+    dev, cache = clone_tree(eng._dev), clone_tree(eng.cache)
+    windows = 3
+    eager = make_fused_decode(cfg, n_ticks=WINDOW)
+    t = lambda a: torch.from_numpy(a).to("cuda")      # noqa: E731
+    rows = {}
+    out = {}
+
+    def run(path):
+        nonlocal cache
+        if path == "graph":
+            return eng._graphs.run(WINDOW, eng._dev, eng.cache, plan.alive,
+                                   plan.budgets, plan.stops).cpu().numpy()
+        toks, dev["last_token"], dev["counters"], cache = eager(
+            params, dev["last_token"], cache, dev["offsets"], 0,
+            dev["temps"], dev["topks"], dev["seeds"], dev["counters"],
+            t(plan.alive), t(plan.budgets), t(plan.stops))
+        return toks.cpu().numpy()
+
+    for path in ("graph", "eager"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(path)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            out[path] = run(path)
+        plain_ms = 1e3 * (time.perf_counter() - t0) / windows
+        kernels = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        rows[path] = {
+            "wall_ms_per_window": wall_ms,
+            "device_ms_per_window": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "unprofiled_wall_ms_per_window": plain_ms,
+            "device_busy_share_unprofiled": device_ms / plain_ms,
+            "kernel_launches_per_window": sum(e.count for e in kernels),
+            "tokens_per_window": int(plan.alive.sum()) * WINDOW}
+    assert np.array_equal(out["graph"], out["eager"])
+    return {"phase": "profile", "layout": "ring", "window": WINDOW,
+            "kv": "int8" if kv_quant else "bf16",
+            "windows_profiled": 1, "windows_unprofiled": windows,
+            "graph": rows["graph"], "eager": rows["eager"],
+            "graph_launches_per_replay": {
+                str(k): v["launches"]
+                for k, v in eng._graphs.windows().items()},
+            "tokens_equal": True}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1942,6 +2311,7 @@ def main() -> int:
     from repro_torch.kernels import verify_attention as va
     from repro_torch.models import registry
     from repro_torch.numerics import policy
+    from repro_torch.serve.graphs import KERNEL_WRAPPERS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1989,13 +2359,9 @@ def main() -> int:
     cfg = get_config("smollm_135m")
     params = registry.init_model(cfg, seed=0, device="cuda")
     emit(row_purity_phase(torch, cfg, params))
-    kmods = {"decode_attention": da.decode_attention,
-             "paged_decode_attention": pda.paged_decode_attention,
-             "verify_attention": va.verify_attention,
-             "paged_verify_attention": pva.paged_verify_attention,
-             "quantize": qk.quantize, "dither_matmul": dm.dither_matmul,
-             "dither_matmul_scaled": dm.dither_matmul_scaled}
+    kmods = KERNEL_WRAPPERS
     serve, paged, spec = {}, {}, {}
+    w1_streams = {}
     for kv_quant in (False, True):
         serve[kv_quant], ring_streams = serve_phase(torch, da, pda, cfg,
                                                     params, kv_quant)
@@ -2003,6 +2369,8 @@ def main() -> int:
         paged[kv_quant], paged_streams = paged_serve_phase(
             torch, da, pda, cfg, params, kv_quant)
         emit(paged[kv_quant])
+        w1_streams["ring", kv_quant] = ring_streams
+        w1_streams["paged", kv_quant] = paged_streams
         for layout, plain, streams in (("ring", serve, ring_streams),
                                        ("paged", paged, paged_streams)):
             for drafter in ("replay", "lookup"):
@@ -2010,6 +2378,19 @@ def main() -> int:
                     torch, kmods, cfg, params, kv_quant, layout,
                     plain[kv_quant], streams, drafter)
                 emit(res)
+    # windows of WINDOW ticks, each one graph replay; graph ≡ eager; chunks
+    window_runs = {}
+    for layout, kv_quant in (("ring", False), ("ring", True),
+                             ("paged", True)):
+        plain = (serve if layout == "ring" else paged)[kv_quant]
+        window_runs[layout, kv_quant] = res = window_serve_phase(
+            torch, da, pda, cfg, params, layout, kv_quant, plain,
+            w1_streams[layout, kv_quant])
+        emit(res)
+    for layout in ("ring", "paged"):
+        for kv_quant in (False, True):
+            emit(graph_phase(torch, cfg, params, layout, kv_quant))
+    emit(chunked_phase(torch, da, pda, cfg, params, w1_streams["ring", True]))
     # the quantised-matmul policy path on the ring and paged traffic
     pol_runs = {}
     for layout, kv_quant in (("ring", False), ("ring", True),
@@ -2022,6 +2403,8 @@ def main() -> int:
     for kv_quant in (False, True):
         emit(profile_phase(torch, cfg, params, kv_quant))
     emit(profile_phase(torch, cfg, params, True, kv_layout="paged"))
+    for kv_quant in (False, True):
+        emit(window_profile_phase(torch, cfg, params, kv_quant))
     for kv_quant in (False, True):
         emit(profile_phase(torch, cfg, params, kv_quant, spec=True))
     from repro_torch.numerics.policy import QuantPolicy
@@ -2039,12 +2422,12 @@ def main() -> int:
 
     kernels = []
     for kv_quant in (False, True):
-        for rows, source, replaces, runs, key in (
+        for rows, source, replaces, runs, key, layout in (
                 (checks, da.SOURCE, REPLACES, serve,
-                 "decode_attention_launches"),
+                 "decode_attention_launches", "ring"),
                 ([c for c in paged_checks if c["shape"]["bs"] == 64],
                  pda.SOURCE, PAGED_REPLACES, paged,
-                 "paged_decode_attention_launches")):
+                 "paged_decode_attention_launches", "paged")):
             main = next(c for c in rows
                         if c["model_shapes"] == "smollm_135m"
                         and c["window"] == 0 and "ms" in c
@@ -2052,6 +2435,11 @@ def main() -> int:
             kernels.append({
                 "name": main["name"], "route": "cuda", "source": source,
                 "replaces": replaces, "launches": runs[kv_quant][key],
+                "launches_note": "W = 1 serve run: graph replays × "
+                                 "launches per graph, plus the warm-up "
+                                 "window's",
+                "window_serve_launches": window_runs[layout, kv_quant][key]
+                if (layout, kv_quant) in window_runs else None,
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],

@@ -11,6 +11,8 @@ the paged KV cache:
       --reduced --device cpu --spec-decode --draft-k 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
       --policy dither --kernel-backend auto
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
+      --decode-ticks 8 --prefill-chunk 128 --kv-quant
 
 Takes the subset of the reference launcher's flags that the port's engine
 serves, plus ``--device``.  Weights are random, drawn from seed 0 (the
@@ -58,6 +60,15 @@ def serve_main(argv=None):
                          "the dense ring, batch × ceil(max_len/bs))")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable cross-request prefix-block reuse")
+    ap.add_argument("--decode-ticks", type=int, default=1,
+                    help="decode ticks per window, drained by the host once "
+                         "(DESIGN.md §11); on the card without a policy a "
+                         "window is one CUDA-graph replay")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="piggyback chunked prefill: admit prompts in chunks "
+                         "of this many tokens between decode windows "
+                         "(paged: rounded to a block multiple; default: "
+                         "whole-prompt prefill)")
     ap.add_argument("--spec-decode", action="store_true",
                     help="speculative draft-and-verify decode (DESIGN.md "
                          "§14): prompt-lookup drafting + one multi-token "
@@ -89,6 +100,8 @@ def serve_main(argv=None):
                     kv_layout=args.kv_layout, device=args.device,
                     block_size=args.block_size, num_blocks=args.num_blocks,
                     prefix_cache=not args.no_prefix_cache,
+                    decode_ticks=args.decode_ticks,
+                    prefill_chunk=args.prefill_chunk,
                     spec_decode=args.spec_decode, draft_k=args.draft_k)
     for r in range(args.requests):
         prompt = [(7 * r + i) % (cfg.vocab_size - 1) + 1
@@ -111,7 +124,7 @@ def serve_main(argv=None):
     print(f"served {len(done)}/{args.requests} requests in {dt:.2f}s on "
           f"{args.device} (prefill {pf:.0f} tok/s over "
           f"{st['prefill_calls']} calls, decode {dc:.0f} tok/s over "
-          f"{st['decode_calls']} ticks)")
+          f"{st['decode_calls']} decode windows)")
     if args.kv_layout == "paged":
         ps = engine.pool_stats()
         print(f"paged pool: block_size={engine.block_size} "

@@ -15,10 +15,10 @@ from repro_torch.models.config import ModelConfig
 Params = Dict[str, Any]
 
 __all__ = ["init_model", "make_cache", "apply_prefill", "apply_prefill_paged",
-           "apply_decode", "apply_verify", "verify_row_purity",
-           "spec_commit", "merge_prefill",
+           "apply_prefill_chunked", "apply_decode", "apply_verify",
+           "verify_row_purity", "spec_commit", "merge_prefill",
            "supports_batched_prefill", "supports_paged_kv",
-           "supports_spec_decode"]
+           "supports_chunked_prefill", "supports_spec_decode"]
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -39,6 +39,14 @@ def supports_batched_prefill(cfg: ModelConfig) -> bool:
 def supports_paged_kv(cfg: ModelConfig) -> bool:
     """True when the arch can serve from the paged block-pool KV cache
     (DESIGN.md §6): attention-only decoders, as for batched prefill."""
+    return supports_batched_prefill(cfg)
+
+
+def supports_chunked_prefill(cfg: ModelConfig) -> bool:
+    """True when prompts can prefill in block-aligned or ring chunks spread
+    over several engine steps (DESIGN.md §11): attention-only decoders.
+    Recurrent layers would need their state checkpointed at every chunk
+    boundary."""
     return supports_batched_prefill(cfg)
 
 
@@ -102,6 +110,25 @@ def apply_prefill_paged(params: Params, cfg: ModelConfig,
         params, cfg, tokens, lengths, starts, block_tables, cache,
         policy=policy, counter=counter, kv_quant=kv_quant,
         kv_offset=kv_offset, prefix_blocks=prefix_blocks)
+    last = torch.clamp(lengths.long() - 1, 0, s - 1)
+    return logits[torch.arange(b, device=logits.device), last], cache
+
+
+def apply_prefill_chunked(params: Params, cfg: ModelConfig,
+                          tokens: torch.Tensor, lengths: torch.Tensor,
+                          starts: torch.Tensor, cache: Params, *,
+                          policy=None, counter=0, kv_quant: bool = False,
+                          kv_offset=None):
+    """Chunked ring prefill → (last-chunk-token logits (B, vocab_size), the
+    live cache with the chunk K/V merged in place).  Continuation chunks
+    (``starts > 0``) read their slot's earlier positions back from the
+    ring inside attention instead of recomputing them (DESIGN.md §11)."""
+    _check_family(cfg)
+    b, s = tokens.shape
+    lengths = lengths.to(torch.int32)
+    logits, cache = transformer.prefill_with_cache_chunked(
+        params, cfg, tokens, lengths, starts, cache, policy=policy,
+        counter=counter, kv_quant=kv_quant, kv_offset=kv_offset)
     last = torch.clamp(lengths.long() - 1, 0, s - 1)
     return logits[torch.arange(b, device=logits.device), last], cache
 

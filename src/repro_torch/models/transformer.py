@@ -13,12 +13,14 @@ codes with per-position scales (``_kv_q8``).  The paged layout
 (DESIGN.md §6) keeps per layer a pool of fixed-size token blocks plus a
 trailing trash block, shared by every slot through one ``block_tables``
 (B, nbmax) map; ``prefill_with_cache_paged`` writes prompt suffixes into
-it and joins prefix blocks other requests already wrote.  Speculative
+it and joins prefix blocks other requests already wrote;
+``prefill_with_cache_chunked`` does the same on the ring, one prompt chunk
+at a time, joining each slot's ring history (DESIGN.md §11).  Speculative
 decoding scores K draft positions per slot in one ``verify_step`` and
 commits the accepted prefix with ``spec_commit`` (DESIGN.md §14).  Unlike
 the reference's pure functions, ``decode_step``, ``verify_step``,
-``spec_commit``, ``merge_cache`` and ``prefill_with_cache_paged`` update
-the cache tensors **in place**
+``spec_commit``, ``merge_cache``, ``prefill_with_cache_paged`` and
+``prefill_with_cache_chunked`` update the cache tensors **in place**
 (``index_put_`` / ``copy_``) and return a cache dict that shares them, so
 a step costs no copy of the cache; callers that need the old cache keep a
 clone.  Only attention layers (``kind="attn"``) of dense models are
@@ -40,8 +42,9 @@ from repro_torch.numerics.policy import dense
 Params = Dict[str, Any]
 
 __all__ = ["init_params", "init_cache", "prefill_with_cache",
-           "prefill_with_cache_paged", "merge_cache", "decode_step",
-           "verify_step", "spec_commit", "row_purity", "VERIFY_OPS"]
+           "prefill_with_cache_chunked", "prefill_with_cache_paged",
+           "merge_cache", "decode_step", "verify_step", "spec_commit",
+           "row_purity", "VERIFY_OPS"]
 
 
 def _kv_q8(t: torch.Tensor, ctr, idx, seed: int):
@@ -429,6 +432,145 @@ def prefill_with_cache(params: Params, cfg: ModelConfig,
     remainder = [entry(kvs[(True, i)][0])
                  for i in range(len(params["remainder"]))]
     return logits, {"pos": lengths, "layers": stacked, "remainder": remainder}
+
+
+# ---------------------------------------------------------------------------
+# chunked ring prefill: chunk forward + ring-history join + ring scatter
+# ---------------------------------------------------------------------------
+
+
+def _ring_scatter_chunk(entry: Params, k: torch.Tensor, v: torch.Tensor,
+                        lengths: torch.Tensor, starts: torch.Tensor,
+                        kv_quant: bool, kv_offset) -> None:
+    """Merge one chunk's post-RoPE K/V (B, S, n_kv, hd) into a live ring
+    entry, **in place**.  Gather-select form: ring slot j is *covered* iff
+    some chunk position p ≡ j (mod cap) lies below ``starts + lengths``;
+    chunks are at most cap tokens (the engine clamps), so each slot is
+    covered at most once and the others keep their bytes.  The int8 path
+    quantises with counter = absolute position (+ per-request offset) and
+    the decode step's element indices, so a chunk writes the codes
+    whole-prompt prefill or decode would have left at those positions."""
+    cap = entry["k"].shape[1]
+    b, s, nkv, hd = k.shape
+    dev = k.device
+    j = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+    st = starts[:, None].to(torch.int32)
+    t = torch.remainder(j - st, cap)                       # chunk index
+    covered = t < lengths[:, None]                         # (B, cap)
+    pj = st + t                                            # absolute position
+    idx = torch.clamp(t, 0, s - 1).long()
+    rows = torch.arange(b, device=dev)[:, None]
+    gk, gv = k[rows, idx], v[rows, idx]                    # (B, cap, …)
+    c3, c4 = covered[:, :, None], covered[:, :, None, None]
+    entry["k_pos"].copy_(torch.where(covered, pj, entry["k_pos"]))
+    if not kv_quant:
+        entry["k"].copy_(torch.where(c4, gk.to(entry["k"].dtype), entry["k"]))
+        entry["v"].copy_(torch.where(c4, gv.to(entry["v"].dtype), entry["v"]))
+        return
+    off = (torch.zeros((b,), dtype=torch.int32, device=dev)
+           if kv_offset is None
+           else torch.broadcast_to(kv_offset.to(torch.int32), (b,)))
+    ctr = (pj + off[:, None])[:, :, None, None]
+    idx4 = _kv_elem_idx(nkv, hd, dev)
+    kq, ks = _kv_q8(gk, ctr, idx4, 101)
+    vq, vs = _kv_q8(gv, ctr, idx4, 102)
+    for name, new, gate in (("k", kq, c4), ("v", vq, c4),
+                            ("k_scale", ks, c3), ("v_scale", vs, c3)):
+        entry[name].copy_(torch.where(gate, new, entry[name]))
+
+
+def _ring_chunk_attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                          positions: torch.Tensor, lengths: torch.Tensor,
+                          starts: torch.Tensor, entry: Params, policy,
+                          counter, kv_quant: bool, kv_offset) -> torch.Tensor:
+    """Chunk attention of the chunked ring prefill: queries at absolute
+    positions ``starts + t`` attend the in-batch chunk K/V
+    (relative-causal, the cold prefill's ops) plus the slot's
+    already-written history read from the live ring entry — positions with
+    ``0 <= k_pos < start``, int8 codes dequantised per position — joined
+    before the softmax, the paged prefill's prefix join on the ring.  The
+    chunk K/V is then merged into the ring in place (after the history
+    read).  Returns the attention block's output."""
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
+    q, k, v = layers.qkv(params, cfg, x, positions, policy, counter)
+    window = cfg.window or 0
+    qg = q.reshape(b, s, nkv, nh // nkv, hd)
+    m_ss = layers.make_causal_mask(s, s, window=window, device=x.device)
+    logits_s = layers.grouped_logits(qg, k)
+    logits_s = torch.where(m_ss[None, None, None, :, :], logits_s, -1e30)
+
+    # history join: garbage slots carry k_pos = -1 or >= start and mask
+    # out, so a dead decode row's writes never leak into chunk attention
+    hk, hv = entry["k"], entry["v"]
+    if "k_scale" in entry:
+        hk = (hk.to(torch.float32)
+              * (entry["k_scale"][..., None] / 127.0)).to(x.dtype)
+        hv = (hv.to(torch.float32)
+              * (entry["v_scale"][..., None] / 127.0)).to(x.dtype)
+    kp = entry["k_pos"][:, None, :]                        # (B, 1, cap)
+    vp = (kp >= 0) & (kp < starts[:, None, None])
+    if window:
+        vp = vp & (kp > positions[:, :, None] - window)
+    logits_p = layers.grouped_logits(qg, hk)
+    logits_p = torch.where(vp[:, None, None, :, :], logits_p, -1e30)
+    cap = hk.shape[1]
+    probs = layers.softmax(torch.cat([logits_p, logits_s], dim=-1),
+                           dim=-1).to(x.dtype)
+    out = (layers.grouped_values(probs[..., :cap].contiguous(), hv)
+           + layers.grouped_values(probs[..., cap:].contiguous(), v))
+    out = dense(out.reshape(b, s, nh * hd), params["wo"], policy, counter,
+                seed=4)
+    _ring_scatter_chunk(entry, k, v, lengths, starts, kv_quant, kv_offset)
+    return out
+
+
+def _ring_chunk_block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
+                      positions, lengths, starts, entry: Params, policy,
+                      counter, kv_quant: bool, kv_offset) -> torch.Tensor:
+    """One transformer block of the chunked ring prefill: ``_apply_block``
+    with the history-joining attention above."""
+    h = layers.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    x = x + _ring_chunk_attention(bp["attn"], cfg, h, positions, lengths,
+                                  starts, entry, policy, counter, kv_quant,
+                                  kv_offset)
+    h2 = layers.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + layers.mlp(bp["mlp"], h2, cfg.mlp_act, policy, counter)
+
+
+def prefill_with_cache_chunked(params: Params, cfg: ModelConfig,
+                               tokens: torch.Tensor, lengths: torch.Tensor,
+                               starts: torch.Tensor, cache: Params, *,
+                               policy=None, counter=0, kv_quant: bool = False,
+                               kv_offset=None):
+    """Chunked ring prefill: one batched forward over right-padded prompt
+    *chunks* (B, S) with lengths (B,) (0 = inactive row) at absolute
+    positions ``starts + t``, merging their K/V into the live ring cache
+    in place.  A continuation chunk (``starts[b] > 0``) does not recompute
+    earlier tokens: each layer reads their K/V back from the slot's ring
+    and joins it before the softmax.  Chunks must be at most the ring's
+    capacity (the engine clamps).  Returns ``(logits (B, S, vocab_size)
+    f32, cache)``: the live cache, its layer tensors written in place,
+    ``pos`` = ``starts + lengths`` for active rows."""
+    for i in range(cfg.n_layers):
+        if cfg.layer_kind(i) != "attn":
+            raise ValueError("chunked prefill requires attention-only layers")
+    x = params["embed"][tokens]
+    b, s, _ = x.shape
+    lengths = lengths.to(torch.int32)
+    starts = starts.to(torch.int32)
+    positions = starts[:, None] + torch.arange(s, dtype=torch.int32,
+                                               device=x.device)[None, :]
+    for bp, kind, pos_i, r in _layers(params, cfg):
+        entry = (_index(cache["layers"][pos_i], r) if r is not None
+                 else cache["remainder"][pos_i])
+        x = _ring_chunk_block(bp, cfg, x, positions, lengths, starts, entry,
+                              policy, counter, kv_quant, kv_offset)
+    logits = _logits(params, cfg, x, policy, counter)[:, :, : cfg.vocab_size]
+    return logits, {"pos": torch.where(lengths > 0, starts + lengths,
+                                       cache["pos"].to(torch.int32)),
+                    "layers": cache["layers"],
+                    "remainder": cache["remainder"]}
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,25 @@
-"""Serving engine of the port: batched prefill, then one decode tick at a
-time — or, with ``spec_decode``, one draft-and-verify window at a time —
-over the ring or the paged KV cache (counterpart of the reference's
-``serve/engine.py``, its single-device, ``decode_ticks=1`` subset;
-DESIGN.md §6, §14).
+"""Serving engine of the port: batched or chunked prefill, then decode
+windows of ``decode_ticks`` ticks — or, with ``spec_decode``, one
+draft-and-verify window at a time — over the ring or the paged KV cache
+(counterpart of the reference's ``serve/engine.py``, its single-device
+subset; DESIGN.md §6, §11, §14).
 
-``make_serve_fns``, ``make_paged_prefill`` and ``make_spec_verify`` build
-the prefill, decode and verify steps; ``Engine`` is the host-side loop
-that drives them: a :class:`Scheduler` admits queued requests into free
-decode slots, admitted prompts run through batched prefills (right-padded
-prompts, one call per length bucket — or, under a matmul policy, one per
-wave — KV written per slot into the cache, prefill logits seeding each
-request's first token), and each tick decodes and samples every active
-slot.  Under a ``QuantPolicy`` every dense product is quantised (on the
-card through the CUDA dither-matmul kernel) with the engine tick as its
-counter.  Per-request
-:class:`SamplingParams` drive greedy/temperature/top-k sampling, EOS/stop
-handling and the per-request dither-counter offsets.
+``make_serve_fns``, ``make_paged_prefill``, ``make_chunked_prefill``,
+``make_fused_decode`` and ``make_spec_verify`` build the prefill, decode
+and verify steps; ``Engine`` is the host-side loop that drives them: a
+:class:`Scheduler` admits queued requests into free decode slots,
+admitted prompts run through batched prefills (right-padded prompts, one
+call per length bucket — or, under a matmul policy, one per wave — KV
+written per slot into the cache, prefill logits seeding each request's
+first token) or, with ``prefill_chunk``, through one chunk per engine step
+between decode windows, and each window decodes and samples every active
+slot ``decode_ticks`` times with finish detection on the device and one
+host drain.  On the card a policy-free window is one CUDA-graph replay
+(:class:`WindowGraphs`).  Under a ``QuantPolicy`` every dense product is
+quantised (on the card through the CUDA dither-matmul kernel) with the
+engine tick as its counter.  Per-request :class:`SamplingParams` drive
+greedy/temperature/top-k sampling, EOS/stop handling and the per-request
+dither-counter offsets.
 
 Two KV layouts:
 
@@ -31,10 +35,11 @@ Two KV layouts:
   later; a deadlock breaker makes queued block holders re-prefill.
 
 PyTorch runs eagerly, so the reference's jitted dispatches become plain
-calls; the per-slot sampling state, the last sampled tokens and the block
-tables stay on the device and are re-uploaded only when they change, and
-the cache is updated in place.  Every constructor knob of the reference
-that this slice does not port raises ``NotImplementedError`` naming its
+calls (or, for the policy-free decode window on the card, graph replays);
+the per-slot sampling state, the last sampled tokens and the block tables
+stay on the device and are re-uploaded only when they change, and the
+cache is updated in place.  Every constructor knob of the reference that
+the port does not have yet raises ``NotImplementedError`` naming its
 ROADMAP item.
 """
 
@@ -51,14 +56,15 @@ from repro_torch.kernels.paged_decode_attention import MAX_BLOCK_SIZE
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.draft import Drafter, PromptLookupDrafter
+from repro_torch.serve.graphs import WindowGraphs
 from repro_torch.serve.kvpool import KVPool
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 from repro_torch.serve.scheduler import Scheduler
 
 __all__ = ["make_serve_fns", "make_decode_and_sample", "make_fused_decode",
-           "make_paged_prefill", "make_spec_verify", "Engine", "Request",
-           "SamplingParams",
-           "Scheduler", "KVPool", "DEFAULT_BLOCK_SIZE"]
+           "make_paged_prefill", "make_chunked_prefill", "make_spec_verify",
+           "Engine", "Request", "SamplingParams", "Scheduler", "KVPool",
+           "WindowGraphs", "DEFAULT_BLOCK_SIZE"]
 
 # The paged pool's default block size: the CUDA kernels' tile (64 keys), so
 # at the default settings the paged kernel runs the ring kernel's tiles and
@@ -113,39 +119,53 @@ def make_decode_and_sample(cfg: ModelConfig, policy=None):
 
 
 def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
-    """The engine's decode tick: ``fused_decode(params, token, cache,
-    kv_offset, counter, temps, topks, seeds, counters, alive)`` decodes and
-    samples every slot once and returns ``(tokens (1, B), last_token (B,),
-    counters, cache)``.  Rows that are not ``alive`` (idle or finished
-    slots) still run but are inert: their token, sampling counter and cache
-    position freeze and, on a paged cache, their block-table rows read as
-    the trash block, so their writes land there — as in the reference's
-    window at one tick.  Windows of more than one tick are ROADMAP Queue 1
-    item 6."""
+    """The engine's decode window: ``fused_decode(params, token, cache,
+    kv_offset, counter, temps, topks, seeds, counters, alive, budgets,
+    stops)`` runs ``n_ticks`` decode-and-sample ticks (the reference's
+    ``lax.scan`` as a loop over j, tick j's counter ``counter + j``) and
+    returns ``(tokens (n_ticks, B), last_token (B,), counters, cache)``.
+    Finish detection runs on the device as the ``alive`` mask: a slot dies
+    when its sampled token is in its ``stops`` row ((B, W) int32, -1
+    padded, EOS folded in) or once it has emitted ``budgets[b]`` tokens in
+    the window.  Dead and idle rows still run but are inert: their token,
+    sampling counter and cache position freeze and, on a paged cache,
+    their block-table rows read as the trash block, so their writes land
+    there.  A live slot's ops are those of a one-tick window, so a window
+    of n ticks is n single ticks bit for bit.  The cache's layer tensors
+    are written in place."""
     policy = _resolved(policy)
-    if n_ticks != 1:
-        raise NotImplementedError("fused decode windows (n_ticks > 1) are "
-                                  "not ported yet (ROADMAP Queue 1 item 6)")
+    n_ticks = int(n_ticks)
+    if n_ticks < 1:
+        raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
 
-    def fused_decode(params, token, cache, kv_offset, counter,
-                     temps, topks, seeds, counters, alive):
-        pos0 = cache["pos"]
-        step_cache = cache
-        if "block_tables" in cache:
-            step_cache = dict(cache)
-            step_cache["block_tables"] = torch.where(
-                alive[:, None], cache["block_tables"],
-                _trash_id(cache)).to(torch.int32)
-        logits, new_cache = registry.apply_decode(
-            params, cfg, token, step_cache, policy=policy, counter=counter,
-            kv_offset=kv_offset)
-        toks = sample_tokens(logits, temps, topks, seeds, counters)
-        toks = torch.where(alive, toks, token)
-        new_cache["pos"] = torch.where(alive, new_cache["pos"], pos0)
-        if "block_tables" in cache:
-            new_cache["block_tables"] = cache["block_tables"]
-        counters = torch.where(alive, counters + 1, counters)
-        return toks[None], toks, counters, new_cache
+    def fused_decode(params, token, cache, kv_offset, counter, temps, topks,
+                     seeds, counters, alive, budgets, stops):
+        paged = "block_tables" in cache
+        emitted = torch.zeros_like(counters)
+        out = []
+        for j in range(n_ticks):
+            pos0 = cache["pos"]
+            step_cache = cache
+            if paged:
+                step_cache = dict(cache)
+                step_cache["block_tables"] = torch.where(
+                    alive[:, None], cache["block_tables"],
+                    _trash_id(cache)).to(torch.int32)
+            logits, new_cache = registry.apply_decode(
+                params, cfg, token, step_cache, policy=policy,
+                counter=counter + j, kv_offset=kv_offset)
+            toks = sample_tokens(logits, temps, topks, seeds, counters)
+            toks = torch.where(alive, toks, token)
+            new_cache["pos"] = torch.where(alive, new_cache["pos"], pos0)
+            if paged:
+                new_cache["block_tables"] = cache["block_tables"]
+            counters = torch.where(alive, counters + 1, counters)
+            emitted = emitted + alive.to(torch.int32)
+            hit = torch.any(toks[:, None] == stops, dim=1)
+            alive = alive & ~hit & (emitted < budgets)
+            token, cache = toks, new_cache
+            out.append(toks)
+        return torch.stack(out), token, counters, cache
 
     return fused_decode
 
@@ -193,6 +213,27 @@ def _trash_id(cache) -> int:
     if cache["layers"]:
         return cache["layers"][0]["k"].shape[1] - 1
     return cache["remainder"][0]["k"].shape[0] - 1
+
+
+def make_chunked_prefill(cfg: ModelConfig, policy=None, *,
+                         kv_quant: bool = False):
+    """The chunked ring prefill step: ``chunked_prefill(params, tokens,
+    lengths, starts, cache, kv_offset, counter)`` runs one batched forward
+    over per-slot prompt *chunks* at absolute positions ``starts + t``,
+    joins each slot's already-written ring history inside attention,
+    merges the chunk K/V into the live ring cache in place and returns
+    ``(last_chunk_logits, cache)``.  The paged engine needs none:
+    ``make_paged_prefill`` takes block-aligned ``starts``, so a paged chunk
+    is a suffix call."""
+    policy = _resolved(policy)
+
+    def chunked_prefill(params, tokens, lengths, starts, cache, kv_offset,
+                        counter):
+        return registry.apply_prefill_chunked(
+            params, cfg, tokens, lengths, starts, cache, policy=policy,
+            counter=counter, kv_quant=kv_quant, kv_offset=kv_offset)
+
+    return chunked_prefill
 
 
 def make_paged_prefill(cfg: ModelConfig, policy=None, *,
@@ -276,6 +317,18 @@ def _bucket(n: int) -> int:
     return b
 
 
+@dataclass
+class _WindowPlan:
+    """One decode window's host rows: ticks, the active (slot, request)
+    pairs, and the (B,) alive mask, (B,) budgets and (B, W) stop rows."""
+    n: int
+    active: list
+    alive: np.ndarray
+    budgets: np.ndarray
+    stops: np.ndarray
+    stop_sets: dict
+
+
 def _prefill_groups(rows: dict) -> List[List[int]]:
     """Slots of one admission wave, grouped by (padded length bucket, prefix
     hit or not) — ``rows`` maps slot → (tokens to prefill, has a prefix).
@@ -294,7 +347,6 @@ def _prefill_groups(rows: dict) -> List[List[int]]:
 # reference knob → (value that means "off", ROADMAP Queue 1 item porting it)
 _OUT_OF_SLICE = {
     "mesh": (None, 10), "metrics": (None, 8), "trace": (None, 8),
-    "decode_ticks": (1, 6), "prefill_chunk": (None, 6),
     "queue_cap": (None, 8), "shed_policy": ("reject-new", 8),
     "queue_ttl_s": (None, 8), "injector": (None, 8),
     "snapshot_path": (None, 8), "frames": (None, 11),
@@ -315,18 +367,31 @@ class Engine:
        prefill's cache rows into the admitted slots; the paged layout
        admits while the pool can supply blocks, shares cached prefix
        blocks and prefills only the suffix, and resumes preempted requests
-       where they stopped;
-    2. decodes and samples every active slot once;
+       where they stopped.  With ``prefill_chunk`` a prompt enters
+       ``prefill_chunk`` tokens per step instead (piggyback prefill,
+       DESIGN.md §11): its slot stays ``prefilling``, out of the decode
+       window, until its last chunk samples its first token;
+    2. decodes and samples every active slot ``decode_ticks`` times in one
+       window (:meth:`_decode_tick`): finish detection on the device, one
+       host drain of the (n, B) tokens.  On the card without a policy the
+       window is one CUDA-graph replay (:class:`WindowGraphs`); on the CPU
+       or under a policy it runs eagerly;
     3. retires slots on EOS/stop tokens, ``max_new``, or ``max_len``
        (ring: preempted; paged: a 'length' stop), freeing them for the
        next admission wave.
 
+    Any window length and any chunk size give the same streams as
+    ``decode_ticks=1`` and whole-prompt prefill: a window replays the
+    single tick's ops, and a chunk writes the codes whole-prompt prefill
+    writes (its history join re-associates the softmax, so chunked logits
+    agree to rounding).
+
     With ``spec_decode`` step 2 is a speculative window instead
-    (:meth:`_spec_decode_tick`): ``drafter`` (default
+    (:meth:`_spec_decode_tick`, eager): ``drafter`` (default
     :class:`PromptLookupDrafter`) proposes ``draft_k - 1`` tokens per slot,
     one verify call scores all ``draft_k`` positions, and the longest prefix
     the engine's own sampler agrees with is committed — the stream stays
-    bit for bit the plain one.
+    bit for bit the plain one.  It supersedes ``decode_ticks``.
 
     ``device`` is where the cache and the per-slot state live; ``params``
     must be there already.  Paged knobs: ``block_size`` (default
@@ -335,11 +400,12 @@ class Engine:
     1 ≤ block_size ≤ 64), ``num_blocks`` (default batch × ceil(max_len /
     block_size), the dense ring's token count) and ``prefix_cache`` (on
     only without a matmul policy or under its deterministic scheme, as the
-    reference's).
+    reference's).  ``prefill_chunk`` is clamped to the ring's capacity, or
+    rounded down to a multiple of the block size (at least one block).
 
     ``policy``: a ``QuantPolicy`` for every dense product, resolved once
-    for ``device``; its counter is ``tick``.  Speculative decoding refuses
-    an enabled policy.
+    for ``device``; its counter is ``tick`` (+ j within a window).
+    Speculative decoding refuses an enabled policy.
     """
 
     def __init__(self, params, cfg: ModelConfig, batch: int, max_len: int,
@@ -355,6 +421,17 @@ class Engine:
                  drafter: Optional[Drafter] = None, frames=None):
         if kv_layout not in ("ring", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        self.decode_ticks = int(decode_ticks)
+        if self.decode_ticks < 1:
+            raise ValueError(f"decode_ticks must be >= 1, got {decode_ticks}")
+        if prefill_chunk is not None:
+            prefill_chunk = int(prefill_chunk)
+            if prefill_chunk < 1:
+                raise ValueError("prefill_chunk must be >= 1 (or None)")
+            if not registry.supports_chunked_prefill(cfg):
+                raise ValueError("chunked prefill requires an attention-only "
+                                 f"decoder; {cfg.name!r} is not one")
+        self.prefill_chunk = prefill_chunk
         # speculative decoding (DESIGN.md §14): each gate protects the
         # bitwise stream contract, and raises as the reference's does
         self.spec_decode = bool(spec_decode)
@@ -385,7 +462,6 @@ class Engine:
                 raise ValueError(f"draft_k={draft_k} exceeds the ring's "
                                  f"{max_len} slots")
         given = dict(mesh=mesh, metrics=metrics, trace=trace,
-                     decode_ticks=decode_ticks, prefill_chunk=prefill_chunk,
                      queue_cap=queue_cap, shed_policy=shed_policy,
                      queue_ttl_s=queue_ttl_s, injector=injector,
                      snapshot_path=snapshot_path, frames=frames)
@@ -425,6 +501,10 @@ class Engine:
                     "paged kernel's tile is the pool block)")
             self.block_size = bs
             self.nbmax = -(-max_len // bs)
+            if self.prefill_chunk is not None:
+                # block-aligned, so every continuation chunk starts at a
+                # block boundary (the paged prefill's contract)
+                self.prefill_chunk = max(bs, self.prefill_chunk // bs * bs)
             self.num_blocks = (int(num_blocks) if num_blocks is not None
                                else batch * self.nbmax)
             # prefix reuse needs prefill numerics that depend only on token
@@ -449,7 +529,24 @@ class Engine:
                                              device=self.device)
             self._prefill, _ = make_serve_fns(cfg, policy, max_len=max_len,
                                               kv_quant=kv_quant)
-        self._fused = make_fused_decode(cfg, policy, n_ticks=1)
+            if self.prefill_chunk is not None:
+                # a chunk covers each ring slot at most once only while it
+                # fits the ring
+                ring_cap = min(cfg.window, max_len) if cfg.window else max_len
+                self.prefill_chunk = min(self.prefill_chunk, ring_cap)
+                self._prefill_chunked = make_chunked_prefill(
+                    cfg, policy, kv_quant=kv_quant)
+        # eager decode windows, one per window length
+        self._fused_variants = {}
+        # the policy-free decode window on the card: CUDA-graph replays,
+        # fixed here (a policy's kernels take the tick as a host constant;
+        # a speculative engine runs verify windows instead)
+        self._graphs: Optional[WindowGraphs] = None
+        if (self.device.type == "cuda" and not self.spec_decode
+                and (policy is None or not policy.enabled)):
+            self._graphs = WindowGraphs(
+                params, self.cache,
+                lambda n: make_fused_decode(cfg, None, n_ticks=n))
         self._spec = None
         # the verify forward's library ops that this device sums in the same
         # order over K rows as over decode's one: probed once at this
@@ -553,6 +650,18 @@ class Engine:
             }
             self._dev_dirty = False
 
+    def _fused_for(self, n: int):
+        """The eager decode window of ``n`` ticks, built on first use."""
+        if n not in self._fused_variants:
+            self._fused_variants[n] = make_fused_decode(self.cfg, self.policy,
+                                                        n_ticks=n)
+        return self._fused_variants[n]
+
+    def _window_ticks(self) -> int:
+        """The decode window length: ``decode_ticks`` (the reference steps
+        it down to 1 under pool pressure, ROADMAP Queue 1 item 8)."""
+        return self.decode_ticks
+
     def _prefill_waves(self, rows: dict) -> List[List[int]]:
         """The prefill calls of one admission wave (``rows``: slot → (tokens
         to prefill, has a prefix)).  Under an enabled matmul policy: one
@@ -573,6 +682,8 @@ class Engine:
     def _admit_and_prefill(self):
         if self.kv_layout == "paged":
             return self._admit_and_prefill_paged()
+        if self.prefill_chunk is not None:
+            return self._admit_and_prefill_ring_chunked()
         free = [i for i, s in enumerate(self.slots) if s is None]
         if not free:
             return
@@ -628,6 +739,72 @@ class Engine:
             self._emit(i, self.slots[i], int(first[i]), now)
         # _emit advanced host counters / last tokens for the admitted slots;
         # re-sync the device copies before the first decode tick reads them
+        self._dev_dirty = True
+
+    def _admit_and_prefill_ring_chunked(self):
+        """Piggyback prefill on the ring (DESIGN.md §11): admitted prompts
+        enter ``prefill_chunk`` tokens per engine step, so a long prompt
+        never stalls the running decodes for its whole length.  A slot
+        stays ``prefilling`` — out of the decode window's alive mask —
+        until its last chunk lands, which also samples its first token.
+        The KV codes key on absolute position and the first token on the
+        last chunk's logits, so the stream is the whole-prompt stream (to
+        the rounding of the history join)."""
+        chunk = self.prefill_chunk
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        now = time.time()
+        for req in self.scheduler.admit(len(free)):
+            if len(req.prompt) > self.max_len:
+                self._reject(req)
+                continue
+            i = free.pop(0)
+            self.slots[i] = req
+            req.state, req.t_admit = "prefilling", now
+            req._pf_pos = 0
+            self._set_slot_sampling(i, req)
+            self._slot_pos[i] = 0
+
+        waving = [(i, s) for i, s in enumerate(self.slots)
+                  if s is not None and s.state == "prefilling"]
+        if not waving:
+            return
+        pieces = {i: (list(req.prompt) or [1])[req._pf_pos:
+                                               req._pf_pos + chunk]
+                  for i, req in waving}
+        self._dev_dirty = True
+        self._refresh_device_state()
+        first = np.zeros((self.batch,), np.int32)
+        for group in self._prefill_waves({
+                i: (len(pieces[i]), req._pf_pos > 0) for i, req in waving}):
+            lens = np.zeros((self.batch,), np.int32)
+            starts = np.zeros((self.batch,), np.int32)
+            toks = np.zeros((self.batch, _bucket(max(len(pieces[i])
+                                                     for i in group))),
+                            np.int32)
+            for i in group:
+                lens[i] = len(pieces[i])
+                starts[i] = self.slots[i]._pf_pos
+                toks[i, : lens[i]] = pieces[i]
+            t0 = time.perf_counter()
+            last_logits, self.cache = self._prefill_chunked(
+                self.params, self._tensor(toks).long(), self._tensor(lens),
+                self._tensor(starts), self.cache, self._dev["offsets"],
+                self.tick)
+            sampled = sample_tokens(last_logits, self._dev["temps"],
+                                    self._dev["topks"], self._dev["seeds"],
+                                    self._dev["counters"]).cpu().numpy()
+            first[group] = sampled[group]
+            self.stats["prefill_s"] += time.perf_counter() - t0
+            self.stats["prefill_tokens"] += int(lens.sum())
+            self.stats["prefill_calls"] += 1
+
+        now = time.time()
+        for i, req in waving:
+            req._pf_pos += len(pieces[i])
+            self._slot_pos[i] = req._pf_pos
+            if req._pf_pos >= len(list(req.prompt) or [1]):
+                req.state = "active"
+                self._emit(i, req, int(first[i]), now)
         self._dev_dirty = True
 
     # ----------------------------------------------------- paged internals
@@ -806,19 +983,24 @@ class Engine:
         self._prefill_wave_paged()
 
     def _prefill_wave_paged(self):
-        """One prefill wave over every ``prefilling`` slot: the whole
-        unshared suffix of each lands in one batched call per group of
-        ``_prefill_waves`` (chunked waves are ROADMAP Queue 1 item 6).
-        Prefix-hit rows gather their shared blocks inside attention.  Each
-        slot's full blocks are then sealed, its first token sampled, and it
-        turns ``active``."""
+        """One prefill wave over every ``prefilling`` slot, one batched
+        call per group of ``_prefill_waves``: the next ``prefill_chunk``
+        tokens of each slot's unshared suffix (all of it when
+        ``prefill_chunk`` is None).  The chunk is block-aligned, so every
+        continuation chunk starts at a block boundary and rides the
+        prefix-hit path — earlier chunks' K/V is gathered from the slot's
+        own blocks inside attention (DESIGN.md §11).  Each slot's full
+        blocks are then sealed; a slot whose last chunk landed samples its
+        first token and turns ``active``."""
+        chunk = self.prefill_chunk or (self.max_len + 1)
         waving = [(i, s) for i, s in enumerate(self.slots)
                   if s is not None and s.state == "prefilling"]
         if not waving:
             return
         pieces = {}
         for i, req in waving:
-            pieces[i] = self._tokens_written(req)[req._pf_pos:]
+            pieces[i] = self._tokens_written(req)[req._pf_pos:
+                                                  req._pf_pos + chunk]
 
         self._dev_dirty = True
         self._refresh_device_state()
@@ -855,8 +1037,9 @@ class Engine:
             req._pf_pos += len(pieces[i])
             self._slot_pos[i] = req._pf_pos
             self._seal_full_blocks(req, req._pf_pos)
-            req.state = "active"
-            self._emit(i, req, int(first[i]), now)
+            if req._pf_pos >= len(self._tokens_written(req)):
+                req.state = "active"
+                self._emit(i, req, int(first[i]), now)
         self._dev_dirty = True
 
     def _break_deadlock(self, head: Request, blocks_short: int) -> bool:
@@ -885,7 +1068,7 @@ class Engine:
             return True
         return made_room
 
-    def _pre_decode_paged(self, window: int = 1):
+    def _pre_decode_paged(self, window: Optional[int] = None):
         """Before each decode window: the window writes each active slot's
         next ``w = min(window, max_len - p, tokens left)`` positions, so the
         blocks covering ``[p, p + w)`` must exist *now*.  Filled blocks are
@@ -894,9 +1077,12 @@ class Engine:
         (``_paged_cap``, the reference's per-window budget); a slot the pool
         cannot cover at all is preempted and requeued with its blocks (or,
         as the pool's lone holder, stopped at 'length'); ``max_len`` is a
-        hard 'length' stop (the pool has no ring wrap).  ``window`` is 1 for
-        a decode tick and ``draft_k`` for a speculative window, whose
-        rollback gives surplus blocks back."""
+        hard 'length' stop (the pool has no ring wrap).  Slots still
+        prefilling are skipped: their blocks are allocated already.
+        ``window`` is ``decode_ticks`` by default and ``draft_k`` for a
+        speculative window, whose rollback gives surplus blocks back."""
+        if window is None:
+            window = self._window_ticks()
         bs = self.block_size
         pool = self.pool
         self._paged_cap = {}
@@ -962,39 +1148,93 @@ class Engine:
                 t[dst] = t[src]
 
     def _decode_tick(self):
-        """One decode tick over every slot; the host reads the sampled
-        tokens back once and runs the per-token finish logic (``_emit``)."""
+        """One decode *window* of ``decode_ticks`` ticks in one call — on
+        the card without a policy one CUDA-graph replay — then one host
+        drain of the (n, B) token matrix.  Per-slot window budgets
+        (``max_new``, ``max_len``, paged block coverage) and stop sets go
+        down as device rows, so finish detection never syncs mid-window;
+        the drain walks each slot's column up to its first stop and runs
+        the one-tick engine's per-token finish logic (``_emit``)."""
+        plan = self._window_plan()
+        if plan is None:
+            return
+        t0 = time.perf_counter()
+        toks = self._run_window(plan)
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_calls"] += 1
+        self.tick += plan.n
+        self._drain(plan, toks)
+
+    def _window_plan(self) -> Optional["_WindowPlan"]:
+        """Everything a window needs from the host: paged block coverage
+        first, then each active slot's budget and stop row (stop sets
+        bucketed to a power-of-two width W, so windows share few shapes).
+        None when no slot is active."""
+        n = self._window_ticks()
         if self.kv_layout == "paged":
             self._pre_decode_paged()
             self._sync_block_tables()
         active = [(i, s) for i, s in enumerate(self.slots)
                   if s is not None and s.state == "active"]
         if not active:
-            return
+            return None
         alive = np.zeros((self.batch,), bool)
-        for i, _ in active:
-            alive[i] = True
-        self._refresh_device_state()
-        t0 = time.perf_counter()
-        _, last_dev, counters_dev, self.cache = self._fused(
-            self.params, self._dev["last_token"], self.cache,
-            self._dev["offsets"], self.tick, self._dev["temps"],
-            self._dev["topks"], self._dev["seeds"], self._dev["counters"],
-            self._tensor(alive))
-        toks = last_dev.cpu().numpy()
-        self.stats["decode_s"] += time.perf_counter() - t0
-        self.stats["decode_calls"] += 1
-        # the tick advanced counters and produced the next input token on
-        # the device — keep those copies (idle rows froze, as the mirrors)
-        self._dev["counters"] = counters_dev
-        self._dev["last_token"] = last_dev
-        self.tick += 1
-
-        now = time.time()
+        budgets = np.zeros((self.batch,), np.int32)
+        stop_sets = {}
         for i, req in active:
-            self._slot_pos[i] += 1
-            self._emit(i, req, int(toks[i]), now)
-            self.stats["decode_tokens"] += 1
+            b = min(n, req.effective_max_new() - len(req.out),
+                    self.max_len - int(self._slot_pos[i]))
+            if self.kv_layout == "paged":
+                b = min(b, self._paged_cap[i])
+            alive[i] = True
+            budgets[i] = b
+            stop_sets[i] = req.sampling.stop_set()     # EOS included
+        width = 1
+        while width < max(len(ss) for ss in stop_sets.values()):
+            width *= 2
+        stops = np.full((self.batch, width), -1, np.int32)  # never sampled
+        for i, ss in stop_sets.items():
+            stops[i, : len(ss)] = sorted(ss)
+        self._refresh_device_state()
+        return _WindowPlan(n, active, alive, budgets, stops, stop_sets)
+
+    def _run_window(self, plan: "_WindowPlan") -> np.ndarray:
+        """The window on the device → its (n, B) tokens on the host.  The
+        window advanced the counters and produced the next input tokens on
+        the device; the engine keeps those copies (dead rows froze, as the
+        host mirrors do)."""
+        if self._graphs is not None:
+            toks = self._graphs.run(plan.n, self._dev, self.cache,
+                                    plan.alive, plan.budgets, plan.stops)
+        else:
+            toks, last, counters, self.cache = self._fused_for(plan.n)(
+                self.params, self._dev["last_token"], self.cache,
+                self._dev["offsets"], self.tick, self._dev["temps"],
+                self._dev["topks"], self._dev["seeds"],
+                self._dev["counters"], self._tensor(plan.alive),
+                self._tensor(plan.budgets), self._tensor(plan.stops))
+            self._dev["counters"] = counters
+            self._dev["last_token"] = last
+        return toks.cpu().numpy()
+
+    def _drain(self, plan: "_WindowPlan", toks: np.ndarray):
+        """Emit each active slot's kept tokens: its column up to its budget
+        or first stop.  The m tokens of a slot arrive in one drain, each
+        stamped at an even share of the interval since its last token."""
+        now = time.time()
+        for i, req in plan.active:
+            col = toks[:, i]
+            m = int(plan.budgets[i])
+            for j in range(m):
+                if int(col[j]) in plan.stop_sets[i]:
+                    m = j + 1
+                    break
+            t_prev = req.t_last if req.t_last is not None else now
+            for j in range(m):
+                self._slot_pos[i] += 1
+                self._emit(i, req, int(col[j]),
+                           t_prev + (now - t_prev) * (j + 1) / m)
+            self.stats["decode_tokens"] += m
 
     def _spec_decode_tick(self):
         """One speculative window (DESIGN.md §14), the reference's

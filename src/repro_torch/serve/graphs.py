@@ -1,0 +1,233 @@
+"""CUDA-graph replay of the engine's policy-free decode window (DESIGN.md
+§11 on the card).
+
+The reference runs a window of n decode-and-sample ticks as one jitted
+dispatch (``make_fused_decode``'s ``lax.scan``).  Eager PyTorch instead
+dispatches every op of every tick from the host, one at a time: ≈ 2,400
+kernel launches a bf16 tick of SmolLM-135M and ≈ 11,000 with the int8 KV
+quantiser, so the card idles most of a tick (PERF.md §5).  The port's
+counterpart of the one dispatch is one replay of a CUDA graph that holds
+the whole window.
+
+:class:`WindowGraphs` captures the engine's eager ``fused_decode`` once
+per key (ticks n, stop-set width W) and replays it.  A graph bakes in
+every address it touches, so every tensor the window reads or writes
+lives at a fixed address: the per-slot sampling state, the last tokens,
+``pos``, the block tables and the window's alive/budget/stop rows are
+static buffers the host ``copy_``s fresh values into before a replay
+(:meth:`WindowGraphs.run` rebinds the engine's references to them, so in
+steady state nothing is copied); the cache's layer tensors are the
+engine's own, updated in place by every step of the engine, and are
+checked to be the captured ones before each replay.  Inside the graph the
+window's results — next tokens, counters, ``pos`` — are written back into
+their buffers in place.
+
+Only the policy-free window is captured: under a matmul policy the dither
+kernels take the tick counter as a host constant, which a capture would
+freeze (a follow-up of ROADMAP Queue 1 item 6).  The engine decides at
+construction whether it replays (CUDA and no policy) or runs eagerly; a
+capture that fails raises, and nothing falls back.
+"""
+
+from __future__ import annotations
+
+import gc
+import time
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import dither_matmul as _dm
+from repro_torch.kernels import paged_decode_attention as _pda
+from repro_torch.kernels import paged_verify_attention as _pva
+from repro_torch.kernels import quantize as _q
+from repro_torch.kernels import verify_attention as _va
+
+__all__ = ["WindowGraphs", "KERNEL_WRAPPERS"]
+
+# every kernel wrapper of the port, each with its host ``launches`` count
+KERNEL_WRAPPERS = {"decode_attention": _da.decode_attention,
+                   "paged_decode_attention": _pda.paged_decode_attention,
+                   "verify_attention": _va.verify_attention,
+                   "paged_verify_attention": _pva.paged_verify_attention,
+                   "quantize": _q.quantize,
+                   "dither_matmul": _dm.dither_matmul,
+                   "dither_matmul_scaled": _dm.dither_matmul_scaled}
+
+# the per-slot state the window reads, by the engine's ``_dev`` names
+_SLOT_STATE = {"last_token": torch.int32, "offsets": torch.int32,
+               "temps": torch.float32, "topks": torch.int32,
+               "seeds": torch.int32, "counters": torch.int32}
+
+
+def _counts() -> Dict[str, int]:
+    return {n: f.launches for n, f in KERNEL_WRAPPERS.items()}
+
+
+def _bind(holder: dict, key: str, static: torch.Tensor) -> None:
+    """Make ``holder[key]`` the static buffer: copy its value in unless it
+    already is that buffer, then rebind the reference."""
+    if holder[key] is not static:
+        static.copy_(holder[key])
+        holder[key] = static
+
+
+def _layer_tensors(cache: dict) -> Tuple[torch.Tensor, ...]:
+    return tuple(t for entry in cache["layers"] + cache["remainder"]
+                 for t in entry.values())
+
+
+class _Window:
+    """One captured window: its graph, its (n, B) token output in the
+    graph's own memory, the kernel launches one replay makes, and how many
+    times it was replayed."""
+
+    def __init__(self, graph, toks, launches):
+        self.graph, self.toks, self.launches = graph, toks, launches
+        self.replays = 0
+
+
+class WindowGraphs:
+    """The engine's decode windows as CUDA-graph replays, one graph per
+    (ticks, stop width).
+
+    ``fused_for(n)`` builds the eager window of ``n`` ticks
+    (``engine.make_fused_decode`` without a policy); ``cache`` is the
+    engine's live cache, whose layer tensors every graph writes in place.
+    """
+
+    def __init__(self, params, cache: dict, fused_for: Callable):
+        dev = cache["pos"].device
+        if dev.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA cache, not {dev}")
+        b = cache["pos"].shape[0]
+        self.params, self._fused_for, self.device = params, fused_for, dev
+        self.slot = {name: torch.zeros((b,), dtype=dtype, device=dev)
+                     for name, dtype in _SLOT_STATE.items()}
+        self.pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.block_tables = (cache["block_tables"].clone()
+                             if "block_tables" in cache else None)
+        self.alive = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.budgets = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self._stops: Dict[int, torch.Tensor] = {}
+        self._layers = _layer_tensors(cache)
+        self._windows: Dict[Tuple[int, int], _Window] = {}
+        self._stream = torch.cuda.Stream(device=dev)
+        # host seconds spent in warm-ups and captures
+        self.capture_s = 0.0
+
+    # ---------------------------------------------------------- counts
+
+    def windows(self) -> Dict[Tuple[int, int], dict]:
+        """(ticks, stop width) → the launches per kernel one replay of that
+        graph makes and its replay count."""
+        return {key: {"launches": dict(w.launches), "replays": w.replays}
+                for key, w in self._windows.items()}
+
+    @property
+    def replays(self) -> int:
+        return sum(w.replays for w in self._windows.values())
+
+    def launches(self) -> Dict[str, int]:
+        """Kernel launches the replays made, per kernel: launches per
+        replay × replays, summed over the graphs."""
+        out = {n: 0 for n in KERNEL_WRAPPERS}
+        for w in self._windows.values():
+            for n, k in w.launches.items():
+                out[n] += k * w.replays
+        return out
+
+    def recorded(self) -> Dict[str, int]:
+        """Launches the captures recorded, per kernel: they added to the
+        wrappers' host counts, but only replays run them."""
+        out = {n: 0 for n in KERNEL_WRAPPERS}
+        for w in self._windows.values():
+            for n, k in w.launches.items():
+                out[n] += k
+        return out
+
+    # ------------------------------------------------------------- run
+
+    def run(self, n: int, dev: dict, cache: dict, alive: np.ndarray,
+            budgets: np.ndarray, stops: np.ndarray) -> torch.Tensor:
+        """One window of ``n`` ticks as a graph replay (captured at the
+        key's first use) → the (n, B) sampled tokens, in the graph's memory
+        until its next replay.  ``dev`` is the engine's per-slot device
+        state and ``cache`` its cache: their entries are rebound to the
+        static buffers, which the window updates in place (next tokens,
+        counters, ``pos``).  ``alive``, ``budgets`` and ``stops`` (B, W)
+        are the window's host rows."""
+        for name, static in self.slot.items():
+            _bind(dev, name, static)
+        _bind(cache, "pos", self.pos)
+        if self.block_tables is not None:
+            _bind(cache, "block_tables", self.block_tables)
+        layers = _layer_tensors(cache)
+        if len(layers) != len(self._layers) or any(
+                a is not b for a, b in zip(layers, self._layers)):
+            raise RuntimeError("the cache's layer tensors are not the ones "
+                               "the decode graphs were captured on")
+        width = stops.shape[1]
+        if width not in self._stops:
+            self._stops[width] = torch.full(stops.shape, -1,
+                                            dtype=torch.int32,
+                                            device=self.device)
+        self.alive.copy_(torch.from_numpy(alive))
+        self.budgets.copy_(torch.from_numpy(budgets))
+        self._stops[width].copy_(torch.from_numpy(stops))
+        win = self._windows.get((n, width))
+        if win is None:
+            win = self._windows[n, width] = self._capture(n, width, cache)
+        win.graph.replay()
+        win.replays += 1
+        return win.toks
+
+    def _capture(self, n: int, width: int, cache: dict) -> _Window:
+        """Capture the eager window of ``n`` ticks on the static buffers.
+        One eager run on the capture stream comes first, with every row
+        dead: it loads the kernel libraries, lets the libraries set up
+        their state for that stream (cuBLAS's workspace) outside the
+        capture, and changes nothing a later window reads — a dead row's
+        token, counter and position freeze, its paged writes go to the
+        trash block and its ring write lands where its next live tick
+        writes first."""
+        t0 = time.perf_counter()
+        fused = self._fused_for(n)
+        view = {"pos": self.pos, "layers": cache["layers"],
+                "remainder": cache["remainder"]}
+        if self.block_tables is not None:
+            view["block_tables"] = self.block_tables
+        s = self.slot
+
+        def window(alive):
+            return fused(self.params, s["last_token"], view, s["offsets"], 0,
+                         s["temps"], s["topks"], s["seeds"], s["counters"],
+                         alive, self.budgets, self._stops[width])
+
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            window(torch.zeros_like(self.alive))
+        current.wait_stream(self._stream)
+        # a graph freed during a capture (an engine collected as garbage)
+        # would invalidate it: collect first, and not during the capture
+        gc.collect()
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        before = _counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                toks, last, counters, new = window(self.alive)
+                s["last_token"].copy_(last)
+                s["counters"].copy_(counters)
+                self.pos.copy_(new["pos"])
+        finally:
+            if gc_was_on:
+                gc.enable()
+        after = _counts()
+        self.capture_s += time.perf_counter() - t0
+        return _Window(graph, toks,
+                       {k: after[k] - before[k] for k in after})

@@ -4,8 +4,9 @@ quantiser and the dither matmul's two entries) against their plain
 versions, paged == ring bit for bit, every verify row equal to the decode
 kernel at its position bit for bit, the policy entry equal to the
 torch-ops route around the f32 kernel bit for bit, the kernels' modulo over all 2^32
-numerators, the wrappers' input checks, and the serving path's launch
-counts and streams.  They import torch and the port
+numerators, the wrappers' input checks, the serving path's launch
+counts and streams, and decode windows replayed from CUDA graphs against
+the same windows run eagerly, byte for byte.  They import torch and the port
 only (the card's machine has no JAX) and skip where
 ``torch.cuda.is_available()`` is false:
 
@@ -282,7 +283,10 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def test_paged_engine_launches_once_per_layer_per_tick(cuda, kv_quant):
     """The paged engine on the card decodes through the paged kernel only,
     once per layer per tick, and its greedy streams equal the ring
-    engine's at the default block size (64, the ring kernel's tile)."""
+    engine's at the default block size (64, the ring kernel's tile).
+    Every tick is a CUDA-graph replay: the launches are the captured
+    graph's (one per layer) times its replays, one replay per tick; the
+    host count saw only the warm-up's launches and the capture's."""
     from repro_torch.serve import Engine, Request
 
     cfg = dataclasses.replace(get_config("smollm_135m").reduced(),
@@ -300,9 +304,20 @@ def test_paged_engine_launches_once_per_layer_per_tick(cuda, kv_quant):
         done = eng.run(100)
         streams[layout] = [r.out for r in sorted(done, key=lambda r: r.rid)]
         ticks = eng.stats["decode_calls"]
+        graphs = eng._graphs
+        assert graphs.replays == ticks
+        name = ("paged_decode_attention" if layout == "paged"
+                else "decode_attention")
+        other = ("decode_attention" if layout == "paged"
+                 else "paged_decode_attention")
+        assert graphs.launches()[name] == cfg.n_layers * ticks
+        assert graphs.launches()[other] == 0
+        host = {"decode_attention": da.decode_attention.launches,
+                "paged_decode_attention":
+                    pda.paged_decode_attention.launches}
+        assert host[name] == 2 * graphs.recorded()[name] == 2 * cfg.n_layers
+        assert host[other] == 0
         if layout == "paged":
-            assert pda.paged_decode_attention.launches == cfg.n_layers * ticks
-            assert da.decode_attention.launches == 0
             assert eng.pool.live_blocks == 0
     assert streams["paged"] == streams["ring"]
 
@@ -832,3 +847,146 @@ def test_policy_engine_on_the_card(cuda):
         return [r.out for r in done]
 
     assert serve() == serve()
+
+
+# ---------------------------------------------------------------------------
+# decode windows as CUDA-graph replays
+# ---------------------------------------------------------------------------
+
+
+def _clone(x):
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_clone(v) for v in x]
+    return x.clone()
+
+
+def _window_engine(cuda, layout, kv_quant, n):
+    from repro_torch.serve import Engine, Request, SamplingParams
+
+    cfg = _hd64_config()
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    kw = (dict(kv_layout="paged", block_size=16, num_blocks=40)
+          if layout == "paged" else {})
+    eng = Engine(params, cfg, 4, 128, kv_quant=kv_quant, device=cuda,
+                 decode_ticks=n, **kw)
+    rng = np.random.default_rng(0)
+    for r in range(7):
+        eng.submit(Request(rid=r, prompt=rng.integers(
+            1, cfg.vocab_size, size=int(rng.integers(5, 40))).tolist(),
+            sampling=SamplingParams(temperature=0.8 * (r % 2), top_k=20,
+                                    seed=r, max_new=5 + 3 * r,
+                                    counter_offset=100 * r)))
+    return cfg, params, eng
+
+
+def _graph_against_eager(eng, cfg, params):
+    """Run the engine's next window as a replay and the eager window on a
+    clone of the state it starts from; both must leave the same bytes
+    (the paged pool's trash block aside: dead rows write there, several
+    to one slot, and nothing reads it).  Then drain as the engine does."""
+    from repro_torch.serve import make_fused_decode
+
+    plan = eng._window_plan()
+    dev, cache = _clone(eng._dev), _clone(eng.cache)
+    toks = eng._run_window(plan)
+    t = lambda a: torch.from_numpy(a).to(eng.device)   # noqa: E731
+    want, last, counters, new = make_fused_decode(cfg, n_ticks=plan.n)(
+        params, dev["last_token"], cache, dev["offsets"], eng.tick,
+        dev["temps"], dev["topks"], dev["seeds"], dev["counters"],
+        t(plan.alive), t(plan.budgets), t(plan.stops))
+    assert np.array_equal(toks, want.cpu().numpy())
+    assert torch.equal(last, eng._dev["last_token"])
+    assert torch.equal(counters, eng._dev["counters"])
+    assert torch.equal(new["pos"], eng.cache["pos"])
+    trash = slice(None, -1) if "block_tables" in cache else slice(None)
+    for got_e, want_e in zip(eng.cache["layers"], new["layers"]):
+        for name in got_e:
+            assert torch.equal(got_e[name][:, trash],
+                               want_e[name][:, trash]), name
+    eng.stats["decode_calls"] += 1
+    eng.tick += plan.n
+    eng._drain(plan, toks)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_graph_window_equals_eager_window(cuda, layout, kv_quant):
+    """A window replayed from its CUDA graph leaves the bytes the eager
+    window leaves on the same state: the (n, B) tokens, the counters, the
+    next tokens, ``pos`` and every cache tensor.  Checked on the first
+    window and again after admissions rebound ``pos`` and the block table
+    (the static buffers take the new values).  The launches are the
+    graph's (one per layer and tick) times its replays."""
+    n = 4
+    cfg, params, eng = _window_engine(cuda, layout, kv_quant, n)
+    eng._admit_and_prefill()
+    _graph_against_eager(eng, cfg, params)
+    while all(s is not None for s in eng.slots):
+        eng._decode_tick()
+    eng._admit_and_prefill()              # rebinds pos (and the tables)
+    assert eng.cache["pos"] is not eng._graphs.pos
+    if layout == "paged":
+        assert eng.cache["block_tables"] is not eng._graphs.block_tables
+    _graph_against_eager(eng, cfg, params)
+    done = eng.run(200)
+    assert len(done) == 7
+    graphs = eng._graphs
+    kernel = ("paged_decode_attention" if layout == "paged"
+              else "decode_attention")
+    per = {key: w["launches"][kernel] for key, w in graphs.windows().items()}
+    assert all(k == cfg.n_layers * n for k in per.values()), per
+    assert graphs.launches()[kernel] == cfg.n_layers * n * graphs.replays
+    assert graphs.replays == eng.stats["decode_calls"]
+
+
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_graph_windows_equal_single_ticks_on_the_card(cuda, layout):
+    """Replayed windows of 4 and 8 ticks give the W = 1 streams (replays
+    too), greedy and sampled, int8 KV."""
+    streams = {}
+    for n in (1, 4, 8):
+        _, _, eng = _window_engine(cuda, layout, True, n)
+        done = sorted(eng.run(300), key=lambda r: r.rid)
+        streams[n] = [(r.out, r.finish_reason) for r in done]
+        assert eng._graphs.replays == eng.stats["decode_calls"]
+    assert streams[4] == streams[1] and streams[8] == streams[1]
+
+
+def test_graph_capture_failure_raises(cuda):
+    """A window that cannot be captured (here one that reads a value back
+    to the host) raises from the engine's step: nothing catches it and
+    carries on eagerly."""
+    cfg, params, eng = _window_engine(cuda, "ring", False, 2)
+    build = eng._graphs._fused_for
+
+    def unsafe(n):
+        fused = build(n)
+
+        def window(*args):
+            out = fused(*args)
+            out[0].sum().item()
+            return out
+        return window
+
+    eng._graphs._fused_for = unsafe
+    with pytest.raises(RuntimeError):
+        eng.step()
+    assert eng._graphs.replays == 0 and not eng._graphs.windows()
+
+
+def test_policy_and_spec_engines_run_eager_windows(cuda):
+    """The choice is fixed at construction: a CUDA engine without a policy
+    replays graphs; under a policy, or speculating, it has no graph
+    runner; on the CPU none."""
+    from repro_torch.numerics.policy import QuantPolicy
+    from repro_torch.serve import Engine
+
+    cfg = _hd64_config()
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    assert Engine(params, cfg, 2, 64, device=cuda)._graphs is not None
+    assert Engine(params, cfg, 2, 64, device=cuda, policy=QuantPolicy(
+        scheme="dither", backend="auto"))._graphs is None
+    assert Engine(params, cfg, 2, 64, device=cuda,
+                  spec_decode=True)._graphs is None

@@ -219,7 +219,9 @@ def test_out_of_slice_knobs_raise():
     on this list, is ported: it needs a block size.  Speculative decoding,
     once on it too, is ported: its gates raise ValueError, as the
     reference's do.  So is the quantised-matmul policy: an unknown scheme
-    raises ValueError, as the reference's does.)"""
+    raises ValueError, as the reference's does.  So are decode windows and
+    chunked prefill: ``decode_ticks`` or ``prefill_chunk`` below 1 raises
+    ValueError, as the reference's does.)"""
     from repro_torch.numerics.policy import QuantPolicy, dense
     from repro_torch.serve import Engine
 
@@ -231,11 +233,13 @@ def test_out_of_slice_knobs_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         registry.init_model(dataclasses.replace(PCFG, family="ssm"),
                             device="cpu")
-    for knob, item in [("decode_ticks", 6), ("mesh", 10), ("metrics", 8),
-                       ("prefill_chunk", 6)]:
-        value = {"decode_ticks": 4, "prefill_chunk": 8}.get(knob, "x")
+    for knob, item in [("mesh", 10), ("metrics", 8)]:
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", **{knob: value})
+            Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", **{knob: "x"})
+    with pytest.raises(ValueError, match="decode_ticks must be >= 1"):
+        Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", decode_ticks=0)
+    with pytest.raises(ValueError, match="prefill_chunk must be >= 1"):
+        Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", prefill_chunk=0)
     with pytest.raises(ValueError, match="draft_k must be >= 2"):
         Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", spec_decode=True,
                draft_k=1)

@@ -228,3 +228,19 @@ def test_launcher_serves_on_cpu(capsys):
     out = capsys.readouterr().out
     assert out.count("[length]") == 3
     assert "served 3/3 requests" in out
+
+
+def test_launcher_serves_windows_and_chunks_on_cpu(capsys):
+    """The launcher with ``--decode-ticks 4 --prefill-chunk 8`` on the CPU:
+    every request finishes with its budget, in windows of 4 ticks, its
+    13-token prompt in two chunks."""
+    from repro_torch.launch.serve import serve_main
+
+    serve_main(["--arch", "smollm_135m", "--reduced", "--device", "cpu",
+                "--requests", "3", "--batch", "2", "--max-new", "5",
+                "--prompt-len", "13", "--kv-quant", "--decode-ticks", "4",
+                "--prefill-chunk", "8"])
+    out = capsys.readouterr().out
+    assert out.count("[length]") == 3
+    assert "served 3/3 requests" in out
+    assert "over 4 calls" in out and "over 2 decode windows" in out
