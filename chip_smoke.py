@@ -3,7 +3,7 @@
 
   PYTHONPATH=src python chip_smoke.py
 
-Drives the port (``src/repro_torch``) on one card, in five phases, each
+Drives the port (``src/repro_torch``) on one card, in six phases, each
 printing JSON lines:
 
 1. device — refuses to run without CUDA; the card's name and power limit
@@ -52,7 +52,22 @@ printing JSON lines:
    paged engine's greedy streams against the ring engine's, token for
    token; and a request's prefill unchanged by the other requests of a
    wave at its own padded length (which the engine's prefill per length
-   bucket relies on), beside how far a longer padded wave moves it.
+   bucket relies on), beside how far a longer padded wave moves it;
+6. fault tolerance and observability (between the chunked and the policy
+   phases): ``fault`` — the ring bf16 (W = 1), ring int8 (W = 8, chunks of
+   128) and paged bf16 and int8 (W = 1) traffic served through
+   ``run_serve_with_restarts`` with a snapshot every window and all five
+   crash points fired at distinct ticks, streams equal to the
+   uninterrupted runs', and two in-place restores per run on one
+   graph-replaying engine whose rebuilt cache equals the one its windows
+   wrote, byte for byte; ``observe`` — ring bf16 at W = 8 and paged int8
+   at W = 1 with and without metrics (JSONL) and tracing (memory and
+   Perfetto): equal streams, launches, replays and host↔device syncs,
+   explain shares summing to 100 %, the Perfetto counters equal to the
+   JSONL gauges; ``overload`` — paged int8 at W = 8 degrading under pool
+   pressure (windows down to one tick and back, streams unchanged), then
+   queue caps with both shed policies and deadlines on the engine's
+   injected clock.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
@@ -1048,23 +1063,24 @@ def launch_gates(eng, host, kernel, cfg):
     """The launch gates of a policy-free serve run, whose windows are
     CUDA-graph replays: one replay per window, each graph holding one
     ``kernel`` launch per layer and tick, so the run launched it
-    ``n_layers × n × windows`` times (replays × launches per graph) and no
-    other kernel; the host counts (``host``: kernel → count, set to 0 just
-    before the run) saw one eager warm-up window and one capture per graph
-    and nothing else, so no window ran eagerly.  Returns the launches each
-    kernel really made: the host's less what the captures recorded, plus
-    the replays'.  (Eager windows on the CPU: the host counts.)"""
-    n, windows = eng.decode_ticks, eng.stats["decode_calls"]
+    ``n_layers × ticks`` times (replays × launches per graph; ticks =
+    ``decode_ticks`` × windows, less where pool pressure stepped windows
+    down to one tick) and no other kernel; the host counts (``host``:
+    kernel → count, set to 0 just before the run) saw one eager warm-up
+    window and one capture per graph and nothing else, so no window ran
+    eagerly.  Returns the launches each kernel really made: the host's
+    less what the captures recorded, plus the replays'.  (Eager windows on
+    the CPU: the host counts.)"""
+    ticks, windows = eng.tick, eng.stats["decode_calls"]
     g = eng._graphs
     if g is None:
-        assert host[kernel] == cfg.n_layers * n * windows, (host, windows)
+        assert host[kernel] == cfg.n_layers * ticks, (host, ticks)
         return dict(host)
     replayed, recorded = g.launches(), g.recorded()
     assert g.replays == windows, (g.replays, windows)
     for key, w in g.windows().items():
         assert w["launches"][kernel] == cfg.n_layers * key[0], (key, w)
-    assert replayed[kernel] == cfg.n_layers * n * windows, (replayed,
-                                                             windows)
+    assert replayed[kernel] == cfg.n_layers * ticks, (replayed, ticks)
     assert all(v == 0 for k, v in replayed.items() if k != kernel), replayed
     assert all(host[k] == 2 * recorded[k] for k in host), (host, recorded)
     return {k: host[k] - recorded[k] + replayed[k] for k in host}
@@ -1125,7 +1141,7 @@ def serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda",
                                           / (st["decode_s"] - capture_s),
             "capture_s": capture_s,
             "prefill_calls": st["prefill_calls"],
-            "decode_ticks": st["decode_calls"] * decode_ticks,
+            "decode_ticks": eng.tick,
             "windows": st["decode_calls"], "wall_s": wall,
             "graph_replays": (eng._graphs.replays
                               if eng._graphs is not None else 0),
@@ -1147,7 +1163,7 @@ def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda",
 
     # warm-up waves, cold and with prefix hits, at every length bucket
     warm = paged_engine(cfg, params, kv_quant, device,
-                        decode_ticks=decode_ticks)
+                        decode_ticks=decode_ticks, degrade_high=None)
     for req in paged_requests(cfg, 12, [16, 30, 60, 120, 240] * 3, 4):
         warm.submit(req)
     warm.run(100)
@@ -1156,7 +1172,7 @@ def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda",
     lens = paged_lens()
     n = SERVE_REQUESTS
     eng = paged_engine(cfg, params, kv_quant, device,
-                       decode_ticks=decode_ticks)
+                       decode_ticks=decode_ticks, degrade_high=None)
     for req in paged_requests(cfg, n, lens, 64):
         eng.submit(req)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -1194,8 +1210,9 @@ def paged_serve_phase(torch, da, pda, cfg, params, kv_quant, device="cuda",
             "prefill_tokens_computed": st["prefill_tokens"],
             "prefix_hit_tokens": st["prefix_hit_tokens"],
             "preemptions": st["preemptions"], "pool": eng.pool_stats(),
+            "degrade_events": eng.metrics.counters.get("degrade_events", 0),
             "prefill_calls": st["prefill_calls"],
-            "decode_ticks": st["decode_calls"] * decode_ticks,
+            "decode_ticks": eng.tick,
             "windows": st["decode_calls"], "wall_s": wall,
             "graph_replays": (eng._graphs.replays
                               if eng._graphs is not None else 0),
@@ -1423,7 +1440,8 @@ def graph_phase(torch, cfg, params, layout, kv_quant):
 
     paged = layout == "paged"
     if paged:
-        eng = paged_engine(cfg, params, kv_quant, decode_ticks=WINDOW)
+        eng = paged_engine(cfg, params, kv_quant, decode_ticks=WINDOW,
+                           degrade_high=None)
         reqs = paged_requests(cfg, 12, paged_lens()[:12], 16)
     else:
         eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device="cuda",
@@ -1574,7 +1592,7 @@ def chunked_phase(torch, da, pda, cfg, params, ring_streams_int8):
     return {**res, "phase": "chunked", "chunk": CHUNK,
             "logits_vs_whole_prompt": logits, "tolerance": tol,
             "streams_equal_unchunked_w1": int(equal),
-            "streams": len(ring_streams_int8)}
+            "streams": len(ring_streams_int8)}, got
 
 
 def window_profile_phase(torch, cfg, params, kv_quant):
@@ -2283,6 +2301,398 @@ def policy_error_phase(torch, cfg, params):
     return res
 
 
+# --------------------------------------------------------------------------
+# fault tolerance and observability (ROADMAP Queue 1 item 8)
+# --------------------------------------------------------------------------
+
+# the fault phase's crash ticks, one per SERVE_PHASES entry in that order:
+# W = 1 runs (about 126 ring / 157 paged windows), and the window starts of
+# the chunked W = 8 run (admission waves at tick 0 and about 64 put chunks
+# in flight at 0 and 64)
+FAULT_TICKS = (12, 37, 61, 88, 110)
+FAULT_TICKS_W8 = (8, 32, 64, 88, 112)
+SCRATCH = ROOT / "build" / "chip_smoke"      # snapshots, feeds (git-ignored)
+
+
+def serve_engine(cfg, params, layout, kv_quant, **kw):
+    """An engine of the ring or paged serve phases' shape."""
+    from repro_torch.serve import Engine
+
+    if layout == "paged":
+        return paged_engine(cfg, params, kv_quant, **kw)
+    return Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device="cuda",
+                  **kw)
+
+
+def serve_traffic(cfg, layout):
+    """The ring or paged serve phases' 16 requests, 64 new tokens each."""
+    if layout == "paged":
+        return paged_requests(cfg, SERVE_REQUESTS, paged_lens(), 64)
+    return ring_requests(cfg, SERVE_REQUESTS, ring_lens(), 64)
+
+
+def check_streams(done, want, what):
+    """Every request kept its 64-token budget and its stream equals the
+    uninterrupted run's (``want``: prompt → tokens)."""
+    assert len(done) == len(want), (what, len(done))
+    for r in done:
+        assert r.finish_reason == "length", (what, r.rid, r.finish_reason)
+    differ = [r.rid for r in done if r.out != want[tuple(r.prompt)]]
+    assert not differ, (what, "streams differ", differ)
+
+
+def assert_drained(eng, what):
+    assert all(s is None for s in eng.slots), what
+    assert len(eng.scheduler) == 0, what
+    if eng.pool is not None:
+        assert eng.pool.live_blocks == 0, (what, eng.pool_stats())
+
+
+def fault_phase(torch, cfg, params, layout, kv_quant, knobs, want, ticks):
+    """Crash recovery at full width on a serve phase's traffic (``want``:
+    its uninterrupted streams).  (1) Through ``run_serve_with_restarts``
+    with a snapshot file written every window: one ``FailureInjector``
+    schedule fires all five serve crash points at ``ticks``, and every
+    restart builds a fresh engine (its graphs captured anew) that
+    restores from the file.  Gates: every stream and finish reason equals
+    the uninterrupted run's, nothing is left in a slot, the queue or the
+    pool, 5 recoveries, the attention kernel launched.  (2) In place on
+    one graph-replaying engine, at two of those ticks: the cache rebuilt
+    by the restore (prefill in admission's groups and chunks,
+    teacher-forced replay through a one-tick window's graph) equals the
+    cache the engine's own windows wrote, byte for byte at every written
+    position, the existing graphs replay on, and the streams equal the
+    uninterrupted ones.  Reports each restore's seconds (prefill and
+    replay apart), the snapshot's JSON bytes and the host ms of
+    ``write_snapshot`` per window."""
+    import json
+    import os
+
+    from repro_torch.dist.fault_tolerance import (SERVE_PHASES,
+                                                  FailureInjector,
+                                                  run_serve_with_restarts)
+    from repro_torch.serve.graphs import KERNEL_WRAPPERS
+
+    t_phase = time.perf_counter()
+    kernel = ("paged_decode_attention" if layout == "paged"
+              else "decode_attention")
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    path = str(SCRATCH / f"fault-{layout}-{int(kv_quant)}.json")
+    if os.path.exists(path):
+        os.remove(path)
+    crash = dict(zip(ticks, SERVE_PHASES))
+    injector = FailureInjector(crash)
+    restores, write_ms = [], []
+
+    def make_engine():
+        eng = serve_engine(cfg, params, layout, kv_quant, injector=injector,
+                           snapshot_path=path, **knobs)
+        restore, write = eng.restore, eng.write_snapshot
+
+        def timed_restore(snap, streams=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore(snap, streams=streams)
+            torch.cuda.synchronize()
+            restores.append({
+                "tick": eng.tick, "seconds": time.perf_counter() - t0,
+                **eng.last_restore,
+                "snapshot_json_bytes": os.path.getsize(path),
+                "prefilling_slots": sum(1 for r in eng.slots
+                                        if r is not None
+                                        and r.state == "prefilling")})
+            return eng
+
+        def timed_write(p):
+            t0 = time.perf_counter()
+            write(p)
+            write_ms.append(1e3 * (time.perf_counter() - t0))
+
+        eng.restore, eng.write_snapshot = timed_restore, timed_write
+        return eng
+
+    def submit(eng):
+        for req in serve_traffic(cfg, layout):
+            eng.submit(req)
+
+    for m in KERNEL_WRAPPERS.values():
+        m.launches = 0
+    eng = run_serve_with_restarts(make_engine, submit, snapshot_path=path,
+                                  ticks=10_000, max_restarts=5)
+    torch.cuda.synchronize()
+    host = {k: m.launches for k, m in KERNEL_WRAPPERS.items()}
+    what = f"fault {layout} {'int8' if kv_quant else 'bf16'}"
+    assert injector.fired == set(crash.items()), (what, injector.fired)
+    assert eng.metrics.counters["recoveries"] == 5, eng.metrics.counters
+    check_streams(eng.finished, want, what)
+    assert_drained(eng, what)
+    assert host[kernel] > 0 and eng._graphs.replays > 0, (host, what)
+    if knobs.get("prefill_chunk"):
+        assert any(r["prefilling_slots"] for r in restores), restores
+
+    # (2) in place on one engine, the cache compared byte for byte
+    eng = serve_engine(cfg, params, layout, kv_quant, **knobs)
+    submit(eng)
+    compares = []
+    for stop in (ticks[1], ticks[3]):
+        while eng.tick < stop and (len(eng.scheduler) or any(eng.slots)):
+            eng.step()
+        windows = dict(eng._graphs._windows)
+        replays = eng._graphs.replays
+        before = eng.written_kv()
+        snap = json.loads(json.dumps(eng.snapshot()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.restore(snap)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n, nbytes = eng.compare_written_kv(before, eng.written_kv())
+        assert all(eng._graphs._windows[k] is w for k, w in windows.items())
+        compares.append({"tick": eng.tick, "requests": len(before),
+                         "tensors_equal": n, "bytes_equal": nbytes,
+                         "seconds": seconds, **eng.last_restore,
+                         "replays_before": replays})
+        del before
+    replays = eng._graphs.replays
+    done = eng.run(10_000)
+    assert eng._graphs.replays > replays
+    check_streams(done, want, what + " in place")
+    assert_drained(eng, what + " in place")
+    assert eng.metrics.counters["recoveries"] == 2
+    return {"phase": "fault", "layout": layout,
+            "kv": "int8" if kv_quant else "bf16", **knobs,
+            "crash_at": {str(k): v for k, v in crash.items()},
+            "streams_equal_uninterrupted": True, "recoveries": 5,
+            "restores": restores,
+            "write_snapshot_ms": {"windows": len(write_ms),
+                                  "mean": sum(write_ms) / len(write_ms),
+                                  "max": max(write_ms)},
+            "in_place": {"bitwise_cache": True, "graphs_kept": True,
+                         "restores": compares},
+            "seconds": time.perf_counter() - t_phase}
+
+
+class SyncCounter:
+    """Counts the host↔device syncs a run makes: calls of
+    ``torch.cuda.synchronize`` and of ``Tensor.item``, ``.tolist`` and
+    ``.cpu`` on CUDA tensors, by name, while installed."""
+
+    NAMES = ("item", "tolist", "cpu")
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.counts = {n: 0 for n in self.NAMES + ("synchronize",)}
+
+    def __enter__(self):
+        torch, counts = self.torch, self.counts
+        self._saved = {n: getattr(torch.Tensor, n) for n in self.NAMES}
+        self._sync = torch.cuda.synchronize
+
+        def counting(name, fn):
+            def wrapped(t, *a, **k):
+                if t.is_cuda:
+                    counts[name] += 1
+                return fn(t, *a, **k)
+            return wrapped
+
+        for n, fn in self._saved.items():
+            setattr(torch.Tensor, n, counting(n, fn))
+
+        def sync(*a, **k):
+            counts["synchronize"] += 1
+            return self._sync(*a, **k)
+
+        torch.cuda.synchronize = sync
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self.torch.Tensor, n, fn)
+        self.torch.cuda.synchronize = self._sync
+
+
+def observe_phase(torch, cfg, params, layout, kv_quant, decode_ticks, want):
+    """Metrics and tracing at full width on a serve phase's traffic, run
+    untraced and with ``metrics="jsonl:…"``, ``trace="mem,perfetto:…"``.
+    Gates: the streams equal the untraced run's and ``want``; each
+    captured graph's launches and replays equal; the host↔device syncs of
+    the run (``SyncCounter``) equal, so per window too; every finished
+    request's ``explain`` shares sum to 100 %; the Perfetto file parses,
+    its counter samples equal the JSONL gauge records value for value, and
+    the JSONL has one gauge record per engine step (window).  Reports
+    decode tok/s traced against untraced and TTFT/ITL p50/p95."""
+    import json
+
+    t_phase = time.perf_counter()
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    tag = f"{layout}-{int(kv_quant)}-{decode_ticks}"
+    feed, pf = SCRATCH / f"metrics-{tag}.jsonl", SCRATCH / f"trace-{tag}.json"
+    for f in (feed, pf):
+        if f.exists():
+            f.unlink()
+    runs = {}
+    for traced in (False, True):
+        kw = (dict(metrics=f"jsonl:{feed}", trace=f"mem,perfetto:{pf}")
+              if traced else {})
+        eng = serve_engine(cfg, params, layout, kv_quant,
+                           decode_ticks=decode_ticks, **kw)
+        for req in serve_traffic(cfg, layout):
+            eng.submit(req)
+        torch.cuda.synchronize()
+        with SyncCounter(torch) as syncs:
+            t0 = time.perf_counter()
+            done = eng.run(10_000)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check_streams(done, want, f"observe {tag} traced={traced}")
+        st, ms = eng.stats, eng.metrics.summary()
+        capture_s = eng._graphs.capture_s
+        runs[traced] = {
+            "eng": eng, "streams": {tuple(r.prompt): r.out for r in done},
+            "syncs": syncs.counts, "windows": st["decode_calls"],
+            "steps": ms["ticks"],
+            "graphs": {k: (w["launches"], w["replays"])
+                       for k, w in eng._graphs.windows().items()},
+            "line": {"wall_s": wall, "capture_s": capture_s,
+                     "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+                     "decode_tok_s_after_capture": st["decode_tokens"]
+                     / (st["decode_s"] - capture_s),
+                     "windows": st["decode_calls"], "syncs": syncs.counts,
+                     "ttft_ms": {q: 1e3 * ms["ttft_s"][q]
+                                 for q in ("p50", "p95")},
+                     "itl_ms": {q: 1e3 * ms["itl_s"][q]
+                                for q in ("p50", "p95")}}}
+    plain, traced = runs[False], runs[True]
+    assert traced["streams"] == plain["streams"]
+    assert traced["graphs"] == plain["graphs"], (traced["graphs"],
+                                                 plain["graphs"])
+    assert traced["windows"] == plain["windows"]
+    assert traced["syncs"] == plain["syncs"], (traced["syncs"],
+                                               plain["syncs"])
+    eng = traced["eng"]
+    shares = [sum(eng.explain(r.rid)["shares"].values())
+              for r in eng.finished]
+    assert all(abs(x - 1.0) < 0.01 for x in shares), shares
+    eng.trace.close()
+    eng.metrics.close()
+    records = [json.loads(ln) for ln in feed.read_text().splitlines()]
+    trace = json.loads(pf.read_text())
+    assert len(records) == traced["steps"] > 0, (len(records),
+                                                 traced["steps"])
+    counters = {}
+    for e in trace["traceEvents"]:              # in the order recorded
+        if e["ph"] == "C":
+            counters.setdefault(e["name"], []).append(e["args"]["value"])
+    for key in records[0]:
+        if key not in ("t", "tick"):
+            assert counters[key] == [r[key] for r in records], key
+    spans = sum(1 for e in trace["traceEvents"] if e["ph"] == "X")
+    return {"phase": "observe", "layout": layout,
+            "kv": "int8" if kv_quant else "bf16",
+            "decode_ticks_per_window": decode_ticks,
+            "streams_equal_untraced": True, "graphs_equal": True,
+            "syncs_equal": True, "steps": traced["steps"],
+            "syncs_per_window": {k: v / traced["windows"]
+                                 for k, v in traced["syncs"].items()},
+            "jsonl_records": len(records), "perfetto_events":
+                len(trace["traceEvents"]), "perfetto_spans": spans,
+            "explain_shares_min_max": [min(shares), max(shares)],
+            "untraced": plain["line"], "traced": traced["line"],
+            "seconds": time.perf_counter() - t_phase}
+
+
+def overload_phase(torch, cfg, params, want):
+    """Overload at full width.  (1) The paged int8 traffic at ``WINDOW``
+    ticks on the serve phase's 56-block pool, which crosses
+    ``degrade_high``: the windows step down to one tick (a one-tick graph
+    captured mid-run) and back, ``degrade_events`` ≥ 1, and the streams
+    equal the W = 1 streams (``want``) and the same run's with
+    degradation off (``degrade_high=None``).  (2) Admission control, on a
+    paged int8 engine: ``queue_cap`` 3 with 'reject-new' and with
+    'evict-lowest-priority', and deadlines driven by the engine's
+    injected clock expiring a queued and cancelling running requests —
+    every finish reason as the policy says, and nothing left in a slot,
+    the queue or the pool."""
+    t_phase = time.perf_counter()
+    runs = {}
+    for degrade in (True, False):
+        eng = paged_engine(cfg, params, True, decode_ticks=WINDOW,
+                           trace="mem" if degrade else None,
+                           **({} if degrade else dict(degrade_high=None)))
+        for req in serve_traffic(cfg, "paged"):
+            eng.submit(req)
+        done = eng.run(10_000)
+        check_streams(done, want, f"overload degrade={degrade}")
+        assert_drained(eng, "overload")
+        runs[degrade] = eng
+    eng, calm = runs[True], runs[False]
+    assert {tuple(r.prompt): r.out for r in eng.finished} == {
+        tuple(r.prompt): r.out for r in calm.finished}
+    assert eng.metrics.counters.get("degrade_events", 0) >= 1
+    assert "degrade_events" not in calm.metrics.counters
+    ticks = [r["n_ticks"] for r in eng.trace.records()
+             if r.get("name") == "decode_window" and r["rid"] is None]
+    first = ticks.index(1)
+    assert WINDOW in ticks[:first] and WINDOW in ticks[first:], ticks
+    one_tick = {str(k): w["capture_s"] for k, w in
+                eng._graphs.windows().items() if k[0] == 1}
+    assert one_tick
+    degraded = {"windows": len(ticks), "one_tick_windows": ticks.count(1),
+                "degrade_events": eng.metrics.counters["degrade_events"],
+                "slow_windows": eng.metrics.counters.get("slow_windows", 0),
+                "one_tick_capture_s": one_tick,
+                "capture_s": eng._graphs.capture_s,
+                "decode_tok_s": eng.stats["decode_tokens"]
+                / eng.stats["decode_s"],
+                "undegraded_decode_tok_s": calm.stats["decode_tokens"]
+                / calm.stats["decode_s"],
+                "undegraded_windows": calm.stats["decode_calls"],
+                "undegraded_slow_windows":
+                    calm.metrics.counters.get("slow_windows", 0)}
+    del runs, eng, calm
+
+    # (2) admission control and deadlines on the injected clock
+    reasons = {}
+    for policy in ("reject-new", "evict-lowest-priority"):
+        eng = paged_engine(cfg, params, True, queue_cap=3,
+                           shed_policy=policy, scheduler="priority")
+        reqs = paged_requests(cfg, 13, [16 + 8 * i for i in range(13)], 8)
+        for g in range(0, 8, 3):                 # within the queue's cap
+            for r in reqs[g:min(g + 3, 8)]:
+                eng.submit(r)
+            eng.step()                           # ... 8 slots busy
+        for r in reqs[8:11]:                     # the queue fills
+            eng.submit(r)
+        if policy == "reject-new":
+            reqs[11].deadline_s = 1e6
+            eng.submit(reqs[11])                 # shed: the queue is full
+            for r in reqs[:2]:
+                r.deadline_s = 1e6               # running, cancelled below
+            reqs[9].deadline_s = 1e6             # queued, expired below
+            clock = eng._now
+            eng._now = lambda: clock() + 2e6
+            want_reasons = {0: "deadline", 1: "deadline", 9: "deadline",
+                            11: "shed"}
+        else:
+            reqs[11].priority = 5
+            eng.submit(reqs[11])                 # evicts rid 10
+            eng.submit(reqs[12])                 # priority 0: shed
+            want_reasons = {10: "shed", 12: "shed"}
+        eng.run(1000)
+        got = {r.rid: r.finish_reason for r in eng.finished}
+        assert len(got) == len(set(got)) and len(got) >= 12, got
+        for rid, reason in got.items():
+            assert reason == want_reasons.get(rid, "length"), (policy, got)
+        assert_drained(eng, f"overload {policy}")
+        reasons[policy] = {str(k): v for k, v in sorted(got.items())}
+    return {"phase": "overload", "layout": "paged", "kv": "int8",
+            "window": WINDOW, "num_blocks": PAGED_BLOCKS,
+            "degrade_high": 0.9, "degrade_low": 0.7,
+            "streams_equal_w1_and_undegraded": True, **degraded,
+            "admission": reasons,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def device_fields(main, serve_times):
     """A kernels-line entry's device numbers: the kernels phase's device ms
     of the kernel and of its library call, and the same at the serve
@@ -2390,7 +2800,23 @@ def main() -> int:
     for layout in ("ring", "paged"):
         for kv_quant in (False, True):
             emit(graph_phase(torch, cfg, params, layout, kv_quant))
-    emit(chunked_phase(torch, da, pda, cfg, params, w1_streams["ring", True]))
+    chunked, chunked_streams = chunked_phase(torch, da, pda, cfg, params,
+                                             w1_streams["ring", True])
+    emit(chunked)
+    # fault tolerance and observability, on the serve phases' traffic
+    for layout, kv_quant, knobs, want, ticks in (
+            ("ring", False, {}, w1_streams["ring", False], FAULT_TICKS),
+            ("ring", True, dict(decode_ticks=WINDOW, prefill_chunk=CHUNK),
+             chunked_streams, FAULT_TICKS_W8),
+            ("paged", False, {}, w1_streams["paged", False], FAULT_TICKS),
+            ("paged", True, {}, w1_streams["paged", True], FAULT_TICKS)):
+        emit(fault_phase(torch, cfg, params, layout, kv_quant, knobs, want,
+                         ticks))
+    emit(observe_phase(torch, cfg, params, "ring", False, WINDOW,
+                       w1_streams["ring", False]))
+    emit(observe_phase(torch, cfg, params, "paged", True, 1,
+                       w1_streams["paged", True]))
+    emit(overload_phase(torch, cfg, params, w1_streams["paged", True]))
     # the quantised-matmul policy path on the ring and paged traffic
     pol_runs = {}
     for layout, kv_quant in (("ring", False), ("ring", True),

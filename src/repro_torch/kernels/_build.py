@@ -9,6 +9,10 @@ source or header builds anew and an unchanged one is reused.  Nothing is built w
 module is imported: a wrapper builds its library at its first launch.  If
 ``nvcc`` is missing or a build fails, this raises with the compiler's
 output; there is no fallback.
+
+A build is a cold-start stall of serving: each library built is reported
+to :mod:`repro_torch.coldstart` as a ``kernel_build`` event with its
+seconds.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from repro_torch import coldstart
 
 __all__ = ["KERNELS", "BUILD_DIR", "library_path", "build", "load"]
 
@@ -92,6 +98,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            coldstart.notify("kernel_build", kernel=n, seconds=secs[n])
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return secs

@@ -13,15 +13,21 @@ the paged KV cache:
       --policy dither --kernel-backend auto
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
       --decode-ticks 8 --prefill-chunk 128 --kv-quant
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
+      --reduced --device cpu --kv-layout paged --max-len 32 --block-size 8 \\
+      --metrics stdout --trace mem --snapshot-path /tmp/snap.json \\
+      --deadline-ms 60000          # then again with --resume
 
-Takes the subset of the reference launcher's flags that the port's engine
-serves, plus ``--device``.  Weights are random, drawn from seed 0 (the
+Takes the reference launcher's flags but ``--mesh`` (ROADMAP Queue 1 item
+10), plus ``--device``.  Weights are random, drawn from seed 0 (the
 reference draws its own from ``PRNGKey(0)``, so the values differ).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 
 from repro_torch.configs import get_config
@@ -29,6 +35,7 @@ from repro_torch.models import registry
 from repro_torch.numerics.policy import QuantPolicy
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.sampling import SamplingParams
+from repro_torch.serve.trace import format_explain
 
 
 def serve_main(argv=None):
@@ -85,6 +92,36 @@ def serve_main(argv=None):
     ap.add_argument("--sched", default="fcfs", choices=["fcfs", "priority"],
                     help="admission policy ('priority' favours high "
                          "Request.priority; the demo gives odd rids +1)")
+    ap.add_argument("--metrics", default=None, metavar="SINK",
+                    help="stream per-window engine metrics (DESIGN.md §10): "
+                         "'stdout', or 'jsonl:<path>' / a *.jsonl path.  "
+                         "Unset = collect but don't stream; the summary "
+                         "prints either way")
+    ap.add_argument("--trace", default=None, metavar="SPEC",
+                    help="per-request span tracing (DESIGN.md §13): 'mem' "
+                         "(in memory, enables the end-of-run attribution "
+                         "lines), 'perfetto:<path>' (Chrome-trace JSON for "
+                         "ui.perfetto.dev), 'jsonl:<path>' (streaming event "
+                         "feed), comma-combinable.  Unset = off")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline from submission (DESIGN.md "
+                         "§12): queued or running, a request past it "
+                         "finishes with reason 'deadline'")
+    ap.add_argument("--queue-cap", type=int, default=None,
+                    help="bounded admission queue: submissions past this "
+                         "depth shed per --shed-policy (DESIGN.md §12)")
+    ap.add_argument("--shed-policy", default="reject-new",
+                    choices=["reject-new", "evict-lowest-priority"],
+                    help="what a full queue sheds: the newcomer, or the "
+                         "lowest-priority queued request when the newcomer "
+                         "outranks it")
+    ap.add_argument("--snapshot-path", default=None, metavar="PATH",
+                    help="persist an atomic engine snapshot every window "
+                         "(JSON; DESIGN.md §12) — the crash-recovery point")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore from --snapshot-path if it exists and "
+                         "continue (bit for bit for policy-free serving) "
+                         "instead of submitting the synthetic workload")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (default cuda)")
     args = ap.parse_args(argv)
@@ -102,16 +139,31 @@ def serve_main(argv=None):
                     prefix_cache=not args.no_prefix_cache,
                     decode_ticks=args.decode_ticks,
                     prefill_chunk=args.prefill_chunk,
+                    metrics=args.metrics, trace=args.trace,
+                    queue_cap=args.queue_cap, shed_policy=args.shed_policy,
+                    snapshot_path=args.snapshot_path,
                     spec_decode=args.spec_decode, draft_k=args.draft_k)
-    for r in range(args.requests):
-        prompt = [(7 * r + i) % (cfg.vocab_size - 1) + 1
-                  for i in range(args.prompt_len)]
-        engine.submit(Request(
-            rid=r, prompt=prompt, priority=r % 2,
-            sampling=SamplingParams(temperature=args.temperature,
-                                    top_k=args.top_k, seed=args.seed + r,
-                                    max_new=args.max_new,
-                                    counter_offset=1000 * r)))
+    resumed = False
+    if args.resume and args.snapshot_path and \
+            os.path.exists(args.snapshot_path):
+        with open(args.snapshot_path) as fh:
+            engine.restore(json.load(fh))
+        resumed = True
+        print(f"resumed from {args.snapshot_path} at tick {engine.tick} "
+              f"({len(engine.finished)} finished, "
+              f"{len(engine.scheduler)} queued)")
+    if not resumed:
+        for r in range(args.requests):
+            prompt = [(7 * r + i) % (cfg.vocab_size - 1) + 1
+                      for i in range(args.prompt_len)]
+            engine.submit(Request(
+                rid=r, prompt=prompt, priority=r % 2,
+                deadline_s=(args.deadline_ms / 1e3
+                            if args.deadline_ms is not None else None),
+                sampling=SamplingParams(temperature=args.temperature,
+                                        top_k=args.top_k, seed=args.seed + r,
+                                        max_new=args.max_new,
+                                        counter_offset=1000 * r)))
     t0 = time.time()
     done = engine.run(ticks=args.requests * (args.max_new + 6) + 20)
     dt = time.time() - t0
@@ -138,6 +190,30 @@ def serve_main(argv=None):
         print(f"spec-decode: k={args.draft_k} windows={st['spec_windows']} "
               f"drafted={drafted} accepted={acc} accept_rate={rate:.2f} "
               f"emitted={st['spec_emitted_tokens']}")
+    ms = engine.metrics.summary()
+    mc = ms["counters"]
+    print(f"metrics: ticks={ms['ticks']} "
+          f"queue_depth_mean={ms['gauges'].get('queue_depth', {}).get('mean', 0):.2f} "
+          f"occupancy_mean={ms['gauges'].get('batch_occupancy', {}).get('mean', 0):.2f} "
+          f"ttft_p95={1e3 * ms['ttft_s']['p95']:.1f}ms "
+          f"itl_p95={1e3 * ms['itl_s']['p95']:.1f}ms "
+          f"sink_errors={ms['sink_errors']}")
+    print(f"fault: deadline_expired={int(mc.get('finish_deadline', 0))} "
+          f"shed={int(mc.get('finish_shed', 0))} "
+          f"recoveries={int(mc.get('recoveries', 0))} "
+          f"slow_windows={int(mc.get('slow_windows', 0))} "
+          f"degrade_events={int(mc.get('degrade_events', 0))}")
+    if engine.trace.enabled:
+        # end-of-run latency attribution (DESIGN.md §13): one line per
+        # finished request, wall time decomposed into phase shares
+        for r in sorted(done, key=lambda x: x.rid):
+            print("explain " + format_explain(engine.explain(r.rid)))
+        engine.trace.close()      # flush the jsonl feed, write the perfetto
+        if engine.trace.perfetto_path:
+            print(f"trace: wrote perfetto export to "
+                  f"{engine.trace.perfetto_path} "
+                  f"(open at https://ui.perfetto.dev)")
+    engine.metrics.close()
 
 
 if __name__ == "__main__":

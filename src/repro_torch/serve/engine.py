@@ -38,33 +38,48 @@ PyTorch runs eagerly, so the reference's jitted dispatches become plain
 calls (or, for the policy-free decode window on the card, graph replays);
 the per-slot sampling state, the last sampled tokens and the block tables
 stay on the device and are re-uploaded only when they change, and the
-cache is updated in place.  Every constructor knob of the reference that
-the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP item.
+cache is updated in place.
+
+Fault tolerance and observability (DESIGN.md §10, §12, §13), as the
+reference's: per-request deadlines, a queue TTL, a bounded queue with a
+shed policy, degradation under pool pressure (single-tick windows, prefix
+insertion paused), a straggler watchdog, five ``FailureInjector`` crash
+points, atomic JSON snapshots every ``snapshot_every`` windows and
+:meth:`Engine.restore`, which re-materialises the device KV bit for bit
+(policy-free and deterministic-scheme serving); :class:`Metrics` counters,
+gauges and TTFT/ITL histograms, and :class:`Tracer` spans, all host-side.
+On the card the restore refills the cache's own tensors, so the captured
+decode graphs stay valid.  ``mesh`` and ``frames`` raise
+``NotImplementedError`` naming their ROADMAP items.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.dist.fault_tolerance import StragglerWatchdog
 from repro_torch.kernels.paged_decode_attention import MAX_BLOCK_SIZE
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.draft import Drafter, PromptLookupDrafter
 from repro_torch.serve.graphs import WindowGraphs
 from repro_torch.serve.kvpool import KVPool
+from repro_torch.serve.metrics import Metrics
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.trace import Tracer
 
 __all__ = ["make_serve_fns", "make_decode_and_sample", "make_fused_decode",
            "make_paged_prefill", "make_chunked_prefill", "make_spec_verify",
            "Engine", "Request", "SamplingParams", "Scheduler", "KVPool",
-           "WindowGraphs", "DEFAULT_BLOCK_SIZE"]
+           "Metrics", "Tracer", "WindowGraphs", "DEFAULT_BLOCK_SIZE"]
 
 # The paged pool's default block size: the CUDA kernels' tile (64 keys), so
 # at the default settings the paged kernel runs the ring kernel's tiles and
@@ -263,13 +278,16 @@ class Request:
 
     Lifecycle: ``queued`` → (scheduler admits) → [``prefilling`` →]
     ``active`` → ``done`` with ``finish_reason`` ∈ {"eos", "stop",
-    "length", "preempted", "rejected"}; a paged request preempted for
-    blocks goes back to ``queued`` and resumes later.  ``sampling`` carries the per-request decode controls;
+    "length", "preempted", "rejected", "deadline", "shed"}; a paged
+    request preempted for blocks goes back to ``queued`` and resumes
+    later.  ``sampling`` carries the per-request decode controls;
     ``max_new`` overrides ``sampling.max_new``.  ``stream`` (if set) is
     called as ``stream(request, token)`` for every emitted token.  Timing
-    fields are host-clock seconds.  ``deadline_s`` exists for the
-    reference's API; deadlines are ROADMAP Queue 1 item 8, so a request
-    that sets one is refused at submission.
+    fields are host-clock seconds: ``ttft`` = time-to-first-token from
+    submission, ``itl`` = inter-token latencies.  ``deadline_s`` is a
+    budget from submission, measured on the engine's clock (``_now``): the
+    engine expires the request — queued or running — once it elapses,
+    checked once per window with no device work (DESIGN.md §12).
     """
 
     rid: int
@@ -297,6 +315,10 @@ class Request:
     # prefill progress (engine-internal): tokens of the prompt already
     # written to the cache while state == "prefilling"
     _pf_pos: int = 0
+    # where this request's own prefill began: the prefix-hit tokens at its
+    # (paged) admission, 0 otherwise — restore replays its prefill chunks
+    # from here (a snapshot key the reference does not write; 0 if absent)
+    _pf_start: int = 0
 
     @property
     def ttft(self) -> Optional[float]:
@@ -329,6 +351,30 @@ class _WindowPlan:
     stop_sets: dict
 
 
+@dataclass
+class _Unit:
+    """An admission whose KV :meth:`Engine.restore` rebuilds: a slot's, a
+    queued block holder's, or a *ghost*'s — the admission that wrote
+    blocks other requests read in their shared prefix or that sit in the
+    prefix cache, when its request no longer holds them (finished,
+    requeued to re-prefill, or re-admitted since).  ``row`` is its slot
+    (None: any free row of a call), ``table`` its pool blocks (None on the
+    ring; a ghost's blocks gone from the pool are free blocks used as
+    scratch), ``pieces`` its prefill calls' [start, end) in order, ``gen``
+    the tokens replayed from ``pf_end`` on, ``level`` its place in the
+    order of writes: the blocks it reads are written by lower levels."""
+    req: "Request"
+    row: Optional[int]
+    table: Optional[list]
+    seq: list
+    pieces: list
+    gen: list
+    pf_start: int
+    pf_end: int
+    ghost: bool = False
+    level: int = 0
+
+
 def _prefill_groups(rows: dict) -> List[List[int]]:
     """Slots of one admission wave, grouped by (padded length bucket, prefix
     hit or not) — ``rows`` maps slot → (tokens to prefill, has a prefix).
@@ -345,12 +391,7 @@ def _prefill_groups(rows: dict) -> List[List[int]]:
 
 
 # reference knob → (value that means "off", ROADMAP Queue 1 item porting it)
-_OUT_OF_SLICE = {
-    "mesh": (None, 10), "metrics": (None, 8), "trace": (None, 8),
-    "queue_cap": (None, 8), "shed_policy": ("reject-new", 8),
-    "queue_ttl_s": (None, 8), "injector": (None, 8),
-    "snapshot_path": (None, 8), "frames": (None, 11),
-}
+_OUT_OF_SLICE = {"mesh": (None, 10), "frames": (None, 11)}
 
 
 class Engine:
@@ -406,7 +447,26 @@ class Engine:
     ``policy``: a ``QuantPolicy`` for every dense product, resolved once
     for ``device``; its counter is ``tick`` (+ j within a window).
     Speculative decoding refuses an enabled policy.
+
+    Fault tolerance (DESIGN.md §12), the reference's knobs: per-request
+    deadlines and a queue TTL (``queue_ttl_s``) expire stale work once per
+    window, on the engine's clock ``_now`` (injectable); ``queue_cap``
+    bounds the queue with a ``shed_policy`` ('reject-new' /
+    'evict-lowest-priority'); pool pressure past ``degrade_high`` steps
+    the decode window down to single ticks and pauses prefix-cache
+    insertion until pressure clears past ``degrade_low``
+    (``degrade_high=None``, which the reference lacks, never degrades);
+    ``watchdog``
+    (default a :class:`StragglerWatchdog`) flags slow windows;
+    ``injector`` crashes the step at its five points; with
+    ``snapshot_path`` every ``snapshot_every``-th window persists
+    :meth:`snapshot`, and :meth:`restore` continues bit for bit.
+    Observability (DESIGN.md §10, §13): ``metrics`` (a :class:`Metrics`
+    or a sink spec) and ``trace`` (a :class:`Tracer` or a spec such as
+    ``"mem"``), host-side only.
     """
+
+    SHED_POLICIES = ("reject-new", "evict-lowest-priority")
 
     def __init__(self, params, cfg: ModelConfig, batch: int, max_len: int,
                  policy=None, kv_quant: bool = False,
@@ -416,7 +476,12 @@ class Engine:
                  mesh=None, metrics=None, trace=None, decode_ticks: int = 1,
                  prefill_chunk=None, queue_cap=None,
                  shed_policy: str = "reject-new", queue_ttl_s=None,
-                 injector=None, snapshot_path=None,
+                 injector=None,
+                 watchdog: Union[None, bool, StragglerWatchdog] = True,
+                 snapshot_path: Optional[str] = None,
+                 snapshot_every: int = 1,
+                 degrade_high: Optional[float] = 0.90,
+                 degrade_low: float = 0.70,
                  spec_decode: bool = False, draft_k: int = 4,
                  drafter: Optional[Drafter] = None, frames=None):
         if kv_layout not in ("ring", "paged"):
@@ -461,10 +526,7 @@ class Engine:
             if kv_layout == "ring" and self.draft_k > max_len:
                 raise ValueError(f"draft_k={draft_k} exceeds the ring's "
                                  f"{max_len} slots")
-        given = dict(mesh=mesh, metrics=metrics, trace=trace,
-                     queue_cap=queue_cap, shed_policy=shed_policy,
-                     queue_ttl_s=queue_ttl_s, injector=injector,
-                     snapshot_path=snapshot_path, frames=frames)
+        given = dict(mesh=mesh, frames=frames)
         for name, (off, item) in _OUT_OF_SLICE.items():
             if given[name] != off:
                 raise NotImplementedError(
@@ -474,6 +536,32 @@ class Engine:
             raise NotImplementedError(
                 f"{cfg.name!r} is not a dense attention-only decoder; the "
                 "rest of the zoo is ROADMAP Queue 1 item 11")
+        # fault-tolerance / overload knobs (DESIGN.md §12), checked as the
+        # reference checks them
+        if shed_policy not in self.SHED_POLICIES:
+            raise ValueError(f"unknown shed_policy {shed_policy!r}; expected "
+                             f"one of {self.SHED_POLICIES}")
+        if queue_cap is not None and int(queue_cap) < 1:
+            raise ValueError(f"queue_cap must be >= 1 (or None), got "
+                             f"{queue_cap}")
+        if degrade_high is not None and \
+                not (0.0 < degrade_low <= degrade_high <= 1.0):
+            raise ValueError("need 0 < degrade_low <= degrade_high <= 1, got "
+                             f"({degrade_low}, {degrade_high})")
+        self.queue_cap = None if queue_cap is None else int(queue_cap)
+        self.shed_policy = shed_policy
+        self.queue_ttl_s = queue_ttl_s
+        self.injector = injector
+        self.watchdog = (StragglerWatchdog() if watchdog is True
+                         else (watchdog or None))
+        self.snapshot_path = snapshot_path
+        self.snapshot_every = max(1, int(snapshot_every))
+        self.degrade_high, self.degrade_low = degrade_high, degrade_low
+        self._degraded = False
+        self._now = time.time          # injectable clock (deadline tests)
+        self._steps_since_snap = 0
+        self._step_tick = 0            # tick at window start (injector key)
+        self._last_window_s = 0.0
         self.device = torch.device(device)
         pdev = params["embed"].device
         if pdev.type != self.device.type or (
@@ -515,18 +603,13 @@ class Engine:
                 prefix_cache) and (policy is None
                                    or policy.scheme == "deterministic"))
             self._trash = self.num_blocks
-            self.cache = registry.make_cache(
-                params, cfg, batch, max_len, kv_quant=kv_quant,
-                kv_layout="paged", block_size=bs,
-                num_blocks=self.num_blocks, device=self.device)
+            self.cache = self._make_cache()
             self._bt = np.full((batch, self.nbmax), self._trash, np.int32)
             self._bt_dirty = True
             self._prefill_paged = make_paged_prefill(cfg, policy,
                                                      kv_quant=kv_quant)
         else:
-            self.cache = registry.make_cache(params, cfg, batch, max_len,
-                                             kv_quant=kv_quant,
-                                             device=self.device)
+            self.cache = self._make_cache()
             self._prefill, _ = make_serve_fns(cfg, policy, max_len=max_len,
                                               kv_quant=kv_quant)
             if self.prefill_chunk is not None:
@@ -560,6 +643,8 @@ class Engine:
                                           fused_ops=self.verify_fused_ops)
         # per-window write budget of each paged slot (``_pre_decode_paged``)
         self._paged_cap = {}
+        # the teacher-forced replay step of a restore, built on first use
+        self.last_restore = None
 
         self.scheduler = (Scheduler(scheduler) if isinstance(scheduler, str)
                           else scheduler)
@@ -577,14 +662,42 @@ class Engine:
         self._counters = np.zeros((batch,), np.int32)
         self._dev = {}
         self._dev_dirty = True
-        # speculative windows count in decode_calls; the spec_* counters
-        # stand here until the metrics surface is ported (item 8)
+        # speculative windows count in decode_calls; the spec_* counts
+        # stand here as well as in the metrics' counters
         self.stats = {"prefill_s": 0.0, "prefill_tokens": 0,
                       "prefill_calls": 0, "decode_s": 0.0,
                       "decode_tokens": 0, "decode_calls": 0,
                       "prefix_hit_tokens": 0, "preemptions": 0,
                       "spec_windows": 0, "spec_draft_tokens": 0,
                       "spec_accepted_tokens": 0, "spec_emitted_tokens": 0}
+        # sealed pool block → (writer rid, logical index, and the writing
+        # admission's prefill start and end): what restore needs to rebuild
+        # a shared or cached block whose writer no longer holds it
+        self._block_src = {}
+        # observability (DESIGN.md §10, §13): host-side counters, per-window
+        # gauges and TTFT/ITL histograms behind a buffered crash-isolated
+        # sink; span timelines, off unless ``trace`` is given
+        self.metrics = (metrics if isinstance(metrics, Metrics)
+                        else Metrics(sink=metrics))
+        self.trace = Tracer.from_spec(trace)
+        if self.trace.enabled:
+            # queue/block provenance rides the tracer's event feed; the
+            # hooks stay None (and cost nothing) on an untraced engine
+            self.scheduler.on_event = self.trace.event
+            if self.pool is not None:
+                self.pool.on_event = self.trace.event
+
+    def _make_cache(self):
+        """A fresh decode cache of this engine's layout on its device."""
+        if self.kv_layout == "paged":
+            return registry.make_cache(
+                self.params, self.cfg, self.batch, self.max_len,
+                kv_quant=self.kv_quant, kv_layout="paged",
+                block_size=self.block_size, num_blocks=self.num_blocks,
+                device=self.device)
+        return registry.make_cache(self.params, self.cfg, self.batch,
+                                   self.max_len, kv_quant=self.kv_quant,
+                                   device=self.device)
 
     # ------------------------------------------------------ pool aggregates
 
@@ -599,25 +712,75 @@ class Engine:
 
     # ------------------------------------------------------------------ API
 
+    def reset_stats(self):
+        """Zero the throughput counters *and* the metrics surface (a
+        warm-up wave's numbers stay out of the measured ones)."""
+        self.stats = {k: type(v)() for k, v in self.stats.items()}
+        self.metrics.reset()
+
     def submit(self, req: Request):
-        """Enqueue a request (FCFS or priority order, per the scheduler)."""
-        if req.deadline_s is not None:
-            raise NotImplementedError("request deadlines are not ported yet "
-                                      "(ROADMAP Queue 1 item 8)")
+        """Enqueue a request (FCFS or priority order, per the scheduler),
+        applying overload admission control when ``queue_cap`` is set: a
+        full queue either sheds the newcomer ('reject-new') or evicts the
+        queued request with the lowest priority — latest arrival among
+        ties — when the newcomer outranks it ('evict-lowest-priority').
+        Preempted requests re-enter through the scheduler's ``requeue`` and
+        are never shed: they hold pool blocks and their place in line."""
         req.state = "queued"
         if req.t_submit is None:
             req.t_submit = time.time()
+        self.trace.begin(req.rid, req.t_submit, priority=req.priority)
+        if self.queue_cap is not None and \
+                len(self.scheduler) >= self.queue_cap:
+            victim = req
+            if self.shed_policy == "evict-lowest-priority":
+                lowest = min(self.scheduler.queued(),
+                             key=lambda r: (r.priority, -r._arrival))
+                if lowest.priority < req.priority:
+                    self.scheduler.pop(lowest)
+                    victim = lowest
+            self._finish_queued(victim, "shed")
+            if victim is req:
+                return
         self.scheduler.submit(req)
 
+    def explain(self, rid: int) -> dict:
+        """Latency-attribution report for a traced request (DESIGN.md §13):
+        wall time decomposed into queue / prefill / decode / preempt_stall /
+        degraded / recovery shares that sum to 100%, with the dominant term
+        named.  Needs ``trace=...``; raises ``KeyError`` for an unknown
+        rid."""
+        if not self.trace.enabled:
+            raise RuntimeError("tracing is disabled; construct the Engine "
+                               "with trace='mem' (or a sink spec) to explain "
+                               "requests")
+        return self.trace.explain(rid, now=self._now())
+
     def step(self) -> List[Request]:
-        """Admit + batched-prefill, then decode every active slot once.
-        Returns the requests still active."""
+        """One engine window: expire deadlines, admit + prefill, decode
+        every active slot, observe the window's wall time, persist a
+        snapshot.  Returns the requests still active.  The five
+        ``injector`` crash points fire in this order, keyed on the tick at
+        window start (``pool_alloc`` and ``mid_window`` inside the decode
+        window); a crashed engine's host state is mid-mutation — discard
+        it and restore a fresh engine from the snapshot
+        (``run_serve_with_restarts``)."""
+        self._step_tick = self.tick
+        t0 = self._now()
+        self._maybe_fail("pre_admit")
+        self._expire_deadlines()
+        self._update_pressure()
         self._admit_and_prefill()
         if any(s is not None for s in self.slots):
             if self.spec_decode:
                 self._spec_decode_tick()
             else:
                 self._decode_tick()
+        self._observe_window(self._now() - t0)
+        self._maybe_fail("sink_write")
+        self._record_tick_metrics()
+        self._maybe_fail("post_drain")
+        self._maybe_snapshot()
         return [s for s in self.slots if s is not None]
 
     def run(self, ticks: int) -> List[Request]:
@@ -627,7 +790,146 @@ class Engine:
             self.step()
             if not len(self.scheduler) and all(s is None for s in self.slots):
                 break
+        self.metrics.flush()          # drain the tail of the gauge buffer
+        self.trace.flush()
+        if self.snapshot_path is not None:
+            self.write_snapshot(self.snapshot_path)
         return self.finished
+
+    # ----------------------------------------- fault tolerance (DESIGN.md §12)
+
+    def _maybe_fail(self, phase: str):
+        """One injector crash point, keyed on the tick at window start so a
+        chaos test can name any phase of a specific window."""
+        if self.injector is not None:
+            self.injector.maybe_fail(self._step_tick, phase)
+
+    def _finish_queued(self, req: Request, reason: str):
+        """Retire a request that never reaches a slot this time (shed at
+        submission, or expired while queued).  A preempted block holder
+        releases its blocks — expiry must not leak pool capacity."""
+        if self.pool is not None:
+            self.pool.release(req.rid)
+        req._resume = None
+        self._retire(req, reason)
+
+    def _retire(self, req: Request, reason: str, t=None, **tags):
+        """Mark ``req`` done with ``reason``: the finished list, the
+        metrics' finish counters, the end of its trace timeline."""
+        req.done, req.finish_reason, req.state = True, reason, "done"
+        self.finished.append(req)
+        self.metrics.inc("finished_requests")
+        self.metrics.inc(f"finish_{reason}")
+        self.trace.finish(req.rid, self._now() if t is None else t, reason,
+                          **tags)
+
+    def _expire_deadlines(self):
+        """Expire overdue requests, once per window, *before* admission — a
+        host-side scan over the queue and the slots, no device work (a
+        cancelled running slot takes the normal finish path).  Queued
+        requests expire on their own ``deadline_s`` or the engine-wide
+        ``queue_ttl_s``; running ones only on their ``deadline_s`` (the
+        TTL bounds queue staleness, not execution)."""
+        ttl = self.queue_ttl_s
+        now = self._now()
+
+        def age(r):
+            return now - (r.t_submit if r.t_submit is not None else now)
+
+        for req in self.scheduler.queued():
+            if (req.deadline_s is not None and age(req) > req.deadline_s) or \
+                    (ttl is not None and age(req) > ttl):
+                self.scheduler.pop(req)
+                self._finish_queued(req, "deadline")
+        for i, req in enumerate(self.slots):
+            if req is not None and req.deadline_s is not None \
+                    and age(req) > req.deadline_s:
+                self._finish(i, req, "deadline")
+
+    def _window_ticks(self) -> int:
+        """The decode window length this step: ``decode_ticks``, stepped
+        down to 1 while degraded (shorter windows = more frequent
+        admission/preemption decisions under block scarcity).  Window
+        length preserves the streams bit for bit (DESIGN.md §11); on the
+        card the first degraded window captures a one-tick graph."""
+        return 1 if self._degraded else self.decode_ticks
+
+    def _update_pressure(self):
+        """Graceful degradation under pool pressure (DESIGN.md §12), with
+        hysteresis so the engine does not flap at the watermark: when live
+        blocks cross ``degrade_high`` of capacity, decode windows drop to
+        single ticks and prefix-cache *insertion* pauses (finished blocks
+        return to the free list instead of lingering as cached copies;
+        sealing resumes where it left off once pressure clears below
+        ``degrade_low``).  Both leave the streams as they are."""
+        if self.pool is None or self.degrade_high is None:
+            return
+        share = self.pool.live_blocks / self.num_blocks
+        if not self._degraded and share >= self.degrade_high:
+            self._degraded = True
+            self.metrics.inc("degrade_events")
+            now = self._now()
+            self.trace.event("degraded", t=now, tick=self.tick,
+                             live_share=share)
+            self.trace.set_degraded(True, now)
+        elif self._degraded and share <= self.degrade_low:
+            self._degraded = False
+            now = self._now()
+            self.trace.event("restored", t=now, tick=self.tick,
+                             live_share=share)
+            self.trace.set_degraded(False, now)
+
+    def _observe_window(self, seconds: float):
+        """Feed the straggler watchdog one window's wall time; a flagged
+        window bumps the ``slow_windows`` counter and logs an event on the
+        tracer's feed."""
+        self._last_window_s = seconds
+        if self.watchdog is not None and \
+                self.watchdog.observe(self._step_tick, seconds):
+            self.metrics.inc("slow_windows")
+            self.trace.event("slow_window", tick=self._step_tick,
+                             window_s=seconds)
+
+    def _maybe_snapshot(self):
+        if self.snapshot_path is None:
+            return
+        self._steps_since_snap += 1
+        if self._steps_since_snap >= self.snapshot_every:
+            self._steps_since_snap = 0
+            self.write_snapshot(self.snapshot_path)
+
+    def write_snapshot(self, path: str):
+        """Atomically persist :meth:`snapshot` as JSON (tmp + ``os.replace``
+        — a crash mid-write never corrupts the previous snapshot)."""
+        tmp = path + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(self.snapshot(), fh)
+        os.replace(tmp, path)
+
+    def _record_tick_metrics(self):
+        """One per-window gauge record (DESIGN.md §10).  Every value is a
+        host-side int/float the engine already tracks — scheduler depth,
+        slot occupancy, the cumulative ``stats`` counters and the pool
+        allocator's bookkeeping — so it adds no launch and no sync."""
+        active = sum(1 for s in self.slots if s is not None)
+        gauges = dict(
+            queue_depth=len(self.scheduler),
+            active_slots=active,
+            batch_occupancy=active / self.batch,
+            finished_total=len(self.finished),
+            prefill_tokens=self.stats["prefill_tokens"],
+            decode_tokens=self.stats["decode_tokens"],
+            prefix_hit_tokens=self.stats["prefix_hit_tokens"],
+            preemptions=self.stats["preemptions"],
+            window_s=self._last_window_s,
+            degraded=int(self._degraded),
+        )
+        if self.pool is not None:
+            ps = self.pool_stats()
+            gauges.update(live_blocks=ps["live"], cached_blocks=ps["cached"],
+                          free_blocks=self.pool.free_blocks)
+        self.metrics.tick(**gauges)
+        self.trace.counters(t=self._now(), **gauges)
 
     # ------------------------------------------------------------ internals
 
@@ -657,11 +959,6 @@ class Engine:
                                                         n_ticks=n)
         return self._fused_variants[n]
 
-    def _window_ticks(self) -> int:
-        """The decode window length: ``decode_ticks`` (the reference steps
-        it down to 1 under pool pressure, ROADMAP Queue 1 item 8)."""
-        return self.decode_ticks
-
     def _prefill_waves(self, rows: dict) -> List[List[int]]:
         """The prefill calls of one admission wave (``rows``: slot → (tokens
         to prefill, has a prefix)).  Under an enabled matmul policy: one
@@ -675,9 +972,17 @@ class Engine:
             return [sorted(rows)]
         return _prefill_groups(rows)
 
-    def _reject(self, req: Request, reason: str = "rejected"):
-        req.done, req.finish_reason, req.state = True, reason, "done"
-        self.finished.append(req)
+    def _prefill_wave_trace(self, t0, dt, group, lens, starts, chunk):
+        """One prefill call on the trace: an engine-track ``prefill_wave``
+        span and a ``prefill[c]`` span (c the chunk index) per request."""
+        if not self.trace.enabled:
+            return
+        self.trace.wave(
+            "prefill_wave", t0, t0 + dt,
+            [(self.slots[i].rid,
+              f"prefill[{int(starts[i]) // chunk if chunk else 0}]",
+              {"slot": i, "tokens": int(lens[i])}) for i in group],
+            tick=self._step_tick)
 
     def _admit_and_prefill(self):
         if self.kv_layout == "paged":
@@ -690,7 +995,7 @@ class Engine:
         admitted = []
         for req in self.scheduler.admit(len(free)):
             if len(req.prompt) > self.max_len:
-                self._reject(req)
+                self._retire(req, "rejected")
                 continue
             admitted.append(req)
         if not admitted:
@@ -703,6 +1008,7 @@ class Engine:
             i = free.pop(0)
             self.slots[i] = req
             req.state, req.t_admit = "active", now
+            self.trace.phase(req.rid, "prefill", now, slot=i)
             prompts[i] = list(req.prompt) or [1]          # empty prompt → BOS
             lens[i] = len(prompts[i])
             self._set_slot_sampling(i, req)
@@ -719,7 +1025,7 @@ class Engine:
                             np.int32)
             for i in group:
                 toks[i, : lens[i]] = prompts[i]
-            t0 = time.perf_counter()
+            t0, tw = time.perf_counter(), time.time()
             lens_dev = self._tensor(g_lens)
             last_logits, pf_cache = self._prefill(
                 self.params, self._tensor(toks).long(), lens_dev,
@@ -730,9 +1036,12 @@ class Engine:
                                     self._dev["topks"], self._dev["seeds"],
                                     self._dev["counters"]).cpu().numpy()
             first[group] = sampled[group]
-            self.stats["prefill_s"] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.stats["prefill_s"] += dt
             self.stats["prefill_tokens"] += int(g_lens.sum())
             self.stats["prefill_calls"] += 1
+            self._prefill_wave_trace(tw, dt, group, g_lens, np.zeros_like(
+                g_lens), None)
 
         now = time.time()
         for i in prompts:
@@ -755,12 +1064,13 @@ class Engine:
         now = time.time()
         for req in self.scheduler.admit(len(free)):
             if len(req.prompt) > self.max_len:
-                self._reject(req)
+                self._retire(req, "rejected", t=now)
                 continue
             i = free.pop(0)
             self.slots[i] = req
             req.state, req.t_admit = "prefilling", now
-            req._pf_pos = 0
+            self.trace.phase(req.rid, "prefill", now, slot=i)
+            req._pf_pos = req._pf_start = 0
             self._set_slot_sampling(i, req)
             self._slot_pos[i] = 0
 
@@ -785,7 +1095,7 @@ class Engine:
                 lens[i] = len(pieces[i])
                 starts[i] = self.slots[i]._pf_pos
                 toks[i, : lens[i]] = pieces[i]
-            t0 = time.perf_counter()
+            t0, tw = time.perf_counter(), time.time()
             last_logits, self.cache = self._prefill_chunked(
                 self.params, self._tensor(toks).long(), self._tensor(lens),
                 self._tensor(starts), self.cache, self._dev["offsets"],
@@ -794,9 +1104,11 @@ class Engine:
                                     self._dev["topks"], self._dev["seeds"],
                                     self._dev["counters"]).cpu().numpy()
             first[group] = sampled[group]
-            self.stats["prefill_s"] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.stats["prefill_s"] += dt
             self.stats["prefill_tokens"] += int(lens.sum())
             self.stats["prefill_calls"] += 1
+            self._prefill_wave_trace(tw, dt, group, lens, starts, chunk)
 
         now = time.time()
         for i, req in waving:
@@ -855,6 +1167,8 @@ class Engine:
                        "last_token": int(self._last_token[i]),
                        "t": time.time(), "reprefill": False,
                        "prefilling": req.state == "prefilling"}
+        self.trace.phase(req.rid, "preempt_stall", req._resume["t"], slot=i,
+                         blocks=len(self.pool.table(req.rid)))
         req.state = "queued"
         self.slots[i] = None
         self._set_bt_row(i, [])
@@ -877,6 +1191,8 @@ class Engine:
         if req._resume is None:
             req._resume = {"pos": 0, "last_token": 0, "t": time.time()}
         req._resume["reprefill"] = True
+        self.trace.event("reprefill", rid=req.rid, t=self._now(),
+                         pos=req._resume["pos"])
         # 'preemptions' counts preemption *events*: a requeue-with-blocks
         # and a later block reclamation are two events for one request
         self.stats["preemptions"] += 1
@@ -888,6 +1204,9 @@ class Engine:
         # a request preempted mid-prefill rejoins the prefill waves where it
         # stopped (its _pf_pos and blocks survived the round trip)
         req.state = "prefilling" if st.get("prefilling") else "active"
+        self.trace.phase(req.rid, "prefill" if st.get("prefilling")
+                         else "decode", self._now(), slot=i, resumed=1,
+                         blocks=len(self.pool.table(req.rid)))
         self._set_slot_sampling(i, req)
         self._last_token[i] = st["last_token"]
         self._slot_pos[i] = st["pos"]
@@ -899,14 +1218,21 @@ class Engine:
         """Publish every full block below ``n_tokens`` into the prefix
         cache (chained-hash order).  Callers only invoke this after the
         device writes for those blocks were issued; work on one stream runs
-        in order, so a later gather reads them complete."""
-        if not self.pool.prefix_cache:
+        in order, so a later gather reads them complete.  Paused while
+        degraded (DESIGN.md §12): ``req._sealed`` does not advance, so
+        sealing resumes from the same block once pressure clears.  Each
+        sealed block's writer and the prefill span of the admission that
+        wrote it are noted for :meth:`restore`."""
+        if not self.pool.prefix_cache or self._degraded:
             return
         bs = self.block_size
         seq = self._tokens_written(req)
+        table = self.pool.table(req.rid)
+        pf_end = len(seq) if req.state == "prefilling" else req._pf_pos
         while req._sealed < n_tokens // bs:
             j = req._sealed
             self.pool.seal_block(req.rid, j, seq[j * bs:(j + 1) * bs])
+            self._block_src[table[j]] = (req.rid, j, req._pf_start, pf_end)
             req._sealed += 1
 
     def _admit_and_prefill_paged(self):
@@ -951,7 +1277,7 @@ class Engine:
                 # a reprefill-resumed request whose grown history no longer
                 # fits was *served* up to the pool's capacity — that is a
                 # 'length' stop, not a rejection of an unserved request
-                self._reject(req, "length" if req.out else "rejected")
+                self._retire(req, "length" if req.out else "rejected")
                 continue
             seed = req.sampling.counter_offset if self.kv_quant else 0
             shared, chain = pool.match_prefix(seq, seed)
@@ -972,9 +1298,12 @@ class Engine:
         for i, req, start in admitted:
             self.slots[i] = req
             req.state = "prefilling"
-            req._pf_pos = start
+            req._pf_pos = req._pf_start = start
             if req.t_admit is None:
                 req.t_admit = now
+            self.trace.phase(req.rid, "prefill", now, slot=i,
+                             blocks=len(pool.table(req.rid)),
+                             prefix_tokens=start)
             self._set_slot_sampling(i, req)
             self._slot_pos[i] = start
             self._set_bt_row(i, pool.table(req.rid))
@@ -1018,7 +1347,7 @@ class Engine:
                 lens[i] = len(pieces[i])
                 starts[i] = self.slots[i]._pf_pos
                 toks[i, : lens[i]] = pieces[i]
-            t0 = time.perf_counter()
+            t0, tw = time.perf_counter(), time.time()
             last_logits, self.cache = self._prefill_paged(
                 self.params, self._tensor(toks).long(), self._tensor(lens),
                 self._tensor(starts), bt_dev, self.cache,
@@ -1028,9 +1357,11 @@ class Engine:
                                     self._dev["topks"], self._dev["seeds"],
                                     self._dev["counters"]).cpu().numpy()
             first[group] = sampled[group]
-            self.stats["prefill_s"] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.stats["prefill_s"] += dt
             self.stats["prefill_tokens"] += int(lens.sum())
             self.stats["prefill_calls"] += 1
+            self._prefill_wave_trace(tw, dt, group, lens, starts, chunk)
 
         now = time.time()
         for i, req in waving:
@@ -1085,7 +1416,6 @@ class Engine:
             window = self._window_ticks()
         bs = self.block_size
         pool = self.pool
-        self._paged_cap = {}
         for i, req in [(i, s) for i, s in enumerate(self.slots)
                        if s is not None and s.state == "active"]:
             p = int(self._slot_pos[i])
@@ -1158,19 +1488,33 @@ class Engine:
         plan = self._window_plan()
         if plan is None:
             return
-        t0 = time.perf_counter()
+        t0, tw = time.perf_counter(), time.time()
         toks = self._run_window(plan)
-        self.stats["decode_s"] += time.perf_counter() - t0
+        # crash point between the device window and the host drain: the
+        # window's tokens are lost with the process, never half-emitted
+        self._maybe_fail("mid_window")
+        dt = time.perf_counter() - t0
+        self.stats["decode_s"] += dt
         self.stats["decode_calls"] += 1
         self.tick += plan.n
-        self._drain(plan, toks)
+        kept = self._drain(plan, toks)
+        if self.trace.enabled:
+            self.trace.wave(
+                "decode_window", tw, tw + dt,
+                [(req.rid, f"decode[w{self._step_tick}]",
+                  {"slot": i, "tokens": kept[i]}) for i, req in plan.active],
+                tick=self._step_tick, n_ticks=plan.n)
 
     def _window_plan(self) -> Optional["_WindowPlan"]:
         """Everything a window needs from the host: paged block coverage
         first, then each active slot's budget and stop row (stop sets
         bucketed to a power-of-two width W, so windows share few shapes).
-        None when no slot is active."""
+        None when no slot is active.  The ``pool_alloc`` crash point comes
+        first: where the paged engine allocates the window's blocks (the
+        ring engine has the point at the same place in the step)."""
         n = self._window_ticks()
+        self._paged_cap = {}
+        self._maybe_fail("pool_alloc")
         if self.kv_layout == "paged":
             self._pre_decode_paged()
             self._sync_block_tables()
@@ -1217,11 +1561,14 @@ class Engine:
             self._dev["last_token"] = last
         return toks.cpu().numpy()
 
-    def _drain(self, plan: "_WindowPlan", toks: np.ndarray):
+    def _drain(self, plan: "_WindowPlan", toks: np.ndarray) -> dict:
         """Emit each active slot's kept tokens: its column up to its budget
         or first stop.  The m tokens of a slot arrive in one drain, each
-        stamped at an even share of the interval since its last token."""
+        stamped at an even share of the interval since its last token (so
+        the ITL histogram holds one observation per token).  Returns slot
+        → tokens kept."""
         now = time.time()
+        kept = {}
         for i, req in plan.active:
             col = toks[:, i]
             m = int(plan.budgets[i])
@@ -1235,6 +1582,8 @@ class Engine:
                 self._emit(i, req, int(col[j]),
                            t_prev + (now - t_prev) * (j + 1) / m)
             self.stats["decode_tokens"] += m
+            kept[i] = m
+        return kept
 
     def _spec_decode_tick(self):
         """One speculative window (DESIGN.md §14), the reference's
@@ -1249,6 +1598,8 @@ class Engine:
         commit call; paged slots then give surplus blocks back with
         ``KVPool.truncate``, leaving the pool as if it never drafted."""
         K = self.draft_k
+        self._paged_cap = {}
+        self._maybe_fail("pool_alloc")
         if self.kv_layout == "paged":
             self._pre_decode_paged(window=K)
             self._sync_block_tables()
@@ -1258,7 +1609,8 @@ class Engine:
             return
         # a window's decode time spans drafting, verify, the accept walk
         # and the commit call
-        t0 = time.perf_counter()
+        t0, td0 = time.perf_counter(), time.time()
+        n_drafted = {}
         alive = np.zeros((self.batch,), bool)
         budgets = np.zeros((self.batch,), np.int32)
         drafts = np.zeros((self.batch, K), np.int32)
@@ -1274,14 +1626,19 @@ class Engine:
             nd = min(len(prop), K - 1)
             if nd:
                 drafts[i, 1:1 + nd] = prop[:nd]
+            n_drafted[i] = nd
+        td1 = time.time()
 
         self._refresh_device_state()
+        tv0 = time.time()
         toks_dev, self.cache = self._spec(
             self.params, self._tensor(drafts), self.cache,
             self._dev["offsets"], self.tick, self._dev["temps"],
             self._dev["topks"], self._dev["seeds"], self._dev["counters"],
             self._tensor(alive), self._tensor(budgets))
         toks = toks_dev.cpu().numpy()                 # (B, K) sampled per row
+        self._maybe_fail("mid_window")
+        tv1 = time.time()
 
         # host accept walk: row t commits iff its *input* draft matched row
         # t-1's sampled token (what sequential decode would have fed), cut
@@ -1321,6 +1678,7 @@ class Engine:
                     self.pool.truncate(req.rid, keep)
                     self._bt[i, keep:have] = self._trash
                     self._bt_dirty = True
+        tc1 = time.time()
 
         now = time.time()
         for i, req in active:
@@ -1333,20 +1691,44 @@ class Engine:
                 self._emit(i, req, int(toks[i, j]),
                            t_prev + (now - t_prev) * (j + 1) / m)
             self.stats["decode_tokens"] += m
-            self.stats["spec_draft_tokens"] += int(budgets[i]) - 1
-            self.stats["spec_accepted_tokens"] += m - 1
-            self.stats["spec_emitted_tokens"] += m
+            for name, v in (("spec_draft_tokens", int(budgets[i]) - 1),
+                            ("spec_accepted_tokens", m - 1),
+                            ("spec_emitted_tokens", m)):
+                self.stats[name] += v
+                self.metrics.inc(name, v)
         self.stats["spec_windows"] += 1
+        self.metrics.inc("spec_windows")
         # the device sampling counters ran ahead (all K rows drew); the host
         # mirrors advanced by the accept length in _emit: re-upload
         self._dev_dirty = True
+        if self.trace.enabled:
+            tick = self._step_tick
+            self.trace.wave(
+                "spec_draft", td0, td1,
+                [(req.rid, f"draft[w{tick}]",
+                  {"slot": i, "drafted": n_drafted[i]}) for i, req in active],
+                tick=tick)
+            self.trace.wave(
+                "spec_verify", tv0, tv1,
+                [(req.rid, f"verify[w{tick}]",
+                  {"slot": i, "k": K, "budget": int(budgets[i])})
+                 for i, req in active], tick=tick, n_ticks=K)
+            self.trace.wave(
+                "spec_commit", tv1, tc1,
+                [(req.rid, f"commit[w{tick}]",
+                  {"slot": i, "accepted": accept[i]}) for i, req in active],
+                tick=tick)
 
     def _emit(self, i: int, req: Request, tok: int, now: float):
         req.out.append(tok)
         if req.t_first is None:
             req.t_first = now
+            self.trace.phase(req.rid, "decode", now, slot=i)
+            if req.ttft is not None:
+                self.metrics.observe_ttft(req.ttft)
         else:
             req.itl.append(now - req.t_last)
+            self.metrics.observe_itl(now - req.t_last)
         req.t_last = now
         self._counters[i] += 1
         self._last_token[i] = tok
@@ -1368,8 +1750,7 @@ class Engine:
             self._finish(i, req, "preempted")
 
     def _finish(self, i: int, req: Request, reason: str):
-        req.done, req.finish_reason, req.state = True, reason, "done"
-        self.finished.append(req)
+        self._retire(req, reason, t=req.t_last, slot=i)
         self.slots[i] = None
         if self.kv_layout == "paged":
             # seal what the prompt + generation filled (future prefix hits),
@@ -1377,3 +1758,595 @@ class Engine:
             # LRU prefix cache until allocation pressure evicts them
             self._seal_full_blocks(req, int(self._slot_pos[i]))
             self._release_slot_blocks(i, req)
+
+    # --------------------------------- snapshot / restore (DESIGN.md §12)
+
+    def _layout(self) -> dict:
+        return {"kv_layout": self.kv_layout, "batch": self.batch,
+                "max_len": self.max_len, "kv_quant": bool(self.kv_quant),
+                "decode_ticks": self.decode_ticks,
+                "prefill_chunk": self.prefill_chunk,
+                "block_size": getattr(self, "block_size", None),
+                "num_blocks": getattr(self, "num_blocks", None),
+                "dp": 1, "tp": 1}
+
+    @staticmethod
+    def _req_to_state(req: Request) -> dict:
+        sp = req.sampling
+        return {
+            "rid": req.rid, "prompt": list(req.prompt),
+            "out": list(req.out), "priority": req.priority,
+            "max_new": req.max_new, "deadline_s": req.deadline_s,
+            "done": req.done, "finish_reason": req.finish_reason,
+            "state": req.state,
+            "t_submit": req.t_submit, "t_admit": req.t_admit,
+            "t_first": req.t_first, "t_last": req.t_last,
+            "itl": list(req.itl),
+            "arrival": getattr(req, "_arrival", None),
+            "resume": req._resume, "sealed": req._sealed,
+            "pf_pos": req._pf_pos, "pf_start": req._pf_start,
+            "sampling": {"temperature": sp.temperature, "top_k": sp.top_k,
+                         "seed": sp.seed, "max_new": sp.max_new,
+                         "eos_id": sp.eos_id,
+                         "stop_ids": list(sp.stop_ids),
+                         "counter_offset": sp.counter_offset},
+        }
+
+    @staticmethod
+    def _req_from_state(st: dict, streams: Optional[dict] = None) -> Request:
+        sps = st["sampling"]
+        req = Request(
+            rid=st["rid"], prompt=list(st["prompt"]),
+            sampling=SamplingParams(
+                temperature=sps["temperature"], top_k=sps["top_k"],
+                seed=sps["seed"], max_new=sps["max_new"],
+                eos_id=sps["eos_id"], stop_ids=tuple(sps["stop_ids"]),
+                counter_offset=sps["counter_offset"]),
+            priority=st["priority"], max_new=st["max_new"],
+            deadline_s=st["deadline_s"])
+        req.out = list(st["out"])
+        req.done, req.finish_reason = st["done"], st["finish_reason"]
+        req.state = st["state"]
+        req.t_submit, req.t_admit = st["t_submit"], st["t_admit"]
+        req.t_first, req.t_last = st["t_first"], st["t_last"]
+        req.itl = list(st["itl"])
+        if st["arrival"] is not None:
+            req._arrival = st["arrival"]
+        req._resume = st["resume"]
+        req._sealed, req._pf_pos = st["sealed"], st["pf_pos"]
+        req._pf_start = st.get("pf_start", 0)
+        if streams is not None:
+            req.stream = streams.get(req.rid)
+        return req
+
+    def snapshot(self) -> dict:
+        """Serialize **all host-side truth** as one JSON-able dict — the
+        reference's schema (``version`` 1), so either package reads what
+        the other writes: queue and per-slot request states (tokens
+        emitted, prefill progress, preempt-resume records), the pool's
+        tables, refcounts and prefix index, the per-slot sampler mirrors,
+        stats, metrics and trace.  Device state is absent — it is a pure
+        function of this host truth (dither KV codes are position-pure,
+        the sampler is a stateless hash), which :meth:`restore` exploits.
+        Two keys the reference ignores are added: each request's
+        ``pf_start`` and ``block_src`` (sealed block → its writer's rid,
+        logical index and the writing admission's prefill start and end),
+        which let a restore rebuild prefix-hit prefills and shared and
+        cached blocks.  Streaming callbacks are not
+        serialized; ``restore(..., streams={rid: cb})`` re-attaches them."""
+        pools = [self.pool.snapshot()] if self.pool is not None else []
+        snap = {
+            "version": 1,
+            "layout": self._layout(),
+            "tick": self.tick,
+            "degraded": self._degraded,
+            "scheduler": self.scheduler.snapshot(),
+            "queue": [self._req_to_state(r) for r in self.scheduler.queued()],
+            "slots": [None if s is None else self._req_to_state(s)
+                      for s in self.slots],
+            "finished": [self._req_to_state(r) for r in self.finished],
+            "slot_state": {
+                "last_token": [int(x) for x in self._last_token],
+                "slot_pos": [int(x) for x in self._slot_pos],
+                "temps": [float(x) for x in self._temps],
+                "topks": [int(x) for x in self._topks],
+                "seeds": [int(x) for x in self._seeds],
+                "offsets": [int(x) for x in self._offsets],
+                "counters": [int(x) for x in self._counters],
+            },
+            "pools": pools,
+            "rid_shard": ({r: 0 for r in pools[0]["tables"]} if pools
+                          else {}),
+            "stats": dict(self.stats),
+            "metrics": self.metrics.snapshot(),
+            "trace": self.trace.snapshot(self._now()),
+        }
+        if pools:
+            snap["block_src"] = {
+                str(phys): list(self._block_src[phys])
+                for phys, h in enumerate(pools[0]["hash"])
+                if h is not None and phys in self._block_src}
+        return snap
+
+    def restore(self, snap: dict, streams: Optional[dict] = None) -> "Engine":
+        """Adopt a :meth:`snapshot` and re-materialise the device KV so the
+        engine continues **bit for bit** where the snapshot was taken
+        (policy-free and deterministic-scheme serving, DESIGN.md §12).
+        Works on a freshly built engine of the same layout or in place on
+        a crashed one: every mutable field is overwritten, and the cache's
+        own tensors are reset to a fresh cache's bytes and refilled, so the
+        decode graphs captured on them stay valid and are replayed as
+        they are.
+
+        Host truth is copied back verbatim; :meth:`_replay_device_state`
+        then rebuilds the KV of every request that holds some: its prefill
+        region through the calls admission made — the same length buckets,
+        chunks and prefix-hit starts, so on the card every call has the
+        original's shape — and its generated region by teacher-forced
+        replay of the decode step the windows run.  A block shared by a
+        prefix hit is rebuilt by the admission that wrote it, so at its
+        writer's length buckets.  Unlike the reference, queued preempted
+        requests keep their blocks' contents and prefix-cached blocks
+        nobody holds are rebuilt from their writer (a snapshot without
+        ``block_src`` drops them, as the reference does)."""
+        lay, mine = snap["layout"], self._layout()
+        diff = {k for k in mine if lay.get(k) != mine[k]}
+        if diff:
+            raise ValueError("snapshot layout does not match this engine: "
+                             + ", ".join(f"{k}={lay.get(k)!r}!={mine[k]!r}"
+                                         for k in sorted(diff)))
+        self.tick = int(snap["tick"])
+        self._degraded = bool(snap["degraded"])
+        queue = [self._req_from_state(st, streams) for st in snap["queue"]]
+        self.scheduler.restore(snap["scheduler"], queue)
+        self.slots = [None if st is None else self._req_from_state(st, streams)
+                      for st in snap["slots"]]
+        self.finished = [self._req_from_state(st, streams)
+                         for st in snap["finished"]]
+        ss = snap["slot_state"]
+        self._last_token = np.asarray(ss["last_token"], np.int32)
+        self._slot_pos = np.asarray(ss["slot_pos"], np.int64)
+        self._temps = np.asarray(ss["temps"], np.float32)
+        self._topks = np.asarray(ss["topks"], np.int32)
+        self._seeds = np.asarray(ss["seeds"], np.int32)
+        self._offsets = np.asarray(ss["offsets"], np.int32)
+        self._counters = np.asarray(ss["counters"], np.int32)
+        self.stats = {**{k: type(v)() for k, v in self.stats.items()},
+                      **snap["stats"]}
+        self.metrics.restore(snap["metrics"])
+        # resume the request timelines (spans open at the crash close with
+        # a recovery marker)
+        self.trace.restore(snap.get("trace"), t=self._now())
+        self._paged_cap = {}
+        self._steps_since_snap = 0
+        self._block_src = {}
+        if self.pool is not None:
+            (pool_snap,) = snap["pools"]
+            self.pool.restore(pool_snap, drop_unheld=False)
+            self._block_src = {int(p): tuple(int(x) for x in w)
+                               for p, w in snap.get("block_src", {}).items()}
+        self._replay_device_state()
+        self._dev_dirty = True
+        self.metrics.inc("recoveries")
+        return self
+
+    def written_kv(self) -> dict:
+        """rid → clones of the cache contents at every position that
+        request has written — each cache tensor's rows in order — for the
+        slots and the queued block holders: exactly what :meth:`restore`
+        rebuilds, so a restore is checked by comparing these bytes with
+        the uninterrupted engine's."""
+        held = [(i, r, int(self._slot_pos[i]))
+                for i, r in enumerate(self.slots) if r is not None]
+        if self.pool is not None:
+            held += [(None, r, int(r._resume["pos"]))
+                     for r in self.scheduler.queued()
+                     if r._resume is not None
+                     and not r._resume.get("reprefill")
+                     and self.pool.table(r.rid)]
+        out = {}
+        for i, req, w in held:
+            parts = []
+            for stacked, entries in ((True, self.cache["layers"]),
+                                     (False, self.cache["remainder"])):
+                for entry in entries:
+                    for name in sorted(entry):
+                        t = entry[name] if stacked else entry[name][None]
+                        if self.pool is not None:
+                            blocks = self.pool.table(req.rid)[
+                                :-(-w // self.block_size)]
+                            parts.append(t[:, blocks].flatten(1, 2)[:, :w]
+                                         .clone())
+                        else:
+                            cap = t.shape[2]
+                            parts.append(t[:, i, [p % cap for p in range(
+                                max(0, w - cap), w)]].clone())
+            out[req.rid] = parts
+        return out
+
+    @staticmethod
+    def compare_written_kv(want: dict, got: dict) -> Tuple[int, int]:
+        """Byte compare of two :meth:`written_kv` results → (tensors, bytes)
+        compared; raises ``ValueError`` at the first request set, shape or
+        byte that differs."""
+        if sorted(want) != sorted(got):
+            raise ValueError(f"written KV of requests {sorted(got)}, "
+                             f"expected {sorted(want)}")
+        n = nbytes = 0
+        for rid in want:
+            if len(want[rid]) != len(got[rid]):
+                raise ValueError(f"request {rid}: {len(got[rid])} cache "
+                                 f"tensors, expected {len(want[rid])}")
+            for k, (a, b) in enumerate(zip(want[rid], got[rid])):
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise ValueError(f"request {rid}: cache tensor {k} "
+                                     "differs")
+                n += 1
+                nbytes += a.numel() * a.element_size()
+        return n, nbytes
+
+    def _restore_unit(self, req: Request, row, written: int, table,
+                      plan: Optional[Tuple[int, int]] = None) -> _Unit:
+        """The restore plan of one request that wrote ``written`` cache
+        positions through the admission whose prefill spanned ``plan``
+        (start, end) — by default its current one (see :class:`_Unit`)."""
+        seq = self._tokens_written(req)
+        if self.kv_layout == "ring" and self.prefill_chunk is None:
+            pf_start, pf_end = 0, min(written, len(list(req.prompt) or [1]))
+        elif plan is None:
+            pf_start, pf_end = req._pf_start, req._pf_pos
+        else:
+            pf_start, pf_end = plan
+        chunk = self.prefill_chunk or (self.max_len + 1)
+        # a piece keeps the end admission gave it (so its length bucket),
+        # even where only its head is still needed
+        pieces = [(s, min(s + chunk, pf_end))
+                  for s in range(pf_start, pf_end, chunk) if s < written]
+        return _Unit(req, row, table, seq, pieces, seq[pf_end:written],
+                     pf_start, pf_end, ghost=plan is not None)
+
+    def _restore_units(self) -> Tuple[List[_Unit], dict]:
+        """Every admission whose KV the restore rebuilds, and the writer
+        of each pool block (block → unit index): the slots', the queued
+        preempted block holders', and a ghost for each admission that
+        wrote a block some unit reads in its shared prefix, or a
+        prefix-cached block nobody holds, with no unit writing it
+        (``_restore_ghosts``).  Each unit's level follows from whose
+        blocks it reads."""
+        pool = self.pool
+        units = []
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                units.append(self._restore_unit(
+                    req, i, int(self._slot_pos[i]),
+                    pool.table(req.rid) if pool is not None else None))
+        if pool is None:
+            return units, {}
+        for req in self.scheduler.queued():
+            st = req._resume
+            if st is not None and not st.get("reprefill") \
+                    and pool.table(req.rid):
+                units.append(self._restore_unit(req, None, int(st["pos"]),
+                                                pool.table(req.rid)))
+        bs = self.block_size
+        owner = {}
+        for k, u in enumerate(units):
+            for j in range(u.pf_start // bs, len(u.table)):
+                owner.setdefault(u.table[j], k)
+        for u in self._restore_ghosts(units, owner):
+            k = len(units)
+            units.append(u)
+            for j in range(u.pf_start // bs, len(u.table)):
+                owner[u.table[j]] = k
+
+        def level(k, seen=()):
+            u = units[k]
+            if k in seen or any(u.table[j] not in owner
+                                for j in range(u.pf_start // bs)):
+                raise RuntimeError("restore cannot order the writes of "
+                                   f"request {u.req.rid}'s blocks")
+            u.level = 1 + max((level(owner[u.table[j]], seen + (k,))
+                               for j in range(u.pf_start // bs)), default=-1)
+            return u.level
+
+        for k in range(len(units)):
+            level(k)
+        return units, owner
+
+    def _restore_ghosts(self, units: List[_Unit], owner: dict) -> List[_Unit]:
+        """The ghost units of a restore (see :meth:`_restore_units`).  A
+        block's writing admission comes from ``block_src`` (writer rid,
+        logical index, prefill start and end), so a ghost re-runs that
+        admission's prefill pieces — its length buckets and chunks — and
+        replays its generated tokens up to the block.  A ghost's table is
+        the blocks its readers map at the same logical indices (the index
+        chain before a cached block), its own blocks gone from the pool
+        are scratch blocks.  A held block with no known writer raises; a
+        cached one, or one whose chain or scratch is missing, is dropped
+        from the pool (it can no longer be hit)."""
+        pool, bs = self.pool, self.block_size
+        writers = {r.rid: r for r in self.finished}
+        writers.update((r.rid, r) for r in self.scheduler.queued())
+        writers.update((r.rid, r) for r in self.slots if r is not None)
+
+        def source(phys):
+            src = self._block_src.get(phys)
+            if src is None or src[0] not in writers:
+                return None
+            return (src[0], src[2], src[3]), src[1]
+
+        plans: dict = {}            # (rid, pf_start, pf_end) → {j: block}
+        held = set()
+        for u in units:
+            for j in range(u.pf_start // bs):
+                if u.table[j] in owner:
+                    continue
+                src = source(u.table[j])
+                if src is None:
+                    raise RuntimeError(
+                        f"restore cannot rebuild block {u.table[j]} of "
+                        f"request {u.req.rid}'s shared prefix: no record of "
+                        "its writer")
+                key, jj = src
+                rows = plans.setdefault(key, {})
+                for j2 in range(jj):
+                    rows.setdefault(j2, u.table[j2])
+                rows[jj] = u.table[jj]
+                held.add(key)
+        state = pool.snapshot()
+        cached = set(state["cached"])
+        drop = set()
+        # by logical index, so a cached block's chain is settled first
+        for phys in sorted(state["cached"],
+                           key=lambda p: self._block_src.get(p, (0, 0))[1]):
+            src = source(phys)
+            if src is None:
+                drop.add(phys)
+                continue
+            key, j = src
+            rows = plans.setdefault(key, {})
+            if rows.get(j) == phys:
+                continue
+            req = writers[key[0]]
+            seed = req.sampling.counter_offset if self.kv_quant else 0
+            # one token past the block lifts match_prefix's cap
+            chain, _ = pool.match_prefix(
+                self._tokens_written(req)[:(j + 1) * bs] + [0], seed)
+            if len(chain) <= j or chain[j] != phys \
+                    or any(b in drop for b in chain[:j]):
+                drop.add(phys)
+                continue
+            rows[j] = phys
+            for j2 in range(key[1] // bs):
+                rows.setdefault(j2, chain[j2])
+        scratch = list(state["free"])
+        ghosts = {}
+        for key, rows in plans.items():
+            rid, pf_start, pf_end = key
+            mine = [j for j, b in rows.items() if source(b) == (key, j)]
+            if not mine:
+                continue
+            table = []
+            for j in range(max(mine) + 1):
+                b = rows.get(j)
+                if j >= pf_start // bs and (b is None
+                                            or source(b) != (key, j)):
+                    # its own block, no longer in the pool
+                    b = scratch.pop() if scratch else None
+                table.append(b)
+            ghosts[key] = self._restore_unit(
+                writers[rid], None, len(table) * bs, table,
+                plan=(pf_start, pf_end))
+        # a ghost short of a block (no scratch left) or reading a dropped
+        # one cannot be rebuilt; nor can the cached ghosts reading its
+        while True:
+            gone = [key for key, g in ghosts.items()
+                    if any(b is None or b in drop for b in g.table)]
+            if not gone:
+                break
+            for key in gone:
+                if key in held:
+                    raise RuntimeError(
+                        f"restore cannot rebuild request {key[0]}'s shared "
+                        "blocks: no free block to rebuild them on")
+                g = ghosts.pop(key)
+                drop.update(b for b in g.table[g.pf_start // bs:]
+                            if b in cached)
+        pool.drop_cached(sorted(drop))
+        for phys in drop:
+            self._block_src.pop(phys, None)
+        return list(ghosts.values())
+
+    def _restore_calls(self, items: list) -> List[dict]:
+        """Pack ``items`` [(unit, payload)] into calls of ``batch`` rows: a
+        unit with a slot keeps its row, the others take free rows (a row's
+        bits do not depend on its index or on the other rows)."""
+        calls, cur = [], {}
+        for it in sorted(items, key=lambda it: it[0].row is None):
+            row = it[0].row
+            if row is None:
+                row = next((r for r in range(self.batch) if r not in cur),
+                           None)
+                if row is None:
+                    calls.append(cur)
+                    cur, row = {}, 0
+            cur[row] = it
+        calls.append(cur)
+        return calls
+
+    def _replay_device_state(self):
+        """Re-materialise the device KV of every restore unit, bit for bit.
+
+        The cache's tensors first get a fresh cache's bytes, in place.
+        Then level by level (a unit reads only blocks that lower levels
+        wrote): the level's prefill pieces run in rounds — each unit's
+        next piece — grouped by (length bucket, continuation) as admission
+        grouped them, through the same calls (ring: prefill and merge, or
+        the chunked prefill; paged: the paged prefill, ``prefix_blocks`` =
+        the table width for continuations), each pool block written by its
+        writer's unit only (the other rows map it to the trash block);
+        then its generated tokens replay teacher-forced, one decode step
+        per round with every other row inert.  Last, ``pos`` and the block
+        tables are the host's."""
+        fresh = self._make_cache()
+        for old, new in zip(self.cache["layers"] + self.cache["remainder"],
+                            fresh["layers"] + fresh["remainder"]):
+            for name, t in old.items():
+                t.copy_(new[name])
+        del fresh
+        paged = self.kv_layout == "paged"
+        units, owner = self._restore_units()
+        n_prefill = n_replay = 0
+        prefill_s = replay_s = 0.0
+        for level in range(1 + max((u.level for u in units), default=-1)):
+            ks = [k for k, u in enumerate(units) if u.level == level]
+            t0 = time.perf_counter()
+            n_prefill += self._restore_prefill(units, ks, owner)
+            self._sync()
+            t1 = time.perf_counter()
+            n_replay += self._restore_replay([units[k] for k in ks])
+            self._sync()
+            prefill_s += t1 - t0
+            replay_s += time.perf_counter() - t1
+        # pos and block tables as the host has them
+        pos = np.asarray(self._slot_pos, np.int32)
+        if paged:
+            pos = np.where([s is not None for s in self.slots], pos, 0)
+            self._bt[:] = self._trash
+            for i, req in enumerate(self.slots):
+                if req is not None:
+                    self._set_bt_row(i, self.pool.table(req.rid))
+            self._bt_dirty = True
+            self._sync_block_tables()
+        self.cache["pos"] = self._tensor(pos.astype(np.int32))
+        self._sync()
+        self.last_restore = {
+            "units": len(units), "ghosts": sum(u.ghost for u in units),
+            "levels": 1 + max((u.level for u in units), default=-1),
+            "prefill_calls": n_prefill, "prefill_s": prefill_s,
+            "replay_steps": n_replay, "replay_s": replay_s}
+
+    def _sync(self):
+        """Wait for the device (a restore's own timing only)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _cache_view(self, pos: np.ndarray, bt: Optional[np.ndarray] = None):
+        view = {"pos": self._tensor(pos.astype(np.int32)),
+                "layers": self.cache["layers"],
+                "remainder": self.cache["remainder"]}
+        if bt is not None:
+            view["block_tables"] = self._tensor(bt)
+        return view
+
+    def _restore_prefill(self, units: List[_Unit], ks: List[int],
+                         owner: dict) -> int:
+        """The prefill rounds of units ``ks`` (one level) in
+        :meth:`_replay_device_state`; returns the number of calls made."""
+        calls = 0
+        for r in range(max((len(units[k].pieces) for k in ks), default=0)):
+            groups: dict = {}
+            for k in ks:
+                if r < len(units[k].pieces):
+                    s, e = units[k].pieces[r]
+                    groups.setdefault((_bucket(e - s), s > 0), []).append(
+                        (units[k], (k, s, e)))
+            for key in sorted(groups):
+                for call in self._restore_calls(groups[key]):
+                    self._restore_prefill_call(call, owner)
+                    calls += 1
+        return calls
+
+    def _restore_prefill_call(self, call: dict, owner: dict):
+        """One prefill call of a restore: ``call`` maps row → (unit, (unit
+        index, start, end)).  Paged rows map blocks below the start to the
+        unit's blocks (read) and blocks from it on to the unit's where it
+        is their writer, else to the trash block."""
+        b = self.batch
+        n = max(e - s for _, (_, s, e) in call.values())
+        toks = np.zeros((b, _bucket(n)), np.int32)
+        lens = np.zeros((b,), np.int32)
+        starts = np.zeros((b,), np.int32)
+        offs = np.zeros((b,), np.int32)
+        bt = None
+        if self.kv_layout == "paged":
+            bt = np.full((b, self.nbmax), self._trash, np.int32)
+        for row, (u, (k, s, e)) in call.items():
+            toks[row, :e - s] = u.seq[s:e]
+            lens[row], starts[row] = e - s, s
+            offs[row] = u.req.sampling.counter_offset
+            if bt is not None:
+                for j, phys in enumerate(u.table):
+                    if j < s // self.block_size or owner[phys] == k:
+                        bt[row, j] = phys
+        tok_dev = self._tensor(toks).long()
+        lens_dev, offs_dev = self._tensor(lens), self._tensor(offs)
+        view = self._cache_view(np.zeros((b,), np.int32))
+        if bt is not None:
+            self._prefill_paged(
+                self.params, tok_dev, lens_dev, self._tensor(starts),
+                self._tensor(bt), view, offs_dev, self.tick,
+                prefix_blocks=self.nbmax if starts.any() else 0)
+        elif self.prefill_chunk is not None:
+            self._prefill_chunked(self.params, tok_dev, lens_dev,
+                                  self._tensor(starts), view, offs_dev,
+                                  self.tick)
+        else:
+            _, pf_cache = self._prefill(self.params, tok_dev, lens_dev,
+                                        offs_dev, self.tick)
+            registry.merge_prefill(self.cfg, view, pf_cache, lens_dev > 0)
+
+    def _restore_replay(self, units: List[_Unit]) -> int:
+        """Teacher-forced replay of every unit's generated tokens: round t
+        feeds each unit its token t at position ``pf_end + t`` through the
+        decode step the windows run: a one-tick window with the token given
+        as its input (its sampled token is discarded), a CUDA-graph replay
+        on the card and the eager window elsewhere, as ``_run_window``
+        runs it.  Other rows are inert (ring rows write where their next live step writes
+        first, paged rows write to the trash block).  Returns the steps
+        made."""
+        depth = max((len(u.gen) for u in units), default=0)
+        if not depth:
+            return 0
+        paged = self.kv_layout == "paged"
+        b = self.batch
+        steps = 0
+        for t in range(depth):
+            items = [(u, t) for u in units if t < len(u.gen)]
+            for call in self._restore_calls(items):
+                token = np.zeros((b,), np.int32)
+                alive = np.zeros((b,), bool)
+                offs = np.zeros((b,), np.int32)
+                if paged:
+                    pos = np.zeros((b,), np.int32)
+                    bt = np.full((b, self.nbmax), self._trash, np.int32)
+                else:
+                    # inert ring rows write at their own next position
+                    pos, bt = np.asarray(self._slot_pos, np.int32), None
+                for row, (u, _) in call.items():
+                    token[row], alive[row] = u.gen[t], True
+                    pos[row] = u.pf_end + t
+                    offs[row] = u.req.sampling.counter_offset
+                    if paged:
+                        bt[row, :len(u.table)] = u.table
+                view = self._cache_view(pos, bt)
+                zeros = np.zeros((b,), np.int32)
+                dev = {"last_token": self._tensor(token),
+                       "offsets": self._tensor(offs),
+                       "temps": self._tensor(zeros.astype(np.float32)),
+                       "topks": self._tensor(zeros),
+                       "seeds": self._tensor(zeros),
+                       "counters": self._tensor(zeros)}
+                budgets = alive.astype(np.int32)
+                stops = np.full((b, 1), -1, np.int32)
+                if self._graphs is not None:
+                    self._graphs.run(1, dev, view, alive, budgets, stops)
+                else:
+                    self._fused_for(1)(
+                        self.params, dev["last_token"], view,
+                        dev["offsets"], self.tick, dev["temps"],
+                        dev["topks"], dev["seeds"], dev["counters"],
+                        self._tensor(alive), self._tensor(budgets),
+                        self._tensor(stops))
+                steps += 1
+        return steps

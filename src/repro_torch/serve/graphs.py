@@ -38,6 +38,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch import coldstart
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dither_matmul as _dm
 from repro_torch.kernels import paged_decode_attention as _pda
@@ -81,11 +82,13 @@ def _layer_tensors(cache: dict) -> Tuple[torch.Tensor, ...]:
 
 class _Window:
     """One captured window: its graph, its (n, B) token output in the
-    graph's own memory, the kernel launches one replay makes, and how many
-    times it was replayed."""
+    graph's own memory, the kernel launches one replay makes, the host
+    seconds its warm-up and capture took, and how many times it was
+    replayed."""
 
-    def __init__(self, graph, toks, launches):
+    def __init__(self, graph, toks, launches, seconds):
         self.graph, self.toks, self.launches = graph, toks, launches
+        self.seconds = seconds
         self.replays = 0
 
 
@@ -122,8 +125,9 @@ class WindowGraphs:
 
     def windows(self) -> Dict[Tuple[int, int], dict]:
         """(ticks, stop width) → the launches per kernel one replay of that
-        graph makes and its replay count."""
-        return {key: {"launches": dict(w.launches), "replays": w.replays}
+        graph makes, its replay count and its capture's seconds."""
+        return {key: {"launches": dict(w.launches), "replays": w.replays,
+                      "capture_s": w.seconds}
                 for key, w in self._windows.items()}
 
     @property
@@ -228,6 +232,10 @@ class WindowGraphs:
             if gc_was_on:
                 gc.enable()
         after = _counts()
-        self.capture_s += time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        self.capture_s += seconds
+        # a cold-start stall: tracers put it on the timeline
+        coldstart.notify("graph_capture", ticks=n, stop_width=width,
+                      seconds=seconds)
         return _Window(graph, toks,
-                       {k: after[k] - before[k] for k in after})
+                       {k: after[k] - before[k] for k in after}, seconds)

@@ -357,10 +357,16 @@ class KVPool:
         self._chain = {int(r): int(h) for r, h in snap["chain"].items()}
         self.stats = {k: int(v) for k, v in snap["stats"].items()}
         if drop_unheld:
-            for phys in list(self._cached):
-                h = self._hash[phys]
-                if h is not None and self._lookup.get(h) == phys:
-                    del self._lookup[h]
-                self._hash[phys] = None
-                self._free.append(phys)
-            self._cached.clear()
+            self.drop_cached(list(self._cached))
+
+    def drop_cached(self, blocks: Sequence[int]) -> None:
+        """Return refcount-0 prefix-cached ``blocks`` to the free list and
+        forget their hashes (what ``restore(drop_unheld=True)`` does to all
+        of them; the port's engine keeps the ones it can rebuild)."""
+        for phys in blocks:
+            h = self._hash[phys]
+            if h is not None and self._lookup.get(h) == phys:
+                del self._lookup[h]
+            self._hash[phys] = None
+            self._cached.pop(phys)
+            self._free.append(phys)

@@ -990,3 +990,158 @@ def test_policy_and_spec_engines_run_eager_windows(cuda):
         scheme="dither", backend="auto"))._graphs is None
     assert Engine(params, cfg, 2, 64, device=cuda,
                   spec_decode=True)._graphs is None
+
+
+def _snapshot_roundtrip(eng):
+    import json
+
+    return json.loads(json.dumps(eng.snapshot()))
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_in_place_restore_keeps_the_graphs_and_the_streams(cuda, layout,
+                                                           kv_quant):
+    """An in-place restore on a graph-replaying engine refills the cache's
+    own tensors, so its captured windows stay valid and are replayed as
+    they are (no window recaptured), the rebuilt cache equals the
+    uninterrupted one at every written position, byte for byte, and the
+    streams equal an uninterrupted engine's."""
+    n = 4
+    _, _, ref = _window_engine(cuda, layout, kv_quant, n)
+    want = sorted((r.rid, r.out, r.finish_reason) for r in ref.run(300))
+    _, _, eng = _window_engine(cuda, layout, kv_quant, n)
+    for _ in range(3):
+        eng.step()
+    keys = set(eng._graphs.windows())
+    layers = [t for e in eng.cache["layers"] for t in e.values()]
+    before = eng.written_kv()
+    assert before
+    eng.restore(_snapshot_roundtrip(eng))
+    eng.compare_written_kv(before, eng.written_kv())
+    assert [t for e in eng.cache["layers"] for t in e.values()] == layers
+    replays = eng._graphs.replays
+    eng.run(300)
+    assert eng._graphs.replays > replays
+    assert keys <= set(eng._graphs.windows())
+    got = sorted((r.rid, r.out, r.finish_reason) for r in eng.finished)
+    assert got == want
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_restore_replay_equals_graph_written_kv(cuda, layout, kv_quant):
+    """Replay ≡ graph: a fresh engine restored from a snapshot rebuilds,
+    by re-prefill in admission's groups and teacher-forced replay through
+    a one-tick window's graph, the bytes the serving engine's replayed
+    windows wrote, at every step of the run."""
+    from repro_torch.serve import Engine
+
+    cfg, params, eng = _window_engine(cuda, layout, kv_quant, 1)
+    kw = (dict(kv_layout="paged", block_size=16, num_blocks=40)
+          if layout == "paged" else {})
+    checked = 0
+    while eng.step() or len(eng.scheduler):
+        fresh = Engine(params, cfg, 4, 128, kv_quant=kv_quant, device=cuda,
+                       decode_ticks=1, **kw)
+        fresh.restore(_snapshot_roundtrip(eng))
+        eng.compare_written_kv(eng.written_kv(), fresh.written_kv())
+        checked += 1
+        del fresh
+    assert checked > 5
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_prefix_hit_restore_rebuilds_the_prefix_at_its_writers_bucket(
+        cuda, kv_quant):
+    """A request hits a 32-token shared prefix whose writer has finished,
+    and the two prompts fall in different length buckets (40 tokens: 64;
+    112: 128), where on the card a prefill at the holder's shape need not
+    give the writer's bits.  The restore rebuilds the prefix by the
+    writer's own admission: the holder's cache equals the uninterrupted
+    one byte for byte, and so does its stream."""
+    from repro_torch.serve import Engine, Request, SamplingParams
+
+    cfg = _hd64_config()
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(1)
+    system = rng.integers(1, cfg.vocab_size, size=32).tolist()
+    prompts = [system + rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in (8, 80)]
+
+    def run():
+        eng = Engine(params, cfg, 4, 128, kv_quant=kv_quant, device=cuda,
+                     kv_layout="paged", block_size=16, num_blocks=40)
+        eng.submit(Request(rid=0, prompt=prompts[0],
+                           sampling=SamplingParams(max_new=3)))
+        eng.run(50)
+        eng.submit(Request(rid=1, prompt=prompts[1], sampling=SamplingParams(
+            temperature=0.8, top_k=20, seed=1, max_new=12)))
+        return eng
+
+    ref = run()
+    ref.run(100)
+    eng = run()
+    for _ in range(4):
+        eng.step()
+    assert eng.stats["prefix_hit_tokens"] == 32
+    before = eng.written_kv()
+    assert list(before) == [1]
+    eng.restore(_snapshot_roundtrip(eng))
+    assert eng.last_restore["ghosts"] == 1
+    assert eng.last_restore["levels"] == 2
+    eng.compare_written_kv(before, eng.written_kv())
+    eng.run(100)
+    got = sorted((r.rid, r.out, r.finish_reason) for r in eng.finished)
+    assert got == sorted((r.rid, r.out, r.finish_reason)
+                         for r in ref.finished)
+
+
+def test_restart_loop_frees_the_crashed_engine_before_it_captures(cuda,
+                                                                   tmp_path):
+    """``run_serve_with_restarts`` drops a crashed engine (its cache, its
+    graphs) before the fresh one captures its first window: a graph freed
+    during a capture would invalidate it."""
+    import gc
+    import weakref
+
+    from repro_torch.dist.fault_tolerance import (FailureInjector,
+                                                  run_serve_with_restarts)
+    from repro_torch.serve import Engine, Request, SamplingParams
+    from repro_torch.serve import graphs as graphs_mod
+
+    cfg = _hd64_config()
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    snap = str(tmp_path / "snap.json")
+    injector = FailureInjector(crash_at={3: "mid_window"})
+    engines, alive_at_capture = [], []
+    capture = graphs_mod.WindowGraphs._capture
+
+    def watched(self, *args):
+        gc_was_on = gc.isenabled()
+        gc.disable()                    # only the restart loop may collect
+        alive_at_capture.append([r() is not None for r in engines[:-1]])
+        if gc_was_on:
+            gc.enable()
+        return capture(self, *args)
+
+    def make_engine():
+        eng = Engine(params, cfg, 4, 128, device=cuda, injector=injector,
+                     snapshot_path=snap)
+        eng.cycle = eng                 # a reference cycle, as in practice
+        engines.append(weakref.ref(eng))
+        return eng
+
+    def submit(eng):
+        for r in range(4):
+            eng.submit(Request(rid=r, prompt=list(range(1, 9 + r)),
+                               sampling=SamplingParams(max_new=8)))
+
+    graphs_mod.WindowGraphs._capture = watched
+    try:
+        eng = run_serve_with_restarts(make_engine, submit,
+                                      snapshot_path=snap, ticks=200)
+    finally:
+        graphs_mod.WindowGraphs._capture = capture
+    assert len(engines) == 2 and eng.metrics.counters["recoveries"] == 1
+    assert alive_at_capture and not any(any(a) for a in alive_at_capture)

@@ -2,8 +2,9 @@
 anything of the JAX package ``repro``, so it runs where JAX is not
 installed.  Proved twice: in a subprocess with those modules blocked — it
 imports every module of the port and serves a few requests over the ring
-and the paged cache, speculatively and under the dither matmul policy —
-and by a scan of its sources and ``chip_smoke.py``."""
+and the paged cache, speculatively, under the dither matmul policy, and
+with metrics, tracing and a crash recovered from a snapshot — and by a
+scan of its sources and ``chip_smoke.py``."""
 
 import os
 import re
@@ -56,6 +57,35 @@ for layout in ("ring", "paged"):
         eng.submit(Request(rid=r, prompt=[1, 2, 3, 4, 5 + r], max_new=3))
     assert [len(r.out) for r in eng.run(50)] == [3, 3, 3]
     assert eng.policy.backend == "torch-ref"
+import json, os, tempfile
+from repro_torch.dist.fault_tolerance import (FailureInjector,
+                                              run_serve_with_restarts)
+tmp = tempfile.mkdtemp()
+snap = os.path.join(tmp, "snap.json")
+feed = os.path.join(tmp, "metrics.jsonl")
+injector = FailureInjector(crash_at={{2: "mid_window"}})
+def make_engine():
+    return Engine(params, cfg, 2, 16, kv_quant=True, kv_layout="paged",
+                  block_size=4, device="cpu", metrics="jsonl:" + feed,
+                  trace="mem,perfetto:" + os.path.join(tmp, "t.json"),
+                  injector=injector, snapshot_path=snap)
+def submit(eng):
+    for r in range(3):
+        eng.submit(Request(rid=r, prompt=[1, 2, 3, 4, 5 + r], max_new=3))
+eng = run_serve_with_restarts(make_engine, submit, snapshot_path=snap,
+                              ticks=50)
+assert sorted(len(r.out) for r in eng.finished) == [3, 3, 3]
+assert eng.metrics.counters["recoveries"] == 1
+assert all(abs(sum(eng.explain(r.rid)["shares"].values()) - 1) < 0.01
+           for r in eng.finished)
+eng.trace.close()
+eng.metrics.close()
+assert json.load(open(os.path.join(tmp, "t.json")))["traceEvents"]
+assert open(feed).read().count("queue_depth") > 0
+fresh = Engine(params, cfg, 2, 16, kv_quant=True, kv_layout="paged",
+               block_size=4, device="cpu")
+fresh.restore(json.load(open(snap)))
+assert len(fresh.finished) == 3
 import importlib, pkgutil, repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -68,7 +98,11 @@ assert set(["repro_torch.serve.kvpool", "repro_torch.serve.draft",
             "repro_torch.kernels.quantize",
             "repro_torch.kernels.dither_matmul",
             "repro_torch.core.quantizers",
-            "repro_torch.core.matmul"]) <= set(names)
+            "repro_torch.core.matmul",
+            "repro_torch.serve.metrics",
+            "repro_torch.serve.trace",
+            "repro_torch.dist.fault_tolerance",
+            "repro_torch.coldstart"]) <= set(names)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")

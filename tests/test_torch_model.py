@@ -221,7 +221,9 @@ def test_out_of_slice_knobs_raise():
     reference's do.  So is the quantised-matmul policy: an unknown scheme
     raises ValueError, as the reference's does.  So are decode windows and
     chunked prefill: ``decode_ticks`` or ``prefill_chunk`` below 1 raises
-    ValueError, as the reference's does.)"""
+    ValueError, as the reference's does.  So are metrics, tracing and the
+    fault-tolerance knobs: an unknown metrics sink spec raises ValueError,
+    as the reference's does.)"""
     from repro_torch.numerics.policy import QuantPolicy, dense
     from repro_torch.serve import Engine
 
@@ -233,9 +235,11 @@ def test_out_of_slice_knobs_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         registry.init_model(dataclasses.replace(PCFG, family="ssm"),
                             device="cpu")
-    for knob, item in [("mesh", 10), ("metrics", 8)]:
+    for knob, item in [("mesh", 10), ("frames", 11)]:
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", **{knob: "x"})
+    with pytest.raises(ValueError, match="unknown metrics sink spec"):
+        Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", metrics="x")
     with pytest.raises(ValueError, match="decode_ticks must be >= 1"):
         Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", decode_ticks=0)
     with pytest.raises(ValueError, match="prefill_chunk must be >= 1"):
