@@ -3,14 +3,15 @@
 
   PYTHONPATH=src python chip_smoke.py
 
-Drives the port (``src/repro_torch``) on one card, in six phases, each
+Drives the port (``src/repro_torch``) on one card, in seven phases, each
 printing JSON lines:
 
 1. device — refuses to run without CUDA; the card's name and power limit
    (``nvidia-smi``), also printed raw on a line of their own;
 2. build — builds every CUDA kernel from the sources in this checkout;
 3. kernels — every kernel against its plain PyTorch version on the card at
-   the serving path's shapes (and at qwen2-1.5b's head shapes, bf16 and
+   the serving path's shapes, kernel 6 also at the training path's
+   4,096 rows (and at qwen2-1.5b's head shapes, bf16 and
    int8, a sliding window; a wrapped ring; pool blocks of 16 and 64
    tokens in shuffled order, two slots sharing their first blocks; the
    attention kernels against the plain version in their own split order
@@ -67,7 +68,20 @@ printing JSON lines:
    JSONL gauges; ``overload`` — paged int8 at W = 8 degrading under pool
    pressure (windows down to one tick and back, streams unchanged), then
    queue caps with both shed policies and deadlines on the engine's
-   injected clock.
+   injected clock;
+7. training and the pulse-stream core (after the policy phases): ``train``
+   — full-width SmolLM-135M, batch 8 × 512, 20 steps from seed 0 (cosine
+   schedule, remat) with no policy and under ``QuantPolicy(scheme=
+   "dither", bits=8, backend="auto")``, whose every forward product runs
+   through kernel 6's policy entry at 4,096 rows (the tied head through
+   the transposed embedding): losses finite and falling, kernel 6 launched
+   421 times a step (211 without remat), the step's loss and every
+   gradient through the kernel equal to the plain version's bit for bit,
+   a run crashed after a checkpoint and before a step and restarted
+   equal to an uninterrupted one bit for bit; step times, tokens/s, peak
+   memory, one profiled step and the checkpoint's save and restore times;
+   ``core`` — the §II–IV encoders and pulse arithmetic on the card at
+   N = 16…1024 against the paper's bias, EMSE and slope bounds.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
@@ -1881,9 +1895,13 @@ DITHER_KERNELS = ("prep_rows", "fused_decode", "absmax_rows", "quantize_bt",
 THREE_PASS_KERNELS = ("quantize_a", "quantize_b", "gemm_u8")
 QUANTIZE_SHAPES = ((8, 576), (576, 1536), (37, 1000))
 # decode shapes of the serve path (batch 8: q, k/v, o; gate/up; down; LM
-# head) and a 4096-row prefill's gate/up
+# head) and the train path's 4,096 rows (batch 8 × seq 512: q and o, k/v,
+# gate/up, down, the tied LM head)
 MATMUL_SHAPES = ((8, 576, 576), (8, 576, 192), (8, 576, 1536),
-                 (8, 1536, 576), (8, 576, 49152), (4096, 576, 1536))
+                 (8, 1536, 576), (8, 576, 49152), (4096, 576, 576),
+                 (4096, 576, 192), (4096, 576, 1536), (4096, 1536, 576),
+                 (4096, 576, 49152))
+TRAIN_HEAD = [4096, 576, 49152]
 # checked, not timed: the regime boundary (M 128 / 129), a K of 19 chunks
 # (a split remainder), ragged shapes off every tile multiple
 EDGE_MATMUL_SHAPES = ((128, 576, 200), (129, 576, 200), (8, 600, 576),
@@ -2693,6 +2711,330 @@ def overload_phase(torch, cfg, params, want):
             "seconds": time.perf_counter() - t_phase}
 
 
+# --------------------------------------------------------------------------
+# training and the pulse-stream core (ROADMAP Queue 1 items 12 and 6a)
+# --------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+# cosine peak and warm-up steps of the train runs (a peak of 3e-3 made the
+# loss of these 20 steps rise at full width on an H100)
+TRAIN_LR = (1e-3, 5)
+TRAIN_CRASHES = {1: "after_save", 2: "before_save"}   # the restart run's
+CORE_N = (16, 64, 256, 1024)     # pulse counts of the core phase
+CORE_TRIALS = 256                # encodings of each x (as test_paper_stats)
+CORE_OP_TRIALS = 20              # pulse streams of each random op
+
+
+def train_launches(cfg, remat):
+    """Kernel-6 launches of one train step under the dither policy: seven
+    dense products a layer and the tied LM head in the forward, and the
+    layers' seven again when ``remat`` recomputes them in the backward
+    (the head is not recomputed); the backward's products are plain
+    ``torch.matmul`` (straight-through)."""
+    return 7 * cfg.n_layers + 1 + (7 * cfg.n_layers if remat else 0)
+
+
+def profiled_step(torch, step_fn, state, data):
+    """One train step under ``torch.profiler``: wall ms (to the loss on
+    the host), device ms of every kernel, busy share, kernel 6's device ms
+    and share, launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = step_fn(state, data)
+        float(metrics["loss"])
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    k6_us = sum(e.self_device_time_total for e in kernels
+                if any(n in e.key for n in DITHER_KERNELS))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall_ms, "device_ms": device_us / 1e3,
+            "device_busy_share": device_us / 1e3 / wall_ms,
+            "kernel6_device_ms": k6_us / 1e3,
+            "kernel6_device_share": k6_us / max(device_us, 1e-9),
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:80],
+                             "device_ms": e.self_device_time_total / 1e3,
+                             "launches": e.count} for e in top]}
+
+
+def train_run(torch, dm, cfg, policy, steps, device):
+    """``steps`` train steps of batch ``TRAIN_BATCH`` × ``TRAIN_SEQ`` from
+    seed 0 (cosine schedule, remat), each launch count set to 0 just
+    before a step and read just after.  Gates: every loss finite, the last
+    five below the first five on average, kernel 6 launched
+    ``train_launches`` times a step through the policy entry (0 without a
+    policy)."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedules import cosine_schedule
+    from repro_torch.train import trainer
+
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR[0], TRAIN_LR[1], steps))
+    step_fn = trainer.make_train_step(cfg, opt, policy=policy)
+    state = trainer.init_train_state(cfg, seed=0, device=device)
+    dcfg = DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
+    want = train_launches(cfg, True) if policy is not None else 0
+    losses, step_ms, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(steps):
+        data = synthetic_batch(cfg, dcfg, s, device=device)
+        dm.dither_matmul.launches = dm.dither_matmul_scaled.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, data)
+        losses.append(float(metrics["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append(dm.dither_matmul_scaled.launches)
+        assert dm.dither_matmul.launches == launches[-1], (
+            "a train product left the policy entry",
+            dm.dither_matmul.launches, launches[-1])
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in losses), losses
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    assert last < first, ("loss did not fall", first, last)
+    assert launches == [want] * steps, ("kernel-6 launches a step",
+                                        launches, want)
+    median_ms = sorted(step_ms[1:])[(steps - 1) // 2]
+    res = {"policy": policy.scheme if policy else "none",
+           "backend": policy.backend if policy else None,
+           "steps": steps, "losses": losses,
+           "loss_first5": first, "loss_last5": last,
+           "step_host_ms": step_ms, "first_step_host_ms": step_ms[0],
+           "median_step_host_ms": median_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
+           "peak_memory_allocated_gb": peak / 1e9,
+           "kernel6_launches_per_step": want,
+           "kernel6_launches": sum(launches)}
+    data = synthetic_batch(cfg, dcfg, steps, device=device)
+    res["profiled_step"] = profiled_step(torch, step_fn, state, data)
+    return res
+
+
+def train_parity(torch, dm, cfg, policy_cls, device):
+    """One step's loss and every gradient through kernel 6 (backend
+    ``cuda``) against the same step through its plain version (backend
+    ``torch-ref``, passed explicitly), same params and batch, bit for bit;
+    the kernel's step twice and with ``remat=False`` (bit for bit: the
+    recomputation and the repeat change nothing), with its launch counts."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.train import trainer
+
+    params = trainer.init_train_state(cfg, seed=0, device=device)["params"]
+    data = synthetic_batch(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=0),
+                           0, device=device)
+    out, counts = {}, {}
+    for name, backend, remat in (("cuda", "cuda", True),
+                                 ("cuda_again", "cuda", True),
+                                 ("cuda_no_remat", "cuda", False),
+                                 ("plain", "torch-ref", True)):
+        pol = policy_cls(scheme="dither", bits=8, backend=backend)
+        dm.dither_matmul.launches = dm.dither_matmul_scaled.launches = 0
+        loss, grads = trainer.loss_and_grads(params, cfg, data, pol, 0,
+                                             remat=remat)
+        torch.cuda.synchronize()
+        counts[name] = dm.dither_matmul_scaled.launches
+        out[name] = (loss, tree.leaves(grads))
+    names = [tree.path_str(p) for p, _ in tree.leaves_with_path(params)]
+    res = {"launches": counts, "grad_leaves": len(names),
+           "loss": {k: float(v[0]) for k, v in out.items()}}
+    for other in ("cuda_again", "cuda_no_remat", "plain"):
+        bad = [i for i, (x, y) in enumerate(zip(out["cuda"][1],
+                                                 out[other][1]))
+               if not torch.equal(x, y)]
+        res[f"cuda_equals_{other}_bitwise"] = (
+            not bad and torch.equal(out["cuda"][0], out[other][0]))
+        res[f"differing_leaves_{other}"] = [names[i] for i in bad]
+    assert counts == {"cuda": train_launches(cfg, True),
+                      "cuda_again": train_launches(cfg, True),
+                      "cuda_no_remat": train_launches(cfg, False),
+                      "plain": 0}, counts
+    for other in ("cuda_again", "cuda_no_remat", "plain"):
+        assert res[f"cuda_equals_{other}_bitwise"], (other, res)
+    return res
+
+
+def checkpoint_equal(a_dir, b_dir, step):
+    """Leaves of two checkpoints at ``step`` that differ in any bit (and
+    the leaf count)."""
+    import numpy as np
+
+    name = f"step_{step:08d}/arrays.npz"
+    with np.load(Path(a_dir) / name) as a, np.load(Path(b_dir) / name) as b:
+        assert sorted(a.files) == sorted(b.files)
+        bad = [k for k in a.files
+               if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+               or a[k].tobytes() != b[k].tobytes()]
+        return bad, len(a.files)
+
+
+def train_restart(torch, cfg, policy, device):
+    """``run_training`` (4 steps, a checkpoint every 2) through
+    ``run_with_restarts`` with crashes ``TRAIN_CRASHES`` (after the step-2
+    save, then before step 2 of the resumed run) against the same run
+    uninterrupted: the final checkpoints (params, moments, step, counter)
+    equal leaf for leaf, bit for bit, and the resumed losses equal the
+    uninterrupted ones.  Then the save and restore times of the full train
+    state."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.dist.fault_tolerance import (FailureInjector,
+                                                  run_with_restarts)
+    from repro_torch.launch.train import run_training
+    from repro_torch.train import trainer
+
+    root = SCRATCH / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(steps=4, batch=TRAIN_BATCH, seq=TRAIN_SEQ, policy=policy,
+              ckpt_every=2, peak_lr=TRAIN_LR[0], device=device,
+              log=lambda *a: None)
+    _, want = run_training(cfg, ckpt_dir=str(root / "plain"), **kw)
+    injector = FailureInjector(crash_at=TRAIN_CRASHES)
+    attempts = []
+
+    def loop(i):
+        _, losses = run_training(cfg, ckpt_dir=str(root / "crashed"),
+                                 injector=injector, **kw)
+        attempts.append(i)
+        return losses
+
+    resumed = run_with_restarts(loop)
+    bad, n_leaves = checkpoint_equal(root / "plain", root / "crashed", 4)
+    res = {"crashes": {str(k): v for k, v in TRAIN_CRASHES.items()},
+           "fired": sorted(f"{s}:{p}" for s, p in injector.fired),
+           "attempts": attempts[-1] + 1, "leaves": n_leaves,
+           "differing_leaves": bad, "losses": want,
+           "resumed_losses": resumed}
+    assert injector.fired == {(s, p) for s, p in TRAIN_CRASHES.items()}
+    assert not bad, ("resumed run's final state differs", bad)
+    assert resumed == want[-len(resumed):], (resumed, want)
+    # save / restore of the full state, on the card
+    state = trainer.init_train_state(cfg, seed=0, device=device)
+    ck = Checkpointer(str(root / "timed"), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(1, state)
+    res["save_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    back = ck.restore(1, state)
+    torch.cuda.synchronize()
+    res["restore_ms"] = 1e3 * (time.perf_counter() - t0)
+    res["checkpoint_bytes"] = sum(      # bf16 leaves are stored as f32
+        t.numel() * (4 if t.dtype == torch.bfloat16 else t.element_size())
+        for t in tree.leaves(back))
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def train_phase(torch, dm, cfg, device="cuda", steps=TRAIN_STEPS):
+    """The training path (ROADMAP Queue 1 item 12): full-width
+    SmolLM-135M, batch ``TRAIN_BATCH`` × ``TRAIN_SEQ``, ``steps`` steps
+    with no policy and under ``QuantPolicy(scheme="dither", bits=8,
+    backend="auto")`` (every dense product of the forward through kernel
+    6's policy entry, at M = 4,096 rows; the tied head through the
+    transposed view of ``embed``); the CUDA step against the plain step;
+    a crashed and resumed run against an uninterrupted one.  Every gate
+    is hard."""
+    from repro_torch.numerics.policy import QuantPolicy
+
+    dither = QuantPolicy(scheme="dither", bits=8, backend="auto")
+    res = {"phase": "train", "model": cfg.name, "layers": cfg.n_layers,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "schedule": {"cosine_peak": TRAIN_LR[0], "warmup": TRAIN_LR[1],
+                        "total": steps}}
+    res["runs"] = [train_run(torch, dm, cfg, pol, steps, device)
+                   for pol in (None, dither)]
+    res["parity"] = train_parity(torch, dm, cfg, QuantPolicy, device)
+    res["restart"] = train_restart(torch, cfg, dither, device)
+    return res
+
+
+def core_phase(torch, device="cuda"):
+    """The paper's pulse-stream core (§II–IV, ROADMAP Queue 1 item 6a) on
+    the card: the dither, deterministic and stochastic encoders of an
+    off-lattice x grid (33 values, ``CORE_TRIALS`` encodings each) and
+    ``multiply_estimate`` / ``scaled_add_pulses`` of 800 uniform pairs
+    (``CORE_OP_TRIALS`` streams each), at N in ``CORE_N``, from a seeded
+    ``torch.Generator``.  Gates, as ``tests/test_paper_stats.py`` and
+    ``tests/test_ops.py`` hold the reference: dither unbiased (8σ of its
+    variance bound) with EMSE·N² ≤ 3; stochastic EMSE·N in [0.08, 0.30];
+    the log-log slopes of EMSE over N near −2 (dither, deterministic) and
+    −1 (stochastic); dither below stochastic at every N, for encodes,
+    products and averages, and its products' EMSE a third of
+    stochastic's or less."""
+    import numpy as np
+
+    from repro_torch.core import ops
+    from repro_torch.core import representations as rep
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    xs = torch.linspace(0.013, 0.987, 33, device=device)
+    xt = xs.expand(CORE_TRIALS, 33)
+    x = torch.rand(800, generator=gen, device=device)
+    y = torch.rand(800, generator=gen, device=device)
+    schemes = ("dither", "stochastic", "deterministic")
+    enc = {s: [] for s in schemes}
+    mul = {s: [] for s in schemes}
+    add = {s: [] for s in schemes}
+    rows = []
+    for n in CORE_N:
+        pulses = {"dither": rep.dither_encode(gen, xt, n),
+                  "stochastic": rep.stochastic_encode(gen, xt, n),
+                  "deterministic": rep.deterministic_encode(xt, n)}
+        row = {"n": n}
+        for s in schemes:
+            err = rep.decode(pulses[s]) - xt
+            enc[s].append(float(torch.mean(err * err)))
+            row[f"{s}_bias"] = float(torch.mean(err))
+            for op, fn, want, out in (
+                    ("mul", ops.multiply_estimate, x * y, mul),
+                    ("add", ops.scaled_add_pulses, (x + y) / 2, add)):
+                trials = 1 if s == "deterministic" else CORE_OP_TRIALS
+                est = torch.stack([fn(gen, x, y, n, s)
+                                   for _ in range(trials)])
+                out[s].append(float(torch.mean((est - want) ** 2)))
+                row[f"{s}_{op}_bias"] = float(torch.mean(est - want))
+        row.update({f"{s}_emse": enc[s][-1] for s in schemes})
+        row.update({f"{s}_{op}_emse": d[s][-1] for s in schemes
+                    for op, d in (("mul", mul), ("add", add))})
+        row["dither_emse_n2"] = enc["dither"][-1] * n * n
+        row["stochastic_emse_n"] = enc["stochastic"][-1] * n
+        rows.append(row)
+    slopes = {f"{k}_{s}": float(np.polyfit(np.log(CORE_N),
+                                           np.log(np.maximum(d[s], 1e-30)),
+                                           1)[0])
+              for s in schemes
+              for k, d in (("encode", enc), ("mul", mul), ("add", add))}
+    for row in rows:
+        n = row["n"]
+        tol = 8.0 * math.sqrt(2.0) / (n * math.sqrt(CORE_TRIALS * 33))
+        assert abs(row["dither_bias"]) <= tol, (row, tol)
+        assert row["dither_emse_n2"] <= 3.0, row
+        assert 0.08 <= row["stochastic_emse_n"] <= 0.30, row
+        assert row["dither_emse"] < row["stochastic_emse"], row
+        assert row["dither_mul_emse"] < row["stochastic_mul_emse"] / 3, row
+        assert row["dither_add_emse"] < row["stochastic_add_emse"], row
+    assert -2.7 <= slopes["encode_dither"] <= -1.6, slopes
+    assert -1.35 <= slopes["encode_stochastic"] <= -0.7, slopes
+    assert -2.6 <= slopes["encode_deterministic"] <= -1.5, slopes
+    for op in ("mul", "add"):       # Table I: Θ(1/N²) against Θ(1/N)
+        assert -2.7 <= slopes[f"{op}_dither"] <= -1.6, slopes
+        assert -1.35 <= slopes[f"{op}_stochastic"] <= -0.7, slopes
+    return {"phase": "core", "device": device, "n": list(CORE_N),
+            "trials": CORE_TRIALS, "op_trials": CORE_OP_TRIALS,
+            "rows": rows, "slopes": slopes,
+            "seconds": time.perf_counter() - t0}
+
+
 def device_fields(main, serve_times):
     """A kernels-line entry's device numbers: the kernels phase's device ms
     of the kernel and of its library call, and the same at the serve
@@ -2845,6 +3187,10 @@ def main() -> int:
         emit(prefill_invariance_phase(torch, cfg, params, kv_quant))
         emit(policy_parity_phase(torch, cfg, params, kv_quant))
     emit(policy_error_phase(torch, cfg, params))
+    # training (full width, both policies) and the pulse-stream core
+    train = train_phase(torch, dm, cfg)
+    emit(train)
+    emit(core_phase(torch))
 
     kernels = []
     for kv_quant in (False, True):
@@ -2926,6 +3272,25 @@ def main() -> int:
                 **{k: row[k] for k in ("unquantised_bf16_matmul_ms",
                                        "torch_ops_route_ms",
                                        "torch_ops_route_device_ms") if k in row}})
+    head = next(c for c in dither_rows if c["name"] == "policy_product"
+                and c["shape"] == TRAIN_HEAD)
+    kernels.append({
+        "name": "dither_matmul_scaled", "route": "cuda", "source": dm.SOURCE,
+        "replaces": MATMUL_REPLACES,
+        "run": f"train, dither policy, {TRAIN_STEPS} steps of "
+               f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat",
+        "launches": train["runs"][1]["kernel6_launches"],
+        "launches_per_step": train["runs"][1]["kernel6_launches_per_step"],
+        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "bound_term", "library_ms",
+                                "device_ms", "shape", "weight")},
+        "library_device_ms": None,
+        "train_shapes": [{k: c[k] for k in ("shape", "ms", "device_ms",
+                                            "plain_ms", "bound_ms",
+                                            "bound_term")}
+                         for c in dither_rows
+                         if c["name"] == "policy_product"
+                         and c["shape"][0] == TRAIN_BATCH * TRAIN_SEQ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

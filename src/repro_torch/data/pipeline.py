@@ -1,0 +1,74 @@
+"""Deterministic synthetic data pipeline (no downloads): the port's
+counterpart of the reference's ``data/pipeline.py``.
+
+Token streams are a stateless hash of (seed, step, position): every host can
+generate exactly its shard without coordination, restarts are reproducible
+from the step counter alone (checkpoint stores only ``step``), and skew/
+straggler behaviour is testable by construction.  The stream has real
+next-token structure (a noisy Markov chain over the vocab) so losses move.
+The hash is the port's ``core/rounding.hash_uniform``, bit for bit the
+reference's, so both packages draw the same tokens.  Only token batches
+are ported: the VLM and encoder-decoder stub frontends are ROADMAP Queue 1
+item 11.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Iterator
+
+import torch
+
+from repro_torch.core.rounding import hash_uniform
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["DataConfig", "synthetic_batch", "data_iterator"]
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    batch: int
+    seq: int
+    seed: int = 0
+    markov_order: int = 1
+
+
+def _positions(batch: int, seq: int, device) -> torch.Tensor:
+    return torch.arange(batch * seq, dtype=torch.int64,
+                        device=device).reshape(batch, seq)
+
+
+def _hash_tokens(seed: int, step: int, batch: int, seq: int, vocab: int,
+                 device) -> torch.Tensor:
+    """Base stream: u = hash(seed, flat index, step) → token ids."""
+    u = hash_uniform(seed, _positions(batch, seq, device), step)
+    return (u * vocab).to(torch.int32) % vocab
+
+
+def synthetic_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
+                    device="cuda") -> Dict[str, torch.Tensor]:
+    """One global batch of int32 tokens on ``device``.  Markov structure:
+    token_{t+1} ≡ token_t + drift (mod V) with probability 0.75, else
+    uniform — learnable but non-trivial."""
+    if cfg.frontend == "vit_stub" or cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name!r}: the port's pipeline makes token batches only; "
+            "the stub frontends' embeds and frames are ROADMAP Queue 1 "
+            "item 11")
+    vocab = cfg.vocab_size
+    base = _hash_tokens(dcfg.seed, step, dcfg.batch, dcfg.seq, vocab, device)
+    idx = _positions(dcfg.batch, dcfg.seq, device)
+    keep = hash_uniform(dcfg.seed ^ 0xBEEF, idx, step) < 0.75
+    drift = (torch.arange(dcfg.seq, dtype=torch.int32, device=device)
+             * 7919) % vocab
+    markov = (base[:, :1] + drift[None, :]) % vocab
+    tokens = torch.where(keep, markov, base)
+    return {"tokens": tokens, "labels": tokens}
+
+
+def data_iterator(cfg: ModelConfig, dcfg: DataConfig, start_step: int = 0,
+                  device="cuda") -> Iterator:
+    step = start_step
+    while True:
+        yield synthetic_batch(cfg, dcfg, step, device=device)
+        step += 1

@@ -1,5 +1,5 @@
-"""Carry the JAX package's parameters and caches (ring or paged) over to
-the port.
+"""Carry the JAX package's parameters, train states and caches (ring or
+paged) over to the port.
 
 The reference hands them over as nested dicts/lists of numpy arrays (for
 example ``jax.tree.map(numpy.asarray, params)``); nothing here imports JAX
@@ -15,16 +15,17 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["tensor_from_numpy", "params_from_numpy", "cache_from_numpy"]
+__all__ = ["tensor_from_numpy", "params_from_numpy", "cache_from_numpy",
+           "train_state_from_numpy"]
 
 
 def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
     """One numpy array → tensor on ``device``; bf16 exactly."""
-    arr = np.asarray(arr)
+    arr = np.array(arr, order="C")     # a C-ordered copy; keeps 0-d as 0-d
     if arr.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(arr).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def _tree(tree: Any, device):
@@ -46,4 +47,11 @@ def cache_from_numpy(tree, device="cuda"):
     a ring cache (``pos``, stacked ``layers``, ``remainder``) or a paged
     one (the same plus ``block_tables``; each layer's pool includes its
     trailing trash block)."""
+    return _tree(tree, device)
+
+
+def train_state_from_numpy(tree, device="cuda"):
+    """A reference train state ``{params, opt: {m, v, step}, counter}`` →
+    the port's on ``device``, bit for bit (``step`` and ``counter`` stay
+    0-d int32 tensors), so both packages compute the same step from it."""
     return _tree(tree, device)

@@ -1,5 +1,7 @@
 """Model API of the port over the dense decoder (counterpart of the
-reference's ``models/registry.py``).  Only ``family="dense"`` models with
+reference's ``models/registry.py``): training's full-sequence logits and
+the serving entry points.  ``batch_spec`` waits for the port's mesh
+(ROADMAP Queue 1 item 13).  Only ``family="dense"`` models with
 attention-only layers are ported; every other family raises
 ``NotImplementedError`` (ROADMAP Queue 1 item 11)."""
 
@@ -14,7 +16,7 @@ from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 
-__all__ = ["init_model", "make_cache", "apply_prefill", "apply_prefill_paged",
+__all__ = ["init_model", "apply_model", "make_cache", "apply_prefill", "apply_prefill_paged",
            "apply_prefill_chunked", "apply_decode", "apply_verify",
            "verify_row_purity", "spec_commit", "merge_prefill",
            "supports_batched_prefill", "supports_paged_kv",
@@ -67,6 +69,23 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return transformer.init_params(gen, cfg, device=device)
+
+
+def apply_model(params: Params, cfg: ModelConfig,
+                batch: Dict[str, torch.Tensor], *, policy=None, counter=0,
+                remat: bool = True) -> torch.Tensor:
+    """Full-sequence f32 logits (B, S, vocab_padded) for training and
+    logits-only prefill (``transformer.forward``).  Token batches only:
+    ``embeds`` (the VLM stub) and ``frames`` (the encoder-decoder) belong
+    to the rest of the zoo."""
+    _check_family(cfg)
+    for key in ("embeds", "frames"):
+        if batch.get(key) is not None:
+            raise NotImplementedError(
+                f"batch[{key!r}]: the port runs token batches of dense "
+                "decoders; stub frontends are ROADMAP Queue 1 item 11")
+    return transformer.forward(params, cfg, batch["tokens"], policy=policy,
+                               counter=counter, remat=remat)
 
 
 def make_cache(params: Params, cfg: ModelConfig, batch_size: int,

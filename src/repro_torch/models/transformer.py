@@ -1,5 +1,6 @@
-"""Dense decoder over the ring or the paged KV cache (counterpart of the
-reference's ``models/transformer.py``, its serving subset).
+"""Dense decoder: the full-sequence forward of training and the serving
+path over the ring or the paged KV cache (counterpart of the reference's
+``models/transformer.py``).
 
 Parameters keep the reference's layout: per block-pattern position one
 dict whose leaves carry a leading ``(R, …)`` repeat axis, plus unrolled
@@ -32,6 +33,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import rounding
 from repro_torch.kernels import dispatch
@@ -41,7 +43,8 @@ from repro_torch.numerics.policy import dense
 
 Params = Dict[str, Any]
 
-__all__ = ["init_params", "init_cache", "prefill_with_cache",
+__all__ = ["init_params", "init_cache", "forward", "prefill",
+           "prefill_with_cache",
            "prefill_with_cache_chunked", "prefill_with_cache_paged",
            "merge_cache", "decode_step", "verify_step", "spec_commit",
            "row_purity", "VERIFY_OPS"]
@@ -357,6 +360,46 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor, policy,
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return dense(x, head, policy, counter, seed=9).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (training, logits-only prefill)
+# ---------------------------------------------------------------------------
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            policy=None, counter=0, remat: bool = True) -> torch.Tensor:
+    """Full-sequence forward → f32 logits (B, S, vocab_padded), no cache.
+
+    ``remat`` recomputes each stacked layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint`` of its scanned body; the remainder layers and the
+    LM head are not recomputed, as there.  Under a kernel-backend policy a
+    recomputed layer launches its dense products again."""
+    x = params["embed"][tokens]
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+
+    def block(bp, kind, h):
+        return _apply_block(bp, cfg, kind, h, positions, policy=policy,
+                            counter=counter)[0]
+
+    for bp, kind, _, r in _layers(params, cfg):
+        if remat and r is not None:
+            x = torch.utils.checkpoint.checkpoint(block, bp, kind, x,
+                                                  use_reentrant=False)
+        else:
+            x = block(bp, kind, x)
+    return _logits(params, cfg, x, policy, counter)
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            policy=None, counter=0) -> torch.Tensor:
+    """Prefill forward, logits only (``forward`` without recomputation).
+    The serving engine uses ``prefill_with_cache`` below, which also builds
+    the ring decode cache."""
+    return forward(params, cfg, tokens, policy=policy, counter=counter,
+                   remat=False)
 
 
 # ---------------------------------------------------------------------------

@@ -1145,3 +1145,53 @@ def test_restart_loop_frees_the_crashed_engine_before_it_captures(cuda,
         graphs_mod.WindowGraphs._capture = capture
     assert len(engines) == 2 and eng.metrics.counters["recoveries"] == 1
     assert alive_at_capture and not any(any(a) for a in alive_at_capture)
+
+
+@pytest.mark.parametrize("batch,seq", [(2, 16), (4, 64)])
+def test_train_step_through_kernel6_equals_plain(cuda, batch, seq):
+    """Two training steps under the dither policy through kernel 6's policy
+    entry (32 rows: the decode regime; 256: prefill) against the same
+    steps through its plain version (``torch-ref``): every new param,
+    moment, counter and the loss bit for bit; launches 7 × layers + 1 in
+    the forward plus 7 × layers recomputed, and none on the plain route.
+    After ``apply_updates`` every updated weight's cached absmax is the
+    absmax of its new values, so the second step reads fresh ranges."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.models import transformer
+    from repro_torch.numerics.policy import QuantPolicy
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import trainer
+
+    cfg = get_config("smollm_135m").reduced()
+    start = trainer.init_train_state(cfg, seed=0, device=cuda)
+    dcfg = DataConfig(batch, seq, seed=1)
+    out = {}
+    for backend in ("cuda", "torch-ref"):
+        step = trainer.make_train_step(
+            cfg, AdamW(lr=1e-2), policy=QuantPolicy(scheme="dither",
+                                                    backend=backend))
+        state, losses, launches = start, [], []
+        for s in range(2):
+            dm.dither_matmul_scaled.launches = 0
+            state, m = step(state, synthetic_batch(cfg, dcfg, s,
+                                                   device=cuda))
+            torch.cuda.synchronize()
+            losses.append(m["loss"])
+            launches.append(dm.dither_matmul_scaled.launches)
+        out[backend] = (state, losses, launches)
+    assert out["cuda"][2] == [14 * cfg.n_layers + 1] * 2
+    assert out["torch-ref"][2] == [0, 0]
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"][1],
+                                                 out["torch-ref"][1]))
+    for a, b in zip(tree.leaves(out["cuda"][0]),
+                    tree.leaves(out["torch-ref"][0])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    params = out["cuda"][0]["params"]
+    weights = [params["embed"].T]
+    for bp, _, _, _ in transformer._layers(params, cfg):
+        weights += [bp["attn"][k] for k in ("wq", "wk", "wv", "wo")]
+        weights += [bp["mlp"][k] for k in ("wg", "wu", "wd")]
+    for w in weights:
+        assert torch.equal(dm.weight_absmax(w), ref.policy_absmax(w))

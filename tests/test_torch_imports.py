@@ -1,10 +1,12 @@
 """The port stands alone: it imports neither JAX, ``ml_dtypes`` nor
 anything of the JAX package ``repro``, so it runs where JAX is not
 installed.  Proved twice: in a subprocess with those modules blocked — it
-imports every module of the port and serves a few requests over the ring
+imports every module of the port, serves a few requests over the ring
 and the paged cache, speculatively, under the dither matmul policy, and
-with metrics, tracing and a crash recovered from a snapshot — and by a
-scan of its sources and ``chip_smoke.py``."""
+with metrics, tracing and a crash recovered from a snapshot, takes one
+training step under the dither policy with compressed gradients and
+encodes and multiplies pulse streams — and by a scan of its sources and
+``chip_smoke.py``."""
 
 import os
 import re
@@ -86,6 +88,22 @@ fresh = Engine(params, cfg, 2, 16, kv_quant=True, kv_layout="paged",
                block_size=4, device="cpu")
 fresh.restore(json.load(open(snap)))
 assert len(fresh.finished) == 3
+from repro_torch.core import ops, representations as rep
+from repro_torch.data.pipeline import DataConfig, synthetic_batch
+from repro_torch.optim.adamw import AdamW
+from repro_torch.train import trainer
+state = trainer.init_train_state(cfg, seed=0, device="cpu")
+step = trainer.make_train_step(
+    cfg, AdamW(lr=1e-3), policy=QuantPolicy(scheme="dither", backend="auto"),
+    grad_policy=QuantPolicy(scheme="dither"))
+state, m = step(state, synthetic_batch(cfg, DataConfig(2, 8), 0,
+                                       device="cpu"))
+assert int(state["counter"]) == 1 and bool(m["loss"].isfinite())
+gen = torch.Generator().manual_seed(0)
+pulses = rep.dither_encode(gen, torch.rand(4, generator=gen), 16)
+assert pulses.shape == (4, 16)
+assert ops.multiply_estimate(gen, torch.rand(3), torch.rand(3), 16,
+                             "dither").shape == (3,)
 import importlib, pkgutil, repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -102,7 +120,14 @@ assert set(["repro_torch.serve.kvpool", "repro_torch.serve.draft",
             "repro_torch.serve.metrics",
             "repro_torch.serve.trace",
             "repro_torch.dist.fault_tolerance",
-            "repro_torch.coldstart"]) <= set(names)
+            "repro_torch.coldstart",
+            "repro_torch.core.representations", "repro_torch.core.ops",
+            "repro_torch.core.theory", "repro_torch.optim.schedules",
+            "repro_torch.optim.adamw", "repro_torch.optim.grad_compress",
+            "repro_torch.data.pipeline", "repro_torch.data.mnist_like",
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.train.trainer", "repro_torch.launch.train",
+            "repro_torch.tree"]) <= set(names)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")
