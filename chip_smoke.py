@@ -3,7 +3,7 @@
 
   PYTHONPATH=src python chip_smoke.py
 
-Drives the port (``src/repro_torch``) on one card, in seven phases, each
+Drives the port (``src/repro_torch``) on one card, in eight phases, each
 printing JSON lines:
 
 1. device — refuses to run without CUDA; the card's name and power limit
@@ -81,7 +81,27 @@ printing JSON lines:
    equal to an uninterrupted one bit for bit; step times, tokens/s, peak
    memory, one profiled step and the checkpoint's save and restore times;
    ``core`` — the §II–IV encoders and pulse arithmetic on the card at
-   N = 16…1024 against the paper's bias, EMSE and slope bounds.
+   N = 16…1024 against the paper's bias, EMSE and slope bounds;
+8. the rest of the zoo (``zoo``, one line per config) — granite-3-8b,
+   minicpm-2b, internvl2-1b, granite-moe-1b-a400m and qwen2-moe-a2.7b at
+   full width, random bf16 weights from seed 0, one model on the card at
+   a time: kernels 1–4 at its (n_kv, group, head dim) and kernel 6's
+   policy entry at its new shapes against their plain versions (verify
+   rows equal to decode bit for bit); 8 requests (32 new tokens, batch 8,
+   ``max_len`` 1024, half greedy, half sampled) served ring bf16 and int8,
+   paged bf16 with the prefix cache off (streams equal to ring bf16's) and
+   paged int8 after a shared 128-token system prompt (prefix hits), with
+   the launch gates; speculatively (draft_k 4, prompt lookup) on the dense
+   ones, streams equal to the plain ones; on the MoE ones one W = 8 window
+   replayed and run eagerly, byte for byte, and the share of routed
+   assignments dropped at decode and prefill (counted in a second ring
+   run, so the timed one runs without the counter); greedy decode through
+   the kernels against their plain versions, logits within
+   ``ZOO_PARITY_ATOL``; granite-moe under the dither policy (kernel-6 launches a call,
+   logits against the plain route); granite-moe and internvl2 trained 6
+   steps of 8 × 512 (the VLM's 256 stub embeds prepended) with and
+   without the policy, one step through kernel 6 bit for bit the plain
+   one; peak memory per config.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
@@ -1037,16 +1057,17 @@ def ring_lens():
         np.linspace(32, 512, SERVE_REQUESTS).astype(int))
 
 
-def paged_requests(cfg, n, suffix_lens, max_new):
-    """The paged serve phases' traffic: a shared 256-token system prompt,
-    then a random suffix per request; the ring traffic's sampling mix, one
-    counter offset for all (so the int8 pool's prefix chain matches)."""
+def paged_requests(cfg, n, suffix_lens, max_new, system_len=256):
+    """The paged serve phases' traffic: a shared system prompt of
+    ``system_len`` tokens, then a random suffix per request; the ring
+    traffic's sampling mix, one counter offset for all (so the int8 pool's
+    prefix chain matches)."""
     import numpy as np
 
     from repro_torch.serve import Request, SamplingParams
 
     rng = np.random.default_rng(0)
-    system = rng.integers(1, cfg.vocab_size, size=256).tolist()
+    system = rng.integers(1, cfg.vocab_size, size=system_len).tolist()
     out = []
     for r in range(n):
         suffix = rng.integers(1, cfg.vocab_size, size=int(suffix_lens[r]))
@@ -2725,13 +2746,22 @@ CORE_TRIALS = 256                # encodings of each x (as test_paper_stats)
 CORE_OP_TRIALS = 20              # pulse streams of each random op
 
 
+def layer_products(cfg):
+    """Dense products of one layer that run through ``policy.dense``: the
+    four attention projections, and the MLP's three (a dense model) or the
+    shared expert's three (qwen2-moe); the routed experts are
+    fake-quantised ``einsum``s, as in the reference, not kernel 6."""
+    return 4 + (3 if not cfg.n_experts or cfg.shared_d_ff else 0)
+
+
 def train_launches(cfg, remat):
-    """Kernel-6 launches of one train step under the dither policy: seven
-    dense products a layer and the tied LM head in the forward, and the
-    layers' seven again when ``remat`` recomputes them in the backward
-    (the head is not recomputed); the backward's products are plain
-    ``torch.matmul`` (straight-through)."""
-    return 7 * cfg.n_layers + 1 + (7 * cfg.n_layers if remat else 0)
+    """Kernel-6 launches of one train step under the dither policy: a
+    layer's dense products (``layer_products``: seven for a dense model)
+    and the LM head in the forward, and the layers' again when ``remat``
+    recomputes them in the backward (the head is not recomputed); the
+    backward's products are plain ``torch.matmul`` (straight-through)."""
+    per = layer_products(cfg) * cfg.n_layers
+    return per + 1 + (per if remat else 0)
 
 
 def profiled_step(torch, step_fn, state, data):
@@ -3035,6 +3065,581 @@ def core_phase(torch, device="cuda"):
             "seconds": time.perf_counter() - t0}
 
 
+# --------------------------------------------------------------------------
+# the attention-only rest of the zoo (ROADMAP Queue 1 item 11, first half)
+# --------------------------------------------------------------------------
+
+ZOO = ("granite_3_8b", "minicpm_2b", "internvl2_1b", "granite_moe_1b_a400m",
+       "qwen2_moe_a2_7b")
+ZOO_REQUESTS, ZOO_NEW = 8, 32    # requests of a zoo serve run, new tokens
+ZOO_SYSTEM = 128                 # the paged traffic's shared system prompt
+ZOO_POLICY = "granite_moe_1b_a400m"       # served under the dither policy
+ZOO_TRAIN = ("granite_moe_1b_a400m", "internvl2_1b")
+ZOO_TRAIN_STEPS = 6
+ZOO_PARITY_STEPS = 8
+# zoo_parity's limits on the kernel route's logits against the plain
+# route's, (max, mean) over 8 decode steps from copies of one cache whose
+# histories drift apart: dense full-width stacks (up to 40 layers) round
+# bf16 attention sums in another order; MoE adds near-tied routings that
+# flip, each moving a row by a routed expert's output
+ZOO_PARITY_ATOL = {"dense": (2.0 ** -2, 2.0 ** -5),
+                   "moe": (2.0 ** 0, 2.0 ** -3)}
+# kernel 6's policy entry at each config's decode shapes (M 8) that the
+# smollm rows do not cover: granite-3-8b's MLP both ways (K·255² < 2³¹ at
+# K 12,800) and its head, the tied heads of minicpm and internvl2 (the
+# transposed embedding, padded vocab), qwen2-moe's shared expert, and
+# granite-moe's products of its policy serve run
+ZOO_MATMULS = {
+    "granite_3_8b": ((8, 4096, 12800, False), (8, 12800, 4096, False),
+                     (8, 4096, 49168, False)),
+    "minicpm_2b": ((8, 2304, 122768, True),),
+    "internvl2_1b": ((8, 896, 151664, True),),
+    "granite_moe_1b_a400m": ((8, 1024, 1024, False), (8, 1024, 512, False),
+                             (8, 1024, 49168, False)),
+    "qwen2_moe_a2_7b": ((8, 2048, 5632, False), (8, 5632, 2048, False)),
+}
+
+
+def zoo_shape(cfg):
+    """(n_kv, group, head dim) of a config's attention."""
+    return dict(nkv=cfg.n_kv_heads, group=cfg.n_heads // cfg.n_kv_heads,
+                hd=cfg.hd())
+
+
+def zoo_kernel_checks(torch, cfg, da, pda, va, pva, ref):
+    """Kernels 1–4 at a config's (n_kv, group, head dim), bf16 and int8,
+    window 0: each against its plain version with the kernels' tiles and
+    split and in the plain version's own order (``check_kernel``), each
+    verify row equal to the decode kernel at its position bit for bit;
+    then cold event ms of the kernel, the plain version and SDPA
+    (``cold_times``, unprofiled) and the bound.  Ring: B 8, cap 1024 (B 9
+    for verify, K 4); paged: 64-token blocks, a 2048-token table, rows 5
+    and 6 sharing their first blocks."""
+    gen = torch.Generator().manual_seed(9)
+    sh = zoo_shape(cfg)
+    ring_kw = dict(block=(da.KERNEL_BLOCK,), split=da.SPLIT_TILES)
+    rows = []
+    for quant in (False, True):
+        kv = "int8" if quant else "bf16"
+        t = ring_inputs(gen, quant=quant, pos_vals=LONG_POS, b=8, cap=1024,
+                        **sh)
+        _, res = check_kernel(torch, da.decode_attention,
+                              ref.decode_attention_ref, t, 0, ring_kw)
+        res.update(cold_times(t, da.decode_attention,
+                              ref.decode_attention_ref,
+                              lambda c: library_call(c, 0), (100, 5, 50),
+                              profiled=False))
+        bound = decode_bound(LONG_POS, b=8, cap=1024, quant=quant, window=0,
+                             **sh)
+        rows.append({"name": f"decode_attention[{kv}]", "pos": LONG_POS,
+                     "shape": {"B": 8, "cap": 1024, **sh}, **res,
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+
+        t = pool_inputs(gen, quant=quant, pos_vals=LONG_POS, share=(5, 6),
+                        b=8, nbmax=32, bs=64, **sh)
+        _, res = check_kernel(torch, pda.paged_decode_attention,
+                              ref.paged_decode_attention_ref, t, 0,
+                              dict(split=da.SPLIT_TILES))
+        res.update(cold_times(t, pda.paged_decode_attention,
+                              ref.paged_decode_attention_ref,
+                              lambda c: paged_library_call(c, 0),
+                              (100, 3, 20), profiled=False))
+        bound = paged_bound(t, 0, quant=quant)
+        rows.append({"name": f"paged_decode_attention[{kv}]",
+                     "pos": LONG_POS,
+                     "shape": {"B": 8, "bs": 64, "nbmax": 32, **sh}, **res,
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+
+        pos_vals = LONG_POS + [1022]
+        t = ring_inputs(gen, quant=quant, pos_vals=pos_vals, kq=SPEC_K, b=9,
+                        cap=1024, **sh)
+        got, res = check_kernel(torch, va.verify_attention,
+                                ref.verify_attention_ref, t, 0, ring_kw)
+        same = rows_equal(torch, got, da.decode_attention, t, 0)
+        assert same, (cfg.name, kv, "verify rows")
+        res.update(cold_times(t, va.verify_attention,
+                              ref.verify_attention_ref,
+                              lambda c: verify_library_call(c, 0),
+                              (100, 3, 50), profiled=False))
+        bound = verify_bound(pos_vals, SPEC_K, b=9, cap=1024, quant=quant,
+                             window=0, **sh)
+        rows.append({"name": f"verify_attention[{kv}]", "pos": pos_vals,
+                     "shape": {"B": 9, "cap": 1024, "kq": SPEC_K, **sh},
+                     **res, "rows_equal_decode_kernel_bitwise": same,
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+
+        pos_vals = LONG_POS + [2046]
+        t = pool_inputs(gen, quant=quant, pos_vals=pos_vals, share=(5, 6),
+                        kq=SPEC_K, b=9, nbmax=32, bs=64, **sh)
+        got, res = check_kernel(torch, pva.paged_verify_attention,
+                                ref.paged_verify_attention_ref, t, 0,
+                                dict(split=da.SPLIT_TILES))
+        same = rows_equal(torch, got, pda.paged_decode_attention, t, 0)
+        assert same, (cfg.name, kv, "paged verify rows")
+        res.update(cold_times(t, pva.paged_verify_attention,
+                              ref.paged_verify_attention_ref,
+                              lambda c: paged_verify_library_call(c, 0),
+                              (100, 2, 20), profiled=False))
+        bound = paged_bound(t, 0, quant=quant)
+        rows.append({"name": f"paged_verify_attention[{kv}]",
+                     "pos": pos_vals,
+                     "shape": {"B": 9, "bs": 64, "nbmax": 32, "kq": SPEC_K,
+                               **sh}, **res,
+                     "rows_equal_decode_kernel_bitwise": same,
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+    for row in rows:
+        row["model_shapes"] = cfg.name.replace("-", "_").replace(".", "_")
+    return rows
+
+
+def zoo_matmul_checks(torch, name, dm, ref):
+    """Kernel 6's policy entry at ``ZOO_MATMULS[name]``: bit for bit its
+    plain version, every scheme; then event ms (inputs rotated past the
+    L2), the plain version's ms, the unquantised bf16 ``torch.matmul`` of
+    the same operands and the bound (``matmul_bound``)."""
+    gen = torch.Generator().manual_seed(10)
+    rows = []
+    for m, k, n, tied in ZOO_MATMULS[name]:
+        x = torch.randn((m, k), generator=gen).to(torch.bfloat16).cuda()
+        if tied:        # the tied head: the (N, K) embedding's transpose
+            w = (torch.randn((n, k), generator=gen) * 0.05).to(
+                torch.bfloat16).cuda().T
+        else:
+            w = (torch.randn((k, n), generator=gen) * 0.05).to(
+                torch.bfloat16).cuda()
+        for scheme in DITHER_SCHEMES:
+            kw = dict(bits=8, scheme=scheme, counter=77, seed=3)
+            got = dm.dither_matmul_scaled(x, w, dm.weight_absmax(w), **kw)
+            torch.cuda.synchronize()
+            want = ref.dither_matmul_scaled_ref(x, w, **kw)
+            assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+            assert torch.equal(got, want), (name, (m, k, n), scheme)
+        kw = dict(bits=8, scheme="dither", counter=77, seed=3)
+        run = rotated(torch, lambda s, t: dm.dither_matmul_scaled(
+            s, t, dm.weight_absmax(t), **kw), [x, w])
+        bound_ms, term = matmul_bound(m, k, n, policy=True)
+        rows.append({
+            "name": "dither_matmul_scaled", "shape": [m, k, n],
+            "weight": "transposed view" if tied else "row",
+            "max_abs_err": 0, "schemes_bitwise": len(DITHER_SCHEMES),
+            "ms": cuda_ms(run, 100),
+            "plain_ms": cuda_ms(lambda: ref.dither_matmul_scaled_ref(
+                x, w, **kw), 2, warmup=1),
+            "unquantised_bf16_matmul_ms": cuda_ms(
+                rotated(torch, lambda s, t: s @ t, [x, w]), 100),
+            "library_ms": None, "bound_ms": bound_ms, "bound_term": term,
+            "bound_by": "bytes" if term == "bytes" else "operations"})
+    return rows
+
+
+@contextlib.contextmanager
+def moe_drops(torch, batch):
+    """Count, on the card, the routed assignments an MoE run drops: every
+    ``moe.route`` call adds its dropped and total assignments to a device
+    counter (decode calls: ``batch`` tokens; prefill calls: more), with
+    in-place adds that a captured decode graph replays.  Yields the two
+    counters (dropped, total)."""
+    from repro_torch.models import moe
+
+    acc = {k: torch.zeros(2, dtype=torch.int64, device="cuda")
+           for k in ("decode", "prefill")}
+    orig = moe.route
+
+    def spy(params, cfg, xf):
+        out = orig(params, cfg, xf)
+        a = acc["decode" if xf.shape[0] == batch else "prefill"]
+        a[0].add_((~out[3]).sum())
+        a[1].add_(out[3].numel())
+        return out
+
+    moe.route = spy
+    try:
+        yield acc
+    finally:
+        moe.route = orig
+
+
+def zoo_requests(cfg, layout):
+    """The zoo's traffic: 8 requests, 32 new tokens each, even ones greedy
+    and odd ones at temperature 0.8 with top-k 40.  Ring: prompts spread
+    over 32–256 tokens; paged: a shared 128-token system prompt, then
+    suffixes of 16–128 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    if layout == "paged":
+        return paged_requests(cfg, ZOO_REQUESTS, rng.permutation(
+            np.linspace(16, 128, ZOO_REQUESTS).astype(int)), ZOO_NEW,
+            system_len=ZOO_SYSTEM)
+    return ring_requests(cfg, ZOO_REQUESTS, rng.permutation(
+        np.linspace(32, 256, ZOO_REQUESTS).astype(int)), ZOO_NEW)
+
+
+def zoo_serve(torch, cfg, params, layout, kv_quant, *, staged=False,
+              traffic=None, **kw):
+    """One zoo serve run through ``Engine`` (batch 8, ``max_len`` 1024):
+    launch counts set to 0 just before the run and read just after.
+    ``staged``: the first request runs one step alone, so its prefill
+    seals the shared system prompt's blocks before the others arrive.
+    Gates: every request its full budget in the vocabulary; the policy-free
+    launch gates (``launch_gates``: kernel 1 or 2 = layers × ticks through
+    graph replays); for a speculative engine, the verify kernel once per
+    layer and window and nothing else.  Returns (line, streams, engine)."""
+    from repro_torch.serve import Engine
+    from repro_torch.serve.graphs import KERNEL_WRAPPERS
+
+    reqs = zoo_requests(cfg, traffic or layout)
+    if layout == "paged":
+        kw["block_size"] = 64
+    eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, kv_layout=layout,
+                 device="cuda", **kw)
+    torch.cuda.synchronize()
+    for m in KERNEL_WRAPPERS.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    if staged:
+        eng.submit(reqs[0])
+        eng.step()
+    for req in reqs[1 if staged else 0:]:
+        eng.submit(req)
+    done = eng.run(10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = {k: m.launches for k, m in KERNEL_WRAPPERS.items()}
+    st = eng.stats
+    assert len(done) == len(reqs), (cfg.name, layout, len(done))
+    for r in done:
+        assert r.finish_reason == "length" and len(r.out) == ZOO_NEW, (
+            cfg.name, r.rid, r.finish_reason, len(r.out))
+        assert all(0 <= t < cfg.vocab_size for t in r.out)
+    paged = layout == "paged"
+    if eng.spec_decode:
+        kernel = "paged_verify_attention" if paged else "verify_attention"
+        windows = st["spec_windows"]
+        assert host[kernel] == cfg.n_layers * windows, (host, windows)
+        assert all(v == 0 for n, v in host.items() if n != kernel), host
+        launches = host
+    else:
+        kernel = "paged_decode_attention" if paged else "decode_attention"
+        launches = launch_gates(eng, host, kernel, cfg)
+    if paged:
+        assert eng.pool.live_blocks == 0, eng.pool_stats()
+    capture_s = eng._graphs.capture_s if eng._graphs is not None else 0.0
+    line = {"layout": layout, "kv": "int8" if kv_quant else "bf16",
+            "requests": len(reqs), "new_tokens_each": ZOO_NEW,
+            "prompt_tokens": sum(len(r.prompt) for r in reqs),
+            "spec_decode": eng.spec_decode,
+            "decode_ticks_per_window": eng.decode_ticks,
+            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+            "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+            "decode_tok_s_after_capture": st["decode_tokens"]
+                                          / max(st["decode_s"] - capture_s,
+                                                1e-9),
+            "capture_s": capture_s, "prefill_calls": st["prefill_calls"],
+            "prefill_tokens_computed": st["prefill_tokens"],
+            "prefix_hit_tokens": st["prefix_hit_tokens"],
+            "decode_ticks": eng.tick, "windows": st["decode_calls"],
+            "graph_replays": (eng._graphs.replays
+                              if eng._graphs is not None else 0),
+            "wall_s": wall, f"{kernel}_launches": launches[kernel],
+            "launches_per_window": cfg.n_layers * eng.decode_ticks}
+    if eng.spec_decode:
+        line.update(spec_windows=st["spec_windows"],
+                    accepted=st["spec_accepted_tokens"],
+                    drafted=st["spec_draft_tokens"],
+                    acceptance=st["spec_accepted_tokens"]
+                    / max(1, st["spec_draft_tokens"]))
+    return line, {r.rid: list(r.out) for r in done}, eng
+
+
+def zoo_parity(torch, cfg, params):
+    """The card's decode against the plain route's: one ring prefill (bf16,
+    the ring traffic's prompts), then ``ZOO_PARITY_STEPS`` greedy decode
+    steps through the attention kernel (``cuda``) and its plain version
+    (``torch-ref``, passed explicitly) from copies of one cache, both fed
+    the plain route's tokens.  Gates, at the stated ``ZOO_PARITY_ATOL``
+    of the config's family: every logit within its max, each step's mean
+    absolute difference within its mean, and the kernel route's greedy
+    token equal to the plain route's in every row whose top-2 margin
+    clears twice the max (which the max bound implies; the count of such
+    rows is reported)."""
+    import numpy as np
+
+    from repro_torch.models import registry
+
+    atol, mean_atol = ZOO_PARITY_ATOL["moe" if cfg.n_experts else "dense"]
+    reqs = zoo_requests(cfg, "ring")
+    lens = np.array([len(r.prompt) for r in reqs], np.int32)
+    toks = np.zeros((8, int(lens.max())), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, :lens[i]] = r.prompt
+    logits, cache = registry.apply_prefill(
+        params, cfg, torch.from_numpy(toks).cuda(),
+        torch.from_numpy(lens).cuda(), 1024)
+    caches = {p: clone_tree(cache) for p in ("cuda", "torch-ref")}
+    cur = torch.argmax(logits, -1)
+    worst = mean = 0.0
+    scale = math.inf
+    compared = rows = 0
+    for _ in range(ZOO_PARITY_STEPS):
+        out = {}
+        for path in caches:
+            out[path], caches[path] = registry.apply_decode(
+                params, cfg, cur, caches[path], backend=path)
+        got, want = out["cuda"], out["torch-ref"]
+        assert torch.isfinite(got).all()
+        d = (got - want).abs()
+        worst, mean = max(worst, d.max().item()), max(mean, d.mean().item())
+        scale = min(scale, want.float().std().item())
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * atol
+        same = torch.argmax(got, -1) == torch.argmax(want, -1)
+        assert bool(same[clear].all()), (cfg.name, same, clear)
+        compared += int(clear.sum())
+        rows += clear.numel()
+        cur = torch.argmax(want, -1)
+    assert worst <= atol and mean <= mean_atol, (cfg.name, worst, mean)
+    return {"decode_steps": ZOO_PARITY_STEPS, "rows": rows,
+            "rows_margin_cleared_and_equal": compared,
+            "max_abs_logit_diff": worst, "max_mean_abs_logit_diff": mean,
+            "atol": atol, "mean_atol": mean_atol,
+            "min_plain_logit_std": scale}
+
+
+def zoo_policy(torch, cfg, params):
+    """``ZOO_POLICY`` served under ``QuantPolicy(scheme="dither",
+    backend="auto")`` (ring bf16, the ring traffic): every dense product —
+    attention and LM head; the routed experts are fake-quantised einsums —
+    through kernel 6's policy entry.  Gates: full budgets; kernel-6
+    launches = (``layer_products`` × layers + 1) a prefill call or tick,
+    all through the policy entry; attention launches = layers × ticks.
+    Then one prefill and three decode steps with the matmul backend
+    ``cuda`` against ``torch-ref``: logits within ``LOGIT_ATOL``."""
+    from repro_torch.models import registry
+    from repro_torch.numerics.policy import QuantPolicy
+    from repro_torch.serve import Engine
+    from repro_torch.serve.graphs import KERNEL_WRAPPERS
+
+    eng = Engine(params, cfg, 8, 1024, device="cuda",
+                 policy=QuantPolicy(scheme="dither", backend="auto"))
+    assert eng.policy.backend == "cuda" and eng._graphs is None
+    reqs = zoo_requests(cfg, "ring")
+    for req in reqs:
+        eng.submit(req)
+    torch.cuda.synchronize()
+    for m in KERNEL_WRAPPERS.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run(10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: m.launches for k, m in KERNEL_WRAPPERS.items()}
+    st = eng.stats
+    assert len(done) == len(reqs)
+    assert all(r.finish_reason == "length" and len(r.out) == ZOO_NEW
+               for r in done)
+    per_forward = layer_products(cfg) * cfg.n_layers + 1
+    calls = st["prefill_calls"] + st["decode_calls"]
+    assert launches["dither_matmul_scaled"] == per_forward * calls, (
+        launches, per_forward, calls)
+    assert launches["dither_matmul"] == launches["dither_matmul_scaled"]
+    assert launches["decode_attention"] == cfg.n_layers * st["decode_calls"]
+    assert launches["quantize"] == 0, launches
+
+    lens = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32,
+                        device="cuda")
+    toks = torch.zeros((8, int(lens.max())), dtype=torch.long,
+                       device="cuda")
+    for i, r in enumerate(reqs):
+        toks[i, :len(r.prompt)] = torch.tensor(r.prompt)
+    out = {}
+    for backend in ("cuda", "torch-ref"):
+        pol = QuantPolicy(scheme="dither", backend=backend)
+        logits, cache = registry.apply_prefill(params, cfg, toks, lens, 1024,
+                                               policy=pol, counter=0)
+        seq = [logits]
+        for step in range(3):
+            logits, cache = registry.apply_decode(
+                params, cfg, torch.argmax(seq[-1], -1), cache, policy=pol,
+                counter=1 + step)
+            seq.append(logits)
+        out[backend] = seq
+    diff = max((a - b).abs().max().item()
+               for a, b in zip(out["cuda"], out["torch-ref"]))
+    assert diff <= LOGIT_ATOL, diff
+    return {"layout": "ring", "kv": "bf16", "policy": "dither",
+            "backend": "cuda", "requests": len(reqs),
+            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+            "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+            "prefill_calls": st["prefill_calls"],
+            "decode_ticks": st["decode_calls"], "wall_s": wall,
+            "kernel6_launches": launches["dither_matmul_scaled"],
+            "kernel6_launches_per_call": per_forward,
+            "decode_attention_launches": launches["decode_attention"],
+            "parity_max_abs_logit_diff": diff,
+            "parity_logits_bitwise_equal": all(
+                torch.equal(a, b) for a, b in zip(out["cuda"],
+                                                  out["torch-ref"]))}
+
+
+def zoo_train(torch, dm, cfg):
+    """``ZOO_TRAIN_STEPS`` train steps at batch ``TRAIN_BATCH`` ×
+    ``TRAIN_SEQ`` (the VLM with its 256 stub embeds prepended), remat,
+    cosine schedule, with no policy and under the dither policy; launch
+    counts set to 0 just before each step and read just after.  Gates:
+    every loss finite; kernel 6 launched ``train_launches`` times a step
+    through its policy entry (0 without a policy).  Then ``train_parity``:
+    one step through kernel 6 bit for bit the step through its plain
+    version (also repeated and without remat)."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.numerics.policy import QuantPolicy
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedules import cosine_schedule
+    from repro_torch.train import trainer
+
+    steps = ZOO_TRAIN_STEPS
+    out = {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "frontend_tokens": cfg.n_frontend_tokens, "steps": steps,
+           "runs": []}
+    for pol in (None, QuantPolicy(scheme="dither", bits=8, backend="auto")):
+        opt = AdamW(lr=cosine_schedule(TRAIN_LR[0], 2, steps))
+        step_fn = trainer.make_train_step(cfg, opt, policy=pol)
+        state = trainer.init_train_state(cfg, seed=0, device="cuda")
+        dcfg = DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
+        want = train_launches(cfg, True) if pol is not None else 0
+        losses, ms, launches = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for s in range(steps):
+            data = synthetic_batch(cfg, dcfg, s, device="cuda")
+            dm.dither_matmul.launches = dm.dither_matmul_scaled.launches = 0
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, data)
+            losses.append(float(metrics["loss"]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+            launches.append(dm.dither_matmul_scaled.launches)
+            assert dm.dither_matmul.launches == launches[-1]
+        assert all(math.isfinite(x) for x in losses), losses
+        assert launches == [want] * steps, (launches, want)
+        median = sorted(ms[1:])[(steps - 1) // 2]
+        tokens = TRAIN_BATCH * (TRAIN_SEQ + cfg.n_frontend_tokens)
+        out["runs"].append({
+            "policy": pol.scheme if pol else "none", "losses": losses,
+            "step_host_ms": ms, "median_step_host_ms": median,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+            "positions_per_s": tokens / (median / 1e3),
+            "peak_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "kernel6_launches_per_step": want,
+            "kernel6_launches": sum(launches)})
+        del state, step_fn
+        torch.cuda.empty_cache()
+    out["parity"] = train_parity(torch, dm, cfg, QuantPolicy, "cuda")
+    return out
+
+
+def zoo_phase(torch, name, da, pda, va, pva, dm, ref):
+    """One config of the rest of the zoo at full width on the card, random
+    bf16 weights from seed 0, loaded alone and freed after: its kernels at
+    its shapes; the ring traffic in bf16 (MoE: the dropped share of routed
+    assignments, decode and prefill) and int8, and paged in bf16 with the
+    prefix cache off (its streams must equal the ring bf16 ones: paged ≡
+    ring, which the reference holds for every config here, MoE included),
+    and the paged traffic in int8 with a shared system prompt (prefix hits
+    asserted); a speculative run (dense attention only: draft_k 4, prompt
+    lookup), streams equal to the plain ones; MoE: one W = 8 window
+    replayed and run eagerly from one state, byte for byte; the kernel
+    route against the plain one; three steady ring bf16 ticks under the
+    profiler (``profile_phase``); the policy run (``ZOO_POLICY``); the
+    train runs (``ZOO_TRAIN``).  Peak memory per config."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, registry
+
+    cfg = get_config(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    res = {"phase": "zoo", "model": cfg.name, "family": cfg.family,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd()],
+           "vocab_padded": cfg.vocab_padded(),
+           "experts": [cfg.n_experts, cfg.n_experts_active, cfg.shared_d_ff],
+           "kernels": zoo_kernel_checks(torch, cfg, da, pda, va, pva, ref),
+           "matmuls": zoo_matmul_checks(torch, name, dm, ref)}
+    t0 = time.perf_counter()
+    params = registry.init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["weights_gb"] = sum(t.numel() * t.element_size()
+                            for t in tree.leaves(params)) / 1e9
+    runs = {}
+    runs["ring_bf16"], ring_bf16, _ = zoo_serve(torch, cfg, params, "ring",
+                                                False)
+    if cfg.n_experts:
+        # the drop counter's adds are captured into the decode graphs, so
+        # it counts a second run of the same traffic, not the timed one
+        with moe_drops(torch, 8) as acc:
+            _, counted, _ = zoo_serve(torch, cfg, params, "ring", False)
+        assert counted == ring_bf16, (cfg.name, "counted run != ring bf16")
+        res["moe_dropped_share"] = {
+            k: {"dropped": int(v[0]), "assignments": int(v[1]),
+                "share": int(v[0]) / max(1, int(v[1]))}
+            for k, v in acc.items()}
+        res["moe_decode_capacity"] = moe.moe_capacity(8, cfg)
+    runs["ring_int8"], _, _ = zoo_serve(torch, cfg, params, "ring", True)
+    runs["paged_bf16_cold"], paged_bf16, _ = zoo_serve(
+        torch, cfg, params, "paged", False, traffic="ring",
+        prefix_cache=False)
+    assert paged_bf16 == ring_bf16, (cfg.name, "paged != ring",
+                                     [r for r in ring_bf16
+                                      if paged_bf16[r] != ring_bf16[r]])
+    runs["paged_bf16_cold"]["streams_equal_ring_bf16"] = True
+    runs["paged_int8_prefix"], _, _ = zoo_serve(torch, cfg, params, "paged",
+                                                True, staged=True)
+    assert runs["paged_int8_prefix"]["prefix_hit_tokens"] > 0
+    if registry.supports_spec_decode(cfg):
+        runs["spec_ring_bf16"], spec, _ = zoo_serve(
+            torch, cfg, params, "ring", False, spec_decode=True,
+            draft_k=SPEC_K)
+        assert spec == ring_bf16, (cfg.name, "spec != plain")
+        runs["spec_ring_bf16"]["streams_equal_plain"] = True
+    else:
+        from repro_torch.serve import Engine
+
+        eng = Engine(params, cfg, 8, 1024, device="cuda",
+                     decode_ticks=WINDOW)
+        for req in zoo_requests(cfg, "ring"):
+            eng.submit(req)
+        eng._admit_and_prefill()
+        res["window_graph_vs_eager"] = graph_against_eager(torch, eng, cfg,
+                                                           params)
+        done = eng.run(1000)
+        assert len(done) == ZOO_REQUESTS
+        assert all(len(r.out) == ZOO_NEW for r in done)
+        del eng
+    res["runs"] = runs
+    res["parity"] = zoo_parity(torch, cfg, params)
+    res["profile_tick"] = profile_phase(torch, cfg, params, False)
+    if name == ZOO_POLICY:
+        res["policy"] = zoo_policy(torch, cfg, params)
+    res["serve_peak_memory_allocated_gb"] = (
+        torch.cuda.max_memory_allocated() / 1e9)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if name in ZOO_TRAIN:
+        res["train"] = zoo_train(torch, dm, cfg)
+    res["peak_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["seconds"] = time.perf_counter() - t_start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def device_fields(main, serve_times):
     """A kernels-line entry's device numbers: the kernels phase's device ms
     of the kernel and of its library call, and the same at the serve
@@ -3191,6 +3796,11 @@ def main() -> int:
     train = train_phase(torch, dm, cfg)
     emit(train)
     emit(core_phase(torch))
+    # the rest of the zoo, one config at a time (ROADMAP Queue 1 item 11)
+    zoo = {}
+    for name in ZOO:
+        zoo[name] = res = zoo_phase(torch, name, da, pda, va, pva, dm, ref)
+        emit(res)
 
     kernels = []
     for kv_quant in (False, True):
@@ -3238,6 +3848,23 @@ def main() -> int:
                 "library_ms": main["library_ms"],
                 **device_fields(main, serve_times),
                 "kernel_ms": main["kernel_ms"], "shape": main["shape"]})
+    zoo_runs = {"decode_attention[bf16]": "ring_bf16",
+                "decode_attention[int8]": "ring_int8",
+                "paged_decode_attention[bf16]": "paged_bf16_cold",
+                "paged_decode_attention[int8]": "paged_int8_prefix",
+                "verify_attention[bf16]": "spec_ring_bf16"}
+    for entry in kernels:
+        entry["zoo_shapes"] = [
+            {k: row[k] for k in ("model_shapes", "shape", "max_abs_err",
+                                 "ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")}
+            for z in zoo.values() for row in z["kernels"]
+            if row["name"] == entry["name"]]
+        run = zoo_runs.get(entry["name"])
+        kernel = entry["name"].split("[")[0]
+        entry["zoo_launches"] = {
+            z["model"]: z["runs"][run][f"{kernel}_launches"]
+            for z in zoo.values() if run in z["runs"]}
     qmain = next(c for c in dither_rows if c["name"] == "quantize"
                  and c["shape"] == [576, 1536])
     kernels.append({
@@ -3272,6 +3899,17 @@ def main() -> int:
                 **{k: row[k] for k in ("unquantised_bf16_matmul_ms",
                                        "torch_ops_route_ms",
                                        "torch_ops_route_device_ms") if k in row}})
+    k6 = next(e for e in kernels if e["name"] == "dither_matmul_scaled")
+    k6["zoo_shapes"] = [{"model": z["model"], **row} for z in zoo.values()
+                        for row in z["matmuls"]]
+    k6["zoo_launches"] = {
+        f"{z['model']} policy serve, ring bf16":
+            z["policy"]["kernel6_launches"]
+        for z in zoo.values() if "policy" in z}
+    k6["zoo_launches"].update({
+        f"{z['model']} train, dither policy, {ZOO_TRAIN_STEPS} steps":
+            z["train"]["runs"][1]["kernel6_launches"]
+        for z in zoo.values() if "train" in z})
     head = next(c for c in dither_rows if c["name"] == "policy_product"
                 and c["shape"] == TRAIN_HEAD)
     kernels.append({

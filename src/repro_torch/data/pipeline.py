@@ -7,9 +7,9 @@ from the step counter alone (checkpoint stores only ``step``), and skew/
 straggler behaviour is testable by construction.  The stream has real
 next-token structure (a noisy Markov chain over the vocab) so losses move.
 The hash is the port's ``core/rounding.hash_uniform``, bit for bit the
-reference's, so both packages draw the same tokens.  Only token batches
-are ported: the VLM and encoder-decoder stub frontends are ROADMAP Queue 1
-item 11.
+reference's, so both packages draw the same tokens, and the VLM stub
+frontend's patch embeddings.  The encoder-decoder's frames are ROADMAP
+Queue 1 item 11's second half.
 """
 
 from __future__ import annotations
@@ -49,12 +49,13 @@ def synthetic_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
                     device="cuda") -> Dict[str, torch.Tensor]:
     """One global batch of int32 tokens on ``device``.  Markov structure:
     token_{t+1} ≡ token_t + drift (mod V) with probability 0.75, else
-    uniform — learnable but non-trivial."""
-    if cfg.frontend == "vit_stub" or cfg.is_encdec:
+    uniform — learnable but non-trivial.  A ``vit_stub`` config also gets
+    ``embeds`` (B, F, d) bf16: one hashed (F, d) block in [-0.5, 0.5),
+    the same for every row, as the reference's."""
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name!r}: the port's pipeline makes token batches only; "
-            "the stub frontends' embeds and frames are ROADMAP Queue 1 "
-            "item 11")
+            f"{cfg.name!r}: the encoder-decoder's frames are ROADMAP Queue "
+            "1 item 11's second half")
     vocab = cfg.vocab_size
     base = _hash_tokens(dcfg.seed, step, dcfg.batch, dcfg.seq, vocab, device)
     idx = _positions(dcfg.batch, dcfg.seq, device)
@@ -63,7 +64,14 @@ def synthetic_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
              * 7919) % vocab
     markov = (base[:, :1] + drift[None, :]) % vocab
     tokens = torch.where(keep, markov, base)
-    return {"tokens": tokens, "labels": tokens}
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.frontend == "vit_stub":
+        nf, d = cfg.n_frontend_tokens, cfg.d_model
+        f = torch.arange(nf * d, dtype=torch.int64, device=device)
+        u = hash_uniform(dcfg.seed ^ 0xF00D, f, step).reshape(1, nf, d)
+        batch["embeds"] = (u - 0.5).to(torch.bfloat16).expand(
+            dcfg.batch, nf, d)
+    return batch
 
 
 def data_iterator(cfg: ModelConfig, dcfg: DataConfig, start_step: int = 0,

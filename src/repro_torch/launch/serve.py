@@ -17,7 +17,11 @@ the paged KV cache:
       --reduced --device cpu --kv-layout paged --max-len 32 --block-size 8 \\
       --metrics stdout --trace mem --snapshot-path /tmp/snap.json \\
       --deadline-ms 60000          # then again with --resume
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite_moe_1b_a400m --reduced --device cpu --kv-quant
 
+``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS`` (the VLM is
+served on tokens alone, as the reference's engine serves it).
 Takes the reference launcher's flags but ``--mesh`` (ROADMAP Queue 1 item
 10), plus ``--device``.  Weights are random, drawn from seed 0 (the
 reference draws its own from ``PRNGKey(0)``, so the values differ).

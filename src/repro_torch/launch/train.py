@@ -8,7 +8,12 @@ CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_135m \\
       --reduced --device cpu --steps 4 --batch 2 --seq 16 --policy dither \\
       --kernel-backend torch-ref
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite_moe_1b_a400m --reduced --device cpu --steps 4 \\
+      --batch 2 --seq 16       # or internvl2_1b: its stub embeds prepended
 
+``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS``; a
+``vit_stub`` config trains on the pipeline's ``embeds`` beside its tokens.
 Takes the reference launcher's flags, plus ``--device``.  Runs on one
 device with no mesh: the reference's ``launch/mesh.py`` and ``dist/ctx.py``
 wait for the port's sharding (ROADMAP Queue 1 items 10 and 13).  Weights

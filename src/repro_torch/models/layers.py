@@ -181,8 +181,8 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 def _check_act(act: str) -> None:
     if act != "swiglu":
         raise NotImplementedError(
-            f"mlp_act={act!r} is not ported yet (the GELU archs belong to the "
-            "rest of the zoo, ROADMAP Queue 1 item 11)")
+            f"mlp_act={act!r} is not ported yet (the GELU archs belong to "
+            "ROADMAP Queue 1 item 11's second half)")
 
 
 def mlp(params: Params, x: torch.Tensor, act: str = "swiglu", policy=None,

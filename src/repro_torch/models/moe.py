@@ -1,0 +1,139 @@
+"""Mixture-of-Experts FFN (granite-3-moe, qwen2-moe) on one device: the
+port's counterpart of the reference's ``models/moe.py``.
+
+Dispatch is scatter-based, as there: top-k routing → per-expert capacity
+slots from a cumulative count over the flattened (token, k) assignments →
+scatter-add into an (E, C, d) buffer → batched expert SwiGLU products →
+gather-combine.  Capacity C is static, so no shape depends on the data;
+assignments past it drop (Switch-style), and which ones drop depends on
+the top-k order and on every token of the call, padding included.
+
+One device is one data shard and one expert shard: the reference's
+``dp`` is 1 and its experts need no padding (``e_pad == e``).  The mesh
+form waits for the port's mesh (ROADMAP Queue 1 item 10).  The expert
+products are plain ``einsum``s, because the reference computes them
+outside any kernel; under a policy their operands are fake-quantised
+with the reference's seeds 11–15.  qwen2-moe's shared expert runs through
+``layers.mlp``, so under a kernel-backend policy its products take the
+dither-matmul kernel as every dense product does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+from repro_torch.numerics.policy import fake_quant, matmul
+
+Params = Dict[str, Any]
+
+__all__ = ["init_moe", "moe_ffn", "moe_capacity", "route"]
+
+
+def _init(gen: torch.Generator, shape, scale=None, dtype=torch.bfloat16,
+          device="cuda") -> torch.Tensor:
+    """N(0, 1/fan_in) (fan_in = ``shape[-2]``) or ``scale``, drawn in f32
+    from ``gen`` on ``device``, cast to ``dtype``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert for a call of ``n_tokens`` tokens:
+    ⌈tokens · k · capacity_factor / E⌉, at least 1."""
+    cap = int(math.ceil(n_tokens * cfg.n_experts_active
+                        * cfg.capacity_factor / cfg.n_experts))
+    return max(cap, 1)
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
+    """The reference's layout: an f32 router (d, E), stacked bf16 experts
+    ``wg``/``wu`` (E, d, f) and ``wd`` (E, f, d), and a ``shared`` SwiGLU
+    of width ``shared_d_ff`` where the config has one."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": _init(gen, (d, e), scale=0.02, dtype=torch.float32,
+                         device=device),
+         "wg": _init(gen, (e, d, f), device=device),
+         "wu": _init(gen, (e, d, f), device=device),
+         "wd": _init(gen, (e, f, d), device=device)}
+    if cfg.shared_d_ff:
+        sf = cfg.shared_d_ff
+        p["shared"] = {"wg": _init(gen, (d, sf), device=device),
+                       "wu": _init(gen, (d, sf), device=device),
+                       "wd": _init(gen, (sf, d), device=device)}
+    return p
+
+
+def route(params: Params, cfg: ModelConfig, xf: torch.Tensor):
+    """Routing of the flattened tokens xf (t, d), always in f32: softmax
+    over the router logits, the top k in descending order, gates
+    renormalised over k.  Then each assignment's capacity rank: a
+    cumulative count per expert over the flattened (t, k) assignments in
+    that order.  Returns (gate (t, k) f32, expert (t·k,) int64, slot
+    (t·k,) int64 with dropped assignments at 0, valid (t·k,) bool)."""
+    t = xf.shape[0]
+    e, k = cfg.n_experts, cfg.n_experts_active
+    cap = moe_capacity(t, cfg)
+    logits = torch.matmul(xf.to(torch.float32), params["router"])
+    probs = layers.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)                  # descending
+    gate = gate / torch.sum(gate, dim=-1, keepdim=True)
+    expert = idx.reshape(t * k)
+    oh = (expert[:, None] == torch.arange(e, device=xf.device)).to(
+        torch.int32)                                          # (t·k, E)
+    ranks = torch.cumsum(oh, dim=0) - 1
+    slot = torch.sum(ranks * oh, dim=-1)                      # (t·k,)
+    valid = slot < cap
+    return gate, expert, torch.where(valid, slot, 0).long(), valid
+
+
+def moe_ffn(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            policy=None, counter=0) -> torch.Tensor:
+    """x (B, S, d) → (B, S, d).  Static capacity, drop on overflow.
+
+    Every token of the call competes for capacity, padding and idle rows
+    included, as in the reference: the caller's batch shape is part of
+    the result."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.n_experts_active
+    cap = moe_capacity(t, cfg)
+    xf = x.reshape(t, d)
+    gate, expert, slot, valid = route(params, cfg, xf)
+
+    # dispatch: scatter-add into a zeroed (E, cap, d) buffer; a dropped
+    # assignment adds zeros to slot 0, so the sums do not depend on the
+    # order in which the scatter visits them
+    token_ids = torch.arange(t, device=x.device)[:, None].expand(
+        t, k).reshape(t * k)                                  # (t·k,)
+    upd = xf[token_ids] * valid[:, None].to(x.dtype)
+    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((expert, slot), upd, accumulate=True)
+
+    # expert SwiGLU: batched products over the expert axis (``matmul``:
+    # f32 accumulation, bf16 out, as the reference's einsums)
+    wg = fake_quant(params["wg"], policy, counter, seed=11)
+    wu = fake_quant(params["wu"], policy, counter, seed=12)
+    wd = fake_quant(params["wd"], policy, counter, seed=13)
+    bufq = fake_quant(buf, policy, counter, seed=14)
+    g = matmul(bufq, wg)
+    u = matmul(bufq, wu)
+    gf = g.to(torch.float32)
+    h = (gf * torch.sigmoid(gf)).to(x.dtype) * u
+    hq = fake_quant(h, policy, counter, seed=15)
+    y = matmul(hq, wd)                                        # (E, cap, d)
+
+    # combine: gather each assignment's row back, weight by gate · valid
+    y_assign = y[expert, slot]                                # (t·k, d)
+    w_assign = (gate.reshape(t * k) * valid)[:, None].to(x.dtype)
+    out = torch.sum((y_assign * w_assign).reshape(t, k, d), dim=1)
+
+    if "shared" in params:
+        out = out + layers.mlp(params["shared"], xf, "swiglu", policy,
+                               counter)
+    return out.reshape(b, s, d)

@@ -1,9 +1,10 @@
-"""Model API of the port over the dense decoder (counterpart of the
-reference's ``models/registry.py``): training's full-sequence logits and
-the serving entry points.  ``batch_spec`` waits for the port's mesh
-(ROADMAP Queue 1 item 13).  Only ``family="dense"`` models with
-attention-only layers are ported; every other family raises
-``NotImplementedError`` (ROADMAP Queue 1 item 11)."""
+"""Model API of the port over the attention-only decoders (counterpart of
+the reference's ``models/registry.py``): training's full-sequence logits
+and the serving entry points.  ``batch_spec`` waits for the port's mesh
+(ROADMAP Queue 1 item 13).  The families ``dense``, ``moe`` and ``vlm``
+(its stub frontend's ``embeds`` prepended in ``apply_model``) are
+ported; SSM, hybrid and encoder-decoder models raise
+``NotImplementedError`` (ROADMAP Queue 1 item 11's second half)."""
 
 from __future__ import annotations
 
@@ -23,18 +24,24 @@ __all__ = ["init_model", "apply_model", "make_cache", "apply_prefill", "apply_pr
            "supports_chunked_prefill", "supports_spec_decode"]
 
 
+FAMILIES = ("dense", "moe", "vlm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.is_encdec or cfg.n_experts
-            or cfg.block_pattern):
+    if cfg.family not in FAMILIES or cfg.is_encdec or cfg.block_pattern:
         raise NotImplementedError(
             f"{cfg.name!r} (family {cfg.family!r}) is not ported yet: the "
-            "port serves dense attention-only decoders; the rest of the zoo "
-            "is ROADMAP Queue 1 item 11")
+            f"port runs the attention-only families {FAMILIES}; SSM, hybrid "
+            "and encoder-decoder models are ROADMAP Queue 1 item 11's "
+            "second half")
 
 
 def supports_batched_prefill(cfg: ModelConfig) -> bool:
-    """True for the dense attention-only decoders the port serves."""
-    return (cfg.family == "dense" and not cfg.is_encdec
+    """True when prompts can prefill in one batched forward that also
+    emits the decode cache: attention-only decoders (the reference's
+    definition; recurrent layers need the scanned prefill, which is not
+    ported)."""
+    return (not cfg.is_encdec
             and all(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)))
 
 
@@ -74,17 +81,17 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 def apply_model(params: Params, cfg: ModelConfig,
                 batch: Dict[str, torch.Tensor], *, policy=None, counter=0,
                 remat: bool = True) -> torch.Tensor:
-    """Full-sequence f32 logits (B, S, vocab_padded) for training and
-    logits-only prefill (``transformer.forward``).  Token batches only:
-    ``embeds`` (the VLM stub) and ``frames`` (the encoder-decoder) belong
-    to the rest of the zoo."""
+    """Full-sequence f32 logits (B, F + S, vocab_padded) for training and
+    logits-only prefill (``transformer.forward``), with ``batch["embeds"]``
+    (B, F, d) prepended where given (the VLM stub frontend).  ``frames``
+    (the encoder-decoder's) belong to item 11's second half."""
     _check_family(cfg)
-    for key in ("embeds", "frames"):
-        if batch.get(key) is not None:
-            raise NotImplementedError(
-                f"batch[{key!r}]: the port runs token batches of dense "
-                "decoders; stub frontends are ROADMAP Queue 1 item 11")
-    return transformer.forward(params, cfg, batch["tokens"], policy=policy,
+    if batch.get("frames") is not None:
+        raise NotImplementedError(
+            "batch['frames']: the encoder-decoder is ROADMAP Queue 1 item "
+            "11's second half")
+    return transformer.forward(params, cfg, batch["tokens"],
+                               embeds=batch.get("embeds"), policy=policy,
                                counter=counter, remat=remat)
 
 

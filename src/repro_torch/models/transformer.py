@@ -24,20 +24,23 @@ the reference's pure functions, ``decode_step``, ``verify_step``,
 ``prefill_with_cache_chunked`` update the cache tensors **in place**
 (``index_put_`` / ``copy_``) and return a cache dict that shares them, so
 a step costs no copy of the cache; callers that need the old cache keep a
-clone.  Only attention layers (``kind="attn"``) of dense models are
-ported; the rest of the zoo is ROADMAP Queue 1 item 11.
+clone.  Blocks are attention layers (``kind="attn"``) followed by the
+SwiGLU MLP or, where the config has experts, the MoE FFN
+(``models/moe.py``); ``forward`` prepends a VLM's stub-frontend
+``embeds``.  SSM and RG-LRU layers are ROADMAP Queue 1 item 11's second
+half.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import rounding
 from repro_torch.kernels import dispatch
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.numerics.policy import dense
 
@@ -91,29 +94,47 @@ def _check_kind(kind: str) -> None:
     if kind != "attn":
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported yet (SSM / RG-LRU blocks are "
-            "ROADMAP Queue 1 item 11)")
+            "ROADMAP Queue 1 item 11's second half)")
 
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 device) -> Params:
+    """One block in the reference's key layout: ``"moe"`` in place of
+    ``"mlp"`` where the config has experts."""
     _check_kind(kind)
-    if cfg.n_experts:
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP "
-                                  "Queue 1 item 11)")
     d = cfg.d_model
     ones = torch.ones((d,), dtype=torch.bfloat16, device=device)
-    return {"ln1": ones,
-            "attn": layers.init_attention(gen, cfg, device=device),
-            "ln2": ones.clone(),
-            "mlp": layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_act,
-                                   device=device)}
+    p = {"ln1": ones,
+         "attn": layers.init_attention(gen, cfg, device=device),
+         "ln2": ones.clone()}
+    if cfg.n_experts:
+        p["moe"] = moe.init_moe(gen, cfg, device=device)
+    else:
+        p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_act,
+                                   device=device)
+    return p
 
 
-def _stack(trees: List[Params]) -> Params:
-    """Stack a list of same-structured dicts leaf by leaf on a new axis 0."""
-    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
-                else torch.stack([t[k] for t in trees]))
-            for k, v in trees[0].items()}
+def _stack(trees: Iterable[Params], n: int) -> Params:
+    """Stack ``n`` same-structured dicts leaf by leaf on a new axis 0.  Each
+    tree is copied into its row as it arrives, so a generator of trees
+    (``init_params``) never holds more than one beside the stack: a
+    stacked model's weights fit the card once, not twice."""
+    out: Params = {}
+    for r, tree in enumerate(trees):
+        _put_row(out, tree, r, n)
+    return out
+
+
+def _put_row(out: Params, tree: Params, r: int, n: int) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _put_row(out.setdefault(k, {}), v, r, n)
+            continue
+        if k not in out:
+            out[k] = torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
+                                 device=v.device)
+        out[k][r].copy_(v)
 
 
 def _index(tree: Params, r: int) -> Params:
@@ -134,8 +155,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     params: Params = {"embed": layers.init_embedding(gen, vp, cfg.d_model,
                                                      device=device)}
     params["blocks"] = [
-        _stack([_init_block(gen, cfg, cfg.layer_kind(pos), device)
-                for _ in range(rep)])
+        _stack((_init_block(gen, cfg, cfg.layer_kind(pos), device)
+                for _ in range(rep)), rep)
         for pos in range(p_)] if rep else []
     params["remainder"] = [
         _init_block(gen, cfg, cfg.layer_kind(rep * p_ + i), device)
@@ -314,6 +335,17 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _ffn(bp: Params, cfg: ModelConfig, x: torch.Tensor, policy,
+         counter) -> torch.Tensor:
+    """The block's second half: x + FFN(norm(x)), the MoE FFN where the
+    block has one (every token of the call competes for its capacity),
+    else the MLP."""
+    h2 = layers.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    if "moe" in bp:
+        return x + moe.moe_ffn(bp["moe"], cfg, h2, policy, counter)
+    return x + layers.mlp(bp["mlp"], h2, cfg.mlp_act, policy, counter)
+
+
 def _apply_block(bp: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions, *, policy, counter, cache_entry=None, pos=None,
                  kv_offset=None, collect_kv: bool = False,
@@ -333,10 +365,7 @@ def _apply_block(bp: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                                    counter=counter, return_kv=collect_kv)
         if collect_kv:
             new_cache = kv
-    x = x + out
-    h2 = layers.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    x = x + layers.mlp(bp["mlp"], h2, cfg.mlp_act, policy, counter)
-    return x, new_cache
+    return _ffn(bp, cfg, x + out, policy, counter), new_cache
 
 
 def _layers(params: Params, cfg: ModelConfig):
@@ -367,16 +396,28 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor, policy,
 # ---------------------------------------------------------------------------
 
 
+def _embed_inputs(params: Params, tokens: torch.Tensor,
+                  embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings, with a stub frontend's ``embeds`` (B, F, d)
+    prepended in the embedding's dtype (the VLM's patch embeddings)."""
+    x = params["embed"][tokens]
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    return x
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            policy=None, counter=0, remat: bool = True) -> torch.Tensor:
-    """Full-sequence forward → f32 logits (B, S, vocab_padded), no cache.
+            embeds: Optional[torch.Tensor] = None, policy=None, counter=0,
+            remat: bool = True) -> torch.Tensor:
+    """Full-sequence forward → f32 logits (B, F + S, vocab_padded), no
+    cache; F is the number of ``embeds`` rows prepended (0 without).
 
     ``remat`` recomputes each stacked layer in the backward pass
     (``torch.utils.checkpoint``, non-reentrant), as the reference's
     ``jax.checkpoint`` of its scanned body; the remainder layers and the
     LM head are not recomputed, as there.  Under a kernel-backend policy a
     recomputed layer launches its dense products again."""
-    x = params["embed"][tokens]
+    x = _embed_inputs(params, tokens, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
 
@@ -394,12 +435,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            policy=None, counter=0) -> torch.Tensor:
+            embeds: Optional[torch.Tensor] = None, policy=None,
+            counter=0) -> torch.Tensor:
     """Prefill forward, logits only (``forward`` without recomputation).
     The serving engine uses ``prefill_with_cache`` below, which also builds
     the ring decode cache."""
-    return forward(params, cfg, tokens, policy=policy, counter=counter,
-                   remat=False)
+    return forward(params, cfg, tokens, embeds=embeds, policy=policy,
+                   counter=counter, remat=False)
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +512,8 @@ def prefill_with_cache(params: Params, cfg: ModelConfig,
     def entry(kv):
         return _prefill_entry(cfg, kv, lengths, cap, kv_quant, kv_offset)
 
-    stacked = [_stack([entry(kv) for kv in kvs[(False, pos_i)]])
+    stacked = [_stack(map(entry, kvs[(False, pos_i)]),
+                      len(kvs[(False, pos_i)]))
                for pos_i in range(len(params["blocks"]))]
     remainder = [entry(kvs[(True, i)][0])
                  for i in range(len(params["remainder"]))]
@@ -577,8 +620,7 @@ def _ring_chunk_block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
     x = x + _ring_chunk_attention(bp["attn"], cfg, h, positions, lengths,
                                   starts, entry, policy, counter, kv_quant,
                                   kv_offset)
-    h2 = layers.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + layers.mlp(bp["mlp"], h2, cfg.mlp_act, policy, counter)
+    return _ffn(bp, cfg, x, policy, counter)
 
 
 def prefill_with_cache_chunked(params: Params, cfg: ModelConfig,
@@ -753,8 +795,7 @@ def _paged_prefill_block(bp: Params, cfg: ModelConfig, x: torch.Tensor,
     x = x + _paged_prefill_attention(
         bp["attn"], cfg, h, positions, lengths, starts, block_tables, entry,
         policy, counter, kv_quant, kv_offset, prefix_blocks)
-    h2 = layers.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + layers.mlp(bp["mlp"], h2, cfg.mlp_act, policy, counter)
+    return _ffn(bp, cfg, x, policy, counter)
 
 
 def prefill_with_cache_paged(params: Params, cfg: ModelConfig,
@@ -1061,8 +1102,12 @@ def _apply_verify_block(bp: Params, cfg: ModelConfig, kind: str,
     """One transformer block of the verify forward over the K hidden rows
     x (B, K, d): ``_apply_block``'s decode ops — the norms and the SwiGLU
     MLP's projections per row unless named in ``fused_ops``, its
-    elementwise ops over all rows — around the verify attention."""
+    elementwise ops over all rows — around the verify attention.  MoE
+    blocks have no verify form (``registry.supports_spec_decode``)."""
     _check_kind(kind)
+    if "moe" in bp:
+        raise ValueError("verify has no MoE form: capacity ranks would couple "
+                         "a verify row to its own later draft positions")
     norm = "rms_norm" in fused_ops
 
     def rows(name, a, fn):

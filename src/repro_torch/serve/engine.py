@@ -9,9 +9,9 @@ subset; DESIGN.md §6, §11, §14).
 and verify steps; ``Engine`` is the host-side loop that drives them: a
 :class:`Scheduler` admits queued requests into free decode slots,
 admitted prompts run through batched prefills (right-padded prompts, one
-call per length bucket — or, under a matmul policy, one per wave — KV
-written per slot into the cache, prefill logits seeding each request's
-first token) or, with ``prefill_chunk``, through one chunk per engine step
+call per length bucket — or, under a matmul policy or for MoE, one per
+wave — KV written per slot into the cache, prefill logits seeding each
+request's first token) or, with ``prefill_chunk``, through one chunk per engine step
 between decode windows, and each window decodes and samples every active
 slot ``decode_ticks`` times with finish detection on the device and one
 host drain.  On the card a policy-free window is one CUDA-graph replay
@@ -394,6 +394,18 @@ def _prefill_groups(rows: dict) -> List[List[int]]:
 _OUT_OF_SLICE = {"mesh": (None, 10), "frames": (None, 11)}
 
 
+
+def _check_restorable(cfg: ModelConfig) -> None:
+    """:meth:`Engine.restore` is bit for bit only where a request's tokens
+    do not depend on which other tokens share its call.  MoE capacity ranks
+    are a count over every token of a call, and restore regroups prefill
+    and replays decode with the other rows inert, so an MoE engine could
+    rebuild other KV than it served (ROADMAP Findings)."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"snapshot/restore of MoE {cfg.name!r}: the replay would change "
+            "each call's tokens and so its capacity drops (ROADMAP Findings)")
+
 class Engine:
     """Host-side continuous-batching loop over the ring or the paged KV
     cache.
@@ -402,7 +414,8 @@ class Engine:
 
     1. asks the scheduler for requests to fill free slots; admitted prompts
        are right-padded into (B, S_bucket) batches, one batched prefill per
-       length bucket, or per wave under a policy (``_prefill_waves``), and
+       length bucket, or per wave under a policy or for MoE
+       (``_prefill_waves``), and
        the prefill logits seed each request's first sampled token.  The
        ring layout merges the
        prefill's cache rows into the admitted slots; the paged layout
@@ -460,7 +473,8 @@ class Engine:
     (default a :class:`StragglerWatchdog`) flags slow windows;
     ``injector`` crashes the step at its five points; with
     ``snapshot_path`` every ``snapshot_every``-th window persists
-    :meth:`snapshot`, and :meth:`restore` continues bit for bit.
+    :meth:`snapshot`, and :meth:`restore` continues bit for bit (both
+    raise for MoE).
     Observability (DESIGN.md §10, §13): ``metrics`` (a :class:`Metrics`
     or a sink spec) and ``trace`` (a :class:`Tracer` or a spec such as
     ``"mem"``), host-side only.
@@ -534,8 +548,11 @@ class Engine:
                     f"item {item})")
         if not registry.supports_batched_prefill(cfg):
             raise NotImplementedError(
-                f"{cfg.name!r} is not a dense attention-only decoder; the "
-                "rest of the zoo is ROADMAP Queue 1 item 11")
+                f"{cfg.name!r} is not an attention-only decoder; recurrent "
+                "and encoder-decoder models are ROADMAP Queue 1 item 11's "
+                "second half")
+        if snapshot_path is not None:
+            _check_restorable(cfg)
         # fault-tolerance / overload knobs (DESIGN.md §12), checked as the
         # reference checks them
         if shed_policy not in self.SHED_POLICIES:
@@ -961,14 +978,17 @@ class Engine:
 
     def _prefill_waves(self, rows: dict) -> List[List[int]]:
         """The prefill calls of one admission wave (``rows``: slot → (tokens
-        to prefill, has a prefix)).  Under an enabled matmul policy: one
-        call for the whole wave at its longest prompt's bucket, as the
-        reference makes — the quantiser's absmax, hash indices and pulse
-        count cover every row of a call, so a row's codes depend on the
-        others either way, and splitting would change every stream against
-        the reference's.  Otherwise one call per length bucket
-        (``_prefill_groups``)."""
-        if self.policy is not None and self.policy.enabled:
+        to prefill, has a prefix)).  Under an enabled matmul policy, and
+        for a model with experts: one call for the whole wave at its
+        longest prompt's bucket, as the reference makes.  A row's result
+        depends on the other rows of its call either way: the quantiser's
+        absmax, hash indices and pulse count cover every row, and MoE
+        capacity ranks are a cumulative count over every token of the
+        call, padding and idle rows included.  Splitting the wave would
+        change streams against the reference's.  Otherwise one call per
+        length bucket (``_prefill_groups``)."""
+        if (self.policy is not None and self.policy.enabled) \
+                or self.cfg.n_experts:
             return [sorted(rows)]
         return _prefill_groups(rows)
 
@@ -1871,7 +1891,8 @@ class Engine:
     def restore(self, snap: dict, streams: Optional[dict] = None) -> "Engine":
         """Adopt a :meth:`snapshot` and re-materialise the device KV so the
         engine continues **bit for bit** where the snapshot was taken
-        (policy-free and deterministic-scheme serving, DESIGN.md §12).
+        (policy-free and deterministic-scheme serving, DESIGN.md §12; not
+        for MoE, ``_check_restorable``).
         Works on a freshly built engine of the same layout or in place on
         a crashed one: every mutable field is overwritten, and the cache's
         own tensors are reset to a fresh cache's bytes and refilled, so the
@@ -1889,6 +1910,7 @@ class Engine:
         requests keep their blocks' contents and prefix-cached blocks
         nobody holds are rebuilt from their writer (a snapshot without
         ``block_src`` drops them, as the reference does)."""
+        _check_restorable(self.cfg)
         lay, mine = snap["layout"], self._layout()
         diff = {k for k in mine if lay.get(k) != mine[k]}
         if diff:

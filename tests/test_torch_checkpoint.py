@@ -20,6 +20,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.interop import train_state_from_numpy
 from repro_torch.train import trainer
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _tree(seed=0):

@@ -1195,3 +1195,168 @@ def test_train_step_through_kernel6_equals_plain(cuda, batch, seq):
         weights += [bp["mlp"][k] for k in ("wg", "wu", "wd")]
     for w in weights:
         assert torch.equal(dm.weight_absmax(w), ref.policy_absmax(w))
+
+
+# ------------------------------------------------ the rest of the zoo
+
+
+def _zoo_config(arch):
+    """A zoo config at ``.reduced()`` with the kernels' head dim 64."""
+    return dataclasses.replace(get_config(arch).reduced(), head_dim=64)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nkv,group,hd", [(8, 4, 128), (36, 1, 64),
+                                          (2, 7, 64), (8, 2, 64),
+                                          (16, 1, 128)])
+def test_attention_kernels_at_zoo_shapes(cuda, quant, nkv, group, hd):
+    """Kernels 1–4 at the (n_kv, group, head dim) of granite-3-8b,
+    minicpm-2b, internvl2-1b, granite-moe-1b-a400m and qwen2-moe-a2.7b:
+    ring and paged decode within 1e-4 of the plain version, paged equal to
+    ring at 64-token blocks, every verify row (ring and paged, K 4) equal
+    to the decode kernel at its position, bit for bit."""
+    pos = [0, 70, 255, 600, 1000]
+    t = _ring(nkv + hd, b=5, cap=1024, nkv=nkv, group=group, hd=hd,
+              quant=quant, pos_vals=pos, device=cuda)
+    got = da.decode_attention(*t)
+    want = ref.decode_attention_ref(*t, block=(da.KERNEL_BLOCK,),
+                                    split=da.SPLIT_TILES)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    q, k, v, kpos, p, ks, vs = t
+    bt = torch.arange(5 * 16, dtype=torch.int32, device=cuda).reshape(5, 16)
+    pool = [x.reshape((5 * 16, 64) + x.shape[2:]) if x is not None else None
+            for x in (k, v, ks, vs)]
+    pk = [torch.cat([x, torch.zeros_like(x[:1])]) if x is not None else None
+          for x in pool]
+    paged = pda.paged_decode_attention(q, pk[0], pk[1], bt, p, pk[2], pk[3])
+    assert torch.equal(paged, got)
+    for kernel, decode, table in (
+            (va.verify_attention, da.decode_attention, kpos),
+            (pva.paged_verify_attention, pda.paged_decode_attention, None)):
+        tv = _ring(nkv + hd + 1, b=5, cap=1024, nkv=nkv, group=group, hd=hd,
+                   quant=quant, pos_vals=[p_ - 3 if p_ > 3 else p_
+                                          for p_ in pos], device=cuda, kq=4)
+        qv, kv_, vv, kposv, pv, ksv, vsv = tv
+        if table is None:
+            kv_, vv, ksv, vsv = (
+                None if x is None else torch.cat([
+                    x.reshape((5 * 16, 64) + x.shape[2:]),
+                    torch.zeros_like(x.reshape((5 * 16, 64) + x.shape[2:])
+                                     [:1])])
+                for x in (kv_, vv, ksv, vsv))
+            kposv = bt
+        out = kernel(qv, kv_, vv, kposv, pv, ksv, vsv)
+        for r in range(4):
+            one = decode(qv[:, r].contiguous(), kv_, vv, kposv, pv + r, ksv,
+                         vsv)
+            assert torch.equal(out[:, r], one), (kernel, r)
+
+
+@pytest.mark.parametrize("m,k,n,tied", [(8, 4096, 12800, False),
+                                        (8, 12800, 4096, False),
+                                        (8, 896, 151664, True),
+                                        (8, 2048, 5632, False)])
+def test_policy_entry_at_zoo_shapes(cuda, m, k, n, tied):
+    """Kernel 6's policy entry at granite-3-8b's MLP (K 12,800: K·255² <
+    2³¹), internvl2's tied padded head (the transposed embedding) and
+    qwen2-moe's shared expert, bit for bit its plain version."""
+    from repro_torch.kernels import dither_matmul as dm
+
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen).bfloat16().to(cuda)
+    w = (torch.randn((n, k) if tied else (k, n), generator=gen)
+         * 0.05).bfloat16().to(cuda)
+    w = w.T if tied else w
+    for scheme in ("deterministic", "stochastic", "dither"):
+        kw = dict(bits=8, scheme=scheme, counter=5, seed=2)
+        got = dm.dither_matmul_scaled(x, w, dm.weight_absmax(w), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.dither_matmul_scaled_ref(x, w, **kw))
+
+
+def _zoo_engine(cuda, arch, layout, n, kv_quant=True):
+    from repro_torch.serve import Engine, Request, SamplingParams
+
+    cfg = _zoo_config(arch)
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    kw = (dict(kv_layout="paged", block_size=64, prefix_cache=False)
+          if layout == "paged" else {})
+    eng = Engine(params, cfg, 4, 128, kv_quant=kv_quant, device=cuda,
+                 decode_ticks=n, **kw)
+    rng = np.random.default_rng(1)
+    for r in range(6):
+        eng.submit(Request(rid=r, prompt=rng.integers(
+            1, cfg.vocab_size, size=int(rng.integers(5, 40))).tolist(),
+            sampling=SamplingParams(temperature=0.8 * (r % 2), top_k=20,
+                                    seed=r, max_new=4 + 2 * r,
+                                    counter_offset=100 * r)))
+    return cfg, params, eng
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "qwen2_moe_a2_7b"])
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_moe_graph_window_equals_eager_window(cuda, arch, layout):
+    """An MoE decode window (top-k, the capacity cumsum, the scatter-add
+    and the gather inside) replayed from its CUDA graph leaves the eager
+    window's bytes, on the first window and after an admission rebinds
+    ``pos`` and the block table; every window is one replay."""
+    cfg, params, eng = _zoo_engine(cuda, arch, layout, 4)
+    eng._admit_and_prefill()
+    _graph_against_eager(eng, cfg, params)
+    while all(s is not None for s in eng.slots):
+        eng._decode_tick()
+    eng._admit_and_prefill()
+    _graph_against_eager(eng, cfg, params)
+    done = eng.run(300)
+    assert len(done) == 6
+    assert eng._graphs.replays == eng.stats["decode_calls"]
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "internvl2_1b"])
+def test_zoo_paged_equals_ring_on_the_card(cuda, arch):
+    """Paged (64-token blocks, the kernels' tile; prefix cache off) and
+    ring engines give the same streams on the card, MoE included: a
+    wave's prefill is one call of the same shape in both layouts, as in
+    the reference."""
+    streams = {}
+    for layout in ("ring", "paged"):
+        _, _, eng = _zoo_engine(cuda, arch, layout, 1, kv_quant=False)
+        streams[layout] = [r.out for r in sorted(eng.run(300),
+                                                 key=lambda r: r.rid)]
+    assert streams["paged"] == streams["ring"]
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "qwen2_moe_a2_7b",
+                                  "internvl2_1b"])
+def test_zoo_train_step_through_kernel6_equals_plain(cuda, arch):
+    """One MoE or VLM train step under the dither policy through kernel 6
+    against its plain version: loss and every new leaf bit for bit;
+    launches a step = the dense products (attention, and a dense MLP or
+    qwen2-moe's shared expert; the routed experts are fake-quantised
+    einsums) × layers, twice with remat, plus the head."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.numerics.policy import QuantPolicy
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import trainer
+
+    cfg = _zoo_config(arch)
+    start = trainer.init_train_state(cfg, seed=0, device=cuda)
+    batch = synthetic_batch(cfg, DataConfig(4, 64, seed=1), 0, device=cuda)
+    per = 4 + (3 if not cfg.n_experts or cfg.shared_d_ff else 0)
+    out = {}
+    for backend in ("cuda", "torch-ref"):
+        step = trainer.make_train_step(
+            cfg, AdamW(lr=1e-2), policy=QuantPolicy(scheme="dither",
+                                                    backend=backend))
+        dm.dither_matmul_scaled.launches = 0
+        state, m = step(start, batch)
+        torch.cuda.synchronize()
+        out[backend] = (state, m["loss"], dm.dither_matmul_scaled.launches)
+    assert out["cuda"][2] == 2 * per * cfg.n_layers + 1
+    assert out["torch-ref"][2] == 0
+    assert torch.equal(out["cuda"][1], out["torch-ref"][1])
+    for a, b in zip(tree.leaves(out["cuda"][0]),
+                    tree.leaves(out["torch-ref"][0])):
+        assert a.dtype == b.dtype and torch.equal(a, b)

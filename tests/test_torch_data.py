@@ -17,6 +17,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import mnist_like
 from repro_torch.data.pipeline import (DataConfig, data_iterator,
                                        synthetic_batch)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("arch,reduced", [("smollm_135m", True),
@@ -54,12 +55,17 @@ def test_data_iterator_walks_the_steps():
 
 
 def test_stub_frontends_are_not_ported():
+    """The encoder-decoder's frames stay unported (item 11's second half);
+    the VLM's ``vit_stub`` embeds are ported (``tests/test_torch_zoo_train.py``
+    holds them against the reference)."""
     cfg = get_config("smollm_135m").reduced()
-    for kw in (dict(frontend="vit_stub", n_frontend_tokens=4),
-               dict(is_encdec=True)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            synthetic_batch(dataclasses.replace(cfg, **kw),
-                            DataConfig(batch=2, seq=8), 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        synthetic_batch(dataclasses.replace(cfg, is_encdec=True),
+                        DataConfig(batch=2, seq=8), 0, device="cpu")
+    vit = synthetic_batch(dataclasses.replace(
+        cfg, frontend="vit_stub", n_frontend_tokens=4),
+        DataConfig(batch=2, seq=8), 0, device="cpu")
+    assert tuple(vit["embeds"].shape) == (2, 4, cfg.d_model)
 
 
 @pytest.mark.parametrize("hard", [False, True])

@@ -19,6 +19,7 @@ from repro.kernels import dispatch as ref_dispatch
 from repro.kernels import ref as ref_oracle
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import decode_attention as da
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = RTOL = 1e-5
 

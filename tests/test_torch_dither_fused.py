@@ -23,6 +23,7 @@ from repro_torch.kernels import dither_matmul as dm
 from repro_torch.kernels import quantize as qk
 from repro_torch.kernels import ref
 from repro_torch.numerics import policy
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHEMES = ["deterministic", "stochastic", "dither"]
 # the serve path's pulse counts (N_A = N, N_B = max(M, 2)) and odd ones

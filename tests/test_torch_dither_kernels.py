@@ -39,6 +39,7 @@ from repro_torch.core import rounding as port_rounding
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import dither_matmul as dm
 from repro_torch.kernels import quantize as qk
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHEMES = ["deterministic", "stochastic", "dither"]
 FORMATS = ["spread", "unary"]

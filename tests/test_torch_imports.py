@@ -5,8 +5,9 @@ imports every module of the port, serves a few requests over the ring
 and the paged cache, speculatively, under the dither matmul policy, and
 with metrics, tracing and a crash recovered from a snapshot, takes one
 training step under the dither policy with compressed gradients and
-encodes and multiplies pulse streams — and by a scan of its sources and
-``chip_smoke.py``."""
+encodes and multiplies pulse streams, and serves and trains the MoE and
+VLM configs of the zoo (``models/moe.py``, the stub frontend's embeds) —
+and by a scan of its sources and ``chip_smoke.py``."""
 
 import os
 import re
@@ -104,6 +105,20 @@ pulses = rep.dither_encode(gen, torch.rand(4, generator=gen), 16)
 assert pulses.shape == (4, 16)
 assert ops.multiply_estimate(gen, torch.rand(3), torch.rand(3), 16,
                              "dither").shape == (3,)
+for arch in ("granite_moe_1b_a400m", "qwen2_moe_a2_7b", "internvl2_1b"):
+    zc = get_config(arch).reduced()
+    zp = registry.init_model(zc, seed=0, device="cpu")
+    for layout in ("ring", "paged"):
+        eng = Engine(zp, zc, 2, 16, kv_quant=True, kv_layout=layout,
+                     block_size=4, device="cpu")
+        for r in range(3):
+            eng.submit(Request(rid=r, prompt=[1, 2, 3, 4, 5 + r], max_new=3))
+        assert [len(r.out) for r in eng.run(50)] == [3, 3, 3]
+    zs = trainer.init_train_state(zc, seed=0, device="cpu")
+    zb = synthetic_batch(zc, DataConfig(2, 8), 0, device="cpu")
+    assert ("embeds" in zb) == (arch == "internvl2_1b")
+    zs, m = trainer.make_train_step(zc, AdamW(lr=1e-3))(zs, zb)
+    assert bool(m["loss"].isfinite())
 import importlib, pkgutil, repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -127,7 +142,12 @@ assert set(["repro_torch.serve.kvpool", "repro_torch.serve.draft",
             "repro_torch.data.pipeline", "repro_torch.data.mnist_like",
             "repro_torch.checkpoint.checkpointer",
             "repro_torch.train.trainer", "repro_torch.launch.train",
-            "repro_torch.tree"]) <= set(names)
+            "repro_torch.tree", "repro_torch.models.moe",
+            "repro_torch.configs.granite_3_8b",
+            "repro_torch.configs.minicpm_2b",
+            "repro_torch.configs.internvl2_1b",
+            "repro_torch.configs.granite_moe_1b_a400m",
+            "repro_torch.configs.qwen2_moe_a2_7b"]) <= set(names)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")

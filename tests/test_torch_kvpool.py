@@ -13,6 +13,7 @@ import pytest
 
 from repro.serve.kvpool import KVPool as RefPool
 from repro_torch.serve.kvpool import KVPool
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PREFIXES = [[1, 2, 3, 4, 5, 6, 7, 8], [1, 2, 3, 4, 9, 9, 9, 9],
             [5, 5, 5, 5, 6, 6, 6, 6]]

@@ -22,6 +22,7 @@ from repro_torch.serve import (Engine, Histogram, JsonlSink, Metrics,
                                NullSink, Request, SamplingParams, StdoutSink,
                                make_sink)
 from repro_torch.serve.metrics import SinkBuffer
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = get_config("smollm_135m").reduced()
 PARAMS = registry.init_model(CFG, seed=0, device="cpu")

@@ -55,6 +55,7 @@ from repro_torch.interop import cache_from_numpy, params_from_numpy
 from repro_torch.models import registry
 from repro_torch.numerics.policy import QuantPolicy
 from repro_torch.serve import Engine, Request, SamplingParams
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = get_config("smollm_135m").reduced()
 PCFG = port_get_config("smollm_135m").reduced()

@@ -24,6 +24,7 @@ from repro.models import transformer as ref_tf
 from repro_torch.configs import get_config
 from repro_torch.interop import cache_from_numpy, params_from_numpy
 from repro_torch.models import registry, transformer
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = ref_get_config("smollm_135m").reduced()
 PCFG = get_config("smollm_135m").reduced()

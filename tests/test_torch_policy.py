@@ -40,6 +40,7 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import dispatch
 from repro_torch.models import registry
 from repro_torch.numerics import policy
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = ref_get_config("smollm_135m").reduced()
 PCFG = get_config("smollm_135m").reduced()

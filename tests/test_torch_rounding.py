@@ -11,6 +11,7 @@ import torch
 
 from repro.core import rounding as ref
 from repro_torch.core import rounding as port
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EDGES = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1],
                  dtype=np.uint64)

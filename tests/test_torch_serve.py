@@ -30,6 +30,7 @@ from repro.core import rounding as ref_rounding
 from repro.models import registry as ref_registry
 from repro_torch.configs import get_config as port_get_config
 from repro_torch.interop import params_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = get_config("smollm_135m").reduced()
 PORT_CFG = port_get_config("smollm_135m").reduced()

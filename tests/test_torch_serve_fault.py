@@ -43,6 +43,7 @@ from repro_torch.dist.fault_tolerance import (SERVE_PHASES, FailureInjector,
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import registry
 from repro_torch.serve import Engine, Request, SamplingParams
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = get_config("smollm_135m").reduced()
 PARAMS = registry.init_model(CFG, seed=0, device="cpu")

@@ -35,6 +35,7 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.models import registry
 from repro_torch.serve import Engine, Request, SamplingParams
 from repro_torch.serve import draft
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = get_config("smollm_135m").reduced()
 PCFG = port_get_config("smollm_135m").reduced()

@@ -26,6 +26,7 @@ from repro_torch.dist.fault_tolerance import (FailureInjector,
 from repro_torch.models import registry
 from repro_torch.serve import (Engine, JsonlSink, NullSink, Request,
                                SamplingParams, Tracer, format_explain)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = get_config("smollm_135m").reduced()
 PARAMS = registry.init_model(CFG, seed=0, device="cpu")

@@ -115,16 +115,23 @@ def test_forward_logits_match_reference():
 
 
 def test_apply_model_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        registry.apply_model(TORCH_PARAMS, PCFG,
-                             {**TORCH_BATCH, "embeds": torch.zeros(2, 4, 128)})
+    """The encoder-decoder's ``frames`` and the recurrent families raise
+    (item 11's second half).  ``embeds`` are ported: they are prepended,
+    as the reference's ``apply_model`` prepends them for any config
+    (``tests/test_torch_zoo.py`` holds the VLM)."""
     with pytest.raises(NotImplementedError, match="item 11"):
         registry.apply_model(TORCH_PARAMS, PCFG,
                              {**TORCH_BATCH, "frames": torch.zeros(2, 4, 128)})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        registry.apply_model(TORCH_PARAMS,
-                             dataclasses.replace(PCFG, family="moe"),
-                             TORCH_BATCH)
+    for family in ("ssm", "hybrid", "audio"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            registry.apply_model(TORCH_PARAMS,
+                                 dataclasses.replace(PCFG, family=family),
+                                 TORCH_BATCH)
+    out = registry.apply_model(
+        TORCH_PARAMS, PCFG,
+        {**TORCH_BATCH, "embeds": torch.zeros(2, 4, 128,
+                                              dtype=torch.bfloat16)})
+    assert tuple(out.shape) == (2, 4 + 16, PCFG.vocab_padded())
 
 
 @pytest.mark.parametrize("name", list(POLICIES))

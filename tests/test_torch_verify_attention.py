@@ -23,6 +23,7 @@ import torch
 
 from repro.kernels import dispatch as ref_dispatch
 from repro_torch.kernels import dispatch, ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = RTOL = 1e-6
 
