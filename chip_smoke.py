@@ -3,7 +3,7 @@
 
   PYTHONPATH=src python chip_smoke.py
 
-Drives the port (``src/repro_torch``) on one card, in eight phases, each
+Drives the port (``src/repro_torch``) on one card, in nine phases, each
 printing JSON lines:
 
 1. device — refuses to run without CUDA; the card's name and power limit
@@ -24,7 +24,8 @@ printing JSON lines:
    and 8 query rows, a slot two short of the cache's end), every row equal
    to the decode kernel at its position, bit for bit, and paged verify
    equal to ring verify;
-4. serve — full-width SmolLM-135M (random weights from seed 0) through the
+4. serve — full-width SmolLM-135M cut to ``SMOLLM_LAYERS`` = 10 of its 30
+   layers, as in phases 5-7 (random weights from seed 0), through the
    port's ``Engine``, with the bf16 and the int8-dither KV cache, over the
    ring cache (16 requests, prompts of 32–512 tokens) and over the paged
    pool (16 requests sharing a 256-token system prompt, a pool of 56
@@ -70,16 +71,17 @@ printing JSON lines:
    queue caps with both shed policies and deadlines on the engine's
    injected clock;
 7. training and the pulse-stream core (after the policy phases): ``train``
-   — full-width SmolLM-135M, batch 8 × 512, 20 steps from seed 0 (cosine
-   schedule, remat) with no policy and under ``QuantPolicy(scheme=
-   "dither", bits=8, backend="auto")``, whose every forward product runs
-   through kernel 6's policy entry at 4,096 rows (the tied head through
-   the transposed embedding): losses finite and falling, kernel 6 launched
-   421 times a step (211 without remat), the step's loss and every
-   gradient through the kernel equal to the plain version's bit for bit,
-   a run crashed after a checkpoint and before a step and restarted
-   equal to an uninterrupted one bit for bit; step times, tokens/s, peak
-   memory, one profiled step and the checkpoint's save and restore times;
+   — full-width SmolLM-135M (10 layers), batch 8 × 512, 10 steps from
+   seed 0 (cosine schedule, remat) with no policy and under
+   ``QuantPolicy(scheme="dither", bits=8, backend="auto")``, whose every
+   forward product runs through kernel 6's policy entry at 4,096 rows
+   (the tied head through the transposed embedding): losses finite and
+   falling, kernel 6 launched 141 times a step (71 without remat; 421 and
+   211 at 30 layers), the step's loss and every gradient through the
+   kernel equal to the plain version's bit for bit, a run crashed after
+   a checkpoint and before a step and restarted equal to an uninterrupted
+   one bit for bit; step times, tokens/s, peak memory, one profiled step
+   and the checkpoint's save and restore times;
    ``core`` — the §II–IV encoders and pulse arithmetic on the card at
    N = 16…1024 against the paper's bias, EMSE and slope bounds;
 8. the rest of the zoo (``zoo``, one line per config) — granite-3-8b,
@@ -97,11 +99,26 @@ printing JSON lines:
    assignments dropped at decode and prefill (counted in a second ring
    run, so the timed one runs without the counter); greedy decode through
    the kernels against their plain versions, logits within
-   ``ZOO_PARITY_ATOL``; granite-moe under the dither policy (kernel-6 launches a call,
-   logits against the plain route); granite-moe and internvl2 trained 6
+   ``ZOO_PARITY_ATOL``; granite-moe under the dither policy (8 new tokens
+   a request; kernel-6 launches a call, logits against the plain route)
+   and through a crashed run restored as the reference restores an MoE
+   engine (every budget completed); granite-moe and internvl2 trained 3
    steps of 8 × 512 (the VLM's 256 stub embeds prepended) with and
    without the policy, one step through kernel 6 bit for bit the plain
-   one; peak memory per config.
+   one; peak memory per config;
+9. the recurrent configs (``zoo``, one line each) — mamba2-370m and
+   recurrentgemma-9b at full width and depth, one at a time: kernel 1 at
+   head dim 256 (recurrentgemma's 16 heads over 1 KV head; a wrapped
+   2,048-slot ring under the 2,048-token window) and kernel 6 at mamba2's
+   products against their plain versions; the zoo's ring traffic in bf16
+   and int8 (mamba2's int8 flag inert: equal streams), prompts prefilled
+   by the scanned prefill replayed from one captured decode step a
+   position (its replay timed alone against its bound), the launch gates
+   counting those replays; a W = 8 window replayed and run eagerly,
+   byte for byte, states included, and W = 8 streams equal to W = 1's;
+   the kernel route against the plain one; mamba2 under the dither
+   policy (logits bit for bit the plain route) and trained 3 steps; a
+   crashed recurrentgemma run restored, streams equal to uninterrupted.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
@@ -124,7 +141,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
+import itertools
 import json
 import math
 import re
@@ -152,6 +171,11 @@ PAGED_REPLACES = "src/repro/kernels/decode_attention.py:482"
 PAGED_BLOCKS = 56          # the paged serve phase's pool, against 8 × 16
 SERVE_REQUESTS = 16        # requests of each serve phase
 SPEC_K = 4                 # the speculative serve phases' draft_k
+POLICY_NEW = 16            # new tokens a request of the policy serve phases
+# SmolLM-135M's depth in phases 4-7: full width, 10 of its 30 layers, to
+# keep the script inside its time limit (every gate and count follows
+# n_layers; PERF.md §4)
+SMOLLM_LAYERS = 10
 VERIFY_REPLACES = "src/repro/kernels/decode_attention.py:316"
 PAGED_VERIFY_REPLACES = "src/repro/kernels/decode_attention.py:653"
 ATTN_KERNELS = ("flash_decode",)   # kernels 1-4's device kernels (and merge)
@@ -1094,28 +1118,47 @@ def paged_engine(cfg, params, kv_quant, device="cuda", **kw):
                   block_size=64, num_blocks=PAGED_BLOCKS, device=device, **kw)
 
 
+def attn_layers(cfg):
+    """The config's attention layers (all of them but in a model with
+    recurrent SSD or RG-LRU layers)."""
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
 def launch_gates(eng, host, kernel, cfg):
     """The launch gates of a policy-free serve run, whose windows are
     CUDA-graph replays: one replay per window, each graph holding one
-    ``kernel`` launch per layer and tick, so the run launched it
-    ``n_layers × ticks`` times (replays × launches per graph; ticks =
-    ``decode_ticks`` × windows, less where pool pressure stepped windows
+    ``kernel`` launch per attention layer and tick, so the run launched
+    it ``attn_layers × ticks`` times (replays × launches per graph; ticks
+    = ``decode_ticks`` × windows, less where pool pressure stepped windows
     down to one tick) and no other kernel; the host counts (``host``:
     kernel → count, set to 0 just before the run) saw one eager warm-up
     window and one capture per graph and nothing else, so no window ran
-    eagerly.  Returns the launches each kernel really made: the host's
+    eagerly.  A model with recurrent state prefills through its captured
+    scanned-prefill step (``PrefillGraphs``): one more warm-up and
+    capture, and ``attn_layers`` launches a replay, one replay a prompt
+    position.  Returns the launches each kernel really made: the host's
     less what the captures recorded, plus the replays'.  (Eager windows on
     the CPU: the host counts.)"""
     ticks, windows = eng.tick, eng.stats["decode_calls"]
-    g = eng._graphs
+    g, n_attn = eng._graphs, attn_layers(cfg)
     if g is None:
-        assert host[kernel] == cfg.n_layers * ticks, (host, ticks)
+        assert host[kernel] == n_attn * ticks, (host, ticks)
         return dict(host)
     replayed, recorded = g.launches(), g.recorded()
+    pf = getattr(getattr(eng, "_prefill", None), "step_launches", None)
+    if pf is not None:
+        assert pf[kernel] == n_attn, pf
+        assert all(v == 0 for k, v in pf.items() if k != kernel), pf
+        for k, n in eng._prefill.launches().items():
+            replayed[k] += n
+        for k, n in pf.items():
+            recorded[k] += n
     assert g.replays == windows, (g.replays, windows)
     for key, w in g.windows().items():
-        assert w["launches"][kernel] == cfg.n_layers * key[0], (key, w)
-    assert replayed[kernel] == cfg.n_layers * ticks, (replayed, ticks)
+        assert w["launches"][kernel] == n_attn * key[0], (key, w)
+    pf_replays = eng._prefill.replays if pf is not None else 0
+    assert replayed[kernel] == n_attn * (ticks + pf_replays), (replayed,
+                                                               ticks)
     assert all(v == 0 for k, v in replayed.items() if k != kernel), replayed
     assert all(host[k] == 2 * recorded[k] for k in host), (host, recorded)
     return {k: host[k] - recorded[k] + replayed[k] for k in host}
@@ -1448,8 +1491,9 @@ def graph_against_eager(torch, eng, cfg, params):
             "counters": torch.equal(counters, eng._dev["counters"]),
             "pos": torch.equal(new["pos"], eng.cache["pos"])}
     trash_equal = True
-    for li, (got_e, want_e) in enumerate(zip(eng.cache["layers"],
-                                             new["layers"])):
+    for li, (got_e, want_e) in enumerate(zip(
+            eng.cache["layers"] + eng.cache["remainder"],
+            new["layers"] + new["remainder"])):
         for name, got_t in got_e.items():
             want_t = want_e[name]
             if paged:
@@ -2166,10 +2210,10 @@ def dither_kernel_phase(torch, qk, dm, ref, policy):
 
 
 def policy_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain):
-    """The quantised-matmul path: the serve phase's own traffic (ring: the
+    """The quantised-matmul path: the serve phase's own prompts (ring: the
     16 requests over 32–512-token prompts; paged: the 16 sharing a system
-    prompt) through ``Engine(policy=QuantPolicy(scheme="dither",
-    backend="auto"))``: every dense product through the CUDA dither matmul
+    prompt), ``POLICY_NEW`` new tokens each, through
+    ``Engine(policy=QuantPolicy(scheme="dither", backend="auto"))``: every dense product through the CUDA dither matmul
     (the paged prefix cache off, as under the reference's policy).  Gates:
     every budget emitted, dither-matmul launches = (7 × layers + 1) ×
     (prefill calls + ticks), one attention launch per layer per tick, no
@@ -2194,8 +2238,9 @@ def policy_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain):
     del warm
     eng = engine()
     assert eng.policy.backend == "cuda"
-    reqs = (paged_requests(cfg, SERVE_REQUESTS, paged_lens(), 64) if paged
-            else ring_requests(cfg, SERVE_REQUESTS, ring_lens(), 64))
+    reqs = (paged_requests(cfg, SERVE_REQUESTS, paged_lens(), POLICY_NEW)
+            if paged else ring_requests(cfg, SERVE_REQUESTS, ring_lens(),
+                                        POLICY_NEW))
     for req in reqs:
         eng.submit(req)
     torch.cuda.synchronize()
@@ -2209,7 +2254,7 @@ def policy_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain):
     st = eng.stats
     assert len(done) == SERVE_REQUESTS, len(done)
     for r in done:
-        assert r.finish_reason == "length" and len(r.out) == 64, (
+        assert r.finish_reason == "length" and len(r.out) == POLICY_NEW, (
             r.rid, r.finish_reason, len(r.out))
         assert all(0 <= t < cfg.vocab_size for t in r.out)
     per_forward = 7 * cfg.n_layers + 1
@@ -2227,7 +2272,7 @@ def policy_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain):
     return {"phase": "policy_serve", "layout": layout,
             "kv": "int8" if kv_quant else "bf16", "policy": "dither",
             "backend": eng.policy.backend, "requests": SERVE_REQUESTS,
-            "new_tokens_each": 64, "batch": 8, "max_len": 1024,
+            "new_tokens_each": POLICY_NEW, "batch": 8, "max_len": 1024,
             "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
             "decode_tok_s": st["decode_tokens"] / st["decode_s"],
             "plain_prefill_tok_s": plain["prefill_tok_s"],
@@ -2243,8 +2288,8 @@ def policy_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain):
 
 def policy_restart_phase(torch, cfg, params):
     """Restart determinism under the policy: the ring traffic's first four
-    requests (int8 KV), served twice on fresh engines, give the same
-    streams token for token (the counter is the engine tick, the hash
+    prompts (int8 KV, ``POLICY_NEW`` new tokens each), served twice on
+    fresh engines, give the same streams token for token (the counter is the engine tick, the hash
     stateless)."""
     from repro_torch.numerics.policy import QuantPolicy
     from repro_torch.serve import Engine
@@ -2253,12 +2298,12 @@ def policy_restart_phase(torch, cfg, params):
     for _ in range(2):
         eng = Engine(params, cfg, 8, 1024, kv_quant=True, device="cuda",
                      policy=QuantPolicy(scheme="dither", backend="auto"))
-        for req in ring_requests(cfg, 4, ring_lens()[:4], 64):
+        for req in ring_requests(cfg, 4, ring_lens()[:4], POLICY_NEW):
             eng.submit(req)
         streams.append([r.out for r in sorted(eng.run(1000),
                                               key=lambda r: r.rid)])
     assert streams[0] == streams[1]
-    assert all(len(s) == 64 for s in streams[0])
+    assert all(len(s) == POLICY_NEW for s in streams[0])
     return {"phase": "policy_restart", "kv": "int8", "requests": 4,
             "streams_equal": True}
 
@@ -2736,9 +2781,9 @@ def overload_phase(torch, cfg, params, want):
 # training and the pulse-stream core (ROADMAP Queue 1 items 12 and 6a)
 # --------------------------------------------------------------------------
 
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 10
 # cosine peak and warm-up steps of the train runs (a peak of 3e-3 made the
-# loss of these 20 steps rise at full width on an H100)
+# loss of 20 steps rise at full width on an H100)
 TRAIN_LR = (1e-3, 5)
 TRAIN_CRASHES = {1: "after_save", 2: "before_save"}   # the restart run's
 CORE_N = (16, 64, 256, 1024)     # pulse counts of the core phase
@@ -2746,21 +2791,35 @@ CORE_TRIALS = 256                # encodings of each x (as test_paper_stats)
 CORE_OP_TRIALS = 20              # pulse streams of each random op
 
 
-def layer_products(cfg):
+def layer_products(cfg, kind="attn"):
     """Dense products of one layer that run through ``policy.dense``: the
-    four attention projections, and the MLP's three (a dense model) or the
-    shared expert's three (qwen2-moe); the routed experts are
-    fake-quantised ``einsum``s, as in the reference, not kernel 6."""
-    return 4 + (3 if not cfg.n_experts or cfg.shared_d_ff else 0)
+    four attention projections, the RG-LRU block's three or the SSD
+    block's two (in and out), and then, but for SSD blocks, the MLP's
+    three (SwiGLU) or two (GELU), or the shared expert's three
+    (qwen2-moe); the routed experts are fake-quantised ``einsum``s, as in
+    the reference, not kernel 6."""
+    if kind == "ssm":
+        return 2
+    mlp = 0 if cfg.n_experts and not cfg.shared_d_ff else (
+        2 if cfg.mlp_act == "gelu" else 3)
+    return (4 if kind == "attn" else 3) + mlp
+
+
+def model_products(cfg):
+    """Dense products of one forward's layers (``layer_products`` over the
+    layer kinds), the LM head not counted."""
+    return sum(layer_products(cfg, cfg.layer_kind(i))
+               for i in range(cfg.n_layers))
 
 
 def train_launches(cfg, remat):
-    """Kernel-6 launches of one train step under the dither policy: a
-    layer's dense products (``layer_products``: seven for a dense model)
-    and the LM head in the forward, and the layers' again when ``remat``
-    recomputes them in the backward (the head is not recomputed); the
-    backward's products are plain ``torch.matmul`` (straight-through)."""
-    per = layer_products(cfg) * cfg.n_layers
+    """Kernel-6 launches of one train step under the dither policy: the
+    layers' dense products (``model_products``: seven a layer for a dense
+    model) and the LM head in the forward, and the layers' again when
+    ``remat`` recomputes them in the backward (the head is not
+    recomputed); the backward's products are plain ``torch.matmul``
+    (straight-through)."""
+    per = model_products(cfg)
     return per + 1 + (per if remat else 0)
 
 
@@ -3074,9 +3133,23 @@ ZOO = ("granite_3_8b", "minicpm_2b", "internvl2_1b", "granite_moe_1b_a400m",
 ZOO_REQUESTS, ZOO_NEW = 8, 32    # requests of a zoo serve run, new tokens
 ZOO_SYSTEM = 128                 # the paged traffic's shared system prompt
 ZOO_POLICY = "granite_moe_1b_a400m"       # served under the dither policy
+ZOO_POLICY_NEW = 8          # new tokens a request of a zoo policy run
+ZOO_POLICY_PARITY_LEN = 16  # a scanned prefill's parity prompts (tokens)
 ZOO_TRAIN = ("granite_moe_1b_a400m", "internvl2_1b")
-ZOO_TRAIN_STEPS = 6
+ZOO_TRAIN_STEPS = 3
 ZOO_PARITY_STEPS = 8
+# the recurrent configs (ROADMAP Queue 1 item 11b-i): mamba2 served under
+# the policy and trained; recurrentgemma (≈ 15 GB of weights, f32 AdamW
+# moments alone ≈ 72 GB) served only, with a crashed run
+RECURRENT_ZOO = ("mamba2_370m", "recurrentgemma_9b")
+RECURRENT_POLICY = ("mamba2_370m",)
+RECURRENT_TRAIN = ("mamba2_370m",)
+# kernel 1 at recurrentgemma's attention (1 KV head, group 16, head dim
+# 256): a wrapped 2,048-slot ring under the 2,048-token window, and the
+# serve cache's 1,024 slots
+HD256_CASES = ((2048, 2048, [0, 37, 255, 1023, 2047, 2048, 3000, 4095]),
+               (1024, 2048, [0, 37, 255, 511, 700, 1023, 1500, 2047]))
+ZOO_FAULT_TICK = 9          # the zoo fault runs' one crash ("mid_window")
 # zoo_parity's limits on the kernel route's logits against the plain
 # route's, (max, mean) over 8 decode steps from copies of one cache whose
 # histories drift apart: dense full-width stacks (up to 40 layers) round
@@ -3097,6 +3170,8 @@ ZOO_MATMULS = {
     "granite_moe_1b_a400m": ((8, 1024, 1024, False), (8, 1024, 512, False),
                              (8, 1024, 49168, False)),
     "qwen2_moe_a2_7b": ((8, 2048, 5632, False), (8, 5632, 2048, False)),
+    "mamba2_370m": ((8, 1024, 4384, False), (8, 2048, 1024, False),
+                    (8, 1024, 50288, True)),
 }
 
 
@@ -3342,7 +3417,7 @@ def zoo_serve(torch, cfg, params, layout, kv_quant, *, staged=False,
             "graph_replays": (eng._graphs.replays
                               if eng._graphs is not None else 0),
             "wall_s": wall, f"{kernel}_launches": launches[kernel],
-            "launches_per_window": cfg.n_layers * eng.decode_ticks}
+            "launches_per_window": attn_layers(cfg) * eng.decode_ticks}
     if eng.spec_decode:
         line.update(spec_windows=st["spec_windows"],
                     accepted=st["spec_accepted_tokens"],
@@ -3423,8 +3498,19 @@ def zoo_policy(torch, cfg, params):
     eng = Engine(params, cfg, 8, 1024, device="cuda",
                  policy=QuantPolicy(scheme="dither", backend="auto"))
     assert eng.policy.backend == "cuda" and eng._graphs is None
+    recurrent = not registry.supports_batched_prefill(cfg)
+    steps = []                 # a scanned prefill's steps, call by call
+    if recurrent:
+        inner = eng._prefill
+
+        def counted(params, tokens, *a, **kw):
+            steps.append(tokens.shape[1])
+            return inner(params, tokens, *a, **kw)
+
+        eng._prefill = counted
     reqs = zoo_requests(cfg, "ring")
     for req in reqs:
+        req.max_new = ZOO_POLICY_NEW
         eng.submit(req)
     torch.cuda.synchronize()
     for m in KERNEL_WRAPPERS.values():
@@ -3436,22 +3522,30 @@ def zoo_policy(torch, cfg, params):
     launches = {k: m.launches for k, m in KERNEL_WRAPPERS.items()}
     st = eng.stats
     assert len(done) == len(reqs)
-    assert all(r.finish_reason == "length" and len(r.out) == ZOO_NEW
+    assert all(r.finish_reason == "length" and len(r.out) == ZOO_POLICY_NEW
                for r in done)
-    per_forward = layer_products(cfg) * cfg.n_layers + 1
-    calls = st["prefill_calls"] + st["decode_calls"]
-    assert launches["dither_matmul_scaled"] == per_forward * calls, (
-        launches, per_forward, calls)
+    per_forward = model_products(cfg) + 1
+    # a scanned prefill (recurrent state) is one forward a prompt position
+    forwards = (sum(steps) if steps else st["prefill_calls"]) \
+        + st["decode_calls"]
+    assert launches["dither_matmul_scaled"] == per_forward * forwards, (
+        launches, per_forward, forwards)
     assert launches["dither_matmul"] == launches["dither_matmul_scaled"]
-    assert launches["decode_attention"] == cfg.n_layers * st["decode_calls"]
+    assert launches["decode_attention"] == attn_layers(cfg) * (
+        st["decode_calls"] + sum(steps)), launches
     assert launches["quantize"] == 0, launches
 
-    lens = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32,
+    # the parity prompts: the traffic's, cut to ``ZOO_POLICY_PARITY_LEN``
+    # tokens for a scanned prefill (one forward a position, the plain
+    # version's products at its speed)
+    cut = ZOO_POLICY_PARITY_LEN if recurrent else None
+    prompts = [r.prompt[:cut] for r in reqs]
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
                         device="cuda")
     toks = torch.zeros((8, int(lens.max())), dtype=torch.long,
                        device="cuda")
-    for i, r in enumerate(reqs):
-        toks[i, :len(r.prompt)] = torch.tensor(r.prompt)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
     out = {}
     for backend in ("cuda", "torch-ref"):
         pol = QuantPolicy(scheme="dither", backend=backend)
@@ -3466,20 +3560,24 @@ def zoo_policy(torch, cfg, params):
         out[backend] = seq
     diff = max((a - b).abs().max().item()
                for a, b in zip(out["cuda"], out["torch-ref"]))
+    bitwise = all(torch.equal(a, b) for a, b in zip(out["cuda"],
+                                                    out["torch-ref"]))
     assert diff <= LOGIT_ATOL, diff
+    assert bitwise or not recurrent, diff
     return {"layout": "ring", "kv": "bf16", "policy": "dither",
             "backend": "cuda", "requests": len(reqs),
             "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
             "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+            "new_tokens_each": ZOO_POLICY_NEW,
             "prefill_calls": st["prefill_calls"],
+            "scanned_prefill_steps": steps,
             "decode_ticks": st["decode_calls"], "wall_s": wall,
             "kernel6_launches": launches["dither_matmul_scaled"],
             "kernel6_launches_per_call": per_forward,
             "decode_attention_launches": launches["decode_attention"],
+            "parity_prompt_tokens": int(lens.sum()),
             "parity_max_abs_logit_diff": diff,
-            "parity_logits_bitwise_equal": all(
-                torch.equal(a, b) for a, b in zip(out["cuda"],
-                                                  out["torch-ref"]))}
+            "parity_logits_bitwise_equal": bitwise}
 
 
 def zoo_train(torch, dm, cfg):
@@ -3626,12 +3724,236 @@ def zoo_phase(torch, name, da, pda, va, pva, dm, ref):
     res["profile_tick"] = profile_phase(torch, cfg, params, False)
     if name == ZOO_POLICY:
         res["policy"] = zoo_policy(torch, cfg, params)
+        res["fault"] = zoo_fault(torch, cfg, params, ring_bf16)
     res["serve_peak_memory_allocated_gb"] = (
         torch.cuda.max_memory_allocated() / 1e9)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     if name in ZOO_TRAIN:
+        res["train"] = zoo_train(torch, dm, cfg)
+    res["peak_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["seconds"] = time.perf_counter() - t_start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def hd256_kernel_checks(torch, cfg, da, ref):
+    """Kernel 1 at recurrentgemma's attention (``HD256_CASES``, B 8, 1 KV
+    head, group 16, head dim 256), bf16 and int8: against its plain
+    version with the kernel's tiles and split and in the plain version's
+    own order (``check_kernel``, within ``KERNEL_TOL``); cold event ms of
+    the kernel, the plain version and SDPA (``cold_times``), the kernel's
+    device ms (its named kernels in the profiler) and the bound."""
+    gen = torch.Generator().manual_seed(21)
+    sh = zoo_shape(cfg)
+    ring_kw = dict(block=(da.KERNEL_BLOCK,), split=da.SPLIT_TILES)
+    rows = []
+    for cap, window, pos_vals in HD256_CASES:
+        for quant in (False, True):
+            t = ring_inputs(gen, quant=quant, pos_vals=pos_vals, b=8,
+                            cap=cap, **sh)
+            _, res = check_kernel(torch, da.decode_attention,
+                                  ref.decode_attention_ref, t, window,
+                                  ring_kw)
+            res.update(cold_times(
+                t, functools.partial(da.decode_attention, window=window),
+                functools.partial(ref.decode_attention_ref, window=window),
+                lambda c: library_call(c, window), (100, 5, 50),
+                profiled=False))
+            # the kernel's device ms, inputs rotated past the L2 as above
+            copies = itertools.cycle(
+                [t] + [[None if x is None else x.clone() for x in t]
+                       for _ in range(res["copies_rotated"] - 1)])
+            res["device_ms"] = device_ms(
+                torch, lambda: da.decode_attention(*next(copies),
+                                                   window=window),
+                50, ATTN_KERNELS)
+            bound = decode_bound(pos_vals, b=8, cap=cap, quant=quant,
+                                 window=window, **sh)
+            rows.append({"name": f"decode_attention[{'int8' if quant else 'bf16'}]",
+                         "model_shapes": "recurrentgemma_9b",
+                         "window": window, "pos": pos_vals,
+                         "shape": {"B": 8, "cap": cap, **sh}, **res,
+                         "bound_ms": bound[0], "bound_by": bound[1]})
+    return rows
+
+
+def prefill_step_times(torch, eng, params, steps=20):
+    """One scanned-prefill step of ``eng`` (its ``PrefillGraphs``) timed
+    alone: ``steps`` replays of the captured step between CUDA events
+    (device ms a step), beside its bound: every weight read once at HBM
+    bandwidth (the step reads the recurrent states and the ring too,
+    which the bound leaves out)."""
+    from repro_torch import tree
+
+    g = eng._prefill
+    g.lengths.fill_(1 << 30)             # every row active, as in a wave
+    g.t.zero_()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        g._graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    return {"replays_timed": steps,
+            "device_ms_per_step": start.elapsed_time(end) / steps,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "weight_bytes": nbytes, "launches_per_step": g.step_launches}
+
+
+def zoo_fault(torch, cfg, params, want):
+    """A zoo config's ring bf16 traffic through ``run_serve_with_restarts``
+    with a snapshot file every window and one crash (``mid_window`` at
+    tick ``ZOO_FAULT_TICK``), the restarted engine restored from the file.
+    Gates: one recovery, every request its full budget.  ``want`` (the
+    uninterrupted streams, rid → tokens) must be equal where the restore
+    is exact, which it is for every config but MoE; for MoE the restore
+    is the reference's (one prefill call, a replay with the rows out of
+    tokens at token 0), so only the budgets are held and the streams
+    that differ are counted."""
+    import os
+
+    from repro_torch.dist.fault_tolerance import (FailureInjector,
+                                                  run_serve_with_restarts)
+    from repro_torch.serve import Engine
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    path = str(SCRATCH / f"fault-{cfg.name}.json")
+    if os.path.exists(path):
+        os.remove(path)
+    injector = FailureInjector({ZOO_FAULT_TICK: "mid_window"})
+    restores = []
+
+    def make_engine():
+        eng = Engine(params, cfg, 8, 1024, device="cuda", injector=injector,
+                     snapshot_path=path)
+        restore = eng.restore
+
+        def timed(snap, streams=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore(snap, streams=streams)
+            torch.cuda.synchronize()
+            restores.append({"tick": eng.tick,
+                             "seconds": time.perf_counter() - t0,
+                             **eng.last_restore})
+            return eng
+
+        eng.restore = timed
+        return eng
+
+    def submit(eng):
+        for req in zoo_requests(cfg, "ring"):
+            eng.submit(req)
+
+    t0 = time.perf_counter()
+    eng = run_serve_with_restarts(make_engine, submit, snapshot_path=path,
+                                  ticks=10_000, max_restarts=2)
+    torch.cuda.synchronize()
+    assert injector.fired == {(ZOO_FAULT_TICK, "mid_window")}, injector.fired
+    assert eng.metrics.counters["recoveries"] == 1
+    done = {r.rid: list(r.out) for r in eng.finished}
+    assert sorted(done) == sorted(want)
+    assert all(len(v) == ZOO_NEW for v in done.values())
+    differ = sorted(r for r in want if done[r] != want[r])
+    if not cfg.n_experts:
+        assert not differ, (cfg.name, "restored streams differ", differ)
+    assert_drained(eng, cfg.name + " fault")
+    return {"crash_at": {str(ZOO_FAULT_TICK): "mid_window"},
+            "recoveries": 1, "restores": restores,
+            "streams_equal_uninterrupted": not differ,
+            "streams_differing": differ, "exact_restore": not cfg.n_experts,
+            "wall_s": time.perf_counter() - t0}
+
+
+def recurrent_phase(torch, name, da, dm, ref):
+    """One recurrent config (``RECURRENT_ZOO``) at full width and depth on
+    the card, random bf16 weights from seed 0, loaded alone and freed
+    after: kernel 1 at head dim 256 (recurrentgemma) and kernel 6's
+    policy entry at mamba2's products against their plain versions; the
+    zoo's ring traffic in bf16 and int8 (mamba2 has no KV, so int8 must
+    serve the bf16 streams), every prompt prefilled by the scanned prefill
+    replayed from its captured step (``PrefillGraphs``) and timed alone
+    against its bound; one W = 8 window replayed and run eagerly from one
+    state, byte for byte (recurrent states included); the kernel route
+    against the plain one (``zoo_parity``); mamba2 under the dither
+    policy (``zoo_policy``: kernel 6 launches per forward, logits bit
+    for bit the plain route) and trained (``zoo_train``); recurrentgemma
+    through a crashed and restored run whose streams equal the
+    uninterrupted ones (``zoo_fault``).  Peak memory."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serve import Engine
+
+    cfg = get_config(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    res = {"phase": "zoo", "model": cfg.name, "family": cfg.family,
+           "nvidia_smi": nvidia_smi(),
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "attention_layers": attn_layers(cfg),
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd()],
+           "vocab_padded": cfg.vocab_padded(),
+           "kernels": (hd256_kernel_checks(torch, cfg, da, ref)
+                       if attn_layers(cfg) else []),
+           "matmuls": (zoo_matmul_checks(torch, name, dm, ref)
+                       if name in ZOO_MATMULS else [])}
+    t0 = time.perf_counter()
+    params = registry.init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["weights_gb"] = sum(t.numel() * t.element_size()
+                            for t in tree.leaves(params)) / 1e9
+    runs = {}
+    runs["ring_bf16"], ring_bf16, eng = zoo_serve(torch, cfg, params, "ring",
+                                                  False)
+    pf = eng._prefill
+    runs["ring_bf16"].update(
+        prefill_graph_replays=pf.replays,
+        prefill_graph_steps_per_call=pf.replays / eng.stats["prefill_calls"],
+        prefill_graph_capture_s=pf.capture_s)
+    res["prefill_step"] = prefill_step_times(torch, eng, params)
+    del eng, pf
+    runs["ring_int8"], ring_int8, eng = zoo_serve(torch, cfg, params, "ring",
+                                                  True)
+    del eng
+    if not attn_layers(cfg):
+        assert ring_int8 == ring_bf16, (cfg.name, "int8 flag not inert")
+        runs["ring_int8"]["streams_equal_ring_bf16"] = True
+    res["runs"] = runs
+    eng = Engine(params, cfg, 8, 1024, device="cuda", decode_ticks=WINDOW)
+    for req in zoo_requests(cfg, "ring"):
+        eng.submit(req)
+    eng._admit_and_prefill()
+    res["window_graph_vs_eager"] = graph_against_eager(torch, eng, cfg,
+                                                       params)
+    done = eng.run(1000)
+    assert len(done) == ZOO_REQUESTS
+    assert {r.rid: list(r.out) for r in done} == ring_bf16, (
+        cfg.name, "W = 8 != W = 1")
+    res["window_streams_equal_w1"] = True
+    del eng
+    res["parity"] = zoo_parity(torch, cfg, params)
+    if name in RECURRENT_POLICY:
+        res["policy"] = zoo_policy(torch, cfg, params)
+    if not cfg.n_experts and attn_layers(cfg):
+        res["fault"] = zoo_fault(torch, cfg, params, ring_bf16)
+    res["serve_peak_memory_allocated_gb"] = (
+        torch.cuda.max_memory_allocated() / 1e9)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if name in RECURRENT_TRAIN:
         res["train"] = zoo_train(torch, dm, cfg)
     res["peak_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res["seconds"] = time.perf_counter() - t_start
@@ -3713,7 +4035,8 @@ def main() -> int:
           "clocks_max_sm_mhz": int32_ops_per_s()[1], "times": dither_rows})
 
     # 4 — serve (plain, then speculative on the same traffic), 5 — parity
-    cfg = get_config("smollm_135m")
+    cfg = dataclasses.replace(get_config("smollm_135m"),
+                              n_layers=SMOLLM_LAYERS)
     params = registry.init_model(cfg, seed=0, device="cuda")
     emit(row_purity_phase(torch, cfg, params))
     kmods = KERNEL_WRAPPERS
@@ -3801,6 +4124,10 @@ def main() -> int:
     for name in ZOO:
         zoo[name] = res = zoo_phase(torch, name, da, pda, va, pva, dm, ref)
         emit(res)
+    # the recurrent configs (ROADMAP Queue 1 item 11b-i)
+    for name in RECURRENT_ZOO:
+        zoo[name] = res = recurrent_phase(torch, name, da, dm, ref)
+        emit(res)
 
     kernels = []
     for kv_quant in (False, True):
@@ -3865,6 +4192,23 @@ def main() -> int:
         entry["zoo_launches"] = {
             z["model"]: z["runs"][run][f"{kernel}_launches"]
             for z in zoo.values() if run in z["runs"]}
+    # kernel 1 at head dim 256 (recurrentgemma), its own entry
+    rg = zoo["recurrentgemma_9b"]
+    for kv in ("bf16", "int8"):
+        main = next(r for r in rg["kernels"]
+                    if r["name"] == f"decode_attention[{kv}]"
+                    and r["shape"]["cap"] == HD256_CASES[0][0])
+        kernels.append({
+            "name": f"decode_attention[{kv}, hd 256]", "route": "cuda",
+            "source": da.SOURCE, "replaces": REPLACES,
+            "launches": rg["runs"][f"ring_{kv}"]["decode_attention_launches"],
+            "launches_note": "recurrentgemma-9b ring serve run: window and "
+                             "scanned-prefill graph replays × launches per "
+                             "graph, plus the warm-ups'",
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "device_ms", "library_device_ms",
+                                    "shape", "window", "pos")}})
     qmain = next(c for c in dither_rows if c["name"] == "quantize"
                  and c["shape"] == [576, 1536])
     kernels.append({

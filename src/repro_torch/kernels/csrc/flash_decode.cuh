@@ -5,7 +5,10 @@
 // paged_verify_attention.cu).
 //
 // kq query rows per slot (1 for decode), row t at position pos[b] + t; GQA
-// groups of any size up to 16.  The kernels differ only in how a tile of the
+// groups of any size up to 16; head dims 64 and 128, and 256 for the ring
+// decode kernel (a lane then owns 8 value dims: 4 words of V in bf16, 2 in
+// int8; at group 16 two bf16 stages, the q rows and p take 167,440 bytes of
+// shared memory, within the 232,448 opt-in).  The kernels differ only in how a tile of the
 // cache is addressed, which a `Tiles` policy supplies (RingTiles and
 // PagedTiles below):
 //
@@ -321,9 +324,13 @@ __device__ __forceinline__ void tile_rows(
       uint32_t ws[kWords];
       if constexpr (kWords == 1) {
         ws[0] = *reinterpret_cast<const uint32_t*>(vr);
-      } else {
+      } else if constexpr (kWords == 2) {
         const uint2 w2 = *reinterpret_cast<const uint2*>(vr);
         ws[0] = w2.x; ws[1] = w2.y;
+      } else {                                      // bf16, HD 256
+        static_assert(kWords == 4, "a lane reads 1, 2 or 4 words of V");
+        const uint4 w4 = *reinterpret_cast<const uint4*>(vr);
+        ws[0] = w4.x; ws[1] = w4.y; ws[2] = w4.z; ws[3] = w4.w;
       }
 #pragma unroll
       for (int w = 0; w < kWords; ++w)
@@ -591,6 +598,11 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64) return launch_hd<64, KT, Tiles, kMaxR>(a, tiles, B, st);
   if (hd == 128) return launch_hd<128, KT, Tiles, kMaxR>(a, tiles, B, st);
+  // HD 256 (recurrentgemma's local attention) for the ring decode kernel
+  // only: kernels 2-4 are not instantiated at it
+  if constexpr (kMaxR == 1 && Tiles::kStoredPos) {
+    if (hd == 256) return launch_hd<256, KT, Tiles, 1>(a, tiles, B, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -32,12 +32,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref, shrink_block
 
 __all__ = ["decode_attention", "check_ring", "ring_constants", "launch_on",
-           "KERNEL_BLOCK", "SPLIT_TILES", "SOURCE"]
+           "HEAD_DIMS", "KERNEL_BLOCK", "SPLIT_TILES", "SOURCE"]
 
 KERNEL_BLOCK = 64     # cache slots per tile (csrc: kMaxBk), shrunk to divide cap
 SPLIT_TILES = 2       # tiles per split (csrc: kSplitTiles)
 SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 _MAX_GROUP = 16       # csrc: kMaxGroup
+HEAD_DIMS = (64, 128, 256)   # csrc: launch (256: recurrentgemma, ring only)
 _CACHE_DTYPES = (torch.int8, torch.bfloat16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -104,13 +105,14 @@ def _explain_ring(q, k, v, k_pos, pos, k_scale, v_scale):
     raise ValueError("inputs the ring kernels do not take")
 
 
-def check_ring(q, k, v, k_pos, pos, k_scale, v_scale, window):
+def check_ring(q, k, v, k_pos, pos, k_scale, v_scale, window,
+               head_dims=(64, 128)):
     """Raise ValueError on any input the ring kernels do not take: q is
     (B, n_kv, group, hd) for decode or (B, kq, n_kv, group, hd) for
     verify, k and v (B, cap, n_kv, hd) bf16 or int8 (then with f32 scales
     (B, cap, n_kv)), k_pos (B, cap) and pos (B,) int32, all on q's device
-    and contiguous; hd 64 or 128, group ≤ 16, k and v 16-byte aligned,
-    window ≥ 0."""
+    and contiguous; hd in ``head_dims`` (the decode kernel also takes
+    256), group ≤ 16, k and v 16-byte aligned, window ≥ 0."""
     if k.dim() != 4 or q.dim() not in (4, 5):
         raise ValueError(f"q must be (B, n_kv, group, hd) and k, v "
                          f"(B, cap, n_kv, hd); got {tuple(q.shape)}, "
@@ -145,8 +147,8 @@ def check_ring(q, k, v, k_pos, pos, k_scale, v_scale, window):
               and k_scale.is_contiguous() and v_scale.is_contiguous())
     if not ok:
         _explain_ring(q, k, v, k_pos, pos, k_scale, v_scale)
-    if hd != 64 and hd != 128:
-        raise ValueError(f"head dim {hd} not in (64, 128)")
+    if hd not in head_dims:
+        raise ValueError(f"head dim {hd} not in {head_dims}")
     if not 1 <= group <= _MAX_GROUP:
         raise ValueError(f"GQA group {group} not in [1, {_MAX_GROUP}]")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
@@ -178,7 +180,7 @@ def decode_attention(
         raise ValueError(f"q must be (B, n_kv, group, hd); got "
                          f"{tuple(q.shape)}")
     window = int(window)
-    check_ring(q, k, v, k_pos, pos, k_scale, v_scale, window)
+    check_ring(q, k, v, k_pos, pos, k_scale, v_scale, window, HEAD_DIMS)
     b, cap, nkv, hd = k.shape
     group = q.shape[2]
     bk, splits, inv = ring_constants(cap, hd)

@@ -19,9 +19,14 @@ the paged KV cache:
       --deadline-ms 60000          # then again with --resume
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch granite_moe_1b_a400m --reduced --device cpu --kv-quant
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch mamba2_370m --reduced --device cpu --decode-ticks 4
 
 ``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS`` (the VLM is
-served on tokens alone, as the reference's engine serves it).
+served on tokens alone, as the reference's engine serves it; the
+recurrent ``mamba2_370m`` and ``recurrentgemma_9b`` serve on the ring
+only, prefilled by the scanned prefill, a captured CUDA graph a prompt
+position on the card).
 Takes the reference launcher's flags but ``--mesh`` (ROADMAP Queue 1 item
 10), plus ``--device``.  Weights are random, drawn from seed 0 (the
 reference draws its own from ``PRNGKey(0)``, so the values differ).

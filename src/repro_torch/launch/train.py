@@ -11,6 +11,8 @@ CPU):
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite_moe_1b_a400m --reduced --device cpu --steps 4 \\
       --batch 2 --seq 16       # or internvl2_1b: its stub embeds prepended
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \\
+      --reduced --device cpu --steps 4 --batch 2 --seq 16
 
 ``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS``; a
 ``vit_stub`` config trains on the pipeline's ``embeds`` beside its tokens.

@@ -22,7 +22,7 @@ from repro_torch.numerics.policy import dense, matmul
 Params = Dict[str, Any]
 
 __all__ = ["rms_norm", "rope", "attention", "qkv", "grouped_logits",
-           "grouped_values", "mlp", "softmax", "make_causal_mask",
+           "grouped_values", "mlp", "gelu", "softmax", "make_causal_mask",
            "init_attention", "init_mlp", "init_embedding"]
 
 
@@ -166,34 +166,52 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU or GELU)
 # ---------------------------------------------------------------------------
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
              act: str = "swiglu", device="cuda") -> Params:
+    """SwiGLU ``{wg, wu, wd}``, or for ``act="gelu"`` the reference's GELU
+    MLP ``{wu, wd, bu, bd}`` with zero bf16 biases."""
     _check_act(act)
-    return {"wg": _init(gen, (d_model, d_ff), device=device),
-            "wu": _init(gen, (d_model, d_ff), device=device),
-            "wd": _init(gen, (d_ff, d_model), device=device)}
+    if act == "swiglu":
+        return {"wg": _init(gen, (d_model, d_ff), device=device),
+                "wu": _init(gen, (d_model, d_ff), device=device),
+                "wd": _init(gen, (d_ff, d_model), device=device)}
+    return {"wu": _init(gen, (d_model, d_ff), device=device),
+            "wd": _init(gen, (d_ff, d_model), device=device),
+            "bu": torch.zeros((d_ff,), dtype=torch.bfloat16, device=device),
+            "bd": torch.zeros((d_model,), dtype=torch.bfloat16,
+                              device=device)}
 
 
 def _check_act(act: str) -> None:
-    if act != "swiglu":
-        raise NotImplementedError(
-            f"mlp_act={act!r} is not ported yet (the GELU archs belong to "
-            "ROADMAP Queue 1 item 11's second half)")
+    if act not in ("swiglu", "gelu"):
+        raise ValueError(f"unknown mlp_act {act!r}")
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation, in f32, cast
+    back to x's dtype."""
+    return torch.nn.functional.gelu(x.to(torch.float32),
+                                    approximate="tanh").to(x.dtype)
 
 
 def mlp(params: Params, x: torch.Tensor, act: str = "swiglu", policy=None,
         counter=0) -> torch.Tensor:
-    """SwiGLU MLP: silu in f32, cast back, times the up projection."""
+    """SwiGLU MLP (silu in f32, cast back, times the up projection), or
+    the GELU MLP: up projection plus its bias, GELU, down projection plus
+    its bias, each sum in bf16 as the reference's."""
     _check_act(act)
-    g = dense(x, params["wg"], policy, counter, seed=5)
-    u = dense(x, params["wu"], policy, counter, seed=6)
-    gf = g.to(torch.float32)
-    h = (gf * torch.sigmoid(gf)).to(x.dtype) * u
-    return dense(h, params["wd"], policy, counter, seed=7)
+    if act == "swiglu":
+        g = dense(x, params["wg"], policy, counter, seed=5)
+        u = dense(x, params["wu"], policy, counter, seed=6)
+        gf = g.to(torch.float32)
+        h = (gf * torch.sigmoid(gf)).to(x.dtype) * u
+        return dense(h, params["wd"], policy, counter, seed=7)
+    h = gelu(dense(x, params["wu"], policy, counter, seed=5) + params["bu"])
+    return dense(h, params["wd"], policy, counter, seed=7) + params["bd"]
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int,

@@ -1,10 +1,16 @@
-"""Model API of the port over the attention-only decoders (counterpart of
+"""Model API of the port over the decoder-only families (counterpart of
 the reference's ``models/registry.py``): training's full-sequence logits
 and the serving entry points.  ``batch_spec`` waits for the port's mesh
-(ROADMAP Queue 1 item 13).  The families ``dense``, ``moe`` and ``vlm``
-(its stub frontend's ``embeds`` prepended in ``apply_model``) are
-ported; SSM, hybrid and encoder-decoder models raise
-``NotImplementedError`` (ROADMAP Queue 1 item 11's second half)."""
+(ROADMAP Queue 1 item 13).  The families ``dense``, ``moe``, ``vlm``
+(its stub frontend's ``embeds`` prepended in ``apply_model``), ``ssm``
+and ``hybrid`` are ported; the encoder-decoder raises
+``NotImplementedError`` (ROADMAP Queue 1 item 11's second half).
+
+Models with recurrent state (SSD, RG-LRU) prefill by the reference's
+*scanned* prefill: one decode step per prompt position over a fresh
+cache, each row frozen once its prompt ends (``apply_prefill``;
+``scanned_prefill_step`` is one step of it, which the engine captures as
+a CUDA graph on the card)."""
 
 from __future__ import annotations
 
@@ -17,30 +23,31 @@ from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 
-__all__ = ["init_model", "apply_model", "make_cache", "apply_prefill", "apply_prefill_paged",
+__all__ = ["init_model", "apply_model", "make_cache", "apply_prefill",
+           "scanned_prefill_step", "apply_prefill_paged",
            "apply_prefill_chunked", "apply_decode", "apply_verify",
            "verify_row_purity", "spec_commit", "merge_prefill",
            "supports_batched_prefill", "supports_paged_kv",
            "supports_chunked_prefill", "supports_spec_decode"]
 
 
-FAMILIES = ("dense", "moe", "vlm")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.is_encdec or cfg.block_pattern:
+    if cfg.family not in FAMILIES or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name!r} (family {cfg.family!r}) is not ported yet: the "
-            f"port runs the attention-only families {FAMILIES}; SSM, hybrid "
-            "and encoder-decoder models are ROADMAP Queue 1 item 11's "
-            "second half")
+            f"port runs the decoder-only families {FAMILIES}; the "
+            "encoder-decoder is ROADMAP Queue 1 item 11's second half")
 
 
 def supports_batched_prefill(cfg: ModelConfig) -> bool:
     """True when prompts can prefill in one batched forward that also
     emits the decode cache: attention-only decoders (the reference's
-    definition; recurrent layers need the scanned prefill, which is not
-    ported)."""
+    definition).  SSD and RG-LRU layers carry recurrent state whose value
+    at each row's prompt end the full-sequence pass does not give: they
+    prefill by the scanned prefill (``apply_prefill``)."""
     return (not cfg.is_encdec
             and all(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)))
 
@@ -101,6 +108,9 @@ def make_cache(params: Params, cfg: ModelConfig, batch_size: int,
                num_blocks: Optional[int] = None, device="cuda") -> Params:
     """The ring or paged decode cache on ``device``."""
     _check_family(cfg)
+    if kv_layout != "ring" and not supports_paged_kv(cfg):
+        raise ValueError("paged KV layout requires an attention-only decoder "
+                         f"(arch {cfg.name!r} has recurrent state)")
     return transformer.init_cache(cfg, batch_size, max_len, kv_quant=kv_quant,
                                   kv_layout=kv_layout, block_size=block_size,
                                   num_blocks=num_blocks, device=device)
@@ -108,15 +118,54 @@ def make_cache(params: Params, cfg: ModelConfig, batch_size: int,
 
 def apply_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   lengths: torch.Tensor, max_len: int, *, policy=None,
-                  counter=0, kv_quant: bool = False, kv_offset=None):
-    """Batched prefill → (last-token logits (B, vocab_size), ring cache)."""
+                  counter=0, kv_quant: bool = False, kv_offset=None,
+                  cache0: Optional[Params] = None):
+    """Batched prefill of right-padded prompts (B, S) with true lengths
+    (B,) (0: an inactive row) → (last-token logits (B, vocab_size) f32,
+    ring cache with ``pos == lengths``).
+
+    Attention-only decoders run ``transformer.prefill_with_cache``, one
+    forward.  Models with recurrent state run the reference's scanned
+    prefill: from ``cache0`` (default a fresh cache; it is updated in
+    place), one decode step per position t < S on the column
+    ``tokens[:, t]``, each row's state, KV and position frozen once t ≥
+    its length (``scanned_prefill_step``), its logits kept from its last
+    active step."""
     _check_family(cfg)
     b, s = tokens.shape
-    logits, cache = transformer.prefill_with_cache(
-        params, cfg, tokens, lengths, max_len, policy=policy,
-        counter=counter, kv_quant=kv_quant, kv_offset=kv_offset)
-    last = torch.clamp(lengths.long() - 1, 0, s - 1)
-    return logits[torch.arange(b, device=logits.device), last], cache
+    lengths = lengths.to(torch.int32)
+    if supports_batched_prefill(cfg):
+        logits, cache = transformer.prefill_with_cache(
+            params, cfg, tokens, lengths, max_len, policy=policy,
+            counter=counter, kv_quant=kv_quant, kv_offset=kv_offset)
+        last = torch.clamp(lengths.long() - 1, 0, s - 1)
+        return logits[torch.arange(b, device=logits.device), last], cache
+    cache = cache0 if cache0 is not None else make_cache(
+        params, cfg, b, max_len, kv_quant=kv_quant, device=tokens.device)
+    last = torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
+                       device=tokens.device)
+    for t in range(s):
+        scanned_prefill_step(params, cfg, tokens[:, t], t, lengths, cache,
+                             last, policy=policy, counter=counter,
+                             kv_offset=kv_offset)
+    return last, cache
+
+
+def scanned_prefill_step(params: Params, cfg: ModelConfig,
+                         token: torch.Tensor, t, lengths: torch.Tensor,
+                         cache: Params, last: torch.Tensor, *, policy=None,
+                         counter=0, kv_offset=None) -> None:
+    """Step t of the scanned prefill, in place: the decode step on
+    ``token`` (B,) for the rows with t < ``lengths`` (the others keep
+    their state, KV and position), and their logits into ``last`` (B,
+    vocab_size).  ``t`` may be a device scalar (a captured step reads it
+    there)."""
+    active = lengths > t
+    logits, new = transformer.decode_step(
+        params, cfg, token, cache, policy=policy, counter=counter,
+        kv_offset=kv_offset, active=active)
+    cache["pos"].copy_(torch.where(active, new["pos"], cache["pos"]))
+    last.copy_(torch.where(active[:, None], logits, last))
 
 
 def apply_prefill_paged(params: Params, cfg: ModelConfig,
@@ -161,13 +210,14 @@ def apply_prefill_chunked(params: Params, cfg: ModelConfig,
 
 def apply_decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
                  cache: Params, *, policy=None, counter=0, kv_offset=None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, active=None):
     """One decode step (``transformer.decode_step``), ring or paged by the
-    cache's layout."""
+    cache's layout; rows where ``active`` (B,) is False keep their
+    recurrent state and ring contents."""
     _check_family(cfg)
     return transformer.decode_step(params, cfg, token, cache, policy=policy,
                                    counter=counter, kv_offset=kv_offset,
-                                   backend=backend)
+                                   backend=backend, active=active)
 
 
 def apply_verify(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

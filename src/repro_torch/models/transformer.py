@@ -24,11 +24,15 @@ the reference's pure functions, ``decode_step``, ``verify_step``,
 ``prefill_with_cache_chunked`` update the cache tensors **in place**
 (``index_put_`` / ``copy_``) and return a cache dict that shares them, so
 a step costs no copy of the cache; callers that need the old cache keep a
-clone.  Blocks are attention layers (``kind="attn"``) followed by the
-SwiGLU MLP or, where the config has experts, the MoE FFN
-(``models/moe.py``); ``forward`` prepends a VLM's stub-frontend
-``embeds``.  SSM and RG-LRU layers are ROADMAP Queue 1 item 11's second
-half.
+clone.  Blocks are attention layers (``kind="attn"``), RG-LRU
+recurrences (``"rglru"``, ``models/hybrid.py``) or SSD layers (``"ssm"``,
+``models/ssm.py``, norm → SSD only); the first two are followed by the
+SwiGLU or GELU MLP or, where the config has experts, the MoE FFN
+(``models/moe.py``).  A recurrent layer's cache entry is its state
+(``h``, ``conv``), which ``decode_step`` updates in place like the KV;
+given ``active`` (B,), rows that are not active keep their state and
+write no KV, which the scanned prefill and the inert rows of a decode
+window rely on.  ``forward`` prepends a VLM's stub-frontend ``embeds``.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import rounding
 from repro_torch.kernels import dispatch
-from repro_torch.models import layers, moe
+from repro_torch.models import hybrid, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.numerics.policy import dense
 
@@ -90,23 +94,33 @@ def _period(cfg: ModelConfig) -> int:
     return len(cfg.block_pattern) if cfg.block_pattern else 1
 
 
+KINDS = ("attn", "rglru", "ssm")
+
+
 def _check_kind(kind: str) -> None:
-    if kind != "attn":
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (SSM / RG-LRU blocks are "
-            "ROADMAP Queue 1 item 11's second half)")
+    if kind not in KINDS:
+        raise ValueError(f"unknown layer kind {kind!r}; expected one of "
+                         f"{KINDS}")
 
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 device) -> Params:
-    """One block in the reference's key layout: ``"moe"`` in place of
-    ``"mlp"`` where the config has experts."""
+    """One block in the reference's key layout: ``"attn"``, ``"rec"`` or
+    ``"ssm"`` after ``ln1``; then, except for SSD blocks (norm → SSD
+    only), ``ln2`` and the MLP, or ``"moe"`` where the config has
+    experts."""
     _check_kind(kind)
     d = cfg.d_model
     ones = torch.ones((d,), dtype=torch.bfloat16, device=device)
-    p = {"ln1": ones,
-         "attn": layers.init_attention(gen, cfg, device=device),
-         "ln2": ones.clone()}
+    p = {"ln1": ones}
+    if kind == "attn":
+        p["attn"] = layers.init_attention(gen, cfg, device=device)
+    elif kind == "rglru":
+        p["rec"] = hybrid.init_rglru(gen, cfg, device=device)
+    else:
+        p["ssm"] = ssm.init_ssm(gen, cfg, device=device)
+        return p
+    p["ln2"] = ones.clone()
     if cfg.n_experts:
         p["moe"] = moe.init_moe(gen, cfg, device=device)
     else:
@@ -176,7 +190,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 def _cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                  kv_quant: bool, device) -> Params:
+    """One layer's decode cache: the ring (capacity ``min(window,
+    max_len)`` for local attention) or a recurrent layer's zero state."""
     _check_kind(kind)
+    if kind == "rglru":
+        return hybrid.init_rglru_state(cfg, batch, device=device)
+    if kind == "ssm":
+        return ssm.init_ssm_state(cfg, batch, device=device)
     cap = min(cfg.window, max_len) if cfg.window else max_len
     shape = (batch, cap, cfg.n_kv_heads, cfg.hd())
     entry = {
@@ -264,7 +284,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
                       cache: Params, pos: torch.Tensor, policy, counter,
                       kv_offset=None, backend: Optional[str] = None,
-                      block_tables: Optional[torch.Tensor] = None):
+                      block_tables: Optional[torch.Tensor] = None,
+                      active: Optional[torch.Tensor] = None):
     """One-token attention against one layer's cache entry.
     x: (B, 1, d); ``pos`` (B,) int32 per-slot absolute positions.
 
@@ -273,9 +294,11 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     ring slot ``pos % cap``, or — when ``block_tables`` (B, nbmax) selects
     the paged layout — into pool block ``block_tables[b, pos // bs]`` at
     in-block slot ``pos % bs`` (the engine has made that block exist and
-    uniquely owned, or pointed the row at the trash block).  Then runs
-    flash-decode attention through the kernel dispatcher (``backend``
-    None: the CUDA kernel on the card, the plain version on the CPU).
+    uniquely owned, or pointed the row at the trash block).  Rows where
+    ``active`` (B,) is False write their slot's old contents back.  Then
+    runs flash-decode attention through the kernel dispatcher
+    (``backend`` None: the CUDA kernel on the card, the plain version on
+    the CPU).
     """
     b = x.shape[0]
     hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
@@ -299,19 +322,25 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
         rows = block_tables.gather(1, logical[:, None].long())[:, 0].long()
     else:
         rows = torch.arange(b, device=x.device)
+    def put(name, new):
+        if active is not None:
+            keep = active.reshape((b,) + (1,) * (new.dim() - 1))
+            new = torch.where(keep, new, cache[name][rows, slot])
+        cache[name][rows, slot] = new
+
     if cache["k"].dtype == torch.int8:
         ctr = pos if kv_offset is None else pos + kv_offset
         ctr4 = ctr.reshape(b, 1, 1, 1)
         idx4 = _kv_elem_idx(nkv, hd, x.device)
         kq, ks = _kv_q8(k, ctr4, idx4, 101)
         vq, vs = _kv_q8(v, ctr4, idx4, 102)
-        cache["k"][rows, slot] = kq[:, 0]
-        cache["v"][rows, slot] = vq[:, 0]
-        cache["k_scale"][rows, slot] = ks[:, 0]
-        cache["v_scale"][rows, slot] = vs[:, 0]
+        put("k", kq[:, 0])
+        put("v", vq[:, 0])
+        put("k_scale", ks[:, 0])
+        put("v_scale", vs[:, 0])
     else:
-        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+        put("k", k[:, 0].to(cache["k"].dtype))
+        put("v", v[:, 0].to(cache["v"].dtype))
 
     group = nh // nkv
     qg = q[:, 0].reshape(b, nkv, group, hd)
@@ -321,7 +350,7 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
             window=cfg.window or 0, backend=backend)
     else:
-        cache["k_pos"][rows, slot] = pos
+        put("k_pos", pos)
         attn = dispatch.decode_attention(
             qg, cache["k"], cache["v"], cache["k_pos"], pos,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
@@ -346,26 +375,53 @@ def _ffn(bp: Params, cfg: ModelConfig, x: torch.Tensor, policy,
     return x + layers.mlp(bp["mlp"], h2, cfg.mlp_act, policy, counter)
 
 
+def _write_state(entry: Params, new: Params, active) -> None:
+    """A recurrent layer's new state into its cache entry, in place; rows
+    where ``active`` (B,) is False keep their old state."""
+    for name, t in entry.items():
+        n = new[name]
+        if active is not None:
+            n = torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)),
+                            n, t)
+        t.copy_(n)
+
+
+_RECURRENT = {"rglru": ("rec", hybrid.rglru_block, hybrid.rglru_decode_step),
+              "ssm": ("ssm", ssm.ssm_block, ssm.ssm_decode_step)}
+
+
 def _apply_block(bp: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions, *, policy, counter, cache_entry=None, pos=None,
                  kv_offset=None, collect_kv: bool = False,
-                 backend: Optional[str] = None, block_tables=None):
+                 backend: Optional[str] = None, block_tables=None,
+                 active=None):
     _check_kind(kind)
     h = layers.rms_norm(x, bp["ln1"], cfg.norm_eps)
     new_cache = cache_entry
-    if cache_entry is not None:
+    if kind != "attn":
+        key, block, step = _RECURRENT[kind]
+        if cache_entry is not None:
+            out, new = step(bp[key], cfg, h, cache_entry, policy, counter)
+            _write_state(cache_entry, new, active)
+        else:
+            out = block(bp[key], cfg, h, policy, counter)
+    elif cache_entry is not None:
         out, new_cache = _attention_decode(bp["attn"], cfg, h, cache_entry,
                                            pos, policy, counter,
                                            kv_offset=kv_offset,
                                            backend=backend,
-                                           block_tables=block_tables)
+                                           block_tables=block_tables,
+                                           active=active)
     else:
         out, kv = layers.attention(bp["attn"], cfg, h, positions,
                                    window=cfg.window, policy=policy,
                                    counter=counter, return_kv=collect_kv)
         if collect_kv:
             new_cache = kv
-    return _ffn(bp, cfg, x + out, policy, counter), new_cache
+    x = x + out
+    if "ln2" not in bp:                      # SSD blocks: norm → SSD only
+        return x, new_cache
+    return _ffn(bp, cfg, x, policy, counter), new_cache
 
 
 def _layers(params: Params, cfg: ModelConfig):
@@ -846,13 +902,16 @@ def prefill_with_cache_paged(params: Params, cfg: ModelConfig,
 def merge_cache(old: Params, new: Params, active: torch.Tensor) -> Params:
     """Per-slot cache insertion: rows of ``new`` where ``active`` (B,) bool
     replace rows of ``old``, **in place** in ``old``'s tensors (stacked
-    entries carry batch at axis 1, remainder entries at axis 0).  Ring
-    caches only: the paged prefill writes the pool in place."""
+    entries carry batch at axis 1, remainder entries at axis 0; a tensor
+    of ``new`` that is ``old``'s own is already in place).  Ring caches
+    only: the paged prefill writes the pool in place."""
     if "block_tables" in old or "block_tables" in new:
         raise ValueError("merge_cache applies to ring caches only; the paged "
                          "prefill writes the pool in place")
     def sel(o_tree, n_tree, axis):
         for key, o in o_tree.items():
+            if n_tree[key] is o:
+                continue
             shp = [1] * o.dim()
             shp[axis] = active.shape[0]
             o.copy_(torch.where(active.reshape(shp), n_tree[key], o))
@@ -872,14 +931,18 @@ def merge_cache(old: Params, new: Params, active: torch.Tensor) -> Params:
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Params, *, policy=None, counter=0, kv_offset=None,
-                backend: Optional[str] = None):
+                backend: Optional[str] = None,
+                active: Optional[torch.Tensor] = None):
     """One decode step: (B,) tokens + cache → ((B, vocab_size) f32 logits,
     cache).  Every slot advances by one; the cache's layer tensors are
     updated in place and shared by the returned cache.  A cache carrying
     ``block_tables`` (B, nbmax) decodes against the paged block pool (one
     map for every layer's pool), else against the ring.  ``kv_offset``
     (B,) shifts the int8-KV dither counter per slot.  ``backend`` selects
-    the decode-attention kernel backend (None: by device)."""
+    the decode-attention kernel backend (None: by device).  ``active``
+    (B,) bool, where given: the rows that are False keep their recurrent
+    state and ring contents as they were (their position the caller
+    freezes)."""
     x = params["embed"][token[:, None]]
     b = x.shape[0]
     pos = torch.broadcast_to(cache["pos"].to(torch.int32), (b,)).contiguous()
@@ -893,7 +956,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         x, _ = _apply_block(bp, cfg, kind, x, positions, policy=policy,
                             counter=counter, cache_entry=entry, pos=pos,
                             kv_offset=kv_offset, backend=backend,
-                            block_tables=block_tables)
+                            block_tables=block_tables, active=active)
     logits = _logits(params, cfg, x, policy, counter)[:, 0, : cfg.vocab_size]
     new_cache = {"pos": pos + 1, "layers": cache["layers"],
                  "remainder": cache["remainder"]}

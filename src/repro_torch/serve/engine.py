@@ -15,7 +15,10 @@ request's first token) or, with ``prefill_chunk``, through one chunk per engine 
 between decode windows, and each window decodes and samples every active
 slot ``decode_ticks`` times with finish detection on the device and one
 host drain.  On the card a policy-free window is one CUDA-graph replay
-(:class:`WindowGraphs`).  Under a ``QuantPolicy`` every dense product is
+(:class:`WindowGraphs`).  A model with recurrent state (SSD, RG-LRU)
+serves on the ring only and prefills by the scanned prefill, one decode
+step a prompt position, on the card replayed from one captured step
+(:class:`PrefillGraphs`).  Under a ``QuantPolicy`` every dense product is
 quantised (on the card through the CUDA dither-matmul kernel) with the
 engine tick as its counter.  Per-request :class:`SamplingParams` drive
 greedy/temperature/top-k sampling, EOS/stop handling and the per-request
@@ -69,7 +72,7 @@ from repro_torch.kernels.paged_decode_attention import MAX_BLOCK_SIZE
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.draft import Drafter, PromptLookupDrafter
-from repro_torch.serve.graphs import WindowGraphs
+from repro_torch.serve.graphs import PrefillGraphs, WindowGraphs
 from repro_torch.serve.kvpool import KVPool
 from repro_torch.serve.metrics import Metrics
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
@@ -79,7 +82,8 @@ from repro_torch.serve.trace import Tracer
 __all__ = ["make_serve_fns", "make_decode_and_sample", "make_fused_decode",
            "make_paged_prefill", "make_chunked_prefill", "make_spec_verify",
            "Engine", "Request", "SamplingParams", "Scheduler", "KVPool",
-           "Metrics", "Tracer", "WindowGraphs", "DEFAULT_BLOCK_SIZE"]
+           "Metrics", "Tracer", "WindowGraphs", "PrefillGraphs",
+           "DEFAULT_BLOCK_SIZE"]
 
 # The paged pool's default block size: the CUDA kernels' tile (64 keys), so
 # at the default settings the paged kernel runs the ring kernel's tiles and
@@ -145,10 +149,15 @@ def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
     the window.  Dead and idle rows still run but are inert: their token,
     sampling counter and cache position freeze and, on a paged cache,
     their block-table rows read as the trash block, so their writes land
-    there.  A live slot's ops are those of a one-tick window, so a window
-    of n ticks is n single ticks bit for bit.  The cache's layer tensors
-    are written in place."""
+    there.  In a model with recurrent state they also keep their state
+    and ring contents (``decode_step``'s ``active``): a step cannot be
+    undone there, and a capture's warm-up or a restore's replay runs
+    rows that must not move (the reference freezes only the position).
+    A live slot's ops are those of a one-tick window, so a window of n
+    ticks is n single ticks bit for bit.  The cache's layer tensors are
+    written in place."""
     policy = _resolved(policy)
+    recurrent = not registry.supports_batched_prefill(cfg)
     n_ticks = int(n_ticks)
     if n_ticks < 1:
         raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
@@ -168,7 +177,8 @@ def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
                     _trash_id(cache)).to(torch.int32)
             logits, new_cache = registry.apply_decode(
                 params, cfg, token, step_cache, policy=policy,
-                counter=counter + j, kv_offset=kv_offset)
+                counter=counter + j, kv_offset=kv_offset,
+                active=alive if recurrent else None)
             toks = sample_tokens(logits, temps, topks, seeds, counters)
             toks = torch.where(alive, toks, token)
             new_cache["pos"] = torch.where(alive, new_cache["pos"], pos0)
@@ -395,17 +405,6 @@ _OUT_OF_SLICE = {"mesh": (None, 10), "frames": (None, 11)}
 
 
 
-def _check_restorable(cfg: ModelConfig) -> None:
-    """:meth:`Engine.restore` is bit for bit only where a request's tokens
-    do not depend on which other tokens share its call.  MoE capacity ranks
-    are a count over every token of a call, and restore regroups prefill
-    and replays decode with the other rows inert, so an MoE engine could
-    rebuild other KV than it served (ROADMAP Findings)."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"snapshot/restore of MoE {cfg.name!r}: the replay would change "
-            "each call's tokens and so its capacity drops (ROADMAP Findings)")
-
 class Engine:
     """Host-side continuous-batching loop over the ring or the paged KV
     cache.
@@ -473,8 +472,8 @@ class Engine:
     (default a :class:`StragglerWatchdog`) flags slow windows;
     ``injector`` crashes the step at its five points; with
     ``snapshot_path`` every ``snapshot_every``-th window persists
-    :meth:`snapshot`, and :meth:`restore` continues bit for bit (both
-    raise for MoE).
+    :meth:`snapshot`, and :meth:`restore` continues bit for bit (for MoE
+    it rebuilds as the reference's restore does, see there).
     Observability (DESIGN.md §10, §13): ``metrics`` (a :class:`Metrics`
     or a sink spec) and ``trace`` (a :class:`Tracer` or a spec such as
     ``"mem"``), host-side only.
@@ -546,13 +545,9 @@ class Engine:
                 raise NotImplementedError(
                     f"Engine({name}=...) is not ported yet (ROADMAP Queue 1 "
                     f"item {item})")
-        if not registry.supports_batched_prefill(cfg):
-            raise NotImplementedError(
-                f"{cfg.name!r} is not an attention-only decoder; recurrent "
-                "and encoder-decoder models are ROADMAP Queue 1 item 11's "
-                "second half")
-        if snapshot_path is not None:
-            _check_restorable(cfg)
+        if kv_layout == "paged" and not registry.supports_paged_kv(cfg):
+            raise ValueError("kv_layout='paged' requires an attention-only "
+                             f"decoder; {cfg.name!r} is not one")
         # fault-tolerance / overload knobs (DESIGN.md §12), checked as the
         # reference checks them
         if shed_policy not in self.SHED_POLICIES:
@@ -629,6 +624,13 @@ class Engine:
             self.cache = self._make_cache()
             self._prefill, _ = make_serve_fns(cfg, policy, max_len=max_len,
                                               kv_quant=kv_quant)
+            if (not registry.supports_batched_prefill(cfg)
+                    and self.device.type == "cuda"
+                    and (policy is None or not policy.enabled)):
+                # the scanned prefill of a recurrent model: one captured
+                # decode step, replayed once per prompt position
+                self._prefill = PrefillGraphs(params, cfg, self.cache,
+                                              max_len, self.device)
             if self.prefill_chunk is not None:
                 # a chunk covers each ring slot at most once only while it
                 # fits the ring
@@ -1891,8 +1893,7 @@ class Engine:
     def restore(self, snap: dict, streams: Optional[dict] = None) -> "Engine":
         """Adopt a :meth:`snapshot` and re-materialise the device KV so the
         engine continues **bit for bit** where the snapshot was taken
-        (policy-free and deterministic-scheme serving, DESIGN.md §12; not
-        for MoE, ``_check_restorable``).
+        (policy-free and deterministic-scheme serving, DESIGN.md §12).
         Works on a freshly built engine of the same layout or in place on
         a crashed one: every mutable field is overwritten, and the cache's
         own tensors are reset to a fresh cache's bytes and refilled, so the
@@ -1909,8 +1910,19 @@ class Engine:
         writer's length buckets.  Unlike the reference, queued preempted
         requests keep their blocks' contents and prefix-cached blocks
         nobody holds are rebuilt from their writer (a snapshot without
-        ``block_src`` drops them, as the reference does)."""
-        _check_restorable(self.cfg)
+        ``block_src`` drops them, as the reference does).
+
+        An MoE engine restores as the reference's restore does instead
+        (:meth:`_replay_as_reference`): one prefill call over every
+        occupied row, then a teacher-forced replay with every row in its
+        slot and the rows out of tokens inert at token 0.  MoE capacity
+        ranks count every token of a call, so an exact rebuild would have
+        to re-run every call since the slots were last all empty, the
+        rows of finished requests too: an MoE restore is not the
+        uninterrupted run (ROADMAP Findings).  Unheld prefix-cached
+        blocks are dropped, as there; a queued block holder gives its
+        blocks back and re-prefills its history on re-admission, where
+        the reference would resume it on zeroed blocks."""
         lay, mine = snap["layout"], self._layout()
         diff = {k for k in mine if lay.get(k) != mine[k]}
         if diff:
@@ -1942,21 +1954,35 @@ class Engine:
         self._paged_cap = {}
         self._steps_since_snap = 0
         self._block_src = {}
+        moe = bool(self.cfg.n_experts)
         if self.pool is not None:
             (pool_snap,) = snap["pools"]
-            self.pool.restore(pool_snap, drop_unheld=False)
-            self._block_src = {int(p): tuple(int(x) for x in w)
-                               for p, w in snap.get("block_src", {}).items()}
-        self._replay_device_state()
+            self.pool.restore(pool_snap, drop_unheld=moe)
+            self._block_src = {} if moe else {
+                int(p): tuple(int(x) for x in w)
+                for p, w in snap.get("block_src", {}).items()}
+            if moe:
+                # the replay rebuilds the slots alone: a queued block
+                # holder gives its blocks back and re-prefills its history
+                # when admitted again (the reference resumes it on zeroed
+                # blocks, ROADMAP Queue 3)
+                for req in self.scheduler.queued():
+                    if (req._resume is not None
+                            and not req._resume.get("reprefill")):
+                        self._release_for_reprefill(req)
+        if moe:
+            self._replay_as_reference()
+        else:
+            self._replay_device_state()
         self._dev_dirty = True
         self.metrics.inc("recoveries")
         return self
 
     def written_kv(self) -> dict:
         """rid → clones of the cache contents at every position that
-        request has written — each cache tensor's rows in order — for the
-        slots and the queued block holders: exactly what :meth:`restore`
-        rebuilds, so a restore is checked by comparing these bytes with
+        request has written — each cache tensor's rows in order, and a
+        recurrent layer's whole state row — for the slots and the queued
+        block holders: exactly what :meth:`restore` rebuilds, so a restore is checked by comparing these bytes with
         the uninterrupted engine's."""
         held = [(i, r, int(self._slot_pos[i]))
                 for i, r in enumerate(self.slots) if r is not None]
@@ -1974,7 +2000,9 @@ class Engine:
                 for entry in entries:
                     for name in sorted(entry):
                         t = entry[name] if stacked else entry[name][None]
-                        if self.pool is not None:
+                        if "k" not in entry:       # a recurrent state
+                            parts.append(t[:, i].clone())
+                        elif self.pool is not None:
                             blocks = self.pool.table(req.rid)[
                                 :-(-w // self.block_size)]
                             parts.append(t[:, blocks].flatten(1, 2)[:, :w]
@@ -2196,6 +2224,123 @@ class Engine:
         calls.append(cur)
         return calls
 
+    def _reset_cache(self):
+        """The cache's layer tensors get a fresh cache's bytes, in place."""
+        fresh = self._make_cache()
+        for old, new in zip(self.cache["layers"] + self.cache["remainder"],
+                            fresh["layers"] + fresh["remainder"]):
+            for name, t in old.items():
+                t.copy_(new[name])
+
+    def _replay_as_reference(self):
+        """The reference's ``_replay_device_state`` (an MoE restore): every
+        occupied slot's prefill part (its prompt, or what a slot still
+        prefilling wrote) in one prefill call at the longest part's
+        bucket, each row in its slot (paged: through its table, from
+        position 0); then one teacher-forced decode step per generated
+        token through the one-tick window, every row in its slot, the
+        rows out of tokens inert at token 0 (their position frozen).
+        Last, ``pos`` and the block tables are the host's."""
+        self._reset_cache()
+        b = self.batch
+        paged = self.kv_layout == "paged"
+        occupied = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        lens = np.zeros((b,), np.int32)
+        gen = {}
+        for i, req in occupied:
+            written = int(self._slot_pos[i])
+            prompt = self._tokens_written(req)[:written]
+            if req.state != "prefilling":
+                prompt = prompt[:min(written, len(list(req.prompt) or [1]))]
+            lens[i] = len(prompt)
+            gen[i] = list(req.out)[:written - lens[i]]
+        bt = None
+        if paged:
+            bt = np.full((b, self.nbmax), self._trash, np.int32)
+            for i, req in occupied:
+                table = self.pool.table(req.rid)
+                bt[i, :len(table)] = table
+        offs = self._tensor(self._offsets)
+        t0 = time.perf_counter()
+        n_prefill = 0
+        if lens.max() > 0:
+            toks = np.zeros((b, _bucket(int(lens.max()))), np.int32)
+            for i, req in occupied:
+                toks[i, :lens[i]] = self._tokens_written(req)[:lens[i]]
+            tok_dev, lens_dev = self._tensor(toks).long(), self._tensor(lens)
+            view = self._cache_view(np.zeros((b,), np.int32), bt)
+            if paged:
+                self._prefill_paged(self.params, tok_dev, lens_dev,
+                                    self._tensor(np.zeros((b,), np.int32)),
+                                    view["block_tables"], view, offs,
+                                    self.tick, prefix_blocks=0)
+            else:
+                _, pf_cache = self._prefill(self.params, tok_dev, lens_dev,
+                                            offs, self.tick)
+                registry.merge_prefill(self.cfg, view, pf_cache,
+                                       lens_dev > 0)
+            n_prefill = 1
+        self._sync()
+        t1 = time.perf_counter()
+        depth = max((len(g) for g in gen.values()), default=0)
+        for t in range(depth):
+            token = np.zeros((b,), np.int32)
+            alive = np.zeros((b,), bool)
+            pos = np.zeros((b,), np.int32)
+            for i, _ in occupied:
+                pos[i] = lens[i] + min(t, len(gen[i]))
+                if t < len(gen[i]):
+                    token[i], alive[i] = gen[i][t], True
+            self._replay_step(self._cache_view(pos, bt), token, alive,
+                              self._offsets)
+        self._sync()
+        self._finish_replay({
+            "units": len(occupied), "ghosts": 0, "levels": 1,
+            "prefill_calls": n_prefill, "prefill_s": t1 - t0,
+            "replay_steps": depth, "replay_s": time.perf_counter() - t1})
+
+    def _replay_step(self, view: dict, token: np.ndarray, alive: np.ndarray,
+                     offsets: np.ndarray):
+        """One teacher-forced decode step of a restore on ``view``: the
+        one-tick window with ``token`` as its input (its sampled token is
+        discarded), a CUDA-graph replay on the card and the eager window
+        elsewhere, as ``_run_window`` runs it; rows not ``alive`` are
+        inert."""
+        b = self.batch
+        zeros = np.zeros((b,), np.int32)
+        dev = {"last_token": self._tensor(token.astype(np.int32)),
+               "offsets": self._tensor(np.asarray(offsets, np.int32)),
+               "temps": self._tensor(zeros.astype(np.float32)),
+               "topks": self._tensor(zeros),
+               "seeds": self._tensor(zeros),
+               "counters": self._tensor(zeros)}
+        budgets = alive.astype(np.int32)
+        stops = np.full((b, 1), -1, np.int32)
+        if self._graphs is not None:
+            self._graphs.run(1, dev, view, alive, budgets, stops)
+        else:
+            self._fused_for(1)(
+                self.params, dev["last_token"], view, dev["offsets"],
+                self.tick, dev["temps"], dev["topks"], dev["seeds"],
+                dev["counters"], self._tensor(alive), self._tensor(budgets),
+                self._tensor(stops))
+
+    def _finish_replay(self, stats: dict):
+        """``pos`` and the block tables as the host has them, after a
+        restore's rebuild; ``stats`` becomes ``last_restore``."""
+        pos = np.asarray(self._slot_pos, np.int32)
+        if self.kv_layout == "paged":
+            pos = np.where([s is not None for s in self.slots], pos, 0)
+            self._bt[:] = self._trash
+            for i, req in enumerate(self.slots):
+                if req is not None:
+                    self._set_bt_row(i, self.pool.table(req.rid))
+            self._bt_dirty = True
+            self._sync_block_tables()
+        self.cache["pos"] = self._tensor(pos.astype(np.int32))
+        self._sync()
+        self.last_restore = stats
+
     def _replay_device_state(self):
         """Re-materialise the device KV of every restore unit, bit for bit.
 
@@ -2210,13 +2355,7 @@ class Engine:
         then its generated tokens replay teacher-forced, one decode step
         per round with every other row inert.  Last, ``pos`` and the block
         tables are the host's."""
-        fresh = self._make_cache()
-        for old, new in zip(self.cache["layers"] + self.cache["remainder"],
-                            fresh["layers"] + fresh["remainder"]):
-            for name, t in old.items():
-                t.copy_(new[name])
-        del fresh
-        paged = self.kv_layout == "paged"
+        self._reset_cache()
         units, owner = self._restore_units()
         n_prefill = n_replay = 0
         prefill_s = replay_s = 0.0
@@ -2230,23 +2369,11 @@ class Engine:
             self._sync()
             prefill_s += t1 - t0
             replay_s += time.perf_counter() - t1
-        # pos and block tables as the host has them
-        pos = np.asarray(self._slot_pos, np.int32)
-        if paged:
-            pos = np.where([s is not None for s in self.slots], pos, 0)
-            self._bt[:] = self._trash
-            for i, req in enumerate(self.slots):
-                if req is not None:
-                    self._set_bt_row(i, self.pool.table(req.rid))
-            self._bt_dirty = True
-            self._sync_block_tables()
-        self.cache["pos"] = self._tensor(pos.astype(np.int32))
-        self._sync()
-        self.last_restore = {
+        self._finish_replay({
             "units": len(units), "ghosts": sum(u.ghost for u in units),
             "levels": 1 + max((u.level for u in units), default=-1),
             "prefill_calls": n_prefill, "prefill_s": prefill_s,
-            "replay_steps": n_replay, "replay_s": replay_s}
+            "replay_steps": n_replay, "replay_s": replay_s})
 
     def _sync(self):
         """Wait for the device (a restore's own timing only)."""
@@ -2321,12 +2448,10 @@ class Engine:
     def _restore_replay(self, units: List[_Unit]) -> int:
         """Teacher-forced replay of every unit's generated tokens: round t
         feeds each unit its token t at position ``pf_end + t`` through the
-        decode step the windows run: a one-tick window with the token given
-        as its input (its sampled token is discarded), a CUDA-graph replay
-        on the card and the eager window elsewhere, as ``_run_window``
-        runs it.  Other rows are inert (ring rows write where their next live step writes
-        first, paged rows write to the trash block).  Returns the steps
-        made."""
+        decode step the windows run (``_replay_step``).  Other rows are
+        inert (ring rows write where their next live step writes first,
+        paged rows write to the trash block, recurrent rows keep their
+        state).  Returns the steps made."""
         depth = max((len(u.gen) for u in units), default=0)
         if not depth:
             return 0
@@ -2351,24 +2476,7 @@ class Engine:
                     offs[row] = u.req.sampling.counter_offset
                     if paged:
                         bt[row, :len(u.table)] = u.table
-                view = self._cache_view(pos, bt)
-                zeros = np.zeros((b,), np.int32)
-                dev = {"last_token": self._tensor(token),
-                       "offsets": self._tensor(offs),
-                       "temps": self._tensor(zeros.astype(np.float32)),
-                       "topks": self._tensor(zeros),
-                       "seeds": self._tensor(zeros),
-                       "counters": self._tensor(zeros)}
-                budgets = alive.astype(np.int32)
-                stops = np.full((b, 1), -1, np.int32)
-                if self._graphs is not None:
-                    self._graphs.run(1, dev, view, alive, budgets, stops)
-                else:
-                    self._fused_for(1)(
-                        self.params, dev["last_token"], view,
-                        dev["offsets"], self.tick, dev["temps"],
-                        dev["topks"], dev["seeds"], dev["counters"],
-                        self._tensor(alive), self._tensor(budgets),
-                        self._tensor(stops))
+                self._replay_step(self._cache_view(pos, bt), token, alive,
+                                  offs)
                 steps += 1
         return steps

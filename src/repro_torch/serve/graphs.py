@@ -27,6 +27,13 @@ kernels take the tick counter as a host constant, which a capture would
 freeze (a follow-up of ROADMAP Queue 1 item 6).  The engine decides at
 construction whether it replays (CUDA and no policy) or runs eagerly; a
 capture that fails raises, and nothing falls back.
+
+:class:`PrefillGraphs` does the same for the scanned prefill of a model
+with recurrent state (SSD, RG-LRU): one decode step per prompt position,
+which eager PyTorch would dispatch op by op S times a prompt.  It
+captures one step (``registry.scanned_prefill_step``) on the engine's
+cache tensors and static buffers, the position t a device counter the
+step advances, and replays it S_bucket times a prefill call.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import coldstart
+from repro_torch.models import registry
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dither_matmul as _dm
 from repro_torch.kernels import paged_decode_attention as _pda
@@ -46,7 +54,7 @@ from repro_torch.kernels import paged_verify_attention as _pva
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import verify_attention as _va
 
-__all__ = ["WindowGraphs", "KERNEL_WRAPPERS"]
+__all__ = ["WindowGraphs", "PrefillGraphs", "KERNEL_WRAPPERS"]
 
 # every kernel wrapper of the port, each with its host ``launches`` count
 KERNEL_WRAPPERS = {"decode_attention": _da.decode_attention,
@@ -73,6 +81,34 @@ def _bind(holder: dict, key: str, static: torch.Tensor) -> None:
     if holder[key] is not static:
         static.copy_(holder[key])
         holder[key] = static
+
+
+def _record(stream, device, warm_up: Callable, body: Callable):
+    """Capture ``body()`` as a CUDA graph on ``stream`` → (graph, what
+    ``body`` returned, the kernel launches it recorded).  ``warm_up()``
+    runs first, eagerly on the same stream: it loads the kernel libraries
+    and lets them set up their state for that stream (cuBLAS's workspace)
+    outside the capture, so it must change nothing a later replay reads.
+    A graph freed during a capture (an engine collected as garbage) would
+    invalidate it: the collector runs first, and not during the capture."""
+    current = torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        warm_up()
+    current.wait_stream(stream)
+    gc.collect()
+    gc_was_on = gc.isenabled()
+    gc.disable()
+    before = _counts()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            out = body()
+    finally:
+        if gc_was_on:
+            gc.enable()
+    after = _counts()
+    return graph, out, {k: after[k] - before[k] for k in after}
 
 
 def _layer_tensors(cache: dict) -> Tuple[torch.Tensor, ...]:
@@ -189,14 +225,12 @@ class WindowGraphs:
         return win.toks
 
     def _capture(self, n: int, width: int, cache: dict) -> _Window:
-        """Capture the eager window of ``n`` ticks on the static buffers.
-        One eager run on the capture stream comes first, with every row
-        dead: it loads the kernel libraries, lets the libraries set up
-        their state for that stream (cuBLAS's workspace) outside the
-        capture, and changes nothing a later window reads — a dead row's
+        """Capture the eager window of ``n`` ticks on the static buffers
+        (``_record``).  Its warm-up is one eager window with every row
+        dead, which changes nothing a later window reads: a dead row's
         token, counter and position freeze, its paged writes go to the
-        trash block and its ring write lands where its next live tick
-        writes first."""
+        trash block, its ring write lands where its next live tick writes
+        first, and a recurrent row keeps its state."""
         t0 = time.perf_counter()
         fused = self._fused_for(n)
         view = {"pos": self.pos, "layers": cache["layers"],
@@ -210,32 +244,124 @@ class WindowGraphs:
                          s["temps"], s["topks"], s["seeds"], s["counters"],
                          alive, self.budgets, self._stops[width])
 
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            window(torch.zeros_like(self.alive))
-        current.wait_stream(self._stream)
-        # a graph freed during a capture (an engine collected as garbage)
-        # would invalidate it: collect first, and not during the capture
-        gc.collect()
-        gc_was_on = gc.isenabled()
-        gc.disable()
-        before = _counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, stream=self._stream):
-                toks, last, counters, new = window(self.alive)
-                s["last_token"].copy_(last)
-                s["counters"].copy_(counters)
-                self.pos.copy_(new["pos"])
-        finally:
-            if gc_was_on:
-                gc.enable()
-        after = _counts()
+        def body():
+            toks, last, counters, new = window(self.alive)
+            s["last_token"].copy_(last)
+            s["counters"].copy_(counters)
+            self.pos.copy_(new["pos"])
+            return toks
+
+        graph, toks, launches = _record(
+            self._stream, self.device,
+            lambda: window(torch.zeros_like(self.alive)), body)
         seconds = time.perf_counter() - t0
         self.capture_s += seconds
         # a cold-start stall: tracers put it on the timeline
         coldstart.notify("graph_capture", ticks=n, stop_width=width,
-                      seconds=seconds)
-        return _Window(graph, toks,
-                       {k: after[k] - before[k] for k in after}, seconds)
+                         seconds=seconds)
+        return _Window(graph, toks, launches, seconds)
+
+
+class PrefillGraphs:
+    """The scanned prefill of a model with recurrent state as replays of
+    one captured decode step (policy-free, on the card).
+
+    The step runs on ``cache``'s layer tensors (the engine's, written in
+    place) and a position buffer of its own.  A call ``(params, tokens
+    (B, S), lengths (B,), kv_offset (B,), counter)`` returns
+    ``(last-token logits (B, vocab_size), cache)`` as
+    ``registry.apply_prefill`` does, but in place: the rows with a length
+    get a fresh row's values (state 0, ring empty, position 0), the
+    prompts, lengths and offsets are copied into static buffers, and the
+    captured step is replayed S times; it reads the column at the device
+    counter t, updates the rows with t < length (the others keep their
+    state, KV and position) and advances t.  The returned cache holds
+    ``cache``'s own layer tensors, so merging it into them changes
+    nothing."""
+
+    def __init__(self, params, cfg, cache, max_len: int, device):
+        self.params, self.cfg = params, cfg
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
+        self.device = dev
+        batch = cache["pos"].shape[0]
+        self.cache = {"pos": torch.zeros((batch,), dtype=torch.int32,
+                                         device=dev),
+                      "layers": cache["layers"],
+                      "remainder": cache["remainder"]}
+        width = 8                 # a prompt's padded length: up to the
+        while width < max_len:    # power of two at or above max_len
+            width *= 2
+        self.tokens = torch.zeros((batch, width), dtype=torch.int64,
+                                  device=dev)
+        self.lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        self.offsets = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        self.t = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.last = torch.zeros((batch, cfg.vocab_size), dtype=torch.float32,
+                                device=dev)
+        self._graph = None
+        self._stream = torch.cuda.Stream(device=dev)
+        # the launches one replay makes, per kernel; replays so far; host
+        # seconds of the warm-up and capture
+        self.step_launches: Dict[str, int] = {}
+        self.replays = 0
+        self.capture_s = 0.0
+
+    def launches(self) -> Dict[str, int]:
+        """Kernel launches the replays made, per kernel."""
+        return {n: k * self.replays for n, k in self.step_launches.items()}
+
+    def _step(self):
+        token = self.tokens.index_select(1, self.t)[:, 0]
+        registry.scanned_prefill_step(
+            self.params, self.cfg, token, self.t, self.lengths, self.cache,
+            self.last, kv_offset=self.offsets)
+        self.t.add_(1)
+
+    def _reset(self):
+        """The rows with a length to a fresh row's values (stacked leaves
+        carry the row at axis 1, remainder leaves at axis 0), t and the
+        kept logits to 0."""
+        rows = self.lengths > 0
+        for axis, entries in ((1, self.cache["layers"]),
+                              (0, self.cache["remainder"])):
+            for entry in entries:
+                for name, x in entry.items():
+                    shape = [1] * x.dim()
+                    shape[axis] = -1
+                    x.masked_fill_(rows.view(shape),
+                                   -1 if name == "k_pos" else 0)
+        self.cache["pos"].masked_fill_(rows, 0)
+        self.last.zero_()
+        self.t.zero_()
+
+    def _capture(self):
+        """Capture one step (``_record``); its warm-up is one eager step
+        with every row inactive (lengths 0), which changes nothing."""
+        t0 = time.perf_counter()
+        self.lengths.zero_()
+        self._graph, _, self.step_launches = _record(
+            self._stream, self.device, self._step, self._step)
+        self.capture_s += time.perf_counter() - t0
+        coldstart.notify("graph_capture", ticks=0, stop_width=0,
+                         seconds=self.capture_s)
+
+    def __call__(self, params, tokens, lengths, kv_offset=None, counter=0):
+        if params is not self.params:
+            raise ValueError("the prefill graph was captured on other "
+                             "params")
+        if self._graph is None:
+            self._capture()
+        s = tokens.shape[1]
+        self.lengths.copy_(lengths)
+        self._reset()
+        self.tokens[:, :s].copy_(tokens)
+        if kv_offset is None:
+            self.offsets.zero_()
+        else:
+            self.offsets.copy_(kv_offset)
+        for _ in range(s):
+            self._graph.replay()
+        self.replays += s
+        return self.last, self.cache

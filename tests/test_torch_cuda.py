@@ -6,7 +6,8 @@ kernel at its position bit for bit, the policy entry equal to the
 torch-ops route around the f32 kernel bit for bit, the kernels' modulo over all 2^32
 numerators, the wrappers' input checks, the serving path's launch
 counts and streams, and decode windows replayed from CUDA graphs against
-the same windows run eagerly, byte for byte.  They import torch and the port
+the same windows run eagerly, byte for byte; kernel 1 at head dim 256 and
+the recurrent configs' scanned prefill replayed from its captured step.  They import torch and the port
 only (the card's machine has no JAX) and skip where
 ``torch.cuda.is_available()`` is false:
 
@@ -1360,3 +1361,124 @@ def test_zoo_train_step_through_kernel6_equals_plain(cuda, arch):
     for a, b in zip(tree.leaves(out["cuda"][0]),
                     tree.leaves(out["torch-ref"][0])):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ------------------------------------------- the recurrent configs
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_ring_kernel_at_head_dim_256(cuda, quant):
+    """Kernel 1 at recurrentgemma's attention shape (1 KV head, group 16,
+    head dim 256) against its plain version: a wrapped ring of 2,048
+    slots with positions to 4,095 under the 2,048-token window, and a
+    1,024-slot ring without one; f32 allclose at 1e-4 (summation order
+    only).  The other attention kernels still refuse head dim 256."""
+    for cap, window, pos_vals in (
+            (2048, 2048, [0, 37, 255, 1023, 2047, 2048, 3000, 4095]),
+            (1024, 0, [0, 37, 255, 511, 700, 1023, 1500, 2047])):
+        t = _ring(cap + quant, b=8, cap=cap, nkv=1, group=16, hd=256,
+                  quant=quant, pos_vals=pos_vals, device=cuda)
+        got = da.decode_attention(*t, window=window)
+        want = ref.decode_attention_ref(*t, window=window,
+                                        block=(da.KERNEL_BLOCK,),
+                                        split=da.SPLIT_TILES)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    q, k, v, kp, pos, ks, vs = t
+    with pytest.raises(ValueError, match="head dim"):
+        va.verify_attention(q[:, None].contiguous(), k, v, kp, pos, ks, vs)
+
+
+def _recurrent_config(arch):
+    """A recurrent config at ``.reduced()``; recurrentgemma with the head
+    dim 64 the kernel takes (the reduced one is 32)."""
+    cfg = get_config(arch).reduced()
+    if cfg.n_kv_heads:
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    return cfg
+
+
+def _rows(cache, idx):
+    """Rows ``idx`` of every layer tensor of a ring cache (stacked entries
+    carry the row at axis 1, remainder entries at axis 0)."""
+    out = []
+    for axis, entries in ((1, cache["layers"]), (0, cache["remainder"])):
+        for entry in entries:
+            out += [entry[n].index_select(axis, idx) for n in sorted(entry)]
+    return out
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("arch", ["mamba2_370m", "recurrentgemma_9b"])
+def test_scanned_prefill_graph_equals_eager(cuda, arch, kv_quant):
+    """The scanned prefill replayed from its captured step, on a cache's
+    own tensors, leaves the rows it prefills as the eager scanned prefill
+    leaves them (logits, positions and every cache tensor, byte for byte,
+    short rows frozen) and the rows without a length as they were; twice,
+    so the second call's reset of its rows is checked too."""
+    from repro_torch.serve.graphs import PrefillGraphs
+
+    cfg = _recurrent_config(arch)
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    cache = registry.make_cache(params, cfg, 4, 64, kv_quant=kv_quant,
+                                device=cuda)
+    graphs = PrefillGraphs(params, cfg, cache, 64, cuda)
+    rng = np.random.default_rng(1)
+    for s, idle in ((16, 2), (32, 1)):
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                             size=(4, s))).to(cuda)
+        lens = torch.tensor([s, 5, s - 7, s - 3], dtype=torch.int32,
+                            device=cuda)
+        lens[idle] = 0
+        off = torch.tensor([0, 7, 3, 100], dtype=torch.int32, device=cuda)
+        idle_row = torch.tensor([idle], device=cuda)
+        kept = [x.clone() for x in _rows(cache, idle_row)]
+        got_logits, got = graphs(params, toks, lens, off)
+        want_logits, want = registry.apply_prefill(
+            params, cfg, toks, lens, 64, kv_quant=kv_quant, kv_offset=off)
+        on = torch.nonzero(lens).flatten()
+        assert got["layers"] is cache["layers"]
+        assert torch.equal(got_logits[on], want_logits[on])
+        assert torch.equal(got["pos"][on], want["pos"][on])
+        for a, b in zip(_rows(got, on), _rows(want, on)):
+            assert torch.equal(a, b)
+        for a, b in zip(_rows(cache, idle_row), kept):
+            assert torch.equal(a, b)
+    assert graphs.replays == 16 + 32
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "recurrentgemma_9b"])
+def test_recurrent_engine_on_the_card(cuda, arch):
+    """A recurrent engine on the card: its windows are graph replays that
+    equal the eager window byte for byte (states included), W = 4 gives
+    the W = 1 streams, and an in-place restore rebuilds every slot's
+    written KV and state byte for byte."""
+    from repro_torch.serve import Engine, Request, SamplingParams
+
+    cfg = _recurrent_config(arch)
+    params = registry.init_model(cfg, seed=0, device=cuda)
+
+    def engine(n):
+        eng = Engine(params, cfg, 4, 128, kv_quant=True, device=cuda,
+                     decode_ticks=n)
+        rng = np.random.default_rng(0)
+        for r in range(7):
+            eng.submit(Request(rid=r, prompt=rng.integers(
+                1, cfg.vocab_size, size=int(rng.integers(5, 40))).tolist(),
+                sampling=SamplingParams(temperature=0.8 * (r % 2), top_k=20,
+                                        seed=r, max_new=5 + 3 * r,
+                                        counter_offset=100 * r)))
+        return eng
+
+    streams = {}
+    for n in (1, 4):
+        eng = engine(n)
+        eng._admit_and_prefill()
+        _graph_against_eager(eng, cfg, params)
+        eng.step()
+        before = eng.written_kv()
+        eng.restore(_snapshot_roundtrip(eng))
+        Engine.compare_written_kv(before, eng.written_kv())
+        done = sorted(eng.run(300), key=lambda r: r.rid)
+        streams[n] = [(r.out, r.finish_reason) for r in done]
+        assert eng._prefill.replays > 0
+    assert streams[4] == streams[1]

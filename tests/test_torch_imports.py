@@ -6,8 +6,9 @@ and the paged cache, speculatively, under the dither matmul policy, and
 with metrics, tracing and a crash recovered from a snapshot, takes one
 training step under the dither policy with compressed gradients and
 encodes and multiplies pulse streams, and serves and trains the MoE and
-VLM configs of the zoo (``models/moe.py``, the stub frontend's embeds) —
-and by a scan of its sources and ``chip_smoke.py``."""
+VLM configs of the zoo (``models/moe.py``, the stub frontend's embeds)
+and the recurrent ones (``models/ssm.py``, ``models/hybrid.py``) — and
+by a scan of its sources and ``chip_smoke.py``."""
 
 import os
 import re
@@ -119,6 +120,17 @@ for arch in ("granite_moe_1b_a400m", "qwen2_moe_a2_7b", "internvl2_1b"):
     assert ("embeds" in zb) == (arch == "internvl2_1b")
     zs, m = trainer.make_train_step(zc, AdamW(lr=1e-3))(zs, zb)
     assert bool(m["loss"].isfinite())
+for arch in ("mamba2_370m", "recurrentgemma_9b"):
+    zc = get_config(arch).reduced()
+    zp = registry.init_model(zc, seed=0, device="cpu")
+    eng = Engine(zp, zc, 2, 16, kv_quant=True, decode_ticks=2, device="cpu")
+    for r in range(3):
+        eng.submit(Request(rid=r, prompt=[1, 2, 3, 4, 5 + r], max_new=3))
+    assert [len(r.out) for r in eng.run(50)] == [3, 3, 3]
+    zs = trainer.init_train_state(zc, seed=0, device="cpu")
+    zs, m = trainer.make_train_step(zc, AdamW(lr=1e-3))(
+        zs, synthetic_batch(zc, DataConfig(2, 8), 0, device="cpu"))
+    assert bool(m["loss"].isfinite())
 import importlib, pkgutil, repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -147,7 +159,10 @@ assert set(["repro_torch.serve.kvpool", "repro_torch.serve.draft",
             "repro_torch.configs.minicpm_2b",
             "repro_torch.configs.internvl2_1b",
             "repro_torch.configs.granite_moe_1b_a400m",
-            "repro_torch.configs.qwen2_moe_a2_7b"]) <= set(names)
+            "repro_torch.configs.qwen2_moe_a2_7b",
+            "repro_torch.configs.mamba2_370m",
+            "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.models.ssm", "repro_torch.models.hybrid"]) <= set(names)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")

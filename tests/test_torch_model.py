@@ -234,7 +234,7 @@ def test_out_of_slice_knobs_raise():
         dense(torch.zeros(2, 4), torch.zeros(4, 4),
               QuantPolicy(scheme="bogus"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        registry.init_model(dataclasses.replace(PCFG, family="ssm"),
+        registry.init_model(dataclasses.replace(PCFG, family="audio"),
                             device="cpu")
     for knob, item in [("mesh", 10), ("frames", 11)]:
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):

@@ -12,7 +12,9 @@ byte on the cache (``Engine.written_kv``: every written position of every
 slot and queued block holder), and the cases the reference's fixtures
 never reach are pinned — chunks in flight, prefix hits, preempted block
 holders, prefix-cached blocks nobody holds.  Deadlines are driven through
-the engine's clock ``_now``, never by waiting.
+the engine's clock ``_now``, never by waiting.  A fault of the
+reference's restore the port does not share is pinned on both packages:
+its replay steps a recurrent row that is out of tokens on token 0.
 
 Cross-package: a snapshot the reference's engine writes mid-flight,
 restored into the port's engine on the same weights, finishes with the
@@ -32,6 +34,7 @@ from test_torch_paged_serve import _reference_paged, _stream_requests
 from test_torch_serve import _reference, _requests
 
 import repro.serve.engine as ref_engine
+import repro_torch.serve.engine as port_engine
 from repro.configs import get_config as ref_get_config
 from repro.models import registry as ref_registry
 from repro_torch.configs import get_config
@@ -745,3 +748,64 @@ def test_reference_snapshot_restores_into_the_port(layout, kv_quant,
     back.restore(json.loads(json.dumps(port.snapshot())))
     assert [r.out for r in sorted(back.finished, key=lambda r: r.rid)] == [
         r.out for r in done]
+
+
+def test_reference_replay_runs_a_short_recurrent_row_past_its_tokens():
+    """A fault in the reference's restore that the port does not share:
+    its teacher-forced replay (``_replay_fn_for``) freezes only the
+    position of a row out of tokens, so in a model with recurrent state a
+    slot that generated fewer tokens than the deepest one is stepped on
+    token 0 until the replay ends, and its state is no longer the one it
+    served with.  mamba2-370m at ``.reduced()``, two slots at 3 and 5
+    generated tokens at the snapshot: the reference's restored state of
+    the shorter row differs from its own uninterrupted state by far more
+    than rounding, and its streams after the restore differ from its
+    uninterrupted streams; the port's restore of its own snapshot at the
+    same point equals its uninterrupted cache byte for byte and finishes
+    with its uninterrupted streams."""
+    from _torch_zoo import exact_reference_jit, model
+
+    rcfg, pcfg, rparams, tparams = model("mamba2_370m")
+
+    def reqs(mod):
+        rng = np.random.default_rng(0)
+        return [mod.Request(rid=r, prompt=rng.integers(
+            1, pcfg.vocab_size, size=int(rng.integers(3, 14))).tolist(),
+            sampling=mod.SamplingParams(seed=r, max_new=3 + 3 * r))
+            for r in range(4)]
+
+    def serve(make, mod, stop=None):
+        eng = make()
+        for r in reqs(mod):
+            eng.submit(r)
+        for _ in range(stop or 0):
+            eng.step()
+        if stop is None:
+            eng.run(200)
+        return eng
+
+    with exact_reference_jit():
+        make = lambda: ref_engine.Engine(rparams, rcfg, batch=2,  # noqa: E731
+                                         max_len=32, decode_ticks=2)
+        want = {r.rid: r.out for r in serve(make, ref_engine).finished}
+        ref = serve(make, ref_engine, stop=2)
+        lens = [len(s.out) for s in ref.slots]
+        assert sorted(lens) == [3, 5]
+        short = lens.index(3)
+        h_before = np.asarray(ref.cache["layers"][0]["h"][:, short])
+        ref.restore(json.loads(json.dumps(ref.snapshot())))
+        h_after = np.asarray(ref.cache["layers"][0]["h"][:, short])
+        assert np.abs(h_after - h_before).max() > 1.0
+        ref.run(200)
+        assert {r.rid: r.out for r in ref.finished} != want
+
+    make = lambda: Engine(tparams, pcfg, 2, 32, device="cpu",  # noqa: E731
+                          decode_ticks=2)
+    want = _streams(serve(make, port_engine))
+    port = serve(make, port_engine, stop=2)
+    assert sorted(len(s.out) for s in port.slots) == [3, 5]
+    before = port.written_kv()
+    port.restore(json.loads(json.dumps(port.snapshot())))
+    Engine.compare_written_kv(before, port.written_kv())
+    port.run(200)
+    assert _streams(port) == want

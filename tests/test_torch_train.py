@@ -115,17 +115,20 @@ def test_forward_logits_match_reference():
 
 
 def test_apply_model_rejects_what_is_not_ported():
-    """The encoder-decoder's ``frames`` and the recurrent families raise
-    (item 11's second half).  ``embeds`` are ported: they are prepended,
-    as the reference's ``apply_model`` prepends them for any config
-    (``tests/test_torch_zoo.py`` holds the VLM)."""
+    """The encoder-decoder's ``frames``, its ``audio`` family and any
+    ``is_encdec`` config raise (item 11's second half).  ``embeds`` are
+    ported: they are prepended, as the reference's ``apply_model``
+    prepends them for any config (``tests/test_torch_zoo.py`` holds the
+    VLM); so are the recurrent families
+    (``tests/test_torch_recurrent_train.py``)."""
     with pytest.raises(NotImplementedError, match="item 11"):
         registry.apply_model(TORCH_PARAMS, PCFG,
                              {**TORCH_BATCH, "frames": torch.zeros(2, 4, 128)})
-    for family in ("ssm", "hybrid", "audio"):
+    for change in (dict(family="audio"), dict(is_encdec=True),
+                   dict(family="audio", is_encdec=True)):
         with pytest.raises(NotImplementedError, match="item 11"):
             registry.apply_model(TORCH_PARAMS,
-                                 dataclasses.replace(PCFG, family=family),
+                                 dataclasses.replace(PCFG, **change),
                                  TORCH_BATCH)
     out = registry.apply_model(
         TORCH_PARAMS, PCFG,

@@ -20,13 +20,18 @@ MoE couples the rows of a call: capacity ranks are a cumulative count
 over every token of the call, padding and idle rows included.  So the
 port prefills each admission wave in one call at the longest prompt's
 bucket, as the reference does, and keeps all slots, idle ones too, in
-every decode tick.
+every decode tick.  For the same reason an MoE engine restores as the
+reference's does, held to the reference's restore from one snapshot.
 """
+
+import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from conftest import assert_argmax_margin
 
 import repro.serve.engine as ref_engine
@@ -263,20 +268,179 @@ def test_moe_windows_equal_single_ticks(arch, layout, kv_quant):
     assert eng.stats["decode_calls"] == 2 and eng.tick == 8
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "qwen2_moe_a2_7b"])
-def test_moe_snapshot_and_restore_raise(arch, tmp_path):
-    """Restore rebuilds the KV through regrouped prefill calls and a decode
-    replay with the other rows inert, which for MoE changes each call's
-    tokens and so its capacity drops: an MoE engine refuses a snapshot
-    path, and ``restore`` refuses to rebuild one (ROADMAP Findings)."""
+# (arch, layout, kv_quant, seed); the seeds pass the margin check
+RESTORE_CASES = [("granite_moe_1b_a400m", "ring", False, 0),
+                 ("qwen2_moe_a2_7b", "ring", True, 5),
+                 ("granite_moe_1b_a400m", "paged", True, 10)]
+
+
+@pytest.mark.parametrize("arch,layout,kv_quant,seed", RESTORE_CASES)
+def test_moe_restore_is_the_reference_restore(arch, layout, kv_quant, seed,
+                                              monkeypatch, tmp_path):
+    """An MoE engine snapshots (``snapshot_path``) and restores as the
+    reference's engine does: one prefill call over every occupied row,
+    then a decode replay with the rows out of tokens inert at token 0.
+    From one snapshot of the port's, written mid-flight with slots at
+    unequal lengths, the port's and the reference's restores rebuild the
+    occupied slots' KV within the logit tolerance 2⁻⁶ (int8: three code
+    steps, ``_written``), and both engines finish with equal streams,
+    every decision of the reference's margin-checked.  (Neither is the uninterrupted run:
+    capacity ranks count every token of a call, ROADMAP Findings.)"""
     _, pcfg, _, tp = model(arch)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        port_engine.Engine(tp, pcfg, BATCH, MAX_LEN, device="cpu",
-                           snapshot_path=str(tmp_path / "snap.json"))
-    eng = port_engine.Engine(tp, pcfg, BATCH, MAX_LEN, device="cpu")
-    eng.submit(port_engine.Request(rid=0, prompt=[1, 2, 3], max_new=2))
-    eng.step()
-    snap = eng.snapshot()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        port_engine.Engine(tp, pcfg, BATCH, MAX_LEN,
-                           device="cpu").restore(snap)
+    path = str(tmp_path / "snap.json")
+    eng = port_engine.Engine(tp, pcfg, BATCH, MAX_LEN, device="cpu",
+                             snapshot_path=path,
+                             **_knobs(layout, kv_quant, None))
+    for req in _restore_requests(pcfg, seed):
+        eng.submit(req)
+    for _ in range(3):
+        eng.step()
+    assert len({len(r.out) for r in eng.slots if r is not None}) > 1
+    with open(path) as fh:
+        snap = json.load(fh)
+
+    port = port_engine.Engine(tp, pcfg, BATCH, MAX_LEN, device="cpu",
+                              **_knobs(layout, kv_quant, None))
+    port.restore(snap)
+    assert port.last_restore["prefill_calls"] == 1
+    got = _hold_to_reference_restore(arch, layout, snap, port,
+                                     _knobs(layout, kv_quant, None),
+                                     monkeypatch)
+    assert [len(r.out) for r in got] == list(RESTORE_BUDGETS)
+
+
+# (arch, kv_quant, seed); the seeds preempt a request with its blocks
+# in a pool of PREEMPT_BLOCKS blocks of 4 tokens and pass the margin check
+PREEMPT_CASES = [("granite_moe_1b_a400m", False, 1),
+                 ("qwen2_moe_a2_7b", True, 0)]
+PREEMPT_BLOCKS = 12
+
+
+@pytest.mark.parametrize("arch,kv_quant,seed", PREEMPT_CASES)
+def test_moe_restore_reprefills_queued_block_holders(arch, kv_quant, seed,
+                                                     monkeypatch):
+    """Under pool pressure a paged MoE engine preempts a request and
+    queues it with its blocks.  An MoE restore rebuilds the slots alone,
+    so such a request has no KV to resume on (the reference resumes it on
+    zeroed blocks): the port's restore gives its blocks back and it
+    re-prefills its history when admitted again.  From one snapshot with
+    a queued block holder, the port's restore is the reference's restore
+    followed by that release (``_release_for_reprefill``): the slots'
+    KV within ``_written``'s bounds and equal streams, every decision of
+    the reference's margin-checked, every budget completed."""
+    _, pcfg, _, tp = model(arch)
+    kw = dict(_knobs("paged", kv_quant, None), block_size=4,
+              num_blocks=PREEMPT_BLOCKS, prefix_cache=False)
+    eng = port_engine.Engine(tp, pcfg, BATCH, MAX_LEN, device="cpu", **kw)
+    for req in _restore_requests(pcfg, seed):
+        eng.submit(req)
+    held = []
+    while not held:
+        eng.step()
+        held = [r.rid for r in eng.scheduler.queued()
+                if r._resume is not None and not r._resume.get("reprefill")
+                and eng.pool.table(r.rid)]
+        assert eng.tick < 30, "the fixture must preempt a request"
+    snap = json.loads(json.dumps(eng.snapshot()))
+
+    port = port_engine.Engine(tp, pcfg, BATCH, MAX_LEN, device="cpu", **kw)
+    port.restore(snap)
+    for req in port.scheduler.queued():
+        if req.rid in held:
+            assert req._resume["reprefill"] and not port.pool.table(req.rid)
+    got = _hold_to_reference_restore(arch, "paged", snap, port, kw,
+                                     monkeypatch, release=held)
+    assert [len(r.out) for r in got] == list(RESTORE_BUDGETS)
+
+
+def _hold_to_reference_restore(arch, layout, snap, port, knobs, monkeypatch,
+                               release=()):
+    """Restore ``snap`` into the reference's engine of engine knobs
+    ``knobs`` (then release the queued requests ``release`` for
+    re-prefill), compare the occupied slots' KV with the restored
+    ``port``'s, and run both to the end: equal streams, every sampling
+    decision of the reference's margin-checked.  Returns the port's
+    finished requests by rid."""
+    cfg, _, params, _ = model(arch)
+    _SINK.clear()
+    _SINK["calls"] = calls = []
+    monkeypatch.setattr(ref_engine, "sample_tokens", _sample)
+    with exact_reference_jit(_JITS):
+        _SINK["engine"] = ref = ref_engine.Engine(
+            params, cfg, batch=BATCH, max_len=MAX_LEN, **knobs)
+        ref.restore(json.loads(json.dumps(snap)))
+        for req in ref.scheduler.queued():
+            if req.rid in release:
+                ref._release_for_reprefill(req)
+        for i, req in enumerate(port.slots):
+            if req is None:
+                continue
+            for got, want in zip(_written(port.cache, layout, port, i, req),
+                                 _written(ref.cache, layout, ref, i, req)):
+                assert np.all(np.abs(got[0] - want[0])
+                              <= np.maximum(got[1], want[1])), i
+        done = sorted(ref.run(200), key=lambda r: r.rid)
+    monkeypatch.undo()
+    for i, ((logits, temps, topks, seeds, counters), decide) in enumerate(
+            calls):
+        for b in np.flatnonzero(decide):
+            _check_decision(logits[b], temps[b], topks[b], seeds[b],
+                            counters[b], LOGIT_TOL,
+                            context=f"{arch} call {i} row {b}")
+    got = sorted(port.run(200), key=lambda r: r.rid)
+    assert [(r.rid, r.out) for r in got] == [(r.rid, r.out) for r in done]
+    return got
+
+
+RESTORE_BUDGETS = (6, 3, 8, 5)
+
+
+def _restore_requests(cfg, seed):
+    """``_requests`` with the budgets ``RESTORE_BUDGETS``: after three
+    steps the slots hold requests admitted in different waves."""
+    reqs = _requests(cfg, seed, port_engine)
+    for req, n in zip(reqs, RESTORE_BUDGETS):
+        req.sampling = dataclasses.replace(req.sampling, max_new=n)
+    return reqs
+
+
+def _written(cache, layout, eng, i, req):
+    """Slot i's written positions of every attention layer of a cache (the
+    port's or the reference's): per K and V, the values (int8 codes
+    dequantised, code × scale / 127) and the bound a restore is held to:
+    2⁻⁶ for bf16; for int8 three code steps, 3 × scale / 127: an ulp of
+    the bf16 K/V before the quantiser moves the row's absmax scale by an
+    ulp, which shifts every scaled value, and the dither rounding of a
+    value by a code either way (measured: at most 2.04 code steps, in 8
+    to 22 of 2,688 to 5,376 values, at the seeds searched)."""
+    def arr(t):
+        if isinstance(t, torch.Tensor):
+            return t.float().numpy()
+        return np.asarray(t.astype(jnp.float32))
+
+    w = int(eng._slot_pos[i])
+    out = []
+    for stacked, entries in ((True, cache["layers"]),
+                             (False, cache["remainder"])):
+        for entry in entries:
+            rows = {}
+            for name, t in entry.items():
+                t = arr(t) if stacked else arr(t)[None]
+                if layout == "paged":
+                    pool = eng.pool if hasattr(eng, "pool") else eng.pools[0]
+                    blocks = pool.table(req.rid)[:-(-w // pool.block_size)]
+                    rows[name] = t[:, blocks].reshape(
+                        (t.shape[0], -1) + t.shape[3:])[:, :w]
+                else:
+                    cap = t.shape[2]
+                    rows[name] = t[:, i, [p % cap for p in range(
+                        max(0, w - cap), w)]]
+            for name in ("k", "v"):
+                if f"{name}_scale" in rows:
+                    scale = rows[f"{name}_scale"][..., None]
+                    out.append((rows[name] * scale / 127.0,
+                                3.0 * scale / 127.0))
+                else:
+                    out.append((rows[name], np.full_like(rows[name],
+                                                         2.0 ** -6)))
+    return out
