@@ -3,7 +3,7 @@
 
   PYTHONPATH=src python chip_smoke.py
 
-Drives the port (``src/repro_torch``) on one card, in nine phases, each
+Drives the port (``src/repro_torch``) on one card, in ten phases, each
 printing JSON lines:
 
 1. device — refuses to run without CUDA; the card's name and power limit
@@ -24,7 +24,7 @@ printing JSON lines:
    and 8 query rows, a slot two short of the cache's end), every row equal
    to the decode kernel at its position, bit for bit, and paged verify
    equal to ring verify;
-4. serve — full-width SmolLM-135M cut to ``SMOLLM_LAYERS`` = 10 of its 30
+4. serve — full-width SmolLM-135M cut to ``SMOLLM_LAYERS`` = 8 of its 30
    layers, as in phases 5-7 (random weights from seed 0), through the
    port's ``Engine``, with the bf16 and the int8-dither KV cache, over the
    ring cache (16 requests, prompts of 32–512 tokens) and over the paged
@@ -45,8 +45,8 @@ printing JSON lines:
    after an admission rebinds the positions and block tables; chunked
    prefill (chunks of 128 tokens) against whole-prompt prefill within the
    logit tolerance, and the ring int8 traffic served in chunks and
-   windows; then steady decode ticks, speculative windows, and 8-tick
-   windows replayed and run eagerly from one state, under
+   windows; then steady decode ticks, speculative windows, and bf16
+   8-tick windows replayed and run eagerly from one state, under
    ``torch.profiler`` (wall and device time per tick or window, busy
    share, launches, the heaviest kernels);
 5. parity — one prefill and three decode steps at full width per layout,
@@ -57,7 +57,8 @@ printing JSON lines:
    bucket relies on), beside how far a longer padded wave moves it;
 6. fault tolerance and observability (between the chunked and the policy
    phases): ``fault`` — the ring bf16 (W = 1), ring int8 (W = 8, chunks of
-   128) and paged bf16 and int8 (W = 1) traffic served through
+   128, 32 new tokens a request) and paged bf16 and int8 (W = 1) traffic
+   served through
    ``run_serve_with_restarts`` with a snapshot every window and all five
    crash points fired at distinct ticks, streams equal to the
    uninterrupted runs', and two in-place restores per run on one
@@ -71,12 +72,12 @@ printing JSON lines:
    queue caps with both shed policies and deadlines on the engine's
    injected clock;
 7. training and the pulse-stream core (after the policy phases): ``train``
-   — full-width SmolLM-135M (10 layers), batch 8 × 512, 10 steps from
+   — full-width SmolLM-135M (8 layers), batch 8 × 512, 10 steps from
    seed 0 (cosine schedule, remat) with no policy and under
    ``QuantPolicy(scheme="dither", bits=8, backend="auto")``, whose every
    forward product runs through kernel 6's policy entry at 4,096 rows
    (the tied head through the transposed embedding): losses finite and
-   falling, kernel 6 launched 141 times a step (71 without remat; 421 and
+   falling, kernel 6 launched 113 times a step (57 without remat; 421 and
    211 at 30 layers), the step's loss and every gradient through the
    kernel equal to the plain version's bit for bit, a run crashed after
    a checkpoint and before a step and restarted equal to an uninterrupted
@@ -117,8 +118,25 @@ printing JSON lines:
    counting those replays; a W = 8 window replayed and run eagerly,
    byte for byte, states included, and W = 8 streams equal to W = 1's;
    the kernel route against the plain one; mamba2 under the dither
-   policy (logits bit for bit the plain route) and trained 3 steps; a
-   crashed recurrentgemma run restored, streams equal to uninterrupted.
+   policy (16-token prompts; logits bit for bit the plain route) and
+   trained 3 steps; a
+   crashed recurrentgemma run restored, streams equal to uninterrupted;
+10. the encoder-decoder (``zoo``, one line) — whisper-small at full width
+   and depth (12 + 12 layers, d 768, 12 heads of 64, vocab 51,865),
+   each of 8 slots over its own 1,500 audio-stub frames from the data
+   pipeline: kernel 1 at (12, 1, 64) within 1e-6 of its plain version,
+   with SDPA's times, and kernel 6's policy entry at its nine product
+   shapes bit for bit; the encoder's time to build the cache and the
+   cross-KV's bytes; the zoo's ring traffic in bf16 and with the inert
+   ``kv_quant`` (equal streams), prefilled by the captured scanned
+   prefill, the launch gates counting its replays, a tick's and a prefill
+   step's device ms; a W = 8 window replayed and run eagerly, byte for
+   byte, the cross-KV equal and unchanged, an in-place restore rebuilding
+   the self-KV and cross-KV byte for byte, W = 8 streams equal to W = 1's;
+   the kernel route against the plain one; the dither policy on 16-token
+   prompts (logits bit for bit the plain route); a crashed run restored
+   (streams equal); 3 train steps of 8 × 512 with and without the policy,
+   one bit for bit its plain version.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
@@ -172,10 +190,10 @@ PAGED_BLOCKS = 56          # the paged serve phase's pool, against 8 × 16
 SERVE_REQUESTS = 16        # requests of each serve phase
 SPEC_K = 4                 # the speculative serve phases' draft_k
 POLICY_NEW = 16            # new tokens a request of the policy serve phases
-# SmolLM-135M's depth in phases 4-7: full width, 10 of its 30 layers, to
-# keep the script inside its time limit (every gate and count follows
-# n_layers; PERF.md §4)
-SMOLLM_LAYERS = 10
+# SmolLM-135M's depth in phases 4-7: full width, 8 of its 30 layers, to
+# keep the script inside its time limit with the zoo's blocks (every gate
+# and count follows n_layers; PERF.md §4)
+SMOLLM_LAYERS = 8
 VERIFY_REPLACES = "src/repro/kernels/decode_attention.py:316"
 PAGED_VERIFY_REPLACES = "src/repro/kernels/decode_attention.py:653"
 ATTN_KERNELS = ("flash_decode",)   # kernels 1-4's device kernels (and merge)
@@ -1468,7 +1486,9 @@ def graph_against_eager(torch, eng, cfg, params):
     ``pos`` and every cache tensor must be byte-equal; the paged pool's
     trash block is compared apart and only reported (dead rows write
     there, several to one slot, and nothing reads it).  The engine then
-    drains the window as it would.  Returns the window's host times."""
+    drains the window as it would.  An encoder-decoder's cross-KV must be
+    equal and unchanged by the window.  Returns the window's host
+    times."""
     from repro_torch.serve import make_fused_decode
 
     plan = eng._window_plan()
@@ -1500,6 +1520,12 @@ def graph_against_eager(torch, eng, cfg, params):
                 trash_equal &= torch.equal(got_t[:, -1], want_t[:, -1])
                 got_t, want_t = got_t[:, :-1], want_t[:, :-1]
             same[f"layers[{li}].{name}"] = torch.equal(got_t, want_t)
+    for name, got_t in eng.cache.get("cross", {}).items():
+        # the encoder-decoder's static cross-KV: read by the window and
+        # left as it was
+        same[f"cross.{name}"] = torch.equal(got_t, new["cross"][name])
+        same[f"cross.{name}.unchanged"] = torch.equal(got_t,
+                                                      cache["cross"][name])
     assert all(same.values()), same
     eng.stats["decode_calls"] += 1
     eng.tick += plan.n
@@ -2391,10 +2417,12 @@ def policy_error_phase(torch, cfg, params):
 
 # the fault phase's crash ticks, one per SERVE_PHASES entry in that order:
 # W = 1 runs (about 126 ring / 157 paged windows), and the window starts of
-# the chunked W = 8 run (admission waves at tick 0 and about 64 put chunks
-# in flight at 0 and 64)
+# the chunked W = 8 run, which serves ``FAULT_NEW_W8`` new tokens a request
+# (its 112 ticks: admission waves at ticks 0 and about 40 put chunks in
+# flight at 8-24 and 48-80; 64 tokens a request take 176 ticks)
 FAULT_TICKS = (12, 37, 61, 88, 110)
-FAULT_TICKS_W8 = (8, 32, 64, 88, 112)
+FAULT_TICKS_W8 = (8, 24, 48, 64, 88)
+FAULT_NEW_W8 = 32
 SCRATCH = ROOT / "build" / "chip_smoke"      # snapshots, feeds (git-ignored)
 
 
@@ -2408,20 +2436,24 @@ def serve_engine(cfg, params, layout, kv_quant, **kw):
                   **kw)
 
 
-def serve_traffic(cfg, layout):
-    """The ring or paged serve phases' 16 requests, 64 new tokens each."""
+def serve_traffic(cfg, layout, max_new=64):
+    """The ring or paged serve phases' 16 requests, 64 new tokens each
+    (or ``max_new``)."""
     if layout == "paged":
-        return paged_requests(cfg, SERVE_REQUESTS, paged_lens(), 64)
-    return ring_requests(cfg, SERVE_REQUESTS, ring_lens(), 64)
+        return paged_requests(cfg, SERVE_REQUESTS, paged_lens(), max_new)
+    return ring_requests(cfg, SERVE_REQUESTS, ring_lens(), max_new)
 
 
 def check_streams(done, want, what):
-    """Every request kept its 64-token budget and its stream equals the
-    uninterrupted run's (``want``: prompt → tokens)."""
+    """Every request kept its budget and its stream equals the
+    uninterrupted run's (``want``: prompt → tokens) as far as it went: a
+    request is determined by its prompt and sampling, whatever else the
+    engine serves, so a shorter budget gives a prefix of the stream."""
     assert len(done) == len(want), (what, len(done))
     for r in done:
         assert r.finish_reason == "length", (what, r.rid, r.finish_reason)
-    differ = [r.rid for r in done if r.out != want[tuple(r.prompt)]]
+    differ = [r.rid for r in done
+              if r.out != want[tuple(r.prompt)][:r.effective_max_new()]]
     assert not differ, (what, "streams differ", differ)
 
 
@@ -2432,9 +2464,11 @@ def assert_drained(eng, what):
         assert eng.pool.live_blocks == 0, (what, eng.pool_stats())
 
 
-def fault_phase(torch, cfg, params, layout, kv_quant, knobs, want, ticks):
+def fault_phase(torch, cfg, params, layout, kv_quant, knobs, want, ticks,
+                max_new=64):
     """Crash recovery at full width on a serve phase's traffic (``want``:
-    its uninterrupted streams).  (1) Through ``run_serve_with_restarts``
+    its uninterrupted streams; ``max_new`` new tokens a request, whose
+    streams are ``want``'s first ``max_new``).  (1) Through ``run_serve_with_restarts``
     with a snapshot file written every window: one ``FailureInjector``
     schedule fires all five serve crash points at ``ticks``, and every
     restart builds a fresh engine (its graphs captured anew) that
@@ -2496,7 +2530,7 @@ def fault_phase(torch, cfg, params, layout, kv_quant, knobs, want, ticks):
         return eng
 
     def submit(eng):
-        for req in serve_traffic(cfg, layout):
+        for req in serve_traffic(cfg, layout, max_new):
             eng.submit(req)
 
     for m in KERNEL_WRAPPERS.values():
@@ -2545,6 +2579,7 @@ def fault_phase(torch, cfg, params, layout, kv_quant, knobs, want, ticks):
     assert eng.metrics.counters["recoveries"] == 2
     return {"phase": "fault", "layout": layout,
             "kv": "int8" if kv_quant else "bf16", **knobs,
+            "new_tokens_each": max_new,
             "crash_at": {str(k): v for k, v in crash.items()},
             "streams_equal_uninterrupted": True, "recoveries": 5,
             "restores": restores,
@@ -2806,10 +2841,22 @@ def layer_products(cfg, kind="attn"):
 
 
 def model_products(cfg):
-    """Dense products of one forward's layers (``layer_products`` over the
-    layer kinds), the LM head not counted."""
+    """Dense products of one decode forward's layers (``layer_products``
+    over the layer kinds), the LM head not counted.  An encoder-decoder's
+    decoder layer has eight: the self-attention's four, the
+    cross-attention's q and o (its K/V are the cache's) and the GELU
+    MLP's two."""
+    if cfg.is_encdec:
+        return 8 * cfg.n_layers
     return sum(layer_products(cfg, cfg.layer_kind(i))
                for i in range(cfg.n_layers))
+
+
+def head_products(cfg):
+    """Dense products of the LM head: one, but none for the
+    encoder-decoder, whose tied head is a plain product (as the
+    reference's)."""
+    return 0 if cfg.is_encdec else 1
 
 
 def train_launches(cfg, remat):
@@ -2818,7 +2865,12 @@ def train_launches(cfg, remat):
     model) and the LM head in the forward, and the layers' again when
     ``remat`` recomputes them in the backward (the head is not
     recomputed); the backward's products are plain ``torch.matmul``
-    (straight-through)."""
+    (straight-through).  The encoder-decoder: six a encoder layer (not
+    recomputed), ten a decoder layer (the cross-attention's K/V project
+    the encoder output), its head plain."""
+    if cfg.is_encdec:
+        dec = 10 * cfg.n_layers
+        return 6 * cfg.n_enc_layers + dec + (dec if remat else 0)
     per = model_products(cfg)
     return per + 1 + (per if remat else 0)
 
@@ -3134,7 +3186,9 @@ ZOO_REQUESTS, ZOO_NEW = 8, 32    # requests of a zoo serve run, new tokens
 ZOO_SYSTEM = 128                 # the paged traffic's shared system prompt
 ZOO_POLICY = "granite_moe_1b_a400m"       # served under the dither policy
 ZOO_POLICY_NEW = 8          # new tokens a request of a zoo policy run
-ZOO_POLICY_PARITY_LEN = 16  # a scanned prefill's parity prompts (tokens)
+# a scanned prefill's policy prompts (tokens): eager under the policy,
+# one forward a position (served and held to the plain route)
+ZOO_POLICY_PARITY_LEN = 16
 ZOO_TRAIN = ("granite_moe_1b_a400m", "internvl2_1b")
 ZOO_TRAIN_STEPS = 3
 ZOO_PARITY_STEPS = 8
@@ -3150,6 +3204,13 @@ RECURRENT_TRAIN = ("mamba2_370m",)
 HD256_CASES = ((2048, 2048, [0, 37, 255, 1023, 2047, 2048, 3000, 4095]),
                (1024, 2048, [0, 37, 255, 511, 700, 1023, 1500, 2047]))
 ZOO_FAULT_TICK = 9          # the zoo fault runs' one crash ("mid_window")
+# the encoder-decoder (ROADMAP Queue 1 item 11b-ii), last: whisper-small
+# at full width and depth over 8 slots of 1,500 audio-stub frames each;
+# kernel 1 at its self-attention (12 KV heads, group 1, head dim 64) over
+# the serve cache's 1,024 slots, bf16 only (its self-KV is bf16)
+ENCDEC = "whisper_small"
+ENCDEC_CASES = ((1024, 0, LONG_POS),)
+ENCDEC_KERNEL_TOL = 1e-6
 # zoo_parity's limits on the kernel route's logits against the plain
 # route's, (max, mean) over 8 decode steps from copies of one cache whose
 # histories drift apart: dense full-width stacks (up to 40 layers) round
@@ -3172,6 +3233,11 @@ ZOO_MATMULS = {
     "qwen2_moe_a2_7b": ((8, 2048, 5632, False), (8, 5632, 2048, False)),
     "mamba2_370m": ((8, 1024, 4384, False), (8, 2048, 1024, False),
                     (8, 1024, 50288, True)),
+    # whisper's three product shapes at decode (M 8), training's decoder
+    # (8 x 512 tokens) and the encoder's and cross K/V's (8 x 1,500 frames)
+    "whisper_small": tuple((m, k, n, False) for m in (8, 4096, 12000)
+                           for k, n in ((768, 768), (768, 3072),
+                                        (3072, 768))),
 }
 
 
@@ -3427,12 +3493,13 @@ def zoo_serve(torch, cfg, params, layout, kv_quant, *, staged=False,
     return line, {r.rid: list(r.out) for r in done}, eng
 
 
-def zoo_parity(torch, cfg, params):
+def zoo_parity(torch, cfg, params, frames=None):
     """The card's decode against the plain route's: one ring prefill (bf16,
     the ring traffic's prompts), then ``ZOO_PARITY_STEPS`` greedy decode
     steps through the attention kernel (``cuda``) and its plain version
     (``torch-ref``, passed explicitly) from copies of one cache, both fed
-    the plain route's tokens.  Gates, at the stated ``ZOO_PARITY_ATOL``
+    the plain route's tokens (an encoder-decoder's cross-KV from
+    ``frames``).  Gates, at the stated ``ZOO_PARITY_ATOL``
     of the config's family: every logit within its max, each step's mean
     absolute difference within its mean, and the kernel route's greedy
     token equal to the plain route's in every row whose top-2 margin
@@ -3450,7 +3517,7 @@ def zoo_parity(torch, cfg, params):
         toks[i, :lens[i]] = r.prompt
     logits, cache = registry.apply_prefill(
         params, cfg, torch.from_numpy(toks).cuda(),
-        torch.from_numpy(lens).cuda(), 1024)
+        torch.from_numpy(lens).cuda(), 1024, frames=frames)
     caches = {p: clone_tree(cache) for p in ("cuda", "torch-ref")}
     cur = torch.argmax(logits, -1)
     worst = mean = 0.0
@@ -3481,7 +3548,7 @@ def zoo_parity(torch, cfg, params):
             "min_plain_logit_std": scale}
 
 
-def zoo_policy(torch, cfg, params):
+def zoo_policy(torch, cfg, params, frames=None, prompt_len=None):
     """``ZOO_POLICY`` served under ``QuantPolicy(scheme="dither",
     backend="auto")`` (ring bf16, the ring traffic): every dense product —
     attention and LM head; the routed experts are fake-quantised einsums —
@@ -3489,13 +3556,16 @@ def zoo_policy(torch, cfg, params):
     launches = (``layer_products`` × layers + 1) a prefill call or tick,
     all through the policy entry; attention launches = layers × ticks.
     Then one prefill and three decode steps with the matmul backend
-    ``cuda`` against ``torch-ref``: logits within ``LOGIT_ATOL``."""
+    ``cuda`` against ``torch-ref``: logits within ``LOGIT_ATOL``.  An
+    encoder-decoder serves over ``frames`` (its encoder quantised when
+    the engine builds its cache) and its head is plain; ``prompt_len``
+    cuts the prompts."""
     from repro_torch.models import registry
     from repro_torch.numerics.policy import QuantPolicy
     from repro_torch.serve import Engine
     from repro_torch.serve.graphs import KERNEL_WRAPPERS
 
-    eng = Engine(params, cfg, 8, 1024, device="cuda",
+    eng = Engine(params, cfg, 8, 1024, device="cuda", frames=frames,
                  policy=QuantPolicy(scheme="dither", backend="auto"))
     assert eng.policy.backend == "cuda" and eng._graphs is None
     recurrent = not registry.supports_batched_prefill(cfg)
@@ -3511,6 +3581,7 @@ def zoo_policy(torch, cfg, params):
     reqs = zoo_requests(cfg, "ring")
     for req in reqs:
         req.max_new = ZOO_POLICY_NEW
+        req.prompt = req.prompt[:prompt_len]
         eng.submit(req)
     torch.cuda.synchronize()
     for m in KERNEL_WRAPPERS.values():
@@ -3524,7 +3595,7 @@ def zoo_policy(torch, cfg, params):
     assert len(done) == len(reqs)
     assert all(r.finish_reason == "length" and len(r.out) == ZOO_POLICY_NEW
                for r in done)
-    per_forward = model_products(cfg) + 1
+    per_forward = model_products(cfg) + head_products(cfg)
     # a scanned prefill (recurrent state) is one forward a prompt position
     forwards = (sum(steps) if steps else st["prefill_calls"]) \
         + st["decode_calls"]
@@ -3550,7 +3621,8 @@ def zoo_policy(torch, cfg, params):
     for backend in ("cuda", "torch-ref"):
         pol = QuantPolicy(scheme="dither", backend=backend)
         logits, cache = registry.apply_prefill(params, cfg, toks, lens, 1024,
-                                               policy=pol, counter=0)
+                                               policy=pol, counter=0,
+                                               frames=frames)
         seq = [logits]
         for step in range(3):
             logits, cache = registry.apply_decode(
@@ -3569,6 +3641,7 @@ def zoo_policy(torch, cfg, params):
             "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
             "decode_tok_s": st["decode_tokens"] / st["decode_s"],
             "new_tokens_each": ZOO_POLICY_NEW,
+            "prompt_tokens": sum(len(r.prompt) for r in reqs),
             "prefill_calls": st["prefill_calls"],
             "scanned_prefill_steps": steps,
             "decode_ticks": st["decode_calls"], "wall_s": wall,
@@ -3739,19 +3812,23 @@ def zoo_phase(torch, name, da, pda, va, pva, dm, ref):
     return res
 
 
-def hd256_kernel_checks(torch, cfg, da, ref):
-    """Kernel 1 at recurrentgemma's attention (``HD256_CASES``, B 8, 1 KV
-    head, group 16, head dim 256), bf16 and int8: against its plain
+def ring_kernel_checks(torch, cfg, da, ref, cases, quants=(False, True),
+                       profiled=False):
+    """Kernel 1 at a config's attention (B 8; ``cases``: (cap, window,
+    positions)), each cache type of ``quants``: against its plain
     version with the kernel's tiles and split and in the plain version's
     own order (``check_kernel``, within ``KERNEL_TOL``); cold event ms of
     the kernel, the plain version and SDPA (``cold_times``), the kernel's
-    device ms (its named kernels in the profiler) and the bound."""
+    device ms (its named kernels in the profiler; with ``profiled`` also
+    SDPA's and the host ms) and the bound.  recurrentgemma's
+    (``HD256_CASES``: 1 KV head, group 16, head dim 256) runs unprofiled
+    SDPA: late in a run the profiler caught no SDPA device time there."""
     gen = torch.Generator().manual_seed(21)
     sh = zoo_shape(cfg)
     ring_kw = dict(block=(da.KERNEL_BLOCK,), split=da.SPLIT_TILES)
     rows = []
-    for cap, window, pos_vals in HD256_CASES:
-        for quant in (False, True):
+    for cap, window, pos_vals in cases:
+        for quant in quants:
             t = ring_inputs(gen, quant=quant, pos_vals=pos_vals, b=8,
                             cap=cap, **sh)
             _, res = check_kernel(torch, da.decode_attention,
@@ -3761,19 +3838,20 @@ def hd256_kernel_checks(torch, cfg, da, ref):
                 t, functools.partial(da.decode_attention, window=window),
                 functools.partial(ref.decode_attention_ref, window=window),
                 lambda c: library_call(c, window), (100, 5, 50),
-                profiled=False))
-            # the kernel's device ms, inputs rotated past the L2 as above
-            copies = itertools.cycle(
-                [t] + [[None if x is None else x.clone() for x in t]
-                       for _ in range(res["copies_rotated"] - 1)])
-            res["device_ms"] = device_ms(
-                torch, lambda: da.decode_attention(*next(copies),
-                                                   window=window),
-                50, ATTN_KERNELS)
+                profiled=profiled))
+            if not profiled:
+                # the kernel's device ms, inputs rotated past the L2
+                copies = itertools.cycle(
+                    [t] + [[None if x is None else x.clone() for x in t]
+                           for _ in range(res["copies_rotated"] - 1)])
+                res["device_ms"] = device_ms(
+                    torch, lambda: da.decode_attention(*next(copies),
+                                                       window=window),
+                    50, ATTN_KERNELS)
             bound = decode_bound(pos_vals, b=8, cap=cap, quant=quant,
                                  window=window, **sh)
             rows.append({"name": f"decode_attention[{'int8' if quant else 'bf16'}]",
-                         "model_shapes": "recurrentgemma_9b",
+                         "model_shapes": cfg.name.replace("-", "_"),
                          "window": window, "pos": pos_vals,
                          "shape": {"B": 8, "cap": cap, **sh}, **res,
                          "bound_ms": bound[0], "bound_by": bound[1]})
@@ -3806,7 +3884,7 @@ def prefill_step_times(torch, eng, params, steps=20):
             "weight_bytes": nbytes, "launches_per_step": g.step_launches}
 
 
-def zoo_fault(torch, cfg, params, want):
+def zoo_fault(torch, cfg, params, want, frames=None):
     """A zoo config's ring bf16 traffic through ``run_serve_with_restarts``
     with a snapshot file every window and one crash (``mid_window`` at
     tick ``ZOO_FAULT_TICK``), the restarted engine restored from the file.
@@ -3831,7 +3909,7 @@ def zoo_fault(torch, cfg, params, want):
 
     def make_engine():
         eng = Engine(params, cfg, 8, 1024, device="cuda", injector=injector,
-                     snapshot_path=path)
+                     snapshot_path=path, frames=frames)
         restore = eng.restore
 
         def timed(snap, streams=None):
@@ -3904,7 +3982,7 @@ def recurrent_phase(torch, name, da, dm, ref):
            "attention_layers": attn_layers(cfg),
            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd()],
            "vocab_padded": cfg.vocab_padded(),
-           "kernels": (hd256_kernel_checks(torch, cfg, da, ref)
+           "kernels": (ring_kernel_checks(torch, cfg, da, ref, HD256_CASES)
                        if attn_layers(cfg) else []),
            "matmuls": (zoo_matmul_checks(torch, name, dm, ref)
                        if name in ZOO_MATMULS else [])}
@@ -3945,7 +4023,10 @@ def recurrent_phase(torch, name, da, dm, ref):
     del eng
     res["parity"] = zoo_parity(torch, cfg, params)
     if name in RECURRENT_POLICY:
-        res["policy"] = zoo_policy(torch, cfg, params)
+        # prompts cut to the parity's 16 tokens: the eager scanned
+        # prefill under the policy is one forward a position
+        res["policy"] = zoo_policy(torch, cfg, params,
+                                   prompt_len=ZOO_POLICY_PARITY_LEN)
     if not cfg.n_experts and attn_layers(cfg):
         res["fault"] = zoo_fault(torch, cfg, params, ring_bf16)
     res["serve_peak_memory_allocated_gb"] = (
@@ -3956,6 +4037,182 @@ def recurrent_phase(torch, name, da, dm, ref):
     if name in RECURRENT_TRAIN:
         res["train"] = zoo_train(torch, dm, cfg)
     res["peak_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["seconds"] = time.perf_counter() - t_start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def encdec_frames(torch, cfg, batch=8):
+    """An encoder-decoder engine's frames (batch, T_enc, d) bf16: row i
+    the data pipeline's audio-stub frames at step i, so every slot hears
+    its own audio."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+
+    return torch.cat([synthetic_batch(cfg, DataConfig(batch=1, seq=1),
+                                      i, device="cuda")["frames"]
+                      for i in range(batch)])
+
+
+def tick_times(torch, eng, replays=20):
+    """Device ms of one decode tick: the engine's one-tick window graph
+    replayed ``replays`` times between CUDA events after its run (every
+    row dead then: the same kernels at the same shapes, the rows' last
+    positions), beside its bound, every byte a tick must read once at
+    HBM bandwidth: the decoder's weights and the tied head (the
+    cross-attention's K/V projections excepted), the cross-KV and the
+    written self-KV."""
+    win = next(w for (n, _), w in eng._graphs._windows.items() if n == 1)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        win.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    cfg, params = eng.cfg, eng.params
+    dec = params["dec_blocks"]
+    nbytes = sum(t.numel() * t.element_size() for k, t in _leaves(dec)
+                 if k not in ("xattn.wk", "xattn.wv"))
+    nbytes += params["embed"].numel() * 2
+    nbytes += sum(t.numel() * t.element_size()
+                  for t in eng.cache["cross"].values())
+    written = int(eng.cache["pos"].sum())
+    nbytes += written * cfg.n_layers * cfg.n_kv_heads * cfg.hd() * 2 * 2
+    return {"replays_timed": replays,
+            "device_ms_per_tick": start.elapsed_time(end) / replays,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "bytes": nbytes, "launches_per_tick": win.launches}
+
+
+def _leaves(tree, prefix=""):
+    """(dotted key, leaf) of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def encdec_phase(torch, da, dm, ref):
+    """The encoder-decoder (``ENCDEC``, whisper-small) at full width and
+    depth on the card, random bf16 weights from seed 0, frames from the
+    data pipeline's audio stub (``encdec_frames``), loaded alone and
+    freed after: kernel 1 at its self-attention (``ENCDEC_CASES``) within
+    ``ENCDEC_KERNEL_TOL`` of its plain version, with SDPA's times, and
+    kernel 6's policy entry at its products (``ZOO_MATMULS``) bit for
+    bit; the encoder's time to build a cache and the cross-KV's bytes;
+    the zoo's ring traffic in bf16 and with ``kv_quant`` (inert: its
+    self-KV is bf16, so the streams must be equal), prompts prefilled by
+    the scanned prefill replayed from its captured step, the launch gates
+    counting those replays, a tick's and a prefill step's device ms; one
+    W = 8 window replayed and run eagerly, byte for byte, the cross-KV
+    equal and unchanged, then an in-place restore whose rebuilt self-KV
+    and cross-KV equal the written ones byte for byte, and the W = 8
+    streams equal to W = 1's; the kernel route against the plain one;
+    the dither policy (16-token prompts, 8 new tokens; logits bit for bit
+    the plain route); a crashed run restored, streams equal to
+    uninterrupted; 3 train steps with and without the policy, one step
+    through kernel 6 bit for bit the plain one.  Peak memory."""
+    import gc
+    import json
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serve import Engine
+
+    cfg = get_config(ENCDEC)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    res = {"phase": "zoo", "model": cfg.name, "family": cfg.family,
+           "nvidia_smi": nvidia_smi(), "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_enc_layers,
+           "encoder_tokens": cfg.n_enc_tokens, "d_model": cfg.d_model,
+           "attention_layers": attn_layers(cfg),
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd()],
+           "vocab_padded": cfg.vocab_padded(),
+           "kernels": ring_kernel_checks(torch, cfg, da, ref, ENCDEC_CASES,
+                                         quants=(False,), profiled=True),
+           "matmuls": zoo_matmul_checks(torch, ENCDEC, dm, ref)}
+    for row in res["kernels"]:
+        assert row["max_abs_err"] <= ENCDEC_KERNEL_TOL, row
+    t0 = time.perf_counter()
+    params = registry.init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["weights_gb"] = sum(t.numel() * t.element_size()
+                            for t in tree.leaves(params)) / 1e9
+    frames = encdec_frames(torch, cfg)
+    build_ms = []
+    for _ in range(2):                 # the first call warms the libraries
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = registry.make_cache(params, cfg, 8, 1024, frames,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        build_ms.append(1e3 * (time.perf_counter() - t0))
+    res["cache_build_ms"] = build_ms
+    res["cross_kv_gb"] = sum(t.numel() * t.element_size()
+                             for t in cache["cross"].values()) / 1e9
+    del cache
+    runs = {}
+    runs["ring_bf16"], ring_bf16, eng = zoo_serve(torch, cfg, params, "ring",
+                                                  False, frames=frames)
+    pf = eng._prefill
+    runs["ring_bf16"].update(
+        prefill_graph_replays=pf.replays,
+        prefill_graph_steps_per_call=pf.replays / eng.stats["prefill_calls"],
+        prefill_graph_capture_s=pf.capture_s)
+    res["tick"] = tick_times(torch, eng)
+    res["prefill_step"] = prefill_step_times(torch, eng, params)
+    del eng, pf
+    runs["ring_kv_quant_flag"], flagged, eng = zoo_serve(
+        torch, cfg, params, "ring", True, frames=frames)
+    assert eng.cache["layers"][0]["k"].dtype == torch.bfloat16
+    assert flagged == ring_bf16, (cfg.name, "kv_quant flag not inert")
+    runs["ring_kv_quant_flag"]["streams_equal_ring_bf16"] = True
+    del eng
+    res["runs"] = runs
+    eng = Engine(params, cfg, 8, 1024, device="cuda", decode_ticks=WINDOW,
+                 frames=frames)
+    for req in zoo_requests(cfg, "ring"):
+        eng.submit(req)
+    eng._admit_and_prefill()
+    res["window_graph_vs_eager"] = graph_against_eager(torch, eng, cfg,
+                                                       params)
+    before = eng.written_kv()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.restore(json.loads(json.dumps(eng.snapshot())))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n, nbytes = eng.compare_written_kv(before, eng.written_kv())
+    res["in_place_restore"] = {"tensors_equal": n, "bytes_equal": nbytes,
+                               "seconds": seconds, **eng.last_restore}
+    del before
+    done = eng.run(1000)
+    assert len(done) == ZOO_REQUESTS
+    assert {r.rid: list(r.out) for r in done} == ring_bf16, (
+        cfg.name, "W = 8 != W = 1")
+    res["window_streams_equal_w1"] = True
+    del eng
+    res["parity"] = zoo_parity(torch, cfg, params, frames=frames)
+    res["policy"] = zoo_policy(torch, cfg, params, frames=frames,
+                               prompt_len=ZOO_POLICY_PARITY_LEN)
+    res["fault"] = zoo_fault(torch, cfg, params, ring_bf16, frames=frames)
+    res["serve_peak_memory_allocated_gb"] = (
+        torch.cuda.max_memory_allocated() / 1e9)
+    del params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res["train"] = zoo_train(torch, dm, cfg)
+    res["train_peak_memory_allocated_gb"] = (
+        torch.cuda.max_memory_allocated() / 1e9)
     res["seconds"] = time.perf_counter() - t_start
     gc.collect()
     torch.cuda.empty_cache()
@@ -4074,14 +4331,17 @@ def main() -> int:
                                              w1_streams["ring", True])
     emit(chunked)
     # fault tolerance and observability, on the serve phases' traffic
-    for layout, kv_quant, knobs, want, ticks in (
-            ("ring", False, {}, w1_streams["ring", False], FAULT_TICKS),
+    # (the ring int8 run serves FAULT_NEW_W8 tokens a request: its six
+    # engines each capture an int8 W = 8 graph, PERF.md §4)
+    for layout, kv_quant, knobs, want, ticks, new in (
+            ("ring", False, {}, w1_streams["ring", False], FAULT_TICKS, 64),
             ("ring", True, dict(decode_ticks=WINDOW, prefill_chunk=CHUNK),
-             chunked_streams, FAULT_TICKS_W8),
-            ("paged", False, {}, w1_streams["paged", False], FAULT_TICKS),
-            ("paged", True, {}, w1_streams["paged", True], FAULT_TICKS)):
+             chunked_streams, FAULT_TICKS_W8, FAULT_NEW_W8),
+            ("paged", False, {}, w1_streams["paged", False], FAULT_TICKS,
+             64),
+            ("paged", True, {}, w1_streams["paged", True], FAULT_TICKS, 64)):
         emit(fault_phase(torch, cfg, params, layout, kv_quant, knobs, want,
-                         ticks))
+                         ticks, new))
     emit(observe_phase(torch, cfg, params, "ring", False, WINDOW,
                        w1_streams["ring", False]))
     emit(observe_phase(torch, cfg, params, "paged", True, 1,
@@ -4099,8 +4359,9 @@ def main() -> int:
     for kv_quant in (False, True):
         emit(profile_phase(torch, cfg, params, kv_quant))
     emit(profile_phase(torch, cfg, params, True, kv_layout="paged"))
-    for kv_quant in (False, True):
-        emit(window_profile_phase(torch, cfg, params, kv_quant))
+    # the bf16 window only, for time: the int8 W = 8 window's graph ≡
+    # eager is the graph phase's, byte for byte
+    emit(window_profile_phase(torch, cfg, params, False))
     for kv_quant in (False, True):
         emit(profile_phase(torch, cfg, params, kv_quant, spec=True))
     from repro_torch.numerics.policy import QuantPolicy
@@ -4128,6 +4389,9 @@ def main() -> int:
     for name in RECURRENT_ZOO:
         zoo[name] = res = recurrent_phase(torch, name, da, dm, ref)
         emit(res)
+    # the encoder-decoder (ROADMAP Queue 1 item 11b-ii)
+    zoo[ENCDEC] = res = encdec_phase(torch, da, dm, ref)
+    emit(res)
 
     kernels = []
     for kv_quant in (False, True):
@@ -4209,6 +4473,20 @@ def main() -> int:
                                     "bound_ms", "bound_by", "library_ms",
                                     "device_ms", "library_device_ms",
                                     "shape", "window", "pos")}})
+    # kernel 1 at whisper's self-attention (12 KV heads of 64), its entry
+    wh = zoo[ENCDEC]
+    main = wh["kernels"][0]
+    kernels.append({
+        "name": "decode_attention[bf16, whisper-small]", "route": "cuda",
+        "source": da.SOURCE, "replaces": REPLACES,
+        "launches": wh["runs"]["ring_bf16"]["decode_attention_launches"],
+        "launches_note": "whisper-small ring serve run: window and "
+                         "scanned-prefill graph replays x launches per "
+                         "graph, plus the warm-ups'",
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "device_ms",
+                                "library_device_ms", "host_ms", "shape",
+                                "window", "pos")}})
     qmain = next(c for c in dither_rows if c["name"] == "quantize"
                  and c["shape"] == [576, 1536])
     kernels.append({

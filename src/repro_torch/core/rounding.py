@@ -34,6 +34,7 @@ __all__ = [
     "lcg_slot",
     "slot_index",
     "dither_bit",
+    "DitherState",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -191,3 +192,22 @@ def dither_round(x: torch.Tensor, counter, seed, n_pulses: int
     slot = lcg_slot(counter, idx, n_pulses, seed=seed)
     u = hash_uniform(_u32(seed) ^ 0xD1CE, idx, counter)
     return fl + dither_bit(x - fl, slot, u, n_pulses)
+
+
+class DitherState:
+    """Tiny counter registry so call sites can thread i_s functionally
+    (the reference's ``DitherState``).
+
+    Usage::
+
+        st = DitherState(seed=0)
+        y, st = st.round(x, n_pulses=64)
+    """
+
+    def __init__(self, seed: int = 0, counter: int = 0):
+        self.seed = int(seed)
+        self.counter = int(counter)
+
+    def round(self, x: torch.Tensor, n_pulses: int):
+        y = dither_round(x, self.counter, self.seed, n_pulses)
+        return y, DitherState(self.seed, self.counter + 1)

@@ -7,9 +7,8 @@ from the step counter alone (checkpoint stores only ``step``), and skew/
 straggler behaviour is testable by construction.  The stream has real
 next-token structure (a noisy Markov chain over the vocab) so losses move.
 The hash is the port's ``core/rounding.hash_uniform``, bit for bit the
-reference's, so both packages draw the same tokens, and the VLM stub
-frontend's patch embeddings.  The encoder-decoder's frames are ROADMAP
-Queue 1 item 11's second half.
+reference's, so both packages draw the same tokens, the VLM stub
+frontend's patch embeddings and the audio stub frontend's frames.
 """
 
 from __future__ import annotations
@@ -50,12 +49,9 @@ def synthetic_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
     """One global batch of int32 tokens on ``device``.  Markov structure:
     token_{t+1} ≡ token_t + drift (mod V) with probability 0.75, else
     uniform — learnable but non-trivial.  A ``vit_stub`` config also gets
-    ``embeds`` (B, F, d) bf16: one hashed (F, d) block in [-0.5, 0.5),
-    the same for every row, as the reference's."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name!r}: the encoder-decoder's frames are ROADMAP Queue "
-            "1 item 11's second half")
+    ``embeds`` (B, F, d) bf16 and an encoder-decoder ``frames`` (B, T_enc,
+    d) bf16: one hashed block in [-0.5, 0.5) (seeds ``seed ^ 0xF00D`` and
+    ``seed ^ 0xFEED``), the same for every row, as the reference's."""
     vocab = cfg.vocab_size
     base = _hash_tokens(dcfg.seed, step, dcfg.batch, dcfg.seq, vocab, device)
     idx = _positions(dcfg.batch, dcfg.seq, device)
@@ -66,12 +62,22 @@ def synthetic_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
     tokens = torch.where(keep, markov, base)
     batch = {"tokens": tokens, "labels": tokens}
     if cfg.frontend == "vit_stub":
-        nf, d = cfg.n_frontend_tokens, cfg.d_model
-        f = torch.arange(nf * d, dtype=torch.int64, device=device)
-        u = hash_uniform(dcfg.seed ^ 0xF00D, f, step).reshape(1, nf, d)
-        batch["embeds"] = (u - 0.5).to(torch.bfloat16).expand(
-            dcfg.batch, nf, d)
+        batch["embeds"] = _stub(dcfg, step, 0xF00D, cfg.n_frontend_tokens,
+                                cfg.d_model, device)
+    if cfg.is_encdec:
+        batch["frames"] = _stub(dcfg, step, 0xFEED, cfg.n_enc_tokens,
+                                cfg.d_model, device)
     return batch
+
+
+def _stub(dcfg: DataConfig, step: int, salt: int, n: int, d: int,
+          device) -> torch.Tensor:
+    """A stub frontend's (B, n, d) bf16 rows: u - 0.5 of the hash of
+    (seed ^ salt, flat index, step) over one (n, d) block, broadcast over
+    the batch."""
+    f = torch.arange(n * d, dtype=torch.int64, device=device)
+    u = hash_uniform(dcfg.seed ^ salt, f, step).reshape(1, n, d)
+    return (u - 0.5).to(torch.bfloat16).expand(dcfg.batch, n, d)
 
 
 def data_iterator(cfg: ModelConfig, dcfg: DataConfig, start_step: int = 0,

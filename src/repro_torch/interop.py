@@ -44,9 +44,15 @@ def params_from_numpy(tree, device="cuda"):
 
 def cache_from_numpy(tree, device="cuda"):
     """A reference decode cache → the port's on ``device``, bit for bit:
-    a ring cache (``pos``, stacked ``layers``, ``remainder``) or a paged
+    a ring cache (``pos``, stacked ``layers``, ``remainder``), a paged
     one (the same plus ``block_tables``; each layer's pool includes its
-    trailing trash block)."""
+    trailing trash block) or the encoder-decoder's (``pos``, ``self``,
+    ``cross_k``, ``cross_v`` → ``pos``, ``layers`` = [``self``],
+    ``remainder`` = [], ``cross`` = {``k``, ``v``})."""
+    if "self" in tree:
+        tree = {"pos": tree["pos"], "layers": [tree["self"]],
+                "remainder": [],
+                "cross": {"k": tree["cross_k"], "v": tree["cross_v"]}}
     return _tree(tree, device)
 
 

@@ -27,7 +27,7 @@ from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels import verify_attention as _va
 
-__all__ = ["BACKENDS", "UNFUSED", "resolve_backend",
+__all__ = ["BACKENDS", "UNFUSED", "available_backends", "resolve_backend",
            "resolve_policy_backend", "matmul", "quantize", "decode_attention",
            "paged_decode_attention", "verify_attention",
            "paged_verify_attention"]
@@ -35,6 +35,12 @@ __all__ = ["BACKENDS", "UNFUSED", "resolve_backend",
 BACKENDS = ("cuda", "torch-ref")
 # QuantPolicy.backend of the unfused fake-quant matmul (the reference's "jnp")
 UNFUSED = "torch"
+
+
+def available_backends() -> tuple:
+    """The kernel backends' names, sorted (the reference's
+    ``available_backends``; the port's are fixed, ``BACKENDS``)."""
+    return tuple(sorted(BACKENDS))
 
 
 def resolve_backend(backend: Optional[str], t: torch.Tensor) -> str:

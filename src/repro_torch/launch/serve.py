@@ -21,12 +21,16 @@ the paged KV cache:
       --arch granite_moe_1b_a400m --reduced --device cpu --kv-quant
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch mamba2_370m --reduced --device cpu --decode-ticks 4
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper_small --reduced --device cpu --decode-ticks 4
 
 ``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS`` (the VLM is
 served on tokens alone, as the reference's engine serves it; the
 recurrent ``mamba2_370m`` and ``recurrentgemma_9b`` serve on the ring
 only, prefilled by the scanned prefill, a captured CUDA graph a prompt
-position on the card).
+position on the card; the encoder-decoder ``whisper_small`` serves on
+zero frames, as the reference's launcher serves it, its ``--kv-quant``
+forced off as there: its self-KV is bf16).
 Takes the reference launcher's flags but ``--mesh`` (ROADMAP Queue 1 item
 10), plus ``--device``.  Weights are random, drawn from seed 0 (the
 reference draws its own from ``PRNGKey(0)``, so the values differ).
@@ -38,6 +42,8 @@ import argparse
 import json
 import os
 import time
+
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import registry
@@ -141,8 +147,13 @@ def serve_main(argv=None):
     policy = (None if args.policy == "none"
               else QuantPolicy(scheme=args.policy, backend=args.kernel_backend))
     params = registry.init_model(cfg, seed=0, device=args.device)
+    frames = (torch.zeros((args.batch, cfg.n_enc_tokens, cfg.d_model),
+                          dtype=torch.bfloat16, device=args.device)
+              if cfg.is_encdec else None)
     engine = Engine(params, cfg, args.batch, args.max_len, policy=policy,
-                    kv_quant=args.kv_quant, scheduler=args.sched,
+                    frames=frames,
+                    kv_quant=args.kv_quant and not cfg.is_encdec,
+                    scheduler=args.sched,
                     kv_layout=args.kv_layout, device=args.device,
                     block_size=args.block_size, num_blocks=args.num_blocks,
                     prefix_cache=not args.no_prefix_cache,

@@ -13,9 +13,12 @@ CPU):
       --batch 2 --seq 16       # or internvl2_1b: its stub embeds prepended
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \\
       --reduced --device cpu --steps 4 --batch 2 --seq 16
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper_small \\
+      --reduced --device cpu --steps 4 --batch 2 --seq 16
 
 ``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS``; a
-``vit_stub`` config trains on the pipeline's ``embeds`` beside its tokens.
+``vit_stub`` config trains on the pipeline's ``embeds`` beside its tokens,
+the encoder-decoder on its ``frames`` (the audio stub's hashed frames).
 Takes the reference launcher's flags, plus ``--device``.  Runs on one
 device with no mesh: the reference's ``launch/mesh.py`` and ``dist/ctx.py``
 wait for the port's sharding (ROADMAP Queue 1 items 10 and 13).  Weights

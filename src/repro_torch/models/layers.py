@@ -21,9 +21,10 @@ from repro_torch.numerics.policy import dense, matmul
 
 Params = Dict[str, Any]
 
-__all__ = ["rms_norm", "rope", "attention", "qkv", "grouped_logits",
-           "grouped_values", "mlp", "gelu", "softmax", "make_causal_mask",
-           "init_attention", "init_mlp", "init_embedding"]
+__all__ = ["rms_norm", "layer_norm", "rope", "attention", "qkv",
+           "grouped_logits", "grouped_values", "mlp", "gelu", "softmax",
+           "make_causal_mask", "init_attention", "init_mlp",
+           "init_embedding"]
 
 
 def _init(gen: torch.Generator, shape, scale=None, device="cuda"):
@@ -49,6 +50,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (mean, then the mean square of the centred
+    values), cast back, then ``* gamma + beta`` in x's dtype, in the
+    reference's order."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    xc = xf - mu
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10000.0) -> torch.Tensor:
     """Rotary position embedding in f32, cast back.  x: (B, S, H, hd),
@@ -72,7 +85,7 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA, causal prefill)
+# attention (GQA; causal, bidirectional or cross; full sequences)
 # ---------------------------------------------------------------------------
 
 
@@ -142,24 +155,46 @@ def grouped_values(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, *, window: int = 0, policy=None,
-              counter=0, return_kv: bool = False):
-    """Causal GQA self-attention over a full sequence (prefill).
+              positions: torch.Tensor, *, causal: bool = True,
+              window: int = 0, kv_src: Optional[torch.Tensor] = None,
+              policy=None, counter=0, use_rope: bool = True,
+              return_kv: bool = False):
+    """GQA attention over a full sequence (prefill, training, the
+    encoder).
 
-    x: (B, S, d) bf16, positions: (B, S).  Returns ``(out, kv)``: ``kv`` is
-    the post-RoPE ``(k, v)`` of this call's tokens, each
-    (B, S, n_kv_heads, hd), when ``return_kv`` (the batched prefill
-    scatters them into the ring cache), else None.  The score product comes
-    out in bf16 before the f32 cast, as the reference's einsum does.
+    x: (B, S, d) bf16, positions: (B, S).  ``causal`` masks future keys
+    (and, with ``window``, keys a window or more behind); ``causal=False``
+    attends every key.  ``kv_src`` (B, S_k, d): cross-attention, keys and
+    values projected from it, no RoPE (unmasked with ``causal=False``, as
+    its callers pass it); ``use_rope=False`` skips RoPE on self-attention
+    too (the encoder).  Returns ``(out,
+    kv)``: ``kv`` is the post-RoPE ``(k, v)`` of this call's tokens, each
+    (B, S_k, n_kv_heads, hd), when ``return_kv`` (the batched prefill
+    scatters them into the ring cache), else None.  The score product
+    comes out in bf16 before the f32 cast, as the reference's einsum
+    does.
     """
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
-    q, k, v = qkv(params, cfg, x, positions, policy, counter)
+    if kv_src is None and use_rope:
+        q, k, v = qkv(params, cfg, x, positions, policy, counter)
+    else:
+        src = x if kv_src is None else kv_src
+        q = dense(x, params["wq"], policy, counter, seed=1)
+        k = dense(src, params["wk"], policy, counter, seed=2)
+        v = dense(src, params["wv"], policy, counter, seed=3)
+        if cfg.qkv_bias and "bq" in params:
+            q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        q = q.reshape(b, s, nh, hd)
+        k = k.reshape(b, src.shape[1], nkv, hd)
+        v = v.reshape(b, src.shape[1], nkv, hd)
     kv_out = (k, v) if return_kv else None
 
-    mask = make_causal_mask(s, s, window=window, device=x.device)
     logits = grouped_logits(q.reshape(b, s, nkv, nh // nkv, hd), k)
-    logits = torch.where(mask[None, None, None, :, :], logits, -1e30)
+    if causal:
+        mask = make_causal_mask(s, k.shape[1], window=window,
+                                device=x.device)
+        logits = torch.where(mask[None, None, None, :, :], logits, -1e30)
     probs = softmax(logits, dim=-1).to(x.dtype)
     out = grouped_values(probs, v).reshape(b, s, nh * hd)
     return dense(out, params["wo"], policy, counter, seed=4), kv_out

@@ -1,14 +1,15 @@
-"""Model API of the port over the decoder-only families (counterpart of
-the reference's ``models/registry.py``): training's full-sequence logits
-and the serving entry points.  ``batch_spec`` waits for the port's mesh
-(ROADMAP Queue 1 item 13).  The families ``dense``, ``moe``, ``vlm``
-(its stub frontend's ``embeds`` prepended in ``apply_model``), ``ssm``
-and ``hybrid`` are ported; the encoder-decoder raises
-``NotImplementedError`` (ROADMAP Queue 1 item 11's second half).
+"""Model API of the port over every family (counterpart of the
+reference's ``models/registry.py``): training's full-sequence logits and
+the serving entry points, hiding the decoder-only vs encoder-decoder
+split.  ``batch_spec`` waits for the port's mesh (ROADMAP Queue 1 item
+13).  Batches are dicts: ``tokens`` (B, S), and ``embeds`` (B, F, d) (the
+VLM stub frontend's, prepended in ``apply_model``) or ``frames`` (B,
+T_enc, d) (the audio stub frontend's, the encoder-decoder's input).
 
-Models with recurrent state (SSD, RG-LRU) prefill by the reference's
-*scanned* prefill: one decode step per prompt position over a fresh
-cache, each row frozen once its prompt ends (``apply_prefill``;
+Models with recurrent state (SSD, RG-LRU) and the encoder-decoder prefill
+by the reference's *scanned* prefill: one decode step per prompt position
+over a fresh cache (the encoder-decoder's carrying its cross-KV), each
+row frozen once its prompt ends (``apply_prefill``;
 ``scanned_prefill_step`` is one step of it, which the engine captures as
 a CUDA graph on the card)."""
 
@@ -18,7 +19,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -31,23 +32,22 @@ __all__ = ["init_model", "apply_model", "make_cache", "apply_prefill",
            "supports_chunked_prefill", "supports_spec_decode"]
 
 
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name!r} (family {cfg.family!r}) is not ported yet: the "
-            f"port runs the decoder-only families {FAMILIES}; the "
-            "encoder-decoder is ROADMAP Queue 1 item 11's second half")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name!r}: unknown family {cfg.family!r}; "
+                         f"the port has {FAMILIES}")
 
 
 def supports_batched_prefill(cfg: ModelConfig) -> bool:
     """True when prompts can prefill in one batched forward that also
     emits the decode cache: attention-only decoders (the reference's
     definition).  SSD and RG-LRU layers carry recurrent state whose value
-    at each row's prompt end the full-sequence pass does not give: they
-    prefill by the scanned prefill (``apply_prefill``)."""
+    at each row's prompt end the full-sequence pass does not give, and the
+    encoder-decoder shares that path: they prefill by the scanned prefill
+    (``apply_prefill``)."""
     return (not cfg.is_encdec
             and all(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)))
 
@@ -82,6 +82,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     _check_family(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    if cfg.is_encdec:
+        return encdec.init_encdec(gen, cfg, device=device)
     return transformer.init_params(gen, cfg, device=device)
 
 
@@ -90,24 +92,38 @@ def apply_model(params: Params, cfg: ModelConfig,
                 remat: bool = True) -> torch.Tensor:
     """Full-sequence f32 logits (B, F + S, vocab_padded) for training and
     logits-only prefill (``transformer.forward``), with ``batch["embeds"]``
-    (B, F, d) prepended where given (the VLM stub frontend).  ``frames``
-    (the encoder-decoder's) belong to item 11's second half."""
+    (B, F, d) prepended where given (the VLM stub frontend); the
+    encoder-decoder's (B, S, vocab_padded) over ``batch["frames"]``
+    (``encdec.forward_encdec``)."""
     _check_family(cfg)
-    if batch.get("frames") is not None:
-        raise NotImplementedError(
-            "batch['frames']: the encoder-decoder is ROADMAP Queue 1 item "
-            "11's second half")
+    if cfg.is_encdec:
+        return encdec.forward_encdec(params, cfg, batch["tokens"],
+                                     batch["frames"], policy=policy,
+                                     counter=counter, remat=remat)
     return transformer.forward(params, cfg, batch["tokens"],
                                embeds=batch.get("embeds"), policy=policy,
                                counter=counter, remat=remat)
 
 
 def make_cache(params: Params, cfg: ModelConfig, batch_size: int,
-               max_len: int, *, policy=None, kv_quant: bool = False,
+               max_len: int, frames: Optional[torch.Tensor] = None, *,
+               policy=None, kv_quant: bool = False,
                kv_layout: str = "ring", block_size: Optional[int] = None,
-               num_blocks: Optional[int] = None, device="cuda") -> Params:
-    """The ring or paged decode cache on ``device``."""
+               num_blocks: Optional[int] = None, device="cuda",
+               cross: Optional[Params] = None) -> Params:
+    """The ring or paged decode cache on ``device``.  The
+    encoder-decoder's is a ring with the cross-KV of ``frames`` (B, T_enc,
+    d), the encoder run under ``policy`` (``encdec.init_encdec_cache``),
+    or sharing ``cross``, another cache's cross-KV; its self-KV is bf16
+    whatever ``kv_quant`` says, as the reference's."""
     _check_family(cfg)
+    if cfg.is_encdec:
+        if kv_layout != "ring":
+            raise ValueError("paged KV layout requires an attention-only "
+                             "decoder (see supports_paged_kv)")
+        return encdec.init_encdec_cache(params, cfg, frames, batch_size,
+                                        max_len, policy=policy, cross=cross,
+                                        device=device)
     if kv_layout != "ring" and not supports_paged_kv(cfg):
         raise ValueError("paged KV layout requires an attention-only decoder "
                          f"(arch {cfg.name!r} has recurrent state)")
@@ -119,18 +135,20 @@ def make_cache(params: Params, cfg: ModelConfig, batch_size: int,
 def apply_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   lengths: torch.Tensor, max_len: int, *, policy=None,
                   counter=0, kv_quant: bool = False, kv_offset=None,
-                  cache0: Optional[Params] = None):
+                  cache0: Optional[Params] = None,
+                  frames: Optional[torch.Tensor] = None):
     """Batched prefill of right-padded prompts (B, S) with true lengths
     (B,) (0: an inactive row) → (last-token logits (B, vocab_size) f32,
     ring cache with ``pos == lengths``).
 
     Attention-only decoders run ``transformer.prefill_with_cache``, one
-    forward.  Models with recurrent state run the reference's scanned
-    prefill: from ``cache0`` (default a fresh cache; it is updated in
-    place), one decode step per position t < S on the column
-    ``tokens[:, t]``, each row's state, KV and position frozen once t ≥
-    its length (``scanned_prefill_step``), its logits kept from its last
-    active step."""
+    forward.  Models with recurrent state and the encoder-decoder run the
+    reference's scanned prefill: from ``cache0`` (default a fresh cache,
+    the encoder-decoder's from ``frames``; it is updated in place), one
+    decode step per position t < S on the column ``tokens[:, t]``, each
+    row's state, KV and position frozen once t ≥ its length
+    (``scanned_prefill_step``), its logits kept from its last active
+    step."""
     _check_family(cfg)
     b, s = tokens.shape
     lengths = lengths.to(torch.int32)
@@ -141,7 +159,8 @@ def apply_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         last = torch.clamp(lengths.long() - 1, 0, s - 1)
         return logits[torch.arange(b, device=logits.device), last], cache
     cache = cache0 if cache0 is not None else make_cache(
-        params, cfg, b, max_len, kv_quant=kv_quant, device=tokens.device)
+        params, cfg, b, max_len, frames, policy=policy, kv_quant=kv_quant,
+        device=tokens.device)
     last = torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
                        device=tokens.device)
     for t in range(s):
@@ -161,7 +180,7 @@ def scanned_prefill_step(params: Params, cfg: ModelConfig,
     vocab_size).  ``t`` may be a device scalar (a captured step reads it
     there)."""
     active = lengths > t
-    logits, new = transformer.decode_step(
+    logits, new = apply_decode(
         params, cfg, token, cache, policy=policy, counter=counter,
         kv_offset=kv_offset, active=active)
     cache["pos"].copy_(torch.where(active, new["pos"], cache["pos"]))
@@ -212,9 +231,14 @@ def apply_decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
                  cache: Params, *, policy=None, counter=0, kv_offset=None,
                  backend: Optional[str] = None, active=None):
     """One decode step (``transformer.decode_step``), ring or paged by the
-    cache's layout; rows where ``active`` (B,) is False keep their
-    recurrent state and ring contents."""
+    cache's layout, or the encoder-decoder's (``encdec.decode_step_encdec``);
+    rows where ``active`` (B,) is False keep their recurrent state and
+    ring contents."""
     _check_family(cfg)
+    if cfg.is_encdec:
+        return encdec.decode_step_encdec(
+            params, cfg, token, cache, policy=policy, counter=counter,
+            kv_offset=kv_offset, backend=backend, active=active)
     return transformer.decode_step(params, cfg, token, cache, policy=policy,
                                    counter=counter, kv_offset=kv_offset,
                                    backend=backend, active=active)
@@ -251,5 +275,8 @@ def spec_commit(cache: Params, new_pos, written, *, draft_k: int) -> Params:
 
 def merge_prefill(cfg: ModelConfig, old: Params, new: Params,
                   active: torch.Tensor) -> Params:
-    """Rows of ``new`` where ``active`` replace rows of ``old`` (in place)."""
+    """Rows of ``new`` where ``active`` replace rows of ``old`` (in place;
+    the encoder-decoder keeps ``old``'s cross-KV)."""
+    if cfg.is_encdec:
+        return encdec.merge_cache_encdec(old, new, active)
     return transformer.merge_cache(old, new, active)

@@ -16,13 +16,14 @@ between decode windows, and each window decodes and samples every active
 slot ``decode_ticks`` times with finish detection on the device and one
 host drain.  On the card a policy-free window is one CUDA-graph replay
 (:class:`WindowGraphs`).  A model with recurrent state (SSD, RG-LRU)
-serves on the ring only and prefills by the scanned prefill, one decode
-step a prompt position, on the card replayed from one captured step
-(:class:`PrefillGraphs`).  Under a ``QuantPolicy`` every dense product is
-quantised (on the card through the CUDA dither-matmul kernel) with the
-engine tick as its counter.  Per-request :class:`SamplingParams` drive
-greedy/temperature/top-k sampling, EOS/stop handling and the per-request
-dither-counter offsets.
+and the encoder-decoder serve on the ring only and prefill by the scanned
+prefill, one decode step a prompt position, on the card replayed from one
+captured step (:class:`PrefillGraphs`); the encoder-decoder encodes each
+slot's ``frames`` once, into the cache's static cross-KV.  Under a
+``QuantPolicy`` every dense product is quantised (on the card through
+the CUDA dither-matmul kernel) with the engine tick as its counter.
+Per-request :class:`SamplingParams` drive greedy/temperature/top-k
+sampling, EOS/stop handling and the per-request dither-counter offsets.
 
 Two KV layouts:
 
@@ -52,8 +53,8 @@ points, atomic JSON snapshots every ``snapshot_every`` windows and
 (policy-free and deterministic-scheme serving); :class:`Metrics` counters,
 gauges and TTFT/ITL histograms, and :class:`Tracer` spans, all host-side.
 On the card the restore refills the cache's own tensors, so the captured
-decode graphs stay valid.  ``mesh`` and ``frames`` raise
-``NotImplementedError`` naming their ROADMAP items.
+decode graphs stay valid.  ``mesh`` raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -72,7 +73,8 @@ from repro_torch.kernels.paged_decode_attention import MAX_BLOCK_SIZE
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.draft import Drafter, PromptLookupDrafter
-from repro_torch.serve.graphs import PrefillGraphs, WindowGraphs
+from repro_torch.serve.graphs import (PrefillGraphs, WindowGraphs,
+                                     cache_view)
 from repro_torch.serve.kvpool import KVPool
 from repro_torch.serve.metrics import Metrics
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
@@ -99,19 +101,28 @@ def _resolved(policy):
 
 
 def make_serve_fns(cfg: ModelConfig, policy=None, *, max_len: int,
-                   kv_quant: bool = False):
+                   kv_quant: bool = False, cross=None):
     """The two serving steps: ``prefill_step(params, tokens, lengths,
     kv_offset, counter)`` maps a right-padded (B, S) prompt batch and its
     (B,) true lengths to the last-prompt-token logits and a ring cache whose
     positions equal ``lengths``; ``decode_step(params, token, cache,
     kv_offset, counter)`` is one token for every slot.  Under an enabled
-    ``policy`` every dense product is quantised with the given counter."""
+    ``policy`` every dense product is quantised with the given counter.
+    The encoder-decoder's prefill starts from a fresh self-KV sharing
+    ``cross``, a cache's cross-KV (the engine's: the reference encodes
+    its frames again at every call, to the same values)."""
     policy = _resolved(policy)
 
     def prefill_step(params, tokens, lengths, kv_offset=None, counter=0):
+        cache0 = None
+        if cfg.is_encdec:
+            cache0 = registry.make_cache(params, cfg, tokens.shape[0],
+                                         max_len, device=tokens.device,
+                                         cross=cross)
         return registry.apply_prefill(
             params, cfg, tokens, lengths, max_len, policy=policy,
-            counter=counter, kv_quant=kv_quant, kv_offset=kv_offset)
+            counter=counter, kv_quant=kv_quant, kv_offset=kv_offset,
+            cache0=cache0)
 
     def decode_step(params, token, cache, kv_offset=None, counter=0):
         return registry.apply_decode(params, cfg, token, cache, policy=policy,
@@ -152,12 +163,14 @@ def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
     there.  In a model with recurrent state they also keep their state
     and ring contents (``decode_step``'s ``active``): a step cannot be
     undone there, and a capture's warm-up or a restore's replay runs
-    rows that must not move (the reference freezes only the position).
+    rows that must not move (the reference freezes only the position, as
+    the port does for the encoder-decoder, a ring model).
     A live slot's ops are those of a one-tick window, so a window of n
     ticks is n single ticks bit for bit.  The cache's layer tensors are
     written in place."""
     policy = _resolved(policy)
-    recurrent = not registry.supports_batched_prefill(cfg)
+    recurrent = not registry.supports_batched_prefill(cfg) \
+        and not cfg.is_encdec
     n_ticks = int(n_ticks)
     if n_ticks < 1:
         raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
@@ -401,7 +414,7 @@ def _prefill_groups(rows: dict) -> List[List[int]]:
 
 
 # reference knob → (value that means "off", ROADMAP Queue 1 item porting it)
-_OUT_OF_SLICE = {"mesh": (None, 10), "frames": (None, 11)}
+_OUT_OF_SLICE = {"mesh": (None, 10)}
 
 
 
@@ -539,7 +552,7 @@ class Engine:
             if kv_layout == "ring" and self.draft_k > max_len:
                 raise ValueError(f"draft_k={draft_k} exceeds the ring's "
                                  f"{max_len} slots")
-        given = dict(mesh=mesh, frames=frames)
+        given = dict(mesh=mesh)
         for name, (off, item) in _OUT_OF_SLICE.items():
             if given[name] != off:
                 raise NotImplementedError(
@@ -583,6 +596,17 @@ class Engine:
                              f"{self.device}")
         self.params, self.cfg, self.batch, self.max_len = (
             params, cfg, batch, max_len)
+        # the encoder-decoder's audio, row i slot i's (a decoder-only model
+        # ignores it, as the reference's does)
+        self._frames = frames if cfg.is_encdec else None
+        if cfg.is_encdec:
+            want = (batch, cfg.n_enc_tokens, cfg.d_model)
+            if frames is None or tuple(frames.shape) != want:
+                raise ValueError(f"{cfg.name!r} needs frames of shape {want}, "
+                                 f"got {getattr(frames, 'shape', None)}")
+            if frames.device.type != self.device.type:
+                raise ValueError(f"frames live on {frames.device}, engine "
+                                 f"device is {self.device}")
         # the matmul policy, resolved once for this engine's device; its
         # counter is the engine tick ("rounding in time", §VII)
         policy = policy.resolved(self.device) if policy is not None else None
@@ -623,12 +647,14 @@ class Engine:
         else:
             self.cache = self._make_cache()
             self._prefill, _ = make_serve_fns(cfg, policy, max_len=max_len,
-                                              kv_quant=kv_quant)
+                                              kv_quant=kv_quant,
+                                              cross=self.cache.get("cross"))
             if (not registry.supports_batched_prefill(cfg)
                     and self.device.type == "cuda"
                     and (policy is None or not policy.enabled)):
-                # the scanned prefill of a recurrent model: one captured
-                # decode step, replayed once per prompt position
+                # the scanned prefill of a recurrent model or the
+                # encoder-decoder: one captured decode step, replayed once
+                # per prompt position
                 self._prefill = PrefillGraphs(params, cfg, self.cache,
                                               max_len, self.device)
             if self.prefill_chunk is not None:
@@ -715,7 +741,8 @@ class Engine:
                 block_size=self.block_size, num_blocks=self.num_blocks,
                 device=self.device)
         return registry.make_cache(self.params, self.cfg, self.batch,
-                                   self.max_len, kv_quant=self.kv_quant,
+                                   self.max_len, self._frames,
+                                   policy=self.policy, kv_quant=self.kv_quant,
                                    device=self.device)
 
     # ------------------------------------------------------ pool aggregates
@@ -1980,10 +2007,11 @@ class Engine:
 
     def written_kv(self) -> dict:
         """rid → clones of the cache contents at every position that
-        request has written — each cache tensor's rows in order, and a
-        recurrent layer's whole state row — for the slots and the queued
-        block holders: exactly what :meth:`restore` rebuilds, so a restore is checked by comparing these bytes with
-        the uninterrupted engine's."""
+        request has written — each cache tensor's rows in order, a
+        recurrent layer's whole state row and an encoder-decoder slot's
+        cross-KV row — for the slots and the queued block holders: exactly
+        what :meth:`restore` rebuilds, so a restore is checked by
+        comparing these bytes with the uninterrupted engine's."""
         held = [(i, r, int(self._slot_pos[i]))
                 for i, r in enumerate(self.slots) if r is not None]
         if self.pool is not None:
@@ -2011,6 +2039,8 @@ class Engine:
                             cap = t.shape[2]
                             parts.append(t[:, i, [p % cap for p in range(
                                 max(0, w - cap), w)]].clone())
+            for name in sorted(self.cache.get("cross", {})):
+                parts.append(self.cache["cross"][name][:, i].clone())
             out[req.rid] = parts
         return out
 
@@ -2225,10 +2255,13 @@ class Engine:
         return calls
 
     def _reset_cache(self):
-        """The cache's layer tensors get a fresh cache's bytes, in place."""
+        """The cache's layer tensors get a fresh cache's bytes, in place
+        (the encoder-decoder's cross-KV encoded again from its frames)."""
         fresh = self._make_cache()
-        for old, new in zip(self.cache["layers"] + self.cache["remainder"],
-                            fresh["layers"] + fresh["remainder"]):
+        for old, new in zip(self.cache["layers"] + self.cache["remainder"]
+                            + [self.cache.get("cross", {})],
+                            fresh["layers"] + fresh["remainder"]
+                            + [fresh.get("cross", {})]):
             for name, t in old.items():
                 t.copy_(new[name])
 
@@ -2381,9 +2414,7 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     def _cache_view(self, pos: np.ndarray, bt: Optional[np.ndarray] = None):
-        view = {"pos": self._tensor(pos.astype(np.int32)),
-                "layers": self.cache["layers"],
-                "remainder": self.cache["remainder"]}
+        view = cache_view(self.cache, self._tensor(pos.astype(np.int32)))
         if bt is not None:
             view["block_tables"] = self._tensor(bt)
         return view

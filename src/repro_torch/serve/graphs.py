@@ -29,8 +29,9 @@ construction whether it replays (CUDA and no policy) or runs eagerly; a
 capture that fails raises, and nothing falls back.
 
 :class:`PrefillGraphs` does the same for the scanned prefill of a model
-with recurrent state (SSD, RG-LRU): one decode step per prompt position,
-which eager PyTorch would dispatch op by op S times a prompt.  It
+with recurrent state (SSD, RG-LRU) or of the encoder-decoder (whose
+static cross-KV the step reads in place): one decode step per prompt
+position, which eager PyTorch would dispatch op by op S times a prompt.  It
 captures one step (``registry.scanned_prefill_step``) on the engine's
 cache tensors and static buffers, the position t a device counter the
 step advances, and replays it S_bucket times a prefill call.
@@ -54,7 +55,8 @@ from repro_torch.kernels import paged_verify_attention as _pva
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import verify_attention as _va
 
-__all__ = ["WindowGraphs", "PrefillGraphs", "KERNEL_WRAPPERS"]
+__all__ = ["WindowGraphs", "PrefillGraphs", "KERNEL_WRAPPERS",
+           "cache_view"]
 
 # every kernel wrapper of the port, each with its host ``launches`` count
 KERNEL_WRAPPERS = {"decode_attention": _da.decode_attention,
@@ -112,8 +114,20 @@ def _record(stream, device, warm_up: Callable, body: Callable):
 
 
 def _layer_tensors(cache: dict) -> Tuple[torch.Tensor, ...]:
+    """Every cache tensor a step reads or writes in place: the layers'
+    and, for the encoder-decoder, its cross-KV."""
     return tuple(t for entry in cache["layers"] + cache["remainder"]
-                 for t in entry.values())
+                 + [cache.get("cross", {})] for t in entry.values())
+
+
+def cache_view(cache: dict, pos: torch.Tensor) -> dict:
+    """``cache`` with ``pos`` in place of its positions: the same layer
+    tensors (and cross-KV)."""
+    view = {"pos": pos, "layers": cache["layers"],
+            "remainder": cache["remainder"]}
+    if "cross" in cache:
+        view["cross"] = cache["cross"]
+    return view
 
 
 class _Window:
@@ -233,8 +247,7 @@ class WindowGraphs:
         first, and a recurrent row keeps its state."""
         t0 = time.perf_counter()
         fused = self._fused_for(n)
-        view = {"pos": self.pos, "layers": cache["layers"],
-                "remainder": cache["remainder"]}
+        view = cache_view(cache, self.pos)
         if self.block_tables is not None:
             view["block_tables"] = self.block_tables
         s = self.slot
@@ -263,8 +276,9 @@ class WindowGraphs:
 
 
 class PrefillGraphs:
-    """The scanned prefill of a model with recurrent state as replays of
-    one captured decode step (policy-free, on the card).
+    """The scanned prefill of a model with recurrent state or of the
+    encoder-decoder as replays of one captured decode step (policy-free,
+    on the card).
 
     The step runs on ``cache``'s layer tensors (the engine's, written in
     place) and a position buffer of its own.  A call ``(params, tokens
@@ -286,10 +300,9 @@ class PrefillGraphs:
             raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
         self.device = dev
         batch = cache["pos"].shape[0]
-        self.cache = {"pos": torch.zeros((batch,), dtype=torch.int32,
-                                         device=dev),
-                      "layers": cache["layers"],
-                      "remainder": cache["remainder"]}
+        self.cache = cache_view(cache, torch.zeros((batch,),
+                                                   dtype=torch.int32,
+                                                   device=dev))
         width = 8                 # a prompt's padded length: up to the
         while width < max_len:    # power of two at or above max_len
             width *= 2
@@ -322,7 +335,8 @@ class PrefillGraphs:
     def _reset(self):
         """The rows with a length to a fresh row's values (stacked leaves
         carry the row at axis 1, remainder leaves at axis 0), t and the
-        kept logits to 0."""
+        kept logits to 0.  An encoder-decoder's cross-KV is not a layer
+        entry: it stays."""
         rows = self.lengths > 0
         for axis, entries in ((1, self.cache["layers"]),
                               (0, self.cache["remainder"])):

@@ -7,7 +7,8 @@ torch-ops route around the f32 kernel bit for bit, the kernels' modulo over all 
 numerators, the wrappers' input checks, the serving path's launch
 counts and streams, and decode windows replayed from CUDA graphs against
 the same windows run eagerly, byte for byte; kernel 1 at head dim 256 and
-the recurrent configs' scanned prefill replayed from its captured step.  They import torch and the port
+the recurrent configs' scanned prefill replayed from its captured step;
+the encoder-decoder's engine and train step.  They import torch and the port
 only (the card's machine has no JAX) and skip where
 ``torch.cuda.is_available()`` is false:
 
@@ -906,6 +907,10 @@ def _graph_against_eager(eng, cfg, params):
         for name in got_e:
             assert torch.equal(got_e[name][:, trash],
                                want_e[name][:, trash]), name
+    for name, got_t in eng.cache.get("cross", {}).items():
+        # the encoder-decoder's static cross-KV: read, never written
+        assert torch.equal(got_t, new["cross"][name]), name
+        assert torch.equal(got_t, cache["cross"][name]), name
     eng.stats["decode_calls"] += 1
     eng.tick += plan.n
     eng._drain(plan, toks)
@@ -1482,3 +1487,134 @@ def test_recurrent_engine_on_the_card(cuda, arch):
         streams[n] = [(r.out, r.finish_reason) for r in done]
         assert eng._prefill.replays > 0
     assert streams[4] == streams[1]
+
+
+# ------------------------------------------- the encoder-decoder
+
+
+def _encdec_config():
+    """whisper-small at ``.reduced()`` with the head dim 64 the kernel
+    takes (the reduced one is 32)."""
+    return dataclasses.replace(get_config("whisper_small").reduced(),
+                               head_dim=64)
+
+
+def _encdec_frames(cfg, b, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((b, cfg.n_enc_tokens, cfg.d_model),
+                       generator=g).to(torch.bfloat16).to(device)
+
+
+def test_encdec_scanned_prefill_graph_equals_eager(cuda):
+    """The encoder-decoder's scanned prefill replayed from its captured
+    step, on the engine-shaped cache's own tensors, leaves the rows it
+    prefills as the eager scanned prefill (over the same cross-KV) leaves
+    them, byte for byte, the rows without a length as they were, and the
+    cross-KV untouched; twice."""
+    from repro_torch.serve.graphs import PrefillGraphs
+
+    cfg = _encdec_config()
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    cache = registry.make_cache(params, cfg, 4, 64,
+                                _encdec_frames(cfg, 4, cuda), device=cuda)
+    cross = {k: v.clone() for k, v in cache["cross"].items()}
+    graphs = PrefillGraphs(params, cfg, cache, 64, cuda)
+    rng = np.random.default_rng(1)
+    for s, idle in ((16, 2), (32, 1)):
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                             size=(4, s))).to(cuda)
+        lens = torch.tensor([s, 5, s - 7, s - 3], dtype=torch.int32,
+                            device=cuda)
+        lens[idle] = 0
+        idle_row = torch.tensor([idle], device=cuda)
+        kept = [x.clone() for x in _rows(cache, idle_row)]
+        got_logits, got = graphs(params, toks, lens)
+        fresh = registry.make_cache(params, cfg, 4, 64, device=cuda,
+                                    cross=cache["cross"])
+        want_logits, want = registry.apply_prefill(params, cfg, toks, lens,
+                                                   64, cache0=fresh)
+        on = torch.nonzero(lens).flatten()
+        assert got["cross"] is cache["cross"]
+        assert torch.equal(got_logits[on], want_logits[on])
+        assert torch.equal(got["pos"][on], want["pos"][on])
+        for a, b in zip(_rows(got, on), _rows(want, on)):
+            assert torch.equal(a, b)
+        for a, b in zip(_rows(cache, idle_row), kept):
+            assert torch.equal(a, b)
+        for k in ("k", "v"):
+            assert torch.equal(cache["cross"][k], cross[k])
+
+
+def test_encdec_engine_on_the_card(cuda):
+    """An encoder-decoder engine on the card (its frames row i slot i's):
+    prompts prefilled by the captured scanned-prefill step, windows
+    replayed that equal the eager window byte for byte (the cross-KV read
+    and unchanged), W = 4 giving the W = 1 streams, ``kv_quant`` inert,
+    an in-place restore rebuilding every slot's self-KV and cross-KV byte
+    for byte; kernel 1 launched."""
+    from repro_torch.serve import Engine, Request, SamplingParams
+
+    cfg = _encdec_config()
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    frames = _encdec_frames(cfg, 4, cuda)
+
+    def engine(n, kv_quant=False):
+        eng = Engine(params, cfg, 4, 128, kv_quant=kv_quant, device=cuda,
+                     decode_ticks=n, frames=frames)
+        rng = np.random.default_rng(0)
+        for r in range(7):
+            eng.submit(Request(rid=r, prompt=rng.integers(
+                1, cfg.vocab_size, size=int(rng.integers(5, 40))).tolist(),
+                sampling=SamplingParams(temperature=0.8 * (r % 2), top_k=20,
+                                        seed=r, max_new=5 + 3 * r,
+                                        counter_offset=100 * r)))
+        return eng
+
+    streams = {}
+    for n, kv_quant in ((1, False), (4, False), (1, True)):
+        eng = engine(n, kv_quant)
+        da.decode_attention.launches = 0
+        eng._admit_and_prefill()
+        _graph_against_eager(eng, cfg, params)
+        eng.step()
+        before = eng.written_kv()
+        eng.restore(_snapshot_roundtrip(eng))
+        Engine.compare_written_kv(before, eng.written_kv())
+        done = sorted(eng.run(300), key=lambda r: r.rid)
+        streams[n, kv_quant] = [(r.out, r.finish_reason) for r in done]
+        assert eng._prefill.replays > 0 and eng._graphs.replays > 0
+        assert da.decode_attention.launches > 0
+    assert streams[4, False] == streams[1, False] == streams[1, True]
+
+
+def test_encdec_train_step_through_kernel6_equals_plain(cuda):
+    """One encoder-decoder train step under the dither policy through
+    kernel 6 against its plain version: loss and every new leaf bit for
+    bit; launches a step = 6 products an encoder layer (once: the encoder
+    is not recomputed) + 10 a decoder layer (self and cross attention,
+    MLP; twice with remat), the tied head plain."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.numerics.policy import QuantPolicy
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import trainer
+
+    cfg = _encdec_config()
+    start = trainer.init_train_state(cfg, seed=0, device=cuda)
+    batch = synthetic_batch(cfg, DataConfig(4, 64, seed=1), 0, device=cuda)
+    out = {}
+    for backend in ("cuda", "torch-ref"):
+        step = trainer.make_train_step(
+            cfg, AdamW(lr=1e-2), policy=QuantPolicy(scheme="dither",
+                                                    backend=backend))
+        dm.dither_matmul_scaled.launches = 0
+        state, m = step(start, batch)
+        torch.cuda.synchronize()
+        out[backend] = (state, m["loss"], dm.dither_matmul_scaled.launches)
+    assert out["cuda"][2] == 6 * cfg.n_enc_layers + 2 * 10 * cfg.n_layers
+    assert out["torch-ref"][2] == 0
+    assert torch.equal(out["cuda"][1], out["torch-ref"][1])
+    for a, b in zip(tree.leaves(out["cuda"][0]),
+                    tree.leaves(out["torch-ref"][0])):
+        assert a.dtype == b.dtype and torch.equal(a, b)

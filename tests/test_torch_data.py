@@ -55,13 +55,21 @@ def test_data_iterator_walks_the_steps():
 
 
 def test_stub_frontends_are_not_ported():
-    """The encoder-decoder's frames stay unported (item 11's second half);
-    the VLM's ``vit_stub`` embeds are ported (``tests/test_torch_zoo_train.py``
-    holds them against the reference)."""
+    """Both stub frontends are ported now: an encoder-decoder config gets
+    the audio stub's ``frames`` (B, T_enc, d) bf16 beside its tokens, bit
+    for bit the reference's (``tests/test_torch_encdec_train.py`` holds
+    whisper's), and the VLM's ``vit_stub`` embeds
+    (``tests/test_torch_zoo_train.py`` holds them against the reference)."""
     cfg = get_config("smollm_135m").reduced()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        synthetic_batch(dataclasses.replace(cfg, is_encdec=True),
-                        DataConfig(batch=2, seq=8), 0, device="cpu")
+    enc = dataclasses.replace(cfg, is_encdec=True, n_enc_tokens=6)
+    got = synthetic_batch(enc, DataConfig(batch=2, seq=8), 0, device="cpu")
+    want = ref_batch(dataclasses.replace(ref_get_config("smollm_135m")
+                                         .reduced(), is_encdec=True,
+                                         n_enc_tokens=6),
+                     RefDataConfig(batch=2, seq=8), 0)
+    assert tuple(got["frames"].shape) == (2, 6, cfg.d_model)
+    assert np.array_equal(got["frames"].view(torch.int16).numpy(),
+                          np.asarray(want["frames"]).view(np.int16))
     vit = synthetic_batch(dataclasses.replace(
         cfg, frontend="vit_stub", n_frontend_tokens=4),
         DataConfig(batch=2, seq=8), 0, device="cpu")

@@ -391,3 +391,17 @@ def test_dither_beats_deterministic_per_partial():
         a, b, bits=1, scheme=s, variant="per_partial"))) for s in SCHEMES}
     assert e["dither"] < e["deterministic"]
     assert e["stochastic"] < e["deterministic"]
+
+
+def test_available_backends_are_the_dispatchers():
+    """``dispatch.available_backends`` lists the port's kernel backends,
+    sorted as the reference's lists its own: each resolves, and a name
+    outside it raises with the list."""
+    names = dispatch.available_backends()
+    assert names == tuple(sorted(names)) == ("cuda", "torch-ref")
+    assert ref_dispatch.available_backends() == tuple(
+        sorted(ref_dispatch.available_backends()))
+    x = torch.zeros(2, 2)
+    assert dispatch.resolve_backend("torch-ref", x) == "torch-ref"
+    with pytest.raises(ValueError, match="torch-ref"):
+        dispatch.resolve_backend("xla-ref", x)

@@ -215,8 +215,8 @@ def test_decode_from_reference_cache():
 
 
 def test_out_of_slice_knobs_raise():
-    """Other families and the engine knobs not ported yet raise
-    NotImplementedError naming their ROADMAP item.  (The paged cache, once
+    """The engine knob not ported yet (``mesh``) raises
+    NotImplementedError naming its ROADMAP item.  (The paged cache, once
     on this list, is ported: it needs a block size.  Speculative decoding,
     once on it too, is ported: its gates raise ValueError, as the
     reference's do.  So is the quantised-matmul policy: an unknown scheme
@@ -233,10 +233,15 @@ def test_out_of_slice_knobs_raise():
     with pytest.raises(ValueError, match="unknown rounding scheme"):
         dense(torch.zeros(2, 4), torch.zeros(4, 4),
               QuantPolicy(scheme="bogus"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        registry.init_model(dataclasses.replace(PCFG, family="audio"),
-                            device="cpu")
-    for knob, item in [("mesh", 10), ("frames", 11)]:
+    # the encoder-decoder is ported (item 11b-ii): as in the reference, a
+    # decoder-only config builds its decoder under the ``audio`` family
+    # name and its engine ignores ``frames``; only ``mesh`` raises
+    audio = registry.init_model(dataclasses.replace(PCFG, family="audio"),
+                                device="cpu")
+    assert sorted(audio) == sorted(TORCH_PARAMS)
+    assert Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu",
+                  frames="x")._frames is None
+    for knob, item in [("mesh", 10)]:
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", **{knob: "x"})
     with pytest.raises(ValueError, match="unknown metrics sink spec"):

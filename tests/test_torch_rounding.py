@@ -103,3 +103,21 @@ def test_dither_bit_bitwise(n_pulses):
     got = port.dither_bit(torch.from_numpy(frac), torch.from_numpy(slot),
                           torch.from_numpy(u), n_pulses).numpy()
     np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n_pulses", [4, 16, 64])
+def test_dither_state_rounds_as_the_reference(n_pulses):
+    """``DitherState.round`` threads the counter as the reference's: each
+    call rounds at the state's counter and returns a state one further on,
+    seed kept; the values of a sequence of calls equal the reference's
+    bit for bit."""
+    x = np.random.default_rng(n_pulses).normal(
+        size=(7, 33)).astype(np.float32) * 4
+    st, ref_st = port.DitherState(seed=5, counter=3), ref.DitherState(
+        seed=5, counter=3)
+    for _ in range(5):
+        y, st = st.round(torch.from_numpy(x), n_pulses=n_pulses)
+        want, ref_st = ref_st.round(jnp.asarray(x), n_pulses=n_pulses)
+        assert np.array_equal(_bits(y.numpy()), _bits(want))
+        assert (st.seed, st.counter) == (ref_st.seed, ref_st.counter)
+    assert st.counter == 8

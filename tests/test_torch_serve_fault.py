@@ -236,9 +236,11 @@ def test_knob_checks_match_the_reference():
                dict(degrade_high=1.5), dict(degrade_low=0.0)):
         with pytest.raises(ValueError):
             _engine(**kw)
-    for kw in (dict(mesh=object()), dict(frames=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _engine(mesh=object())
+    # frames are ported (item 11b-ii); a decoder-only engine ignores them,
+    # as the reference's does
+    assert _engine(frames=object())._frames is None
 
 
 # ------------------------------------------------------------ degradation

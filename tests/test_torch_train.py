@@ -115,21 +115,32 @@ def test_forward_logits_match_reference():
 
 
 def test_apply_model_rejects_what_is_not_ported():
-    """The encoder-decoder's ``frames``, its ``audio`` family and any
-    ``is_encdec`` config raise (item 11's second half).  ``embeds`` are
-    ported: they are prepended, as the reference's ``apply_model``
-    prepends them for any config (``tests/test_torch_zoo.py`` holds the
-    VLM); so are the recurrent families
-    (``tests/test_torch_recurrent_train.py``)."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        registry.apply_model(TORCH_PARAMS, PCFG,
-                             {**TORCH_BATCH, "frames": torch.zeros(2, 4, 128)})
-    for change in (dict(family="audio"), dict(is_encdec=True),
-                   dict(family="audio", is_encdec=True)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            registry.apply_model(TORCH_PARAMS,
-                                 dataclasses.replace(PCFG, **change),
-                                 TORCH_BATCH)
+    """Every family is ported now (item 11b-ii brought the
+    encoder-decoder, ``tests/test_torch_encdec*.py``); only a family the
+    reference lacks raises.  As in the reference's ``apply_model``, a
+    decoder-only config ignores ``frames`` and runs its decoder under the
+    ``audio`` family name; an ``is_encdec`` config reads its ``frames``.
+    ``embeds`` are prepended, as the reference prepends them for any
+    config (``tests/test_torch_zoo.py`` holds the VLM); the recurrent
+    families are ``tests/test_torch_recurrent_train.py``'s."""
+    plain = registry.apply_model(TORCH_PARAMS, PCFG, TORCH_BATCH)
+    framed = {**TORCH_BATCH, "frames": torch.zeros(2, 4, 128)}
+    assert torch.equal(registry.apply_model(TORCH_PARAMS, PCFG, framed),
+                       plain)
+    assert torch.equal(registry.apply_model(
+        TORCH_PARAMS, dataclasses.replace(PCFG, family="audio"), framed),
+        plain)
+    with pytest.raises(ValueError, match="unknown family"):
+        registry.apply_model(TORCH_PARAMS,
+                             dataclasses.replace(PCFG, family="speech"),
+                             TORCH_BATCH)
+    whisper = get_config("whisper_small").reduced()
+    wp = registry.init_model(whisper, seed=0, device="cpu")
+    with pytest.raises(KeyError, match="frames"):
+        registry.apply_model(wp, whisper, TORCH_BATCH)
+    out = registry.apply_model(wp, whisper, {
+        **TORCH_BATCH, "frames": torch.zeros(2, whisper.n_enc_tokens, 128)})
+    assert tuple(out.shape) == (2, 16, whisper.vocab_padded())
     out = registry.apply_model(
         TORCH_PARAMS, PCFG,
         {**TORCH_BATCH, "embeds": torch.zeros(2, 4, 128,

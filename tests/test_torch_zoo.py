@@ -61,23 +61,28 @@ def test_configs_are_the_reference_configs(arch):
 
 
 def test_arch_ids_follow_the_reference_and_the_rest_raise():
+    """The port has the reference's ten archs in its order, the
+    encoder-decoder (item 11b-ii) last, under either id form; an arch the
+    reference lacks raises."""
     from repro.configs import ARCH_IDS as REF_IDS
 
-    assert ARCH_IDS == [a for a in REF_IDS if a in ARCH_IDS]
+    assert ARCH_IDS == REF_IDS
     assert set(ZOO) <= set(ARCH_IDS)
     for arch in ("whisper_small", "whisper-small"):
-        with pytest.raises(NotImplementedError,
-                           match="item 11's second half"):
-            get_config(arch)
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+            ref_get_config("whisper_small"))
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("whisper_large")
 
 
 def test_param_trees_cross_bitwise():
     """The MoE tree (f32 router, stacked (R, E, d, f) experts, the shared
-    expert) and the VLM tree: the port's init has the reference's init's
-    tree (key paths in JAX's flatten order, shapes, dtypes), and the
-    leaves cross to the reference and back (``interop.params_from_numpy``)
-    bit for bit."""
-    for arch in ("qwen2_moe_a2_7b", "internvl2_1b"):
+    expert), the VLM tree and the encoder-decoder's (stacked encoder and
+    decoder blocks, ``{g, b}`` norms, ``enc_pos``): the port's init has
+    the reference's init's tree (key paths in JAX's flatten order, shapes,
+    dtypes), and the leaves cross to the reference and back
+    (``interop.params_from_numpy``) bit for bit."""
+    for arch in ("qwen2_moe_a2_7b", "internvl2_1b", "whisper_small"):
         cfg, pcfg, params, tp = model(arch)
         ref = jax.eval_shape(lambda: ref_registry.init_model(
             jax.random.PRNGKey(0), cfg))
