@@ -3,7 +3,7 @@
 
   PYTHONPATH=src python chip_smoke.py
 
-Drives the port (``src/repro_torch``) on one card, in ten phases, each
+Drives the port (``src/repro_torch``) on one card, in eleven phases, each
 printing JSON lines:
 
 1. device — refuses to run without CUDA; the card's name and power limit
@@ -18,7 +18,9 @@ printing JSON lines:
    and in the default one, also on rows either side of a split boundary),
    with its time — event ms per call and the profiler's device ms — the
    plain version's, a PyTorch library call's (event and device ms) and the
-   bound the card sets; kernels 1-4 again at the serve profile's shapes;
+   bound the card sets (the cases without a window, at 64-token blocks;
+   the profiler's at SmolLM-135M's heads); kernels 1-4 again at the
+   serve profile's shapes;
    the paged kernel at 64-token blocks against the ring kernel on the same
    stream, bit for bit; the speculative verify kernels (ring and paged, 4
    and 8 query rows, a slot two short of the cache's end), every row equal
@@ -32,7 +34,8 @@ printing JSON lines:
    blocks against the 128 a dense cache would take, so requests hit the
    prefix cache and get preempted), 64 new tokens each, mixed greedy and
    sampled; then each path again with speculative decoding (draft_k 4,
-   a replay drafter of the plain streams and the prompt-lookup drafter),
+   a replay drafter of the plain streams and the prompt-lookup drafter;
+   the ring runs serve ``SPEC_RING_NEW`` = 32 new tokens a request),
    whose streams must equal the plain ones token for token; each path's
    launch counts are set to 0 just before its run and read just after
    (a policy-free decode window is one CUDA-graph replay, so its launches
@@ -45,8 +48,9 @@ printing JSON lines:
    after an admission rebinds the positions and block tables; chunked
    prefill (chunks of 128 tokens) against whole-prompt prefill within the
    logit tolerance, and the ring int8 traffic served in chunks and
-   windows; then steady decode ticks, speculative windows, and bf16
-   8-tick windows replayed and run eagerly from one state, under
+   windows; then steady decode ticks (bf16 and int8), speculative
+   windows and dither-policy ticks (bf16), and bf16 8-tick windows
+   replayed and run eagerly from one state, under
    ``torch.profiler`` (wall and device time per tick or window, busy
    share, launches, the heaviest kernels);
 5. parity — one prefill and three decode steps at full width per layout,
@@ -100,10 +104,10 @@ printing JSON lines:
    assignments dropped at decode and prefill (counted in a second ring
    run, so the timed one runs without the counter); greedy decode through
    the kernels against their plain versions, logits within
-   ``ZOO_PARITY_ATOL``; granite-moe under the dither policy (8 new tokens
+   ``ZOO_PARITY_ATOL``; granite-moe under the dither policy (4 new tokens
    a request; kernel-6 launches a call, logits against the plain route)
    and through a crashed run restored as the reference restores an MoE
-   engine (every budget completed); granite-moe and internvl2 trained 3
+   engine (every budget completed); granite-moe and internvl2 trained 2
    steps of 8 × 512 (the VLM's 256 stub embeds prepended) with and
    without the policy, one step through kernel 6 bit for bit the plain
    one; peak memory per config;
@@ -119,7 +123,7 @@ printing JSON lines:
    byte for byte, states included, and W = 8 streams equal to W = 1's;
    the kernel route against the plain one; mamba2 under the dither
    policy (16-token prompts; logits bit for bit the plain route) and
-   trained 3 steps; a
+   trained 2 steps; a
    crashed recurrentgemma run restored, streams equal to uninterrupted;
 10. the encoder-decoder (``zoo``, one line) — whisper-small at full width
    and depth (12 + 12 layers, d 768, 12 heads of 64, vocab 51,865),
@@ -135,8 +139,25 @@ printing JSON lines:
    the self-KV and cross-KV byte for byte, W = 8 streams equal to W = 1's;
    the kernel route against the plain one; the dither policy on 16-token
    prompts (logits bit for bit the plain route); a crashed run restored
-   (streams equal); 3 train steps of 8 × 512 with and without the policy,
-   one bit for bit its plain version.
+   (streams equal); 2 train steps of 8 × 512 with and without the policy,
+   one bit for bit its plain version;
+11. sharded serving (``mesh``, one line per mesh, then a summary) —
+   qwen2-1.5b at full width and depth (28 layers, d 1,536, 12 heads / 2
+   KV heads of 128, vocab 151,936), seed-0 bf16 weights, the zoo's ring
+   traffic: the shard-purity table (``transformer.shard_purity`` at
+   decode rows and at each prefill bucket of the traffic); the
+   (1, 1) mesh through NCCL, ring bf16 and int8 and paged bf16 bit for
+   bit the single-device engine, windows graph replays; (1, 2), (2, 1)
+   and (2, 2) as gloo ranks sharing the card (spawned processes, results
+   through a queue; 8 of the 28 layers, ``MESH_SHARED_LAYERS``), ring
+   int8 and paged bf16: every rank's host streams
+   equal, bit for bit the single-device streams where the purity table
+   reads 0 (else equal where the margin clears), kernels 1 and 2 at (1,
+   6, 128) on the (·, 2) meshes, each rank's int8 codes byte for byte the
+   single-device codes of its heads, all-gathers and bytes a tick and
+   decode ms a tick (ranks sharing one card: not a sharded rate); the GQA
+   fallback (smollm-135m, 3 KV heads) on (1, 2) bit for bit; kernels 1
+   and 2 checked and timed at the local shape (1, 6, 128).
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
@@ -153,6 +174,10 @@ its own, in the order given, so that versions compare on one card.
 does the same for kernels 5-6 (``dither_times``: the quantiser, the f32
 dither matmul and the policy's bf16 product) and a dither-policy decode
 tick under the profiler (bf16 and int8 KV).
+
+  PYTHONPATH=src python chip_smoke.py --mesh-block
+
+runs the device and build phases and the mesh block alone.
 """
 
 from __future__ import annotations
@@ -189,6 +214,9 @@ PAGED_REPLACES = "src/repro/kernels/decode_attention.py:482"
 PAGED_BLOCKS = 56          # the paged serve phase's pool, against 8 × 16
 SERVE_REQUESTS = 16        # requests of each serve phase
 SPEC_K = 4                 # the speculative serve phases' draft_k
+# new tokens a request of the ring spec runs: the plain streams' first 32
+# (a ring request's stream does not depend on its budget or its wave)
+SPEC_RING_NEW = 32
 POLICY_NEW = 16            # new tokens a request of the policy serve phases
 # SmolLM-135M's depth in phases 4-7: full width, 8 of its 30 layers, to
 # keep the script inside its time limit with the zoo's blocks (every gate
@@ -381,8 +409,8 @@ def device_ms(torch, fn, calls, names=None, op=None, by_kernel=None):
 
 def share_of(bound_ms, res):
     """The bound over the kernel's device time (None where the profiler
-    caught none)."""
-    return bound_ms / res["device_ms"] if res["device_ms"] else None
+    caught none or the case was not timed)."""
+    return bound_ms / res["device_ms"] if res.get("device_ms") else None
 
 
 def cold_times(t, kernel, plain, library, iters, profiled=True):
@@ -433,6 +461,14 @@ def cold_times(t, kernel, plain, library, iters, profiled=True):
     return res
 
 
+def timed(model, window, bs=64):
+    """Which kernel-phase cases are timed (``cold_times``): the ones the
+    ``kernels`` line and PERF.md report — no window, 64-token blocks.
+    Every case is checked against its plain version all the same; the
+    profiler's device ms are taken at SmolLM-135M's heads (the line's)."""
+    return window == 0 and bs == 64
+
+
 def kernel_phase(torch, da, ref):
     """Each case: kernel vs plain version on the card, with the kernel's
     64-slot tiles and split, and vs the whole-cap plain version; then cold
@@ -448,18 +484,19 @@ def kernel_phase(torch, da, ref):
         t = ring_inputs(gen, quant=quant, pos_vals=LONG_POS, **dims)
         _, res = check_kernel(torch, da.decode_attention,
                               ref.decode_attention_ref, t, window, ring_kw)
-        res.update(cold_times(
-            t, functools.partial(da.decode_attention, window=window),
-            functools.partial(ref.decode_attention_ref, window=window),
-            lambda c: library_call(c, window), (200, 20, 200),
-            profiled=window == 0))
+        if timed(model, window):
+            res.update(cold_times(
+                t, functools.partial(da.decode_attention, window=window),
+                functools.partial(ref.decode_attention_ref, window=window),
+                lambda c: library_call(c, window), (200, 20, 200),
+                profiled=model == "smollm_135m"))
         bound_ms, bound_by = decode_bound(LONG_POS, quant=quant,
                                           window=window, **dims)
         results.append({
             "name": f"decode_attention[{'int8' if quant else 'bf16'}]",
             "model_shapes": model, "window": window,
             "shape": {"B": 8, "cap": 1024, **ATTN_SHAPES[model]},
-            "pos": LONG_POS, **res, "kernel_ms": res["ms"],
+            "pos": LONG_POS, **res, "kernel_ms": res.get("ms"),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": share_of(bound_ms, res)})
     for model in ATTN_SHAPES:
@@ -638,13 +675,14 @@ def paged_kernel_phase(torch, da, pda, ref):
                         torch, pda.paged_decode_attention,
                         ref.paged_decode_attention_ref, t, window,
                         dict(split=da.SPLIT_TILES))
-                    res.update(cold_times(
-                        t, functools.partial(pda.paged_decode_attention,
-                                             window=window),
-                        functools.partial(ref.paged_decode_attention_ref,
-                                          window=window),
-                        lambda c: paged_library_call(c, window),
-                        (200, 10, 50), profiled=window == 0 and bs == 64))
+                    if timed(model, window, bs):
+                        res.update(cold_times(
+                            t, functools.partial(pda.paged_decode_attention,
+                                                 window=window),
+                            functools.partial(ref.paged_decode_attention_ref,
+                                              window=window),
+                            lambda c: paged_library_call(c, window),
+                            (200, 10, 50), profiled=model == "smollm_135m"))
                     bound_ms, bound_by, nbytes, slot_bytes = paged_bound(
                         t, window, quant=quant)
                     results.append({
@@ -653,7 +691,7 @@ def paged_kernel_phase(torch, da, pda, ref):
                         "model_shapes": model, "window": window,
                         "shape": {"B": 8, "bs": bs, "nbmax": 2048 // bs,
                                   **ATTN_SHAPES[model]},
-                        "pos": LONG_POS, **res, "kernel_ms": res["ms"],
+                        "pos": LONG_POS, **res, "kernel_ms": res.get("ms"),
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "distinct_bytes": nbytes,
                         "per_slot_bytes": slot_bytes,
@@ -802,18 +840,19 @@ def verify_kernel_phase(torch, da, pda, va, pva, ref):
                                 ref.verify_attention_ref, t, window, ring_kw)
         same = rows_equal(torch, got, da.decode_attention, t, window)
         assert same, (model, quant, window, kq)
-        res.update(cold_times(
-            t, functools.partial(va.verify_attention, window=window),
-            functools.partial(ref.verify_attention_ref, window=window),
-            lambda c: verify_library_call(c, window), (200, 5, 100),
-            profiled=window == 0))
+        if timed(model, window):
+            res.update(cold_times(
+                t, functools.partial(va.verify_attention, window=window),
+                functools.partial(ref.verify_attention_ref, window=window),
+                lambda c: verify_library_call(c, window), (200, 5, 100),
+                profiled=model == "smollm_135m"))
         bound_ms, bound_by = verify_bound(pos_vals, kq, quant=quant,
                                           window=window, **dims)
         ring.append({
             "name": f"verify_attention[{'int8' if quant else 'bf16'}]",
             "model_shapes": model, "window": window, "kq": kq,
             "shape": {"B": 9, "cap": 1024, "kq": kq, **ATTN_SHAPES[model]},
-            "pos": pos_vals, **res, "kernel_ms": res["ms"],
+            "pos": pos_vals, **res, "kernel_ms": res.get("ms"),
             "rows_equal_decode_kernel_bitwise": same,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": share_of(bound_ms, res)})
@@ -845,13 +884,14 @@ def verify_kernel_phase(torch, da, pda, va, pva, ref):
             same = rows_equal(torch, got, pda.paged_decode_attention, t,
                               window)
             assert same, (model, quant, window, kq, bs)
-            res.update(cold_times(
-                t, functools.partial(pva.paged_verify_attention,
-                                     window=window),
-                functools.partial(ref.paged_verify_attention_ref,
-                                  window=window),
-                lambda c: paged_verify_library_call(c, window),
-                (200, 2, 50), profiled=window == 0 and bs == 64))
+            if timed(model, window, bs):
+                res.update(cold_times(
+                    t, functools.partial(pva.paged_verify_attention,
+                                         window=window),
+                    functools.partial(ref.paged_verify_attention_ref,
+                                      window=window),
+                    lambda c: paged_verify_library_call(c, window),
+                    (200, 2, 50), profiled=model == "smollm_135m"))
             bound_ms, bound_by, nbytes, slot_bytes = paged_bound(
                 t, window, quant=quant)
             paged.append({
@@ -860,7 +900,7 @@ def verify_kernel_phase(torch, da, pda, va, pva, ref):
                 "model_shapes": model, "window": window, "kq": kq,
                 "shape": {"B": 9, "bs": bs, "nbmax": 2048 // bs, "kq": kq,
                           **ATTN_SHAPES[model]},
-                "pos": pos_vals, **res, "kernel_ms": res["ms"],
+                "pos": pos_vals, **res, "kernel_ms": res.get("ms"),
                 "rows_equal_decode_kernel_bitwise": same,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "distinct_bytes": nbytes, "per_slot_bytes": slot_bytes,
@@ -1341,7 +1381,8 @@ def spec_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain,
 
         eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, device=device,
                      spec_decode=True, draft_k=SPEC_K, drafter=dr)
-        reqs = ring_requests(cfg, SERVE_REQUESTS, ring_lens(), 64)
+        reqs = ring_requests(cfg, SERVE_REQUESTS, ring_lens(), SPEC_RING_NEW)
+    new = 64 if paged else SPEC_RING_NEW
     for req in reqs:
         eng.submit(req)
     torch.cuda.synchronize()
@@ -1355,9 +1396,10 @@ def spec_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain,
     st = eng.stats
     assert len(done) == SERVE_REQUESTS, len(done)
     for r in done:
-        assert r.finish_reason == "length" and len(r.out) == 64, (
+        assert r.finish_reason == "length" and len(r.out) == new, (
             r.rid, r.finish_reason, len(r.out))
-    differ = [r.rid for r in done if r.out != streams[tuple(r.prompt)]]
+    differ = [r.rid for r in done
+              if r.out != streams[tuple(r.prompt)][:new]]
     assert not differ, ("spec streams differ from plain", layout, kv_quant,
                         drafter, differ)
     kernel = "paged_verify_attention" if paged else "verify_attention"
@@ -1373,6 +1415,7 @@ def spec_serve_phase(torch, kmods, cfg, params, kv_quant, layout, plain,
     return {"phase": "spec_serve", "layout": layout,
             "kv": "int8" if kv_quant else "bf16", "drafter": drafter,
             "draft_k": SPEC_K, "requests": SERVE_REQUESTS,
+            "new_tokens_each": new,
             "streams_equal_plain": True, "windows": windows,
             "slot_windows": slot_windows,
             "drafted": st["spec_draft_tokens"],
@@ -3185,12 +3228,12 @@ ZOO = ("granite_3_8b", "minicpm_2b", "internvl2_1b", "granite_moe_1b_a400m",
 ZOO_REQUESTS, ZOO_NEW = 8, 32    # requests of a zoo serve run, new tokens
 ZOO_SYSTEM = 128                 # the paged traffic's shared system prompt
 ZOO_POLICY = "granite_moe_1b_a400m"       # served under the dither policy
-ZOO_POLICY_NEW = 8          # new tokens a request of a zoo policy run
+ZOO_POLICY_NEW = 4          # new tokens a request of a zoo policy run
 # a scanned prefill's policy prompts (tokens): eager under the policy,
 # one forward a position (served and held to the plain route)
 ZOO_POLICY_PARITY_LEN = 16
 ZOO_TRAIN = ("granite_moe_1b_a400m", "internvl2_1b")
-ZOO_TRAIN_STEPS = 3
+ZOO_TRAIN_STEPS = 2
 ZOO_PARITY_STEPS = 8
 # the recurrent configs (ROADMAP Queue 1 item 11b-i): mamba2 served under
 # the policy and trained; recurrentgemma (≈ 15 GB of weights, f32 AdamW
@@ -4111,9 +4154,9 @@ def encdec_phase(torch, da, dm, ref):
     equal and unchanged, then an in-place restore whose rebuilt self-KV
     and cross-KV equal the written ones byte for byte, and the W = 8
     streams equal to W = 1's; the kernel route against the plain one;
-    the dither policy (16-token prompts, 8 new tokens; logits bit for bit
+    the dither policy (16-token prompts, 4 new tokens; logits bit for bit
     the plain route); a crashed run restored, streams equal to
-    uninterrupted; 3 train steps with and without the policy, one step
+    uninterrupted; 2 train steps with and without the policy, one step
     through kernel 6 bit for bit the plain one.  Peak memory."""
     import gc
     import json
@@ -4217,6 +4260,607 @@ def encdec_phase(torch, da, dm, ref):
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+# ---------------------------------------------------------------------------
+# sharded serving (ROADMAP Queue 1 item 10): the mesh block
+# ---------------------------------------------------------------------------
+
+MESH_MODEL = "qwen2_1_5b"        # full width: d 1,536, 12 / 2 heads of 128
+MESH_LAYERS = 28                 # its full depth, on the (1, 1) mesh
+# the meshes of ranks sharing the card run eagerly at tp 2 (28 layers: ≈ 35 s
+# a mesh); their depth is cut as SmolLM's serve phases are — the widths,
+# and so every library shape and the purity table, stay the model's
+MESH_SHARED_LAYERS = 8
+MESH_SHARED = ((1, 2), (2, 1), (2, 2))   # ranks sharing the one card (gloo)
+MESH_GQA = "smollm_135m"         # 3 KV heads: replicated on a 2-way axis
+# the margin gate: where the shard-purity probe finds a library op that sums
+# in another order at a shard's shape, the sharded logits of every decision
+# made on the single-device context (the stream equal so far) must lie
+# within this of the single-device logits — the MoE zoo parity's bound;
+# a head or row in the wrong place moves logits by whole units — and a
+# stream may leave the single-device one only at a decision whose margin
+# (greedy: the top-2 logit gap; sampled: the deciding scores' gap, in logit
+# units) is below twice the error measured there
+MESH_LOGIT_CAP = 2.0 ** 0
+MESH_TOP = 64         # logits of a decision the ranks send back: its top 64
+# the purity probe's prefill rows: every length bucket of the zoo's ring
+# traffic (prompts of 32–256 tokens)
+MESH_PREFILL_ROWS = (32, 64, 128, 256)
+
+
+def mesh_cfg(name, layers=None):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def mesh_runs(torch, cfg, params, mesh, cases):
+    """``zoo_serve`` of each (layout, kv_quant) in ``cases`` on ``mesh``
+    (paged: the ring traffic, prefix cache off), with this process's
+    all-gathers counted, in decode windows apart: each line gains the
+    gathers and bytes of a decode tick (head all-gathers over 'model',
+    row gathers over 'data') and of the whole run (prefill calls
+    included), the decode ms a tick (the host time of windows over
+    ticks), the engine's window mode and its local shapes."""
+    from repro_torch.dist import ctx
+    from repro_torch.serve import engine as engine_mod
+
+    def snap():
+        return {k: dict(v) for k, v in ctx.GATHERS.items()}
+
+    def delta(a, b):
+        return {k: {f: b[k][f] - a[k][f] for f in ("calls", "bytes")}
+                for k in a}
+
+    decode = {}
+    original = engine_mod.Engine._decode_tick
+
+    def counted(self):
+        before = snap()
+        original(self)
+        for k, v in delta(before, snap()).items():
+            for f, n in v.items():
+                decode[k][f] += n
+
+    out = {}
+    engine_mod.Engine._decode_tick = counted
+    try:
+        for layout, kv_quant in cases:
+            kw = dict(traffic="ring", prefix_cache=False) \
+                if layout == "paged" else {}
+            decode.update({k: {"calls": 0, "bytes": 0} for k in ctx.GATHERS})
+            before = snap()
+            line, streams, eng = zoo_serve(torch, cfg, params, layout,
+                                           kv_quant, mesh=mesh, **kw)
+            ticks = max(1, line["decode_ticks"])
+            whole = delta(before, snap())
+            line.update(
+                window_mode=eng.window_mode, heads_sharded=eng.heads_sharded,
+                eager_windows=eng.stats["eager_windows"],
+                local_heads=[eng._cfg_local.n_kv_heads,
+                             eng._cfg_local.n_heads // max(
+                                 1, eng._cfg_local.n_kv_heads),
+                             eng._cfg_local.hd()],
+                local_rows=eng._rows,
+                local_kv_shape=list(eng.cache["layers"][0]["k"].shape),
+                gathers_run=whole,
+                gathers_decode={k: dict(v) for k, v in decode.items()},
+                head_gathers_a_tick=decode["heads"]["calls"] / ticks,
+                row_gathers_a_tick=decode["rows"]["calls"] / ticks,
+                gathered_bytes_a_tick=(decode["heads"]["bytes"]
+                                       + decode["rows"]["bytes"]) / ticks,
+                decode_ms_a_tick=1e3 * eng.stats["decode_s"] / ticks)
+            out[f"{layout}_{'int8' if kv_quant else 'bf16'}"] = (line,
+                                                                 streams)
+            del eng
+    finally:
+        engine_mod.Engine._decode_tick = original
+    return out
+
+
+def mesh_codes(torch, cfg, mesh_shape, coord, seed=5):
+    """This rank's int8 KV codes and scales for its heads against the
+    single-device quantiser's for the same global heads, given the same
+    K/V (a (8, 1, n_kv, hd) draw from ``seed``, positions 0..7 plus
+    offsets): byte for byte.  Returns the bytes compared."""
+    from repro_torch.dist import ctx
+    from repro_torch.dist.sharding import serve_heads_shardable
+    from repro_torch.models import transformer
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    nkv, hd = cfg.n_kv_heads, cfg.hd()
+    kv = torch.randn((8, 1, nkv, hd), generator=gen, device="cuda")
+    kv = kv.to(torch.bfloat16)
+    ctr = (torch.arange(8, device="cuda") * 1000 + 37).reshape(8, 1, 1, 1)
+    want, wscale = transformer._kv_q8(
+        kv, ctr, transformer._kv_elem_idx(nkv, hd, "cuda"), 101)
+    tp = mesh_shape[1]
+    split = serve_heads_shardable(cfg, tp)
+    n = nkv // tp if split else nkv
+    h0 = coord["model"] * n if split else 0
+    with ctx.serve_shard_scope(head0=h0, heads_sharded=split):
+        got, gscale = transformer._kv_q8(
+            kv[:, :, h0:h0 + n], ctr,
+            transformer._kv_elem_idx(n, hd, "cuda"), 101)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[:, :, h0:h0 + n]), (mesh_shape, coord)
+    assert torch.equal(gscale, wscale[:, :, h0:h0 + n]), (mesh_shape, coord)
+    return got.numel() + 4 * gscale.numel()
+
+
+def mesh_rank(rank, world, shape, store, q, jobs, record=False):
+    """One rank of a mesh whose ranks share the card (spawned; prints
+    nothing: its result goes back on ``q``): gloo over a file store, every
+    rank on ``cuda:0``; for each (model, layers, cases) of ``jobs`` in
+    turn, the model's seed-0 weights, ``mesh_runs`` of ``cases`` and
+    ``mesh_codes``."""
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.dist import ctx
+        from repro_torch.launch.mesh import make_serve_mesh
+        from repro_torch.models import registry
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=world, rank=rank)
+        mesh = make_serve_mesh(*shape, device="cuda")
+        coord = ctx.mesh_coordinate(mesh)
+        out = {"coord": coord}
+        for model, layers, cases in jobs:
+            cfg = mesh_cfg(model, layers)
+            params = registry.init_model(cfg, seed=0, device="cuda")
+            out[model] = {"runs": mesh_runs(torch, cfg, params, mesh, cases),
+                          "codes_bytes": mesh_codes(torch, cfg, shape,
+                                                    coord)}
+            if record and model == MESH_MODEL:
+                # the sharded decisions, eagerly, for the margin gate
+                out[model]["decisions"] = {
+                    f"{lay}_{'int8' if q8 else 'bf16'}": record_decisions(
+                        torch, cfg, params, lay, q8, mesh)
+                    for lay, q8 in cases}
+            del params
+            torch.cuda.empty_cache()
+        q.put((rank, out))
+        dist.destroy_process_group()
+    except BaseException:
+        q.put((rank, {"error": traceback.format_exc()}))
+
+
+def spawn_mesh(shape, jobs, timeout=900, record=False):
+    """``mesh_rank`` of ``jobs`` on ``shape``'s ranks, all on the one card;
+    returns the ranks' results in rank order (raises with a rank's
+    traceback)."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    world = shape[0] * shape[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = tempfile.mktemp(prefix="mesh_store_", dir=str(ROOT / "build"))
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, shape, store, q,
+                                                 jobs, record))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(got) < world:
+            try:
+                rank, res = q.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if not p.is_alive() and r not in got]
+                if (dead and q.empty()) or time.monotonic() > deadline:
+                    raise RuntimeError(f"mesh {shape}: ranks {dead or '?'} "
+                                       "gave no result") from None
+                continue
+            if "error" in res:
+                raise RuntimeError(f"mesh {shape} rank {rank}:\n"
+                                   f"{res['error']}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(world)]
+
+
+def record_decisions(torch, cfg, params, layout, kv_quant, mesh=None):
+    """Every sampling decision of an engine (this rank's rows on a mesh) on
+    the zoo's ring traffic, eagerly (a replayed window is bit for bit its
+    eager window: the graph phase's gate), by request and token: its
+    margin in logit units (greedy: the top-2 logit gap; sampled: the gap
+    of the deciding scores — logits / T + the sampler's Gumbel noise over
+    the top-k set — times T), its ``MESH_TOP`` largest logits (indices,
+    values) and, on one device, the whole logit row (on the card).
+    Returns ({rid: [decision, ...]}, streams)."""
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.core import rounding
+    from repro_torch.serve import Engine
+
+    out = {}
+    original = engine_mod.sample_tokens
+    call = {"lens": None}      # the lengths of the prefill call just made
+
+    def record(logits, temps, topks, seeds, counters):
+        # a prefill call decides its group's rows (length > 0) only; a
+        # decode tick every occupied row
+        lens, call["lens"] = call["lens"], None
+        lf = logits.float()
+        for b, s in enumerate(eng.slots[eng._lo:eng._lo + eng._rows]):
+            if s is None or (lens is not None and int(lens[b]) == 0):
+                continue
+            row = lf[b]
+            top = torch.topk(row, MESH_TOP)
+            d = {"temp": float(temps[b]), "k": int(topks[b]),
+                 "seed": int(seeds[b]), "counter": int(counters[b]),
+                 "idx": top.indices.tolist(), "vals": top.values.tolist(),
+                 "row": row.clone() if mesh is None else None}
+            if mesh is None:
+                d["margin"] = decision_margin(torch, rounding, d, 0.0)
+            out.setdefault(s.rid, []).append(d)
+        return original(logits, temps, topks, seeds, counters)
+
+    kw = dict(block_size=64, prefix_cache=False) if layout == "paged" else {}
+    eng = Engine(params, cfg, 8, 1024, kv_quant=kv_quant, kv_layout=layout,
+                 device="cuda", mesh=mesh, **kw)
+    eng._graphs = None                   # eager: the sampler sees its rows
+    for name in ("_prefill", "_prefill_paged"):
+        fn = getattr(eng, name, None)
+        if fn is not None:
+            def seen(params, toks, lens, *a, _fn=fn, **kw):
+                call["lens"] = lens
+                return _fn(params, toks, lens, *a, **kw)
+            setattr(eng, name, seen)
+    engine_mod.sample_tokens = record
+    try:
+        for req in zoo_requests(cfg, "ring"):
+            eng.submit(req)
+        done = eng.run(10_000)
+    finally:
+        engine_mod.sample_tokens = original
+    return out, {r.rid: list(r.out) for r in done}
+
+
+def decision_margin(torch, rounding, d, tol):
+    """A decision's margin in logit units, from its single-device logit
+    row: greedy, the top-2 gap; sampled, the gap of the deciding scores
+    (logits / T + the sampler's Gumbel noise) over the widest top-k set a
+    logit error of ``tol`` allows (logits within 2 tol of the k-th
+    largest), times T — ``tests/test_torch_serve._check_decision``'s."""
+    row, temp, k = d["row"], d["temp"], d["k"]
+    if temp <= 0:
+        top = torch.topk(row, 2).values
+        return float(top[0] - top[1])
+    v = row.shape[0]
+    thresh = torch.topk(row, k).values[-1] if 0 < k < v else -math.inf
+    keep = row >= thresh - 2 * tol
+    u = rounding.hash_uniform(d["seed"], torch.arange(v, device=row.device),
+                              d["counter"])
+    g = -torch.log(-torch.log(u + 1e-12) + 1e-12)
+    sc = torch.where(keep, row / max(temp, 1e-6) + g,
+                     torch.tensor(-1e30, device=row.device))
+    best = torch.topk(sc, 2).values
+    return float(best[0] - best[1]) * temp
+
+
+def margin_gate(torch, got, want, single, sharded):
+    """Stream equality where the margin clears, against a measured logit
+    error.  ``single``: the single-device decisions; ``sharded``: the
+    sharded run's (its top logits).  Every decision made on the
+    single-device context — each token up to and including a request's
+    first differing one — gives the sharded logits' largest distance from
+    the single-device row at its top ``MESH_TOP`` tokens; the largest, E,
+    must be at most ``MESH_LOGIT_CAP``, and a stream may leave the
+    single-device one only at a decision whose single-device margin
+    (``decision_margin`` at an error of E) is below 2 E.  Returns E and
+    the requests that left (token, margin)."""
+    err, left = 0.0, {}
+    for rid, w in want.items():
+        g = got[rid]
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        for t in range(len(w) if j is None else j + 1):
+            mine, theirs = sharded[rid][t], single[rid][t]
+            vals = torch.tensor(mine["vals"], device=theirs["row"].device)
+            idx = torch.tensor(mine["idx"], device=theirs["row"].device)
+            err = max(err, float((vals - theirs["row"][idx]).abs().max()))
+        if j is not None:
+            left[rid] = {"token": j}
+        else:
+            assert len(g) == len(w), rid
+    assert err <= MESH_LOGIT_CAP, (err, "sharded logits off the single "
+                                        "device's by more than the cap")
+    from repro_torch.core import rounding
+
+    for rid, at in left.items():
+        at["margin"] = decision_margin(torch, rounding, single[rid][
+            at["token"]], err)
+        assert at["margin"] < 2 * err, (
+            f"request {rid} leaves the single-device stream at token "
+            f"{at['token']}, whose decision clears twice the measured "
+            f"logit error ({at['margin']:.4f} >= 2 x {err:.4f})")
+    return err, left
+
+
+def local_kernel_checks(torch, da, pda, ref):
+    """Kernels 1 and 2 at the local shape of qwen2-1.5b's heads under a
+    2-way 'model' axis — one KV head, group 6, head dim 128; 8 slot rows
+    (the (1, 2) mesh's), a 1,024-slot ring (int8, kernel 1) and a
+    2,048-token table of 64-token blocks (bf16, kernel 2): against the
+    plain version (``check_kernel``), with cold times, SDPA's, and the
+    bound."""
+    gen = torch.Generator().manual_seed(11)
+    heads = dict(nkv=1, group=6, hd=128)
+    rows = []
+    t = ring_inputs(gen, b=8, cap=1024, quant=True, pos_vals=LONG_POS,
+                    **heads)
+    _, res = check_kernel(torch, da.decode_attention,
+                          ref.decode_attention_ref, t, 0,
+                          dict(block=(da.KERNEL_BLOCK,),
+                               split=da.SPLIT_TILES))
+    res.update(cold_times(t, da.decode_attention, ref.decode_attention_ref,
+                          lambda c: library_call(c, 0), (200, 5, 100)))
+    bound_ms, bound_by = decode_bound(LONG_POS, b=8, cap=1024, quant=True,
+                                      window=0, **heads)
+    rows.append({"name": "decode_attention[int8]", "shape": {
+        "B": 8, "cap": 1024, **heads}, "pos": LONG_POS, **res,
+        "bound_ms": bound_ms, "bound_by": bound_by})
+    t = pool_inputs(gen, b=8, nbmax=32, bs=64, quant=False,
+                    pos_vals=LONG_POS, share=(5, 6), **heads)
+    _, res = check_kernel(torch, pda.paged_decode_attention,
+                          ref.paged_decode_attention_ref, t, 0,
+                          dict(split=da.SPLIT_TILES))
+    res.update(cold_times(t, pda.paged_decode_attention,
+                          ref.paged_decode_attention_ref,
+                          lambda c: paged_library_call(c, 0), (200, 2, 50)))
+    bound_ms, bound_by = paged_bound(t, 0, quant=False)[:2]
+    rows.append({"name": "paged_decode_attention[bf16]", "shape": {
+        "B": 8, "bs": 64, "nbmax": 32, **heads}, "pos": LONG_POS, **res,
+        "bound_ms": bound_ms, "bound_by": bound_by})
+    return rows
+
+
+def mesh_phase(torch, da, pda, ref):
+    """Sharded serving (one ``mesh`` line per mesh, then a summary line).
+
+    The model is qwen2-1.5b at full width and depth with seed-0 bf16
+    weights, the zoo's ring traffic (8 requests, prompts 32–256, 32 new
+    tokens, batch 8, ``max_len`` 1,024, half greedy, half sampled at T 0.8
+    and top-k 40).  First the shard-purity table: every library op of a
+    forward at each mesh's local shape against the same slice at the
+    single-device shape (``transformer.shard_purity``, decode rows and the
+    prefill rows of every length bucket of the traffic, the prefill
+    attention's batched products included).  Then the single-device
+    engine: ring bf16 and int8, paged bf16 (graph replays).
+
+    1. The (1, 1) mesh through NCCL, world size 1, in this process: the
+       three runs bit for bit the single-device streams, windows still
+       graph replays.
+    2. (1, 2), (2, 1), (2, 2) as ranks sharing the card (gloo; NCCL
+       refuses two ranks on one GPU), spawned, at ``MESH_SHARED_LAYERS``
+       = 8 of the 28 layers: ring int8 and paged bf16.
+       Gates: every rank's host streams equal; the streams bit for bit the
+       single-device ones where the purity table reads 0 for the mesh,
+       else equal where the margin clears (``margin_gate``); kernels 1
+       and 2 launched layers × ticks at (1, 6, 128) on the (·, 2) meshes;
+       each rank's int8 codes byte for byte the single-device codes of its
+       heads.  Reported: all-gathers and bytes a tick, wall ms a tick —
+       ranks sharing one card, not a sharded rate.
+    3. The GQA fallback at full width: smollm-135m (3 KV heads, 8 of 30
+       layers as the serve phases) on (1, 2), in that mesh's spawn, keeps
+       its heads replicated and serves bit for bit the single-device
+       engine, graph replays.
+
+    Kernels 1 and 2 at the local shape are checked and timed
+    (``local_kernel_checks``).  Returns the summary line."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import ctx
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import registry, transformer
+
+    t_start = time.perf_counter()
+    cfg = mesh_cfg(MESH_MODEL, MESH_LAYERS)
+    params = registry.init_model(cfg, seed=0, device="cuda")
+    purity = {}
+    for dp, tp in ((1, 1),) + MESH_SHARED:
+        purity[f"{dp}x{tp}"] = {
+            "decode": transformer.shard_purity(params, cfg, 8, dp, tp),
+            **{f"prefill_{n}": transformer.shard_purity(params, cfg, 8, dp,
+                                                        tp, rows=n)
+               for n in MESH_PREFILL_ROWS}}
+    pure = {k: not any(n for part in v.values() for n in part.values())
+            for k, v in purity.items()}
+    cases = (("ring", False), ("ring", True), ("paged", False))
+    single = mesh_runs(torch, cfg, params, None, cases)
+    want = {k: s for k, (_, s) in single.items()}
+    shared_cases = (("ring", True), ("paged", False))
+
+    # 1 — (1, 1) through NCCL, world size 1
+    store = tempfile.mktemp(prefix="mesh_store_", dir=str(ROOT / "build"))
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        runs = mesh_runs(torch, cfg, params, make_serve_mesh(1, 1), cases)
+    finally:
+        dist.destroy_process_group()
+    for key, (line, streams) in runs.items():
+        assert streams == want[key], ("(1, 1)", key)
+        assert line["window_mode"] == "graph" and line["graph_replays"] > 0
+        line["streams_equal_single_device_bitwise"] = True
+    emit({"phase": "mesh", "mesh": [1, 1], "backend": "nccl",
+          "world_size": 1, "purity": purity["1x1"],
+          "runs": {k: line for k, (line, _) in runs.items()}})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2 — ranks sharing the card, at MESH_SHARED_LAYERS: the single-device
+    # streams at that depth, and its decisions where a probe differs
+    for name in pure:
+        emit({"phase": "mesh", "purity_table": name, "purity": purity[name],
+              "gate": "bitwise" if pure[name] else "margin"})
+    scfg = mesh_cfg(MESH_MODEL, MESH_SHARED_LAYERS)
+    params = registry.init_model(scfg, seed=0, device="cuda")
+    swant = {k: s for k, (_, s) in mesh_runs(torch, scfg, params, None,
+                                             shared_cases).items()}
+    sdec = {}                   # the single-device decisions
+    if not all(pure[f"{d}x{m}"] for d, m in MESH_SHARED):
+        for layout, kv_quant in shared_cases:
+            key = f"{layout}_{'int8' if kv_quant else 'bf16'}"
+            sdec[key], streams = record_decisions(torch, scfg, params,
+                                                  layout, kv_quant)
+            assert streams == swant[key], ("eager recording run", key)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the GQA fallback's single-device streams, for its run in the (1, 2)
+    # spawn: smollm-135m at the serve phases' depth
+    gcfg = mesh_cfg(MESH_GQA, SMOLLM_LAYERS)
+    gparams = registry.init_model(gcfg, seed=0, device="cuda")
+    gwant = mesh_runs(torch, gcfg, gparams, None, (("ring", True),))
+    del gparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    shared, gqa = {}, None
+    for shape in MESH_SHARED:
+        t0 = time.perf_counter()
+        jobs = [(MESH_MODEL, MESH_SHARED_LAYERS, shared_cases)]
+        if shape == (1, 2):
+            jobs.append((MESH_GQA, SMOLLM_LAYERS, (("ring", True),)))
+        name = f"{shape[0]}x{shape[1]}"
+        out = spawn_mesh(shape, jobs, record=not pure[name])
+        ranks = [r[MESH_MODEL] for r in out]
+        if shape == (1, 2):
+            gqa = [r[MESH_GQA] for r in out]
+        line = {"phase": "mesh", "mesh": list(shape), "backend": "gloo",
+                "shared_card": True, "world_size": len(ranks),
+                "layers": scfg.n_layers,
+                "purity": purity[name],
+                "gate": "bitwise" if pure[name] else "margin",
+                "seconds": time.perf_counter() - t0, "runs": {}}
+        for key in ("ring_int8", "paged_bf16"):
+            lines = [r["runs"][key][0] for r in ranks]
+            streams = [r["runs"][key][1] for r in ranks]
+            assert all(s == streams[0] for s in streams), (shape, key)
+            err, left = None, {}
+            if pure[name]:
+                assert streams[0] == swant[key], (shape, key)
+            else:
+                # the sharded decisions: each data shard's model rank 0's
+                sharded = {}
+                for r, o in zip(ranks, out):
+                    if o["coord"]["model"] == 0:
+                        decisions, dstreams = r["decisions"][key]
+                        assert dstreams == streams[0], (shape, key, "eager")
+                        sharded.update(decisions)
+                err, left = margin_gate(torch, streams[0], swant[key],
+                                        sdec[key], sharded)
+            first = lines[0]
+            if shape[1] > 1:
+                assert first["heads_sharded"] and first["local_heads"] == [
+                    1, 6, 128], first["local_heads"]
+                assert first["window_mode"] == "eager"
+            else:
+                assert first["window_mode"] == "graph"
+            kernel = ("paged_decode_attention" if key.startswith("paged")
+                      else "decode_attention")
+            # every rank's run held ``launch_gates`` (zoo_serve): the
+            # kernel launched layers × ticks, by graph replays or eagerly
+            assert all(ln[f"{kernel}_launches"] >= scfg.n_layers
+                       * ln["decode_ticks"] > 0 for ln in lines), lines
+            line["runs"][key] = {
+                **{k: first[k] for k in (
+                    "decode_ticks", "windows", "prefill_calls",
+                    "graph_replays", "window_mode", "heads_sharded",
+                    "local_heads", "local_rows", "local_kv_shape",
+                    f"{kernel}_launches", "eager_windows",
+                    "head_gathers_a_tick", "row_gathers_a_tick",
+                    "gathered_bytes_a_tick", "gathers_run",
+                    "decode_ms_a_tick", "wall_s", "decode_tok_s",
+                    "prefill_tok_s")},
+                "rank_streams_equal": True,
+                "streams_equal_single_device_bitwise":
+                    streams[0] == swant[key],
+                "measured_logit_error": err,
+                "left_at_near_ties": left,
+                "decode_ms_a_tick_by_rank": [ln["decode_ms_a_tick"]
+                                             for ln in lines]}
+        line["int8_codes_bytes_equal"] = [r["codes_bytes"] for r in ranks]
+        line["note"] = ("ranks sharing one card: times are not a sharded "
+                        "rate; gathers a tick count decode windows only")
+        shared[name] = line
+        emit(line)
+
+    # 3 — the GQA fallback at full width (run in the (1, 2) spawn)
+    for r in gqa:
+        line, streams = r["runs"]["ring_int8"]
+        assert streams == gwant["ring_int8"][1], "GQA fallback"
+        assert not line["heads_sharded"] and line["local_heads"][0] == 3
+        assert line["window_mode"] == "graph"
+        assert line["gathers_run"]["heads"]["calls"] == 0
+    emit({"phase": "mesh", "mesh": [1, 2], "backend": "gloo",
+          "shared_card": True, "model": gcfg.name, "layers": gcfg.n_layers,
+          "gqa_fallback": True, "heads_sharded": False,
+          "streams_equal_single_device_bitwise": True,
+          "int8_codes_bytes_equal": [r["codes_bytes"] for r in gqa],
+          "runs": {"ring_int8": {k: gqa[0]["runs"]["ring_int8"][0][k]
+                                 for k in ("decode_ticks", "graph_replays",
+                                           "window_mode", "local_heads",
+                                           "decode_attention_launches",
+                                           "gathers_run")}}})
+    kernels = local_kernel_checks(torch, da, pda, ref)
+    return {"phase": "mesh", "summary": True, "model": cfg.name,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd()],
+            "vocab": cfg.vocab_size, "single_device": {
+                k: {f: line[f] for f in ("decode_ticks", "graph_replays",
+                                         "decode_tok_s", "prefill_tok_s",
+                                         "wall_s", "decode_ms_a_tick")}
+                for k, (line, _) in single.items()},
+            "gates": {k: v["gate"] for k, v in shared.items()},
+            "local_kernels": kernels,
+            "launches_1x2": {k: v for k, v in (
+                ("decode_attention[int8]", shared["1x2"]["runs"][
+                    "ring_int8"]["decode_attention_launches"]),
+                ("paged_decode_attention[bf16]", shared["1x2"]["runs"][
+                    "paged_bf16"]["paged_decode_attention_launches"]))},
+            "seconds": time.perf_counter() - t_start}
+
+
+def mesh_main() -> int:
+    """``--mesh-block``: the device and build phases, then the mesh block
+    alone (for a short call on the card)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__})
+    emit({"phase": "build", "seconds": _build.build()})
+    emit(mesh_phase(torch, da, pda, ref))
+    return 0
 
 
 def device_fields(main, serve_times):
@@ -4362,14 +5006,14 @@ def main() -> int:
     # the bf16 window only, for time: the int8 W = 8 window's graph ≡
     # eager is the graph phase's, byte for byte
     emit(window_profile_phase(torch, cfg, params, False))
-    for kv_quant in (False, True):
-        emit(profile_phase(torch, cfg, params, kv_quant, spec=True))
+    # the spec window and the policy tick profiled in bf16 only, for time
+    # (their int8 profiles are measurements, no gate; PERF.md §5 keeps
+    # the last ones taken)
+    emit(profile_phase(torch, cfg, params, False, spec=True))
     from repro_torch.numerics.policy import QuantPolicy
 
-    for kv_quant in (False, True):
-        emit(profile_phase(torch, cfg, params, kv_quant,
-                           policy=QuantPolicy(scheme="dither",
-                                              backend="auto")))
+    emit(profile_phase(torch, cfg, params, False,
+                       policy=QuantPolicy(scheme="dither", backend="auto")))
     for kv_quant in (False, True):
         emit(parity_phase(torch, cfg, params, kv_quant))
         emit(paged_parity_phase(torch, cfg, params, kv_quant))
@@ -4392,6 +5036,9 @@ def main() -> int:
     # the encoder-decoder (ROADMAP Queue 1 item 11b-ii)
     zoo[ENCDEC] = res = encdec_phase(torch, da, dm, ref)
     emit(res)
+    # sharded serving on a (data, model) mesh (ROADMAP Queue 1 item 10)
+    mesh = mesh_phase(torch, da, pda, ref)
+    emit(mesh)
 
     kernels = []
     for kv_quant in (False, True):
@@ -4487,6 +5134,21 @@ def main() -> int:
                                 "bound_by", "library_ms", "device_ms",
                                 "library_device_ms", "host_ms", "shape",
                                 "window", "pos")}})
+    # kernels 1 and 2 at the local shape of a 2-way 'model' axis, their
+    # launches from the (1, 2) mesh's runs (rank 0)
+    for row, source, replaces in zip(
+            mesh["local_kernels"], (da.SOURCE, pda.SOURCE),
+            (REPLACES, PAGED_REPLACES)):
+        kernels.append({
+            "name": f"{row['name'][:-1]}, qwen2-1.5b tp 2 local]",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "launches": mesh["launches_1x2"][row["name"]],
+            "launches_note": "(1, 2) mesh, rank 0: eager windows, layers "
+                             "x ticks",
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "device_ms", "library_device_ms",
+                                   "host_ms", "shape", "pos")}})
     qmain = next(c for c in dither_rows if c["name"] == "quantize"
                  and c["shape"] == [576, 1536])
     kernels.append({
@@ -4566,4 +5228,6 @@ if __name__ == "__main__":
         sys.exit(attention_times_worker(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--dither-times-of"]:
         sys.exit(dither_times_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--mesh-block"]:
+        sys.exit(mesh_main())
     sys.exit(main())

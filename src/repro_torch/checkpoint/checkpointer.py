@@ -11,7 +11,7 @@ sorted, lists in order, 0-d tensors such as ``step`` and ``counter`` as
 writes on a writer thread (the train loop keeps stepping).  Restore places
 each leaf on the device, and in the dtype, of the matching leaf of
 ``like``; the reference's elastic ``shardings`` argument waits for the
-port's mesh (ROADMAP Queue 1 item 10).
+training mesh (ROADMAP Queue 1 item 10b).
 """
 
 from __future__ import annotations

@@ -15,8 +15,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map
+
 __all__ = ["tensor_from_numpy", "params_from_numpy", "cache_from_numpy",
-           "train_state_from_numpy"]
+           "train_state_from_numpy", "shard_serve_params"]
 
 
 def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
@@ -61,3 +63,32 @@ def train_state_from_numpy(tree, device="cuda"):
     the port's on ``device``, bit for bit (``step`` and ``counter`` stay
     0-d int32 tensors), so both packages compute the same step from it."""
     return _tree(tree, device)
+
+
+def shard_serve_params(params, cfg, mesh_coords: dict, mesh):
+    """The full param tree → one rank's local tree of sharded serving
+    (DESIGN.md §9): each leaf that ``dist.sharding.serve_param_specs``
+    shards on 'model' (the QKV projections and biases, when the head
+    counts divide) keeps the contiguous block of heads at the rank's
+    'model' coordinate ``mesh_coords["model"]``, as a contiguous copy;
+    every other leaf is the full tensor itself.  ``mesh`` gives the axis
+    sizes (a ``DeviceMesh`` or a ``MeshShape``)."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.ctx import mesh_sizes
+
+    sizes = mesh_sizes(mesh)
+    specs = sharding.serve_param_specs(params, cfg, mesh)
+
+    def local(leaf, spec):
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            n, c = 1, 0
+            for a in axes:                   # row-major over the axes
+                n, c = n * sizes[a], c * sizes[a] + int(mesh_coords[a])
+            size = leaf.shape[dim] // n
+            leaf = leaf.narrow(dim, c * size, size).contiguous()
+        return leaf
+
+    return tree_map(local, params, specs)

@@ -23,6 +23,8 @@ the paged KV cache:
       --arch mamba2_370m --reduced --device cpu --decode-ticks 4
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch whisper_small --reduced --device cpu --decode-ticks 4
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+      --mesh 2,2 --arch smollm_135m --reduced --device cpu --kv-quant
 
 ``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS`` (the VLM is
 served on tokens alone, as the reference's engine serves it; the
@@ -31,9 +33,13 @@ only, prefilled by the scanned prefill, a captured CUDA graph a prompt
 position on the card; the encoder-decoder ``whisper_small`` serves on
 zero frames, as the reference's launcher serves it, its ``--kv-quant``
 forced off as there: its self-KV is bf16).
-Takes the reference launcher's flags but ``--mesh`` (ROADMAP Queue 1 item
-10), plus ``--device``.  Weights are random, drawn from seed 0 (the
-reference draws its own from ``PRNGKey(0)``, so the values differ).
+Takes the reference launcher's flags, plus ``--device``.  ``--mesh
+DATA,MODEL`` serves sharded (DESIGN.md §9), one process per shard under
+``torchrun --nproc-per-node DATA·MODEL`` (``python -m
+torch.distributed.run``): each rank serves on ``cuda:$LOCAL_RANK`` over
+NCCL, or with ``--device cpu`` over gloo, and only rank 0 prints.
+Weights are random, drawn from seed 0 (the reference draws its own from
+``PRNGKey(0)``, so the values differ).
 """
 
 from __future__ import annotations
@@ -99,6 +105,10 @@ def serve_main(argv=None):
     ap.add_argument("--draft-k", type=int, default=4,
                     help="speculative window width: 1 pending token + "
                          "draft-k - 1 drafted tokens per verify call")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="serve sharded on a (data, model) mesh, e.g. '2,2' "
+                         "(DESIGN.md §9): one process per shard, started by "
+                         "torchrun --nproc-per-node DATA*MODEL")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 = softmax sampling")
     ap.add_argument("--top-k", type=int, default=0)
@@ -146,20 +156,41 @@ def serve_main(argv=None):
         cfg = cfg.reduced()
     policy = (None if args.policy == "none"
               else QuantPolicy(scheme=args.policy, backend=args.kernel_backend))
-    params = registry.init_model(cfg, seed=0, device=args.device)
+    mesh, rank0, device, started = None, True, args.device, False
+    if args.mesh:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import parse_serve_mesh
+        if "RANK" in os.environ and not dist.is_initialized():
+            if torch.device(device).type == "cuda":
+                device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+                torch.cuda.set_device(device)
+            dist.init_process_group("nccl" if device.startswith("cuda")
+                                    else "gloo")
+            started = True
+        try:
+            mesh = parse_serve_mesh(args.mesh, device=device)
+        except ValueError as e:
+            ap.error(str(e))
+        rank0 = dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    params = registry.init_model(cfg, seed=0, device=device)
     frames = (torch.zeros((args.batch, cfg.n_enc_tokens, cfg.d_model),
-                          dtype=torch.bfloat16, device=args.device)
+                          dtype=torch.bfloat16, device=device)
               if cfg.is_encdec else None)
     engine = Engine(params, cfg, args.batch, args.max_len, policy=policy,
                     frames=frames,
                     kv_quant=args.kv_quant and not cfg.is_encdec,
                     scheduler=args.sched,
-                    kv_layout=args.kv_layout, device=args.device,
+                    kv_layout=args.kv_layout, device=device,
                     block_size=args.block_size, num_blocks=args.num_blocks,
-                    prefix_cache=not args.no_prefix_cache,
+                    prefix_cache=not args.no_prefix_cache, mesh=mesh,
                     decode_ticks=args.decode_ticks,
                     prefill_chunk=args.prefill_chunk,
-                    metrics=args.metrics, trace=args.trace,
+                    # the other ranks' host state is rank 0's: they stream
+                    # and trace nothing
+                    metrics=args.metrics if rank0 else None,
+                    trace=args.trace if rank0 else None,
                     queue_cap=args.queue_cap, shed_policy=args.shed_policy,
                     snapshot_path=args.snapshot_path,
                     spec_decode=args.spec_decode, draft_k=args.draft_k)
@@ -169,7 +200,7 @@ def serve_main(argv=None):
         with open(args.snapshot_path) as fh:
             engine.restore(json.load(fh))
         resumed = True
-        print(f"resumed from {args.snapshot_path} at tick {engine.tick} "
+        say(f"resumed from {args.snapshot_path} at tick {engine.tick} "
               f"({len(engine.finished)} finished, "
               f"{len(engine.scheduler)} queued)")
     if not resumed:
@@ -189,17 +220,17 @@ def serve_main(argv=None):
     dt = time.time() - t0
     for r in sorted(done, key=lambda x: x.rid):
         ttft = f"{1e3 * r.ttft:.0f}ms" if r.ttft is not None else "-"
-        print(f"req {r.rid} [{r.finish_reason}] ttft={ttft}: {r.out}")
+        say(f"req {r.rid} [{r.finish_reason}] ttft={ttft}: {r.out}")
     st = engine.stats
     pf = st["prefill_tokens"] / st["prefill_s"] if st["prefill_s"] else 0.0
     dc = st["decode_tokens"] / st["decode_s"] if st["decode_s"] else 0.0
-    print(f"served {len(done)}/{args.requests} requests in {dt:.2f}s on "
-          f"{args.device} (prefill {pf:.0f} tok/s over "
+    say(f"served {len(done)}/{args.requests} requests in {dt:.2f}s on "
+          f"{device} (prefill {pf:.0f} tok/s over "
           f"{st['prefill_calls']} calls, decode {dc:.0f} tok/s over "
           f"{st['decode_calls']} decode windows)")
     if args.kv_layout == "paged":
         ps = engine.pool_stats()
-        print(f"paged pool: block_size={engine.block_size} "
+        say(f"paged pool: block_size={engine.block_size} "
               f"num_blocks={engine.num_blocks} "
               f"prefix_hit_tokens={st['prefix_hit_tokens']} "
               f"preemptions={st['preemptions']} "
@@ -207,18 +238,22 @@ def serve_main(argv=None):
     if args.spec_decode:
         drafted, acc = st["spec_draft_tokens"], st["spec_accepted_tokens"]
         rate = acc / drafted if drafted else 0.0
-        print(f"spec-decode: k={args.draft_k} windows={st['spec_windows']} "
+        say(f"spec-decode: k={args.draft_k} windows={st['spec_windows']} "
               f"drafted={drafted} accepted={acc} accept_rate={rate:.2f} "
               f"emitted={st['spec_emitted_tokens']}")
+    if mesh is not None:
+        say(f"mesh: data={engine.dp} model={engine.tp} "
+            f"heads_sharded={engine.heads_sharded} "
+            f"slots/shard={args.batch // engine.dp}")
     ms = engine.metrics.summary()
     mc = ms["counters"]
-    print(f"metrics: ticks={ms['ticks']} "
+    say(f"metrics: ticks={ms['ticks']} "
           f"queue_depth_mean={ms['gauges'].get('queue_depth', {}).get('mean', 0):.2f} "
           f"occupancy_mean={ms['gauges'].get('batch_occupancy', {}).get('mean', 0):.2f} "
           f"ttft_p95={1e3 * ms['ttft_s']['p95']:.1f}ms "
           f"itl_p95={1e3 * ms['itl_s']['p95']:.1f}ms "
           f"sink_errors={ms['sink_errors']}")
-    print(f"fault: deadline_expired={int(mc.get('finish_deadline', 0))} "
+    say(f"fault: deadline_expired={int(mc.get('finish_deadline', 0))} "
           f"shed={int(mc.get('finish_shed', 0))} "
           f"recoveries={int(mc.get('recoveries', 0))} "
           f"slow_windows={int(mc.get('slow_windows', 0))} "
@@ -227,13 +262,16 @@ def serve_main(argv=None):
         # end-of-run latency attribution (DESIGN.md §13): one line per
         # finished request, wall time decomposed into phase shares
         for r in sorted(done, key=lambda x: x.rid):
-            print("explain " + format_explain(engine.explain(r.rid)))
+            say("explain " + format_explain(engine.explain(r.rid)))
         engine.trace.close()      # flush the jsonl feed, write the perfetto
         if engine.trace.perfetto_path:
-            print(f"trace: wrote perfetto export to "
+            say(f"trace: wrote perfetto export to "
                   f"{engine.trace.perfetto_path} "
                   f"(open at https://ui.perfetto.dev)")
     engine.metrics.close()
+    if started:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

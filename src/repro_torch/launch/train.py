@@ -20,8 +20,9 @@ CPU):
 ``vit_stub`` config trains on the pipeline's ``embeds`` beside its tokens,
 the encoder-decoder on its ``frames`` (the audio stub's hashed frames).
 Takes the reference launcher's flags, plus ``--device``.  Runs on one
-device with no mesh: the reference's ``launch/mesh.py`` and ``dist/ctx.py``
-wait for the port's sharding (ROADMAP Queue 1 items 10 and 13).  Weights
+device with no mesh: the training mesh (``launch/mesh.make_local_mesh``
+as DDP or DTensor, and what replaces ``dist/ctx.constrain``) is ROADMAP
+Queue 1 item 10b.  Weights
 are random, drawn from ``--seed``'s generator (the reference draws its own
 from ``PRNGKey(seed)``, so the values differ).
 """

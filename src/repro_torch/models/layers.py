@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.dist import ctx
 from repro_torch.models.config import ModelConfig
 from repro_torch.numerics.policy import dense, matmul
 
@@ -196,7 +197,9 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
                                 device=x.device)
         logits = torch.where(mask[None, None, None, :, :], logits, -1e30)
     probs = softmax(logits, dim=-1).to(x.dtype)
-    out = grouped_values(probs, v).reshape(b, s, nh * hd)
+    # sharded serving: the local heads all-gathered before the replicated
+    # W_O (DESIGN.md §9); identity elsewhere
+    out = ctx.gather_heads(grouped_values(probs, v).reshape(b, s, nh * hd))
     return dense(out, params["wo"], policy, counter, seed=4), kv_out
 
 

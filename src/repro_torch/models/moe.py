@@ -8,9 +8,11 @@ gather-combine.  Capacity C is static, so no shape depends on the data;
 assignments past it drop (Switch-style), and which ones drop depends on
 the top-k order and on every token of the call, padding included.
 
-One device is one data shard and one expert shard: the reference's
-``dp`` is 1 and its experts need no padding (``e_pad == e``).  The mesh
-form waits for the port's mesh (ROADMAP Queue 1 item 10).  The expert
+Serving under a mesh runs this on one data shard's rows, as the
+reference's ``shard_map`` body does (its ``dp_shards()`` is 1 there), so
+capacity ranks count the shard's local tokens and the experts need no
+padding (``e_pad == e``).  The training mesh's form, with the expert
+padding, waits for ROADMAP Queue 1 item 10b.  The expert
 products are plain ``einsum``s, because the reference computes them
 outside any kernel; under a policy their operands are fake-quantised
 with the reference's seeds 11–15.  qwen2-moe's shared expert runs through

@@ -1,8 +1,8 @@
 """Model API of the port over every family (counterpart of the
 reference's ``models/registry.py``): training's full-sequence logits and
 the serving entry points, hiding the decoder-only vs encoder-decoder
-split.  ``batch_spec`` waits for the port's mesh (ROADMAP Queue 1 item
-13).  Batches are dicts: ``tokens`` (B, S), and ``embeds`` (B, F, d) (the
+split.  ``batch_spec`` waits for the training mesh (ROADMAP Queue 1
+item 10b).  Batches are dicts: ``tokens`` (B, S), and ``embeds`` (B, F, d) (the
 VLM stub frontend's, prepended in ``apply_model``) or ``frames`` (B,
 T_enc, d) (the audio stub frontend's, the encoder-decoder's input).
 
@@ -110,8 +110,12 @@ def make_cache(params: Params, cfg: ModelConfig, batch_size: int,
                policy=None, kv_quant: bool = False,
                kv_layout: str = "ring", block_size: Optional[int] = None,
                num_blocks: Optional[int] = None, device="cuda",
-               cross: Optional[Params] = None) -> Params:
-    """The ring or paged decode cache on ``device``.  The
+               cross: Optional[Params] = None,
+               data_shards: int = 1) -> Params:
+    """The ring or paged decode cache on ``device``.  ``data_shards`` > 1
+    lays the paged pool out as the reference's sharded engine holds it:
+    shard-local sub-pools (one trash block each), ``num_blocks`` counting
+    blocks per shard (DESIGN.md §9); a ring needs no layout change.  The
     encoder-decoder's is a ring with the cross-KV of ``frames`` (B, T_enc,
     d), the encoder run under ``policy`` (``encdec.init_encdec_cache``),
     or sharing ``cross``, another cache's cross-KV; its self-KV is bf16
@@ -129,7 +133,8 @@ def make_cache(params: Params, cfg: ModelConfig, batch_size: int,
                          f"(arch {cfg.name!r} has recurrent state)")
     return transformer.init_cache(cfg, batch_size, max_len, kv_quant=kv_quant,
                                   kv_layout=kv_layout, block_size=block_size,
-                                  num_blocks=num_blocks, device=device)
+                                  num_blocks=num_blocks, device=device,
+                                  data_shards=data_shards)
 
 
 def apply_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

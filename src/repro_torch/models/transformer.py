@@ -43,6 +43,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import rounding
+from repro_torch.dist import ctx as dist_ctx
 from repro_torch.kernels import dispatch
 from repro_torch.models import hybrid, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
@@ -54,7 +55,7 @@ __all__ = ["init_params", "init_cache", "forward", "prefill",
            "prefill_with_cache",
            "prefill_with_cache_chunked", "prefill_with_cache_paged",
            "merge_cache", "decode_step", "verify_step", "spec_commit",
-           "row_purity", "VERIFY_OPS"]
+           "row_purity", "shard_purity", "VERIFY_OPS"]
 
 
 def _kv_q8(t: torch.Tensor, ctr, idx, seed: int):
@@ -78,9 +79,15 @@ def _kv_q8(t: torch.Tensor, ctr, idx, seed: int):
 
 def _kv_elem_idx(nkv: int, hd: int, device) -> torch.Tensor:
     """The (1, 1, nkv, hd) element-index pattern every KV-quantiser call
-    hashes with: head·hd + lane, independent of the batch row (a single
-    device, so the first head is 0)."""
-    head = torch.arange(nkv, dtype=torch.int64, device=device)
+    hashes with: global head·hd + lane, independent of the batch row (a
+    shared block must not remember which slot wrote it, and sharded
+    serving moves slots between data shards).  Under head sharding the
+    model sees local heads; the shard's global head offset comes from
+    ``dist.ctx.serve_shard_scope``, as the reference's does."""
+    info = dist_ctx.kv_shard_info()
+    head0 = info["head0"] if info is not None and info["heads_sharded"] \
+        else 0
+    head = head0 + torch.arange(nkv, dtype=torch.int64, device=device)
     lane = torch.arange(hd, dtype=torch.int64, device=device)
     return (head[:, None] * hd + lane[None, :]).reshape(1, 1, nkv, hd)
 
@@ -215,15 +222,20 @@ def _cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def _paged_cache_entry(cfg: ModelConfig, kind: str, num_blocks: int,
-                       block_size: int, kv_quant: bool, device) -> Params:
+                       block_size: int, kv_quant: bool, device,
+                       data_shards: int = 1) -> Params:
     """One attention layer's share of the paged block pool: ``num_blocks``
     usable blocks of ``block_size`` token slots plus a trailing *trash*
     block (physical id ``num_blocks``) that absorbs writes through
     unallocated block-table entries; what is read from it is masked or
-    (idle rows) discarded."""
+    (idle rows) discarded.  The reference's sharded layout (DESIGN.md §9)
+    holds ``data_shards`` such shard-local pools back to back, each with
+    its own trash block, so block-table entries stay shard-local ids; one
+    rank of the port's sharded engine holds its own shard's pool (1)."""
     if kind != "attn":
         raise ValueError("paged KV layout requires attention-only layers")
-    shape = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd())
+    shape = (data_shards * (num_blocks + 1), block_size, cfg.n_kv_heads,
+             cfg.hd())
     dtype = torch.int8 if kv_quant else torch.bfloat16
     entry = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -237,26 +249,32 @@ def _paged_cache_entry(cfg: ModelConfig, kind: str, num_blocks: int,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_quant: bool = False, kv_layout: str = "ring",
                block_size: Optional[int] = None,
-               num_blocks: Optional[int] = None, device="cuda") -> Params:
+               num_blocks: Optional[int] = None, device="cuda",
+               data_shards: int = 1) -> Params:
     """The decode cache: stacked ``(R, …)`` entries per pattern position,
     remainder entries, and per-slot positions ``pos`` (B,).  The paged
-    layout holds ``num_blocks`` usable blocks of ``block_size`` tokens
-    (default ``batch × ceil(max_len / block_size)``, the dense ring's token
-    count) plus the trash block, and ``block_tables`` (B, nbmax) whose
-    unset entries are the trash id ``num_blocks``."""
+    layout holds ``num_blocks`` usable blocks of ``block_size`` tokens per
+    data shard (default ``batch / data_shards × ceil(max_len /
+    block_size)``, the dense ring's token count) plus a trash block each,
+    and ``block_tables`` (B, nbmax) whose unset entries are the shard-local
+    trash id ``num_blocks``."""
     if kv_layout not in ("ring", "paged"):
         raise ValueError(f"unknown kv_layout {kv_layout!r}")
+    if data_shards < 1 or batch % data_shards:
+        raise ValueError(f"batch {batch} must divide into {data_shards} "
+                         "data shards")
     paged = kv_layout == "paged"
     if paged:
         if not block_size or block_size <= 0:
             raise ValueError("paged kv_layout requires a positive block_size")
         nbmax = -(-max_len // block_size)           # blocks per full request
-        num_blocks = num_blocks if num_blocks is not None else batch * nbmax
+        num_blocks = (num_blocks if num_blocks is not None
+                      else (batch // data_shards) * nbmax)
 
     def entry(kind):
         if paged:
             return _paged_cache_entry(cfg, kind, num_blocks, block_size,
-                                      kv_quant, device)
+                                      kv_quant, device, data_shards)
         return _cache_entry(cfg, kind, batch, max_len, kv_quant, device)
 
     p_ = _period(cfg)
@@ -355,7 +373,9 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
             qg, cache["k"], cache["v"], cache["k_pos"], pos,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
             window=cfg.window or 0, backend=backend)
-    out = attn.to(x.dtype).reshape(b, 1, nh * hd)
+    # sharded serving: all-gather the local heads before the replicated W_O
+    # (DESIGN.md §9); identity elsewhere
+    out = dist_ctx.gather_heads(attn.to(x.dtype).reshape(b, 1, nh * hd))
     return dense(out, params["wo"], policy, counter, seed=4), cache
 
 
@@ -661,8 +681,8 @@ def _ring_chunk_attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
                            dim=-1).to(x.dtype)
     out = (layers.grouped_values(probs[..., :cap].contiguous(), hv)
            + layers.grouped_values(probs[..., cap:].contiguous(), v))
-    out = dense(out.reshape(b, s, nh * hd), params["wo"], policy, counter,
-                seed=4)
+    out = dense(dist_ctx.gather_heads(out.reshape(b, s, nh * hd)),
+                params["wo"], policy, counter, seed=4)
     _ring_scatter_chunk(entry, k, v, lengths, starts, kv_quant, kv_offset)
     return out
 
@@ -834,8 +854,8 @@ def _paged_prefill_attention(params: Params, cfg: ModelConfig,
     else:
         probs = layers.softmax(logits_s, dim=-1).to(x.dtype)
         out = layers.grouped_values(probs, v)
-    out = dense(out.reshape(b, s, nh * hd), params["wo"], policy, counter,
-                seed=4)
+    out = dense(dist_ctx.gather_heads(out.reshape(b, s, nh * hd)),
+                params["wo"], policy, counter, seed=4)
     _paged_scatter_entry(entry, k, v, lengths, starts, block_tables,
                          kv_quant, kv_offset)
     return out
@@ -1052,6 +1072,108 @@ def row_purity(params: Params, cfg: ModelConfig, batch: int, kq: int, *,
     return out
 
 
+def shard_purity(params: Params, cfg: ModelConfig, batch: int, dp: int,
+                 tp: int, rows: int = 1, *, seed: int = 0) -> Dict[str, int]:
+    """For each op of ``VERIFY_OPS`` — and, for ``rows`` > 1 (a prefill
+    call of ``rows`` tokens a slot), the prefill attention's two batched
+    products (``attn_logits``, ``attn_values``) — in how many outputs the
+    op at one shard's local shape of sharded serving (``batch / dp`` slots
+    of ``rows`` tokens; the QKV products and the attention at ``1 / tp``
+    of their heads when the heads shard) differs in its bits from the
+    same slice of the op at the single-device shape, over every (data,
+    model) shard, on the params' device.  0 for every op at every row
+    count a run meets means the library sums each output in the same
+    order at both shapes, so on this device the sharded stream is the
+    single-device stream bit for bit; the operands are ``row_purity``'s
+    (an order change shows in nearly every output).  ``rows`` is 1 for
+    decode and a prefill bucket's length for prefill."""
+    from repro_torch.dist.sharding import serve_heads_shardable
+
+    dev = params["embed"].device
+    dtype = params["embed"].dtype
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    b = batch // dp
+    split = serve_heads_shardable(cfg, tp)
+
+    def operand(shape, lead=4096.0):
+        """N(0, 1) with ±lead at both ends of the last (summed) dim."""
+        x = torch.randn(shape, generator=gen, device=dev)
+        x[..., 0], x[..., -1] = lead, lead
+        return x
+
+    def count(op, args, cut):
+        """Differing outputs of ``op(*args)`` against its shards' ``op``
+        on the operands cut by ``cut(d, m)`` (and the output likewise)."""
+        full, bad = op(*args), 0
+        for d in range(dp):
+            for m in range(tp if split else 1):
+                local = op(*(c(a, d, m) for c, a in zip(cut, args)))
+                bad += int((local != cut[-1](full, d, m)).sum().item())
+        return bad
+
+    def rows_of(a, d, m):
+        return a[d * b:(d + 1) * b].contiguous()
+
+    out = {}
+    for name, w in _verify_weights(params, cfg).items():
+        width = cfg.d_model if w is None else w.shape[0]
+        x = torch.randn((batch, rows, width), generator=gen, device=dev)
+        syn = None
+        if w is not None:
+            x[..., 0] = x[..., -1] = 4096.0
+            ws = torch.randn(w.shape, generator=gen, device=dev)
+            ws[0], ws[-1] = 4096.0, -4096.0
+            syn = torch.empty_like(w)                # w's strides (layout)
+            syn.copy_(ws)
+        x = x.to(dtype)
+        cols = split and name in ("wq", "wk", "wv")
+        n = (syn.shape[-1] // tp) if cols else None
+
+        def op(a, wt):
+            if wt is None:
+                af = a.to(torch.float32)
+                return torch.mean(af * af, dim=-1, keepdim=True)
+            return dense(a, wt)
+
+        def w_cut(wt, d, m):
+            if wt is None or not cols:
+                return wt
+            return wt[:, m * n:(m + 1) * n].contiguous()
+
+        def o_cut(o, d, m):
+            o = o[d * b:(d + 1) * b]
+            return o[..., m * n:(m + 1) * n] if cols else o
+
+        out[name] = count(op, (x, syn), (rows_of, w_cut, o_cut))
+    if rows > 1:
+        nkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd()
+        h = nkv // tp if split else nkv
+
+        def heads(a, d, m, dim):
+            a = a[d * b:(d + 1) * b]
+            return a.narrow(dim, m * h, h).contiguous() if split else a
+
+        q = operand((batch, rows, nkv, g, hd)).to(dtype)
+        k = operand((batch, rows, nkv, hd)).to(dtype)
+        k[..., -1] = -4096.0
+        out["attn_logits"] = count(
+            layers.grouped_logits, (q, k),
+            (lambda a, d, m: heads(a, d, m, 2),
+             lambda a, d, m: heads(a, d, m, 2),
+             lambda a, d, m: heads(a, d, m, 1)))
+        probs = operand((batch, nkv, g, rows, rows)).to(dtype)
+        v = torch.randn((batch, rows, nkv, hd), generator=gen, device=dev)
+        v[:, 0], v[:, -1] = 4096.0, -4096.0
+        v = v.to(dtype)
+        out["attn_values"] = count(
+            layers.grouped_values, (probs, v),
+            (lambda a, d, m: heads(a, d, m, 1),
+             lambda a, d, m: heads(a, d, m, 2),
+             lambda a, d, m: heads(a, d, m, 2)))
+    return out
+
+
 def _attention_verify(params: Params, cfg: ModelConfig, x: torch.Tensor,
                       cache: Params, pos: torch.Tensor, policy, counter,
                       kv_offset=None, alive=None, wcap=None,
@@ -1152,7 +1274,7 @@ def _attention_verify(params: Params, cfg: ModelConfig, x: torch.Tensor,
             qg, cache["k"], cache["v"], cache["k_pos"], pos,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
             window=cfg.window or 0, backend=backend)
-    out = attn.to(x.dtype).reshape(b, kq, nh * hd)
+    out = dist_ctx.gather_heads(attn.to(x.dtype).reshape(b, kq, nh * hd))
     return _rowwise(lambda a: dense(a, params["wo"], policy, counter, seed=4),
                     out, "wo" in fused_ops)
 

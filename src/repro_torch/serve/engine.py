@@ -53,8 +53,20 @@ points, atomic JSON snapshots every ``snapshot_every`` windows and
 (policy-free and deterministic-scheme serving); :class:`Metrics` counters,
 gauges and TTFT/ITL histograms, and :class:`Tracer` spans, all host-side.
 On the card the restore refills the cache's own tensors, so the captured
-decode graphs stay valid.  ``mesh`` raises ``NotImplementedError``
-naming its ROADMAP item.
+decode graphs stay valid.
+
+``Engine(..., mesh=...)`` serves sharded over a ('data', 'model')
+``DeviceMesh`` (DESIGN.md §9), SPMD: one process per shard, each running
+this same host loop over the global slot table — the scheduler, every
+data shard's host ``KVPool``, the stats, metrics and snapshot are
+replicated — while its device holds only its data shard's B/dp slot rows
+(or its shard's pool blocks) and its model shard's KV heads.  QKV is
+column-parallel, the heads are all-gathered before a replicated W_O
+(``dist.ctx.gather_heads``), and after every prefill call, decode window
+and verify window the per-row outputs are all-gathered over 'data'
+(``dist.ctx.gather_rows``), so every rank's host mirrors stay equal.  No
+contraction is split, so for policy-free bf16 and int8 serving the
+sharded stream is the single-device stream bit for bit.
 """
 
 from __future__ import annotations
@@ -62,12 +74,15 @@ from __future__ import annotations
 import json
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace as _dc_replace
 from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import interop
+from repro_torch.dist import ctx as dist_ctx
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.dist.fault_tolerance import StragglerWatchdog
 from repro_torch.kernels.paged_decode_attention import MAX_BLOCK_SIZE
 from repro_torch.models import registry
@@ -385,7 +400,8 @@ class _Unit:
     ring; a ghost's blocks gone from the pool are free blocks used as
     scratch), ``pieces`` its prefill calls' [start, end) in order, ``gen``
     the tokens replayed from ``pf_end`` on, ``level`` its place in the
-    order of writes: the blocks it reads are written by lower levels."""
+    order of writes: the blocks it reads are written by lower levels;
+    ``shard`` the data shard whose pool (and rows) it uses."""
     req: "Request"
     row: Optional[int]
     table: Optional[list]
@@ -396,6 +412,7 @@ class _Unit:
     pf_end: int
     ghost: bool = False
     level: int = 0
+    shard: int = 0
 
 
 def _prefill_groups(rows: dict) -> List[List[int]]:
@@ -411,10 +428,6 @@ def _prefill_groups(rows: dict) -> List[List[int]]:
     for i, (n, hit) in sorted(rows.items()):
         groups.setdefault((_bucket(n), hit), []).append(i)
     return [groups[key] for key in sorted(groups)]
-
-
-# reference knob → (value that means "off", ROADMAP Queue 1 item porting it)
-_OUT_OF_SLICE = {"mesh": (None, 10)}
 
 
 
@@ -552,12 +565,6 @@ class Engine:
             if kv_layout == "ring" and self.draft_k > max_len:
                 raise ValueError(f"draft_k={draft_k} exceeds the ring's "
                                  f"{max_len} slots")
-        given = dict(mesh=mesh)
-        for name, (off, item) in _OUT_OF_SLICE.items():
-            if given[name] != off:
-                raise NotImplementedError(
-                    f"Engine({name}=...) is not ported yet (ROADMAP Queue 1 "
-                    f"item {item})")
         if kv_layout == "paged" and not registry.supports_paged_kv(cfg):
             raise ValueError("kv_layout='paged' requires an attention-only "
                              f"decoder; {cfg.name!r} is not one")
@@ -594,8 +601,49 @@ class Engine:
                 and pdev.index != self.device.index):
             raise ValueError(f"params live on {pdev}, engine device is "
                              f"{self.device}")
-        self.params, self.cfg, self.batch, self.max_len = (
-            params, cfg, batch, max_len)
+        self.cfg, self.batch, self.max_len = cfg, batch, max_len
+        # ---- mesh layout (DESIGN.md §9): slots partition on 'data', KV
+        # heads on 'model' (replicated when the GQA head count does not
+        # divide, mirroring dist.sharding's guards)
+        self.mesh = mesh
+        self.dp = self.tp = 1
+        self._data_group = self._model_group = None
+        coord = {}
+        if mesh is not None:
+            sizes = dist_ctx.mesh_sizes(mesh)
+            self.dp = int(sizes.get("data", 1))
+            self.tp = int(sizes.get("model", 1))
+            if not registry.supports_batched_prefill(cfg):
+                raise ValueError(
+                    "mesh serving requires an attention-only decoder "
+                    f"(arch {cfg.name!r} has recurrent state / an encoder)")
+            if batch % self.dp:
+                raise ValueError(f"batch {batch} must be a multiple of the "
+                                 f"mesh's data axis ({self.dp})")
+            coord = dist_ctx.mesh_coordinate(mesh)
+            if self.dp > 1:
+                self._data_group = mesh.get_group("data")
+            if self.tp > 1:
+                self._model_group = mesh.get_group("model")
+        self.heads_sharded = (mesh is not None and
+                              dist_sharding.serve_heads_shardable(cfg,
+                                                                  self.tp))
+        # the model code sees local shapes: head counts scaled down (head_dim
+        # pinned, so cfg.hd() is unchanged) and this data shard's slot rows
+        self._cfg_local = (_dc_replace(cfg, n_heads=cfg.n_heads // self.tp,
+                                       n_kv_heads=cfg.n_kv_heads // self.tp,
+                                       head_dim=cfg.hd())
+                           if self.heads_sharded else cfg)
+        self._rows = batch // self.dp
+        self._shard = coord.get("data", 0)
+        self._lo = self._shard * self._rows
+        self._head0 = (coord.get("model", 0) * self._cfg_local.n_kv_heads
+                       if self.heads_sharded else 0)
+        self._writer = not any(coord.values())       # rank (0, 0) writes
+        self.params = (interop.shard_serve_params(params, cfg, coord, mesh)
+                       if self.heads_sharded else params)
+        params = self.params
+        cfg_l = self._cfg_local
         # the encoder-decoder's audio, row i slot i's (a decoder-only model
         # ignores it, as the reference's does)
         self._frames = frames if cfg.is_encdec else None
@@ -613,9 +661,10 @@ class Engine:
         self.policy = policy
         self.kv_quant = kv_quant
         self.kv_layout = kv_layout
-        # the paged layout's block pool (None on the ring layout): one pool,
-        # since a single device is one data shard
-        self.pool: Optional[KVPool] = None
+        # the paged layout's block pools, one per data shard (none on the
+        # ring layout); every rank keeps all of them on the host
+        self.pools: List[KVPool] = []
+        self._rid_shard: dict = {}            # rid → data shard holding it
         if kv_layout == "paged":
             bs = int(block_size) if block_size is not None \
                 else DEFAULT_BLOCK_SIZE
@@ -629,24 +678,30 @@ class Engine:
                 # block-aligned, so every continuation chunk starts at a
                 # block boundary (the paged prefill's contract)
                 self.prefill_chunk = max(bs, self.prefill_chunk // bs * bs)
-            self.num_blocks = (int(num_blocks) if num_blocks is not None
-                               else batch * self.nbmax)
+            # each data shard owns num_blocks / dp blocks (its admission
+            # budget) plus its own trash block; block tables carry
+            # shard-local physical ids
+            total = (int(num_blocks) if num_blocks is not None
+                     else batch * self.nbmax)
+            self.num_blocks = -(-total // self.dp) * self.dp
+            self._nb_local = self.num_blocks // self.dp
             # prefix reuse needs prefill numerics that depend only on token
             # identity + absolute position: no matmul policy, or the
             # counter-independent deterministic scheme (the int8 KV
             # quantiser's per-request offset seeds the hash chain)
-            self.pool = KVPool(self.num_blocks, bs, prefix_cache=bool(
-                prefix_cache) and (policy is None
-                                   or policy.scheme == "deterministic"))
-            self._trash = self.num_blocks
+            prefix = bool(prefix_cache) and (
+                policy is None or policy.scheme == "deterministic")
+            self.pools = [KVPool(self._nb_local, bs, prefix_cache=prefix)
+                          for _ in range(self.dp)]
+            self._trash = self._nb_local
             self.cache = self._make_cache()
             self._bt = np.full((batch, self.nbmax), self._trash, np.int32)
             self._bt_dirty = True
-            self._prefill_paged = make_paged_prefill(cfg, policy,
+            self._prefill_paged = make_paged_prefill(cfg_l, policy,
                                                      kv_quant=kv_quant)
         else:
             self.cache = self._make_cache()
-            self._prefill, _ = make_serve_fns(cfg, policy, max_len=max_len,
+            self._prefill, _ = make_serve_fns(cfg_l, policy, max_len=max_len,
                                               kv_quant=kv_quant,
                                               cross=self.cache.get("cross"))
             if (not registry.supports_batched_prefill(cfg)
@@ -663,18 +718,24 @@ class Engine:
                 ring_cap = min(cfg.window, max_len) if cfg.window else max_len
                 self.prefill_chunk = min(self.prefill_chunk, ring_cap)
                 self._prefill_chunked = make_chunked_prefill(
-                    cfg, policy, kv_quant=kv_quant)
+                    cfg_l, policy, kv_quant=kv_quant)
         # eager decode windows, one per window length
         self._fused_variants = {}
         # the policy-free decode window on the card: CUDA-graph replays,
         # fixed here (a policy's kernels take the tick as a host constant;
-        # a speculative engine runs verify windows instead)
+        # a speculative engine runs verify windows instead).  With heads
+        # sharded the window holds the 'model' all-gather, which this port
+        # does not capture (a gloo collective cannot be, and an NCCL capture
+        # is unverified on one card): those windows run eagerly
+        # (``window_mode``).  The 'data' gather sits outside the window.
         self._graphs: Optional[WindowGraphs] = None
         if (self.device.type == "cuda" and not self.spec_decode
-                and (policy is None or not policy.enabled)):
+                and (policy is None or not policy.enabled)
+                and not self.heads_sharded):
             self._graphs = WindowGraphs(
                 params, self.cache,
-                lambda n: make_fused_decode(cfg, None, n_ticks=n))
+                lambda n: make_fused_decode(cfg_l, None, n_ticks=n))
+        self.window_mode = "graph" if self._graphs is not None else "eager"
         self._spec = None
         # the verify forward's library ops that this device sums in the same
         # order over K rows as over decode's one: probed once at this
@@ -683,8 +744,9 @@ class Engine:
         if self.spec_decode:
             self.verify_fused_ops = frozenset(
                 op for op, n in registry.verify_row_purity(
-                    params, cfg, batch, self.draft_k).items() if n == 0)
-            self._spec = make_spec_verify(cfg, policy, draft_k=self.draft_k,
+                    params, cfg_l, self._rows, self.draft_k).items()
+                if n == 0)
+            self._spec = make_spec_verify(cfg_l, policy, draft_k=self.draft_k,
                                           fused_ops=self.verify_fused_ops)
         # per-window write budget of each paged slot (``_pre_decode_paged``)
         self._paged_cap = {}
@@ -714,11 +776,12 @@ class Engine:
                       "decode_tokens": 0, "decode_calls": 0,
                       "prefix_hit_tokens": 0, "preemptions": 0,
                       "spec_windows": 0, "spec_draft_tokens": 0,
-                      "spec_accepted_tokens": 0, "spec_emitted_tokens": 0}
+                      "spec_accepted_tokens": 0, "spec_emitted_tokens": 0,
+                      "eager_windows": 0}
         # sealed pool block → (writer rid, logical index, and the writing
         # admission's prefill start and end): what restore needs to rebuild
         # a shared or cached block whose writer no longer holds it
-        self._block_src = {}
+        self._block_src = [{} for _ in self.pools]
         # observability (DESIGN.md §10, §13): host-side counters, per-window
         # gauges and TTFT/ITL histograms behind a buffered crash-isolated
         # sink; span timelines, off unless ``trace`` is given
@@ -729,32 +792,60 @@ class Engine:
             # queue/block provenance rides the tracer's event feed; the
             # hooks stay None (and cost nothing) on an untraced engine
             self.scheduler.on_event = self.trace.event
-            if self.pool is not None:
-                self.pool.on_event = self.trace.event
+            for pool in self.pools:
+                pool.on_event = self.trace.event
 
     def _make_cache(self):
-        """A fresh decode cache of this engine's layout on its device."""
+        """A fresh decode cache of this engine's layout on its device: this
+        rank's data shard's rows (its pool blocks) and model shard's
+        heads."""
         if self.kv_layout == "paged":
             return registry.make_cache(
-                self.params, self.cfg, self.batch, self.max_len,
+                self.params, self._cfg_local, self._rows, self.max_len,
                 kv_quant=self.kv_quant, kv_layout="paged",
-                block_size=self.block_size, num_blocks=self.num_blocks,
+                block_size=self.block_size, num_blocks=self._nb_local,
                 device=self.device)
-        return registry.make_cache(self.params, self.cfg, self.batch,
+        return registry.make_cache(self.params, self._cfg_local, self._rows,
                                    self.max_len, self._frames,
                                    policy=self.policy, kv_quant=self.kv_quant,
                                    device=self.device)
 
+    def _scope(self):
+        """The serve shard scope of this rank's device work (DESIGN.md §9):
+        global head offset for the KV quantiser, the 'model' group for the
+        head all-gather."""
+        return dist_ctx.serve_shard_scope(head0=self._head0,
+                                          heads_sharded=self.heads_sharded,
+                                          group=self._model_group)
+
     # ------------------------------------------------------ pool aggregates
 
+    @property
+    def pool(self) -> Optional[KVPool]:
+        """Data shard 0's block pool — the whole pool on a one-shard
+        engine; :attr:`pools` / :meth:`pool_stats` for every shard."""
+        return self.pools[0] if self.pools else None
+
     def pool_stats(self) -> dict:
-        """The pool's allocator stats plus its ``live``/``cached`` block
-        counts (the reference sums these over its data shards; a single
-        device has one)."""
-        if self.pool is None:
-            return {"live": 0, "cached": 0}
-        return {**self.pool.stats, "live": self.pool.live_blocks,
-                "cached": self.pool.cached_blocks}
+        """Allocator stats summed across the per-data-shard pools, plus the
+        aggregate ``live``/``cached`` block counts."""
+        agg = {"live": 0, "cached": 0}
+        for p in self.pools:
+            for k, v in p.stats.items():
+                agg[k] = agg.get(k, 0) + v
+            agg["live"] += p.live_blocks
+            agg["cached"] += p.cached_blocks
+        return agg
+
+    def _slot_shard(self, i: int) -> int:
+        return i // self._rows
+
+    def _pool_of(self, rid: int) -> KVPool:
+        return self.pools[self._rid_shard[rid]]
+
+    def _mine(self, i: int) -> bool:
+        """Is slot ``i`` on this rank's data shard?"""
+        return self._slot_shard(i) == self._shard
 
     # ------------------------------------------------------------------ API
 
@@ -811,6 +902,10 @@ class Engine:
         window); a crashed engine's host state is mid-mutation — discard
         it and restore a fresh engine from the snapshot
         (``run_serve_with_restarts``)."""
+        with self._scope():
+            return self._step()
+
+    def _step(self) -> List[Request]:
         self._step_tick = self.tick
         t0 = self._now()
         self._maybe_fail("pre_admit")
@@ -854,8 +949,9 @@ class Engine:
         """Retire a request that never reaches a slot this time (shed at
         submission, or expired while queued).  A preempted block holder
         releases its blocks — expiry must not leak pool capacity."""
-        if self.pool is not None:
-            self.pool.release(req.rid)
+        if req.rid in self._rid_shard:
+            self._pool_of(req.rid).release(req.rid)
+            self._rid_shard.pop(req.rid)
         req._resume = None
         self._retire(req, reason)
 
@@ -908,9 +1004,9 @@ class Engine:
         return to the free list instead of lingering as cached copies;
         sealing resumes where it left off once pressure clears below
         ``degrade_low``).  Both leave the streams as they are."""
-        if self.pool is None or self.degrade_high is None:
+        if not self.pools or self.degrade_high is None:
             return
-        share = self.pool.live_blocks / self.num_blocks
+        share = sum(p.live_blocks for p in self.pools) / self.num_blocks
         if not self._degraded and share >= self.degrade_high:
             self._degraded = True
             self.metrics.inc("degrade_events")
@@ -946,11 +1042,16 @@ class Engine:
 
     def write_snapshot(self, path: str):
         """Atomically persist :meth:`snapshot` as JSON (tmp + ``os.replace``
-        — a crash mid-write never corrupts the previous snapshot)."""
-        tmp = path + ".tmp"
-        with open(tmp, "w") as fh:
-            json.dump(self.snapshot(), fh)
-        os.replace(tmp, path)
+        — a crash mid-write never corrupts the previous snapshot).  On a
+        mesh every rank holds the same host truth: rank 0 writes, and the
+        ranks meet after the write, so a restore on any rank reads it."""
+        if self._writer:
+            tmp = path + ".tmp"
+            with open(tmp, "w") as fh:
+                json.dump(self.snapshot(), fh)
+            os.replace(tmp, path)
+        if self.mesh is not None:
+            dist_ctx.barrier()
 
     def _record_tick_metrics(self):
         """One per-window gauge record (DESIGN.md §10).  Every value is a
@@ -970,19 +1071,30 @@ class Engine:
             window_s=self._last_window_s,
             degraded=int(self._degraded),
         )
-        if self.pool is not None:
+        if self.pools:
             ps = self.pool_stats()
             gauges.update(live_blocks=ps["live"], cached_blocks=ps["cached"],
-                          free_blocks=self.pool.free_blocks)
+                          free_blocks=sum(p.free_blocks for p in self.pools))
         self.metrics.tick(**gauges)
         self.trace.counters(t=self._now(), **gauges)
 
     # ------------------------------------------------------------ internals
 
+    def _local(self, arr: np.ndarray) -> np.ndarray:
+        """This rank's data shard's rows of a per-slot host array (B, …)."""
+        return arr[self._lo:self._lo + self._rows]
+
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
-        """A copy of a host array on the engine's device (never a view of
-        the host mirror, which ``_emit`` goes on updating)."""
-        return torch.tensor(arr, device=self.device)
+        """A copy of a per-slot host array (B, …) on the engine's device —
+        this rank's data shard's rows — never a view of the host mirror,
+        which ``_emit`` goes on updating."""
+        return torch.tensor(self._local(arr), device=self.device)
+
+    def _host(self, t: torch.Tensor, dim: int = 0) -> np.ndarray:
+        """A per-slot device result (this shard's rows along ``dim``) → the
+        global rows on the host, gathered over 'data' on a mesh (the
+        host-state gather: every rank's host mirrors stay equal)."""
+        return dist_ctx.gather_rows(t, self._data_group, dim).cpu().numpy()
 
     def _refresh_device_state(self):
         """Re-upload the per-slot sampling state and last tokens if any slot
@@ -1001,8 +1113,8 @@ class Engine:
     def _fused_for(self, n: int):
         """The eager decode window of ``n`` ticks, built on first use."""
         if n not in self._fused_variants:
-            self._fused_variants[n] = make_fused_decode(self.cfg, self.policy,
-                                                        n_ticks=n)
+            self._fused_variants[n] = make_fused_decode(
+                self._cfg_local, self.policy, n_ticks=n)
         return self._fused_variants[n]
 
     def _prefill_waves(self, rows: dict) -> List[List[int]]:
@@ -1079,11 +1191,11 @@ class Engine:
             last_logits, pf_cache = self._prefill(
                 self.params, self._tensor(toks).long(), lens_dev,
                 self._dev["offsets"], self.tick)
-            self.cache = registry.merge_prefill(self.cfg, self.cache,
+            self.cache = registry.merge_prefill(self._cfg_local, self.cache,
                                                 pf_cache, lens_dev > 0)
-            sampled = sample_tokens(last_logits, self._dev["temps"],
-                                    self._dev["topks"], self._dev["seeds"],
-                                    self._dev["counters"]).cpu().numpy()
+            sampled = self._host(sample_tokens(
+                last_logits, self._dev["temps"], self._dev["topks"],
+                self._dev["seeds"], self._dev["counters"]))
             first[group] = sampled[group]
             dt = time.perf_counter() - t0
             self.stats["prefill_s"] += dt
@@ -1149,9 +1261,9 @@ class Engine:
                 self.params, self._tensor(toks).long(), self._tensor(lens),
                 self._tensor(starts), self.cache, self._dev["offsets"],
                 self.tick)
-            sampled = sample_tokens(last_logits, self._dev["temps"],
-                                    self._dev["topks"], self._dev["seeds"],
-                                    self._dev["counters"]).cpu().numpy()
+            sampled = self._host(sample_tokens(
+                last_logits, self._dev["temps"], self._dev["topks"],
+                self._dev["seeds"], self._dev["counters"]))
             first[group] = sampled[group]
             dt = time.perf_counter() - t0
             self.stats["prefill_s"] += dt
@@ -1199,10 +1311,12 @@ class Engine:
         self._counters[i] = sp.counter_offset + len(req.out)
 
     def _set_device_pos(self, i: int, p: int):
-        self.cache["pos"][i] = p
+        if self._mine(i):
+            self.cache["pos"][i - self._lo] = p
 
     def _release_slot_blocks(self, i: int, req: Request):
-        self.pool.release(req.rid)
+        self._pool_of(req.rid).release(req.rid)
+        self._rid_shard.pop(req.rid, None)
         self._set_bt_row(i, [])
         self._set_device_pos(i, 0)
         self._slot_pos[i] = 0
@@ -1217,7 +1331,7 @@ class Engine:
                        "t": time.time(), "reprefill": False,
                        "prefilling": req.state == "prefilling"}
         self.trace.phase(req.rid, "preempt_stall", req._resume["t"], slot=i,
-                         blocks=len(self.pool.table(req.rid)))
+                         blocks=len(self._pool_of(req.rid).table(req.rid)))
         req.state = "queued"
         self.slots[i] = None
         self._set_bt_row(i, [])
@@ -1235,7 +1349,8 @@ class Engine:
         prefill and agree with the decode-written cache to rounding only,
         so a greedy near-tie after resume may break differently.  The
         primary preemption path (blocks intact) has no such divergence."""
-        self.pool.forget(req.rid)
+        self._pool_of(req.rid).forget(req.rid)
+        self._rid_shard.pop(req.rid, None)
         req._sealed = 0
         if req._resume is None:
             req._resume = {"pos": 0, "last_token": 0, "t": time.time()}
@@ -1247,6 +1362,9 @@ class Engine:
         self.stats["preemptions"] += 1
 
     def _resume_slot(self, i: int, req: Request):
+        # slot i is on the data shard holding req's blocks (admission
+        # resumes only onto the home shard)
+        pool = self._pool_of(req.rid)
         st = req._resume
         req._resume = None
         self.slots[i] = req
@@ -1255,11 +1373,11 @@ class Engine:
         req.state = "prefilling" if st.get("prefilling") else "active"
         self.trace.phase(req.rid, "prefill" if st.get("prefilling")
                          else "decode", self._now(), slot=i, resumed=1,
-                         blocks=len(self.pool.table(req.rid)))
+                         blocks=len(pool.table(req.rid)))
         self._set_slot_sampling(i, req)
         self._last_token[i] = st["last_token"]
         self._slot_pos[i] = st["pos"]
-        self._set_bt_row(i, self.pool.table(req.rid))
+        self._set_bt_row(i, pool.table(req.rid))
         self._set_device_pos(i, st["pos"])
         self._dev_dirty = True
 
@@ -1272,56 +1390,76 @@ class Engine:
         sealing resumes from the same block once pressure clears.  Each
         sealed block's writer and the prefill span of the admission that
         wrote it are noted for :meth:`restore`."""
-        if not self.pool.prefix_cache or self._degraded:
+        shard = self._rid_shard[req.rid]
+        pool = self.pools[shard]
+        if not pool.prefix_cache or self._degraded:
             return
         bs = self.block_size
         seq = self._tokens_written(req)
-        table = self.pool.table(req.rid)
+        table = pool.table(req.rid)
         pf_end = len(seq) if req.state == "prefilling" else req._pf_pos
         while req._sealed < n_tokens // bs:
             j = req._sealed
-            self.pool.seal_block(req.rid, j, seq[j * bs:(j + 1) * bs])
-            self._block_src[table[j]] = (req.rid, j, req._pf_start, pf_end)
+            pool.seal_block(req.rid, j, seq[j * bs:(j + 1) * bs])
+            self._block_src[shard][table[j]] = (req.rid, j, req._pf_start,
+                                                pf_end)
             req._sealed += 1
 
     def _admit_and_prefill_paged(self):
-        """Continuous-batching admission: admit while a slot *and* the pool
-        allow — prefix-hit requests only need blocks (and prefill compute)
-        for their unshared suffix; preempted requests resume in place.
-        Head-of-line order is kept: the first request the pool cannot serve
-        stops admission (after the deadlock breaker has had its chance).
-        The reference ranks data shards here; a single device has one."""
+        """Continuous-batching admission: admit while a slot *and* that
+        slot's data-shard pool allow — prefix-hit requests only need blocks
+        (and prefill compute) for their unshared suffix; preempted requests
+        resume in place on their home shard (their blocks live in that
+        shard's pool).  New requests pick the shard with the longest cached
+        prefix, then the most free blocks, then the lowest index, as the
+        reference's do.  Head-of-line order is kept: the first request no
+        eligible shard can serve stops admission (after the deadlock
+        breaker has had its chance)."""
         free = [i for i, s in enumerate(self.slots) if s is None]
         if not free:
             self._prefill_wave_paged()
             return
         bs = self.block_size
-        pool = self.pool
+        free_by_shard: dict = {}
+        for i in free:                       # slot order ⇒ shard-local order
+            free_by_shard.setdefault(self._slot_shard(i), []).append(i)
+
+        def take_slot(shard: int) -> int:
+            slots_d = free_by_shard[shard]
+            i = slots_d.pop(0)
+            if not slots_d:
+                del free_by_shard[shard]
+            return i
+
         admitted = []                       # (slot, req, start)
-        while free:
+        while free_by_shard:
             req = self.scheduler.peek()
             if req is None:
                 break
             if req._resume is not None and not req._resume.get("reprefill"):
                 # resume with blocks intact; may need one block to continue
+                shard = self._rid_shard[req.rid]
+                if shard not in free_by_shard:
+                    break        # HOL: the home shard has no free slot yet
+                pool = self.pools[shard]
                 pos = req._resume["pos"]
                 needs_block = (pos % bs == 0
                                and pos // bs >= len(pool.table(req.rid)))
                 if needs_block and pool.free_blocks < 1:
-                    if self._break_deadlock(req, 1):
+                    if self._break_deadlock(req, 1, shard):
                         continue
                     break
                 self.scheduler.pop(req)
                 if needs_block:
                     phys = pool.append_block(req.rid)
                     assert phys is not None
-                self._resume_slot(free.pop(0), req)
+                self._resume_slot(take_slot(shard), req)
                 continue
 
             seq = self._tokens_written(req)      # prompt (+ out on reprefill)
             if len(req.prompt) > self.max_len or \
-                    pool.blocks_needed(min(len(seq) + 1, self.max_len)) \
-                    > self.num_blocks:
+                    self.pools[0].blocks_needed(
+                        min(len(seq) + 1, self.max_len)) > self._nb_local:
                 self.scheduler.pop(req)
                 # a reprefill-resumed request whose grown history no longer
                 # fits was *served* up to the pool's capacity — that is a
@@ -1329,33 +1467,46 @@ class Engine:
                 self._retire(req, "length" if req.out else "rejected")
                 continue
             seed = req.sampling.counter_offset if self.kv_quant else 0
-            shared, chain = pool.match_prefix(seq, seed)
-            table = pool.allocate(req.rid, len(seq), shared, chain)
+            ranked = sorted(
+                ((self.pools[d].match_prefix(seq, seed), d)
+                 for d in free_by_shard),
+                key=lambda t: (-len(t[0][0]), -self.pools[t[1]].free_blocks,
+                               t[1]))
+            table = shard = None
+            for (shared, chain), cand in ranked:
+                table = self.pools[cand].allocate(req.rid, len(seq), shared,
+                                                  chain)
+                if table is not None:
+                    shard = cand
+                    break
             if table is None:
+                (shared, _), cand = ranked[0]
                 if self._break_deadlock(
-                        req, pool.blocks_needed(len(seq)) - len(shared)):
+                        req, self.pools[cand].blocks_needed(len(seq))
+                        - len(shared), cand):
                     continue
                 break
+            self._rid_shard[req.rid] = shard
             self.scheduler.pop(req)
             req._sealed = len(shared)
             req._resume = None
-            admitted.append((free.pop(0), req, len(shared) * bs))
+            admitted.append((take_slot(shard), req, len(shared) * bs))
 
         # place admitted requests into their slots in ``prefilling`` state:
         # their blocks are allocated, the wave below only writes into them
         now = time.time()
         for i, req, start in admitted:
+            table = self._pool_of(req.rid).table(req.rid)
             self.slots[i] = req
             req.state = "prefilling"
             req._pf_pos = req._pf_start = start
             if req.t_admit is None:
                 req.t_admit = now
             self.trace.phase(req.rid, "prefill", now, slot=i,
-                             blocks=len(pool.table(req.rid)),
-                             prefix_tokens=start)
+                             blocks=len(table), prefix_tokens=start)
             self._set_slot_sampling(i, req)
             self._slot_pos[i] = start
-            self._set_bt_row(i, pool.table(req.rid))
+            self._set_bt_row(i, table)
             self.stats["prefix_hit_tokens"] += start
 
         self._prefill_wave_paged()
@@ -1402,9 +1553,9 @@ class Engine:
                 self._tensor(starts), bt_dev, self.cache,
                 self._dev["offsets"], self.tick,
                 prefix_blocks=self.nbmax if starts.any() else 0)
-            sampled = sample_tokens(last_logits, self._dev["temps"],
-                                    self._dev["topks"], self._dev["seeds"],
-                                    self._dev["counters"]).cpu().numpy()
+            sampled = self._host(sample_tokens(
+                last_logits, self._dev["temps"], self._dev["topks"],
+                self._dev["seeds"], self._dev["counters"]))
             first[group] = sampled[group]
             dt = time.perf_counter() - t0
             self.stats["prefill_s"] += dt
@@ -1422,18 +1573,22 @@ class Engine:
                 self._emit(i, req, int(first[i]), now)
         self._dev_dirty = True
 
-    def _break_deadlock(self, head: Request, blocks_short: int) -> bool:
-        """Admission stalled on the queue head with every slot idle: make
-        room in the pool by taking blocks back from *queued* preempted
-        requests (youngest preemption first — the least progress to
-        re-prefill), or, if the head itself holds everything, flip it to
-        reprefill mode so its own blocks free up.  Returns True when the
-        caller should retry admission."""
-        if any(s is not None for s in self.slots):
+    def _break_deadlock(self, head: Request, blocks_short: int,
+                        shard: int = 0) -> bool:
+        """Admission stalled on the queue head with every slot of ``shard``
+        idle: make room in that shard's pool by taking blocks back from
+        *queued* preempted requests holding blocks there (youngest
+        preemption first — the least progress to re-prefill), or, if the
+        head itself holds everything, flip it to reprefill mode so its own
+        blocks free up.  Returns True when the caller should retry
+        admission."""
+        lo = shard * self._rows
+        if any(s is not None for s in self.slots[lo:lo + self._rows]):
             return False     # active slots will finish/preempt and free blocks
-        pool = self.pool
+        pool = self.pools[shard]
         holders = [r for r in self.scheduler.queued()
                    if r is not head and r._resume is not None
+                   and self._rid_shard.get(r.rid) == shard
                    and pool.table(r.rid)]
         holders.sort(key=lambda r: -r._resume["t"])
         made_room = False
@@ -1443,6 +1598,7 @@ class Engine:
             if pool.free_blocks >= blocks_short:
                 return True
         if (not made_room and head._resume is not None
+                and self._rid_shard.get(head.rid) == shard
                 and pool.table(head.rid)):
             self._release_for_reprefill(head)
             return True
@@ -1464,9 +1620,9 @@ class Engine:
         if window is None:
             window = self._window_ticks()
         bs = self.block_size
-        pool = self.pool
         for i, req in [(i, s) for i, s in enumerate(self.slots)
                        if s is not None and s.state == "active"]:
+            pool = self.pools[self._slot_shard(i)]
             p = int(self._slot_pos[i])
             if p >= self.max_len:
                 self._finish(i, req, "length")
@@ -1506,12 +1662,14 @@ class Engine:
         other holder.  Pool exhaustion during the copy preempts."""
         old = int(self._bt[i, logical])
         try:
-            phys, copied = self.pool.ensure_writable(req.rid, logical)
+            phys, copied = self._pool_of(req.rid).ensure_writable(req.rid,
+                                                                  logical)
         except MemoryError:
             self._preempt_requeue(i, req)
             return
-        if copied:
+        if copied and self._mine(i):
             self._copy_pool_block(old, int(phys))
+        if copied:
             self._bt[i, logical] = phys
             self._bt_dirty = True
 
@@ -1598,8 +1756,11 @@ class Engine:
         host mirrors do)."""
         if self._graphs is not None:
             toks = self._graphs.run(plan.n, self._dev, self.cache,
-                                    plan.alive, plan.budgets, plan.stops)
+                                    self._local(plan.alive),
+                                    self._local(plan.budgets),
+                                    self._local(plan.stops))
         else:
+            self.stats["eager_windows"] += 1
             toks, last, counters, self.cache = self._fused_for(plan.n)(
                 self.params, self._dev["last_token"], self.cache,
                 self._dev["offsets"], self.tick, self._dev["temps"],
@@ -1608,7 +1769,7 @@ class Engine:
                 self._tensor(plan.budgets), self._tensor(plan.stops))
             self._dev["counters"] = counters
             self._dev["last_token"] = last
-        return toks.cpu().numpy()
+        return self._host(toks, dim=1)
 
     def _drain(self, plan: "_WindowPlan", toks: np.ndarray) -> dict:
         """Emit each active slot's kept tokens: its column up to its budget
@@ -1685,7 +1846,7 @@ class Engine:
             self._dev["offsets"], self.tick, self._dev["temps"],
             self._dev["topks"], self._dev["seeds"], self._dev["counters"],
             self._tensor(alive), self._tensor(budgets))
-        toks = toks_dev.cpu().numpy()                 # (B, K) sampled per row
+        toks = self._host(toks_dev)                   # (B, K) sampled per row
         self._maybe_fail("mid_window")
         tv1 = time.time()
 
@@ -1722,9 +1883,10 @@ class Engine:
             # window never drafted
             for i, req in reversed(active):
                 keep = max(1, -(-int(new_pos[i]) // bs))
-                have = len(self.pool.table(req.rid))
+                pool = self._pool_of(req.rid)
+                have = len(pool.table(req.rid))
                 if have > keep:
-                    self.pool.truncate(req.rid, keep)
+                    pool.truncate(req.rid, keep)
                     self._bt[i, keep:have] = self._trash
                     self._bt_dirty = True
         tc1 = time.time()
@@ -1817,7 +1979,7 @@ class Engine:
                 "prefill_chunk": self.prefill_chunk,
                 "block_size": getattr(self, "block_size", None),
                 "num_blocks": getattr(self, "num_blocks", None),
-                "dp": 1, "tp": 1}
+                "dp": self.dp, "tp": self.tp}
 
     @staticmethod
     def _req_to_state(req: Request) -> dict:
@@ -1883,7 +2045,7 @@ class Engine:
         which let a restore rebuild prefix-hit prefills and shared and
         cached blocks.  Streaming callbacks are not
         serialized; ``restore(..., streams={rid: cb})`` re-attaches them."""
-        pools = [self.pool.snapshot()] if self.pool is not None else []
+        pools = [p.snapshot() for p in self.pools]
         snap = {
             "version": 1,
             "layout": self._layout(),
@@ -1904,17 +2066,19 @@ class Engine:
                 "counters": [int(x) for x in self._counters],
             },
             "pools": pools,
-            "rid_shard": ({r: 0 for r in pools[0]["tables"]} if pools
-                          else {}),
+            "rid_shard": {str(r): d for r, d in self._rid_shard.items()},
             "stats": dict(self.stats),
             "metrics": self.metrics.snapshot(),
             "trace": self.trace.snapshot(self._now()),
         }
         if pools:
-            snap["block_src"] = {
-                str(phys): list(self._block_src[phys])
-                for phys, h in enumerate(pools[0]["hash"])
-                if h is not None and phys in self._block_src}
+            # one map per data shard (a list under a mesh, the reference's
+            # schema has no such key)
+            srcs = [{str(phys): list(src[phys])
+                     for phys, h in enumerate(ps["hash"])
+                     if h is not None and phys in src}
+                    for ps, src in zip(pools, self._block_src)]
+            snap["block_src"] = srcs[0] if self.dp == 1 else srcs
         return snap
 
     def restore(self, snap: dict, streams: Optional[dict] = None) -> "Engine":
@@ -1980,14 +2144,19 @@ class Engine:
         self.trace.restore(snap.get("trace"), t=self._now())
         self._paged_cap = {}
         self._steps_since_snap = 0
-        self._block_src = {}
         moe = bool(self.cfg.n_experts)
-        if self.pool is not None:
-            (pool_snap,) = snap["pools"]
-            self.pool.restore(pool_snap, drop_unheld=moe)
-            self._block_src = {} if moe else {
-                int(p): tuple(int(x) for x in w)
-                for p, w in snap.get("block_src", {}).items()}
+        self._block_src = [{} for _ in self.pools]
+        if self.pools:
+            for pool, ps in zip(self.pools, snap["pools"]):
+                pool.restore(ps, drop_unheld=moe)
+            self._rid_shard = {int(r): int(d)
+                               for r, d in snap["rid_shard"].items()}
+            srcs = snap.get("block_src", {})
+            if self.dp == 1:
+                srcs = [srcs]
+            if not moe:
+                self._block_src = [{int(p): tuple(int(x) for x in w)
+                                    for p, w in src.items()} for src in srcs]
             if moe:
                 # the replay rebuilds the slots alone: a queued block
                 # holder gives its blocks back and re-prefills its history
@@ -1997,10 +2166,11 @@ class Engine:
                     if (req._resume is not None
                             and not req._resume.get("reprefill")):
                         self._release_for_reprefill(req)
-        if moe:
-            self._replay_as_reference()
-        else:
-            self._replay_device_state()
+        with self._scope():
+            if moe:
+                self._replay_as_reference()
+            else:
+                self._replay_device_state()
         self._dev_dirty = True
         self.metrics.inc("recoveries")
         return self
@@ -2011,17 +2181,23 @@ class Engine:
         recurrent layer's whole state row and an encoder-decoder slot's
         cross-KV row — for the slots and the queued block holders: exactly
         what :meth:`restore` rebuilds, so a restore is checked by
-        comparing these bytes with the uninterrupted engine's."""
+        comparing these bytes with the uninterrupted engine's.  On a mesh:
+        the requests of this rank's data shard, at its model shard's
+        heads."""
         held = [(i, r, int(self._slot_pos[i]))
-                for i, r in enumerate(self.slots) if r is not None]
-        if self.pool is not None:
+                for i, r in enumerate(self.slots)
+                if r is not None and self._mine(i)]
+        if self.pools:
             held += [(None, r, int(r._resume["pos"]))
                      for r in self.scheduler.queued()
                      if r._resume is not None
                      and not r._resume.get("reprefill")
-                     and self.pool.table(r.rid)]
+                     and self._rid_shard.get(r.rid) == self._shard
+                     and self._pool_of(r.rid).table(r.rid)]
         out = {}
         for i, req, w in held:
+            if i is not None:
+                i -= self._lo
             parts = []
             for stacked, entries in ((True, self.cache["layers"]),
                                      (False, self.cache["remainder"])):
@@ -2030,8 +2206,8 @@ class Engine:
                         t = entry[name] if stacked else entry[name][None]
                         if "k" not in entry:       # a recurrent state
                             parts.append(t[:, i].clone())
-                        elif self.pool is not None:
-                            blocks = self.pool.table(req.rid)[
+                        elif self.pools:
+                            blocks = self._pool_of(req.rid).table(req.rid)[
                                 :-(-w // self.block_size)]
                             parts.append(t[:, blocks].flatten(1, 2)[:, :w]
                                          .clone())
@@ -2085,42 +2261,49 @@ class Engine:
         return _Unit(req, row, table, seq, pieces, seq[pf_end:written],
                      pf_start, pf_end, ghost=plan is not None)
 
-    def _restore_units(self) -> Tuple[List[_Unit], dict]:
-        """Every admission whose KV the restore rebuilds, and the writer
-        of each pool block (block → unit index): the slots', the queued
-        preempted block holders', and a ghost for each admission that
-        wrote a block some unit reads in its shared prefix, or a
-        prefix-cached block nobody holds, with no unit writing it
-        (``_restore_ghosts``).  Each unit's level follows from whose
-        blocks it reads."""
-        pool = self.pool
+    def _restore_units(self) -> Tuple[List[_Unit], List[dict]]:
+        """Every admission whose KV the restore rebuilds, and, per data
+        shard, the writer of each of its pool's blocks (block → unit
+        index): the slots', the queued preempted block holders', and a
+        ghost for each admission that wrote a block some unit reads in its
+        shared prefix, or a prefix-cached block nobody holds, with no unit
+        writing it (``_restore_ghosts``).  Each unit's level follows from
+        whose blocks it reads, within its shard's pool."""
         units = []
         for i, req in enumerate(self.slots):
             if req is not None:
                 units.append(self._restore_unit(
                     req, i, int(self._slot_pos[i]),
-                    pool.table(req.rid) if pool is not None else None))
-        if pool is None:
-            return units, {}
+                    self._pool_of(req.rid).table(req.rid) if self.pools
+                    else None))
+                units[-1].shard = self._slot_shard(i)
+        if not self.pools:
+            return units, [{}]
         for req in self.scheduler.queued():
             st = req._resume
             if st is not None and not st.get("reprefill") \
-                    and pool.table(req.rid):
-                units.append(self._restore_unit(req, None, int(st["pos"]),
-                                                pool.table(req.rid)))
+                    and self._pool_of(req.rid).table(req.rid):
+                units.append(self._restore_unit(
+                    req, None, int(st["pos"]),
+                    self._pool_of(req.rid).table(req.rid)))
+                units[-1].shard = self._rid_shard[req.rid]
         bs = self.block_size
-        owner = {}
+        owners = [{} for _ in self.pools]
         for k, u in enumerate(units):
             for j in range(u.pf_start // bs, len(u.table)):
-                owner.setdefault(u.table[j], k)
-        for u in self._restore_ghosts(units, owner):
-            k = len(units)
-            units.append(u)
-            for j in range(u.pf_start // bs, len(u.table)):
-                owner[u.table[j]] = k
+                owners[u.shard].setdefault(u.table[j], k)
+        for d, owner in enumerate(owners):
+            for u in self._restore_ghosts(
+                    [u for u in units if u.shard == d], owner, d):
+                k = len(units)
+                u.shard = d
+                units.append(u)
+                for j in range(u.pf_start // bs, len(u.table)):
+                    owner[u.table[j]] = k
 
         def level(k, seen=()):
             u = units[k]
+            owner = owners[u.shard]
             if k in seen or any(u.table[j] not in owner
                                 for j in range(u.pf_start // bs)):
                 raise RuntimeError("restore cannot order the writes of "
@@ -2131,10 +2314,12 @@ class Engine:
 
         for k in range(len(units)):
             level(k)
-        return units, owner
+        return units, owners
 
-    def _restore_ghosts(self, units: List[_Unit], owner: dict) -> List[_Unit]:
-        """The ghost units of a restore (see :meth:`_restore_units`).  A
+    def _restore_ghosts(self, units: List[_Unit], owner: dict,
+                        shard: int) -> List[_Unit]:
+        """The ghost units of data shard ``shard``'s pool in a restore (see
+        :meth:`_restore_units`; ``units`` are that shard's).  A
         block's writing admission comes from ``block_src`` (writer rid,
         logical index, prefill start and end), so a ghost re-runs that
         admission's prefill pieces — its length buckets and chunks — and
@@ -2144,13 +2329,14 @@ class Engine:
         are scratch blocks.  A held block with no known writer raises; a
         cached one, or one whose chain or scratch is missing, is dropped
         from the pool (it can no longer be hit)."""
-        pool, bs = self.pool, self.block_size
+        pool, bs = self.pools[shard], self.block_size
+        block_src = self._block_src[shard]
         writers = {r.rid: r for r in self.finished}
         writers.update((r.rid, r) for r in self.scheduler.queued())
         writers.update((r.rid, r) for r in self.slots if r is not None)
 
         def source(phys):
-            src = self._block_src.get(phys)
+            src = block_src.get(phys)
             if src is None or src[0] not in writers:
                 return None
             return (src[0], src[2], src[3]), src[1]
@@ -2178,7 +2364,7 @@ class Engine:
         drop = set()
         # by logical index, so a cached block's chain is settled first
         for phys in sorted(state["cached"],
-                           key=lambda p: self._block_src.get(p, (0, 0))[1]):
+                           key=lambda p: block_src.get(p, (0, 0))[1]):
             src = source(phys)
             if src is None:
                 drop.add(phys)
@@ -2234,24 +2420,26 @@ class Engine:
                             if b in cached)
         pool.drop_cached(sorted(drop))
         for phys in drop:
-            self._block_src.pop(phys, None)
+            block_src.pop(phys, None)
         return list(ghosts.values())
 
     def _restore_calls(self, items: list) -> List[dict]:
         """Pack ``items`` [(unit, payload)] into calls of ``batch`` rows: a
-        unit with a slot keeps its row, the others take free rows (a row's
-        bits do not depend on its index or on the other rows)."""
-        calls, cur = [], {}
+        unit with a slot keeps its row, the others take free rows of their
+        data shard (a row's bits do not depend on its index or on the
+        other rows); each shard's rows fill independently."""
+        calls = [{}]
         for it in sorted(items, key=lambda it: it[0].row is None):
-            row = it[0].row
-            if row is None:
-                row = next((r for r in range(self.batch) if r not in cur),
-                           None)
+            row, c = it[0].row, 0
+            lo = it[0].shard * self._rows
+            while row is None:
+                if c == len(calls):
+                    calls.append({})
+                row = next((r for r in range(lo, lo + self._rows)
+                            if r not in calls[c]), None)
                 if row is None:
-                    calls.append(cur)
-                    cur, row = {}, 0
-            cur[row] = it
-        calls.append(cur)
+                    c += 1
+            calls[c][row] = it
         return calls
 
     def _reset_cache(self):
@@ -2291,7 +2479,7 @@ class Engine:
         if paged:
             bt = np.full((b, self.nbmax), self._trash, np.int32)
             for i, req in occupied:
-                table = self.pool.table(req.rid)
+                table = self._pool_of(req.rid).table(req.rid)
                 bt[i, :len(table)] = table
         offs = self._tensor(self._offsets)
         t0 = time.perf_counter()
@@ -2350,7 +2538,8 @@ class Engine:
         budgets = alive.astype(np.int32)
         stops = np.full((b, 1), -1, np.int32)
         if self._graphs is not None:
-            self._graphs.run(1, dev, view, alive, budgets, stops)
+            self._graphs.run(1, dev, view, self._local(alive),
+                             self._local(budgets), self._local(stops))
         else:
             self._fused_for(1)(
                 self.params, dev["last_token"], view, dev["offsets"],
@@ -2367,7 +2556,7 @@ class Engine:
             self._bt[:] = self._trash
             for i, req in enumerate(self.slots):
                 if req is not None:
-                    self._set_bt_row(i, self.pool.table(req.rid))
+                    self._set_bt_row(i, self._pool_of(req.rid).table(req.rid))
             self._bt_dirty = True
             self._sync_block_tables()
         self.cache["pos"] = self._tensor(pos.astype(np.int32))
@@ -2389,13 +2578,13 @@ class Engine:
         per round with every other row inert.  Last, ``pos`` and the block
         tables are the host's."""
         self._reset_cache()
-        units, owner = self._restore_units()
+        units, owners = self._restore_units()
         n_prefill = n_replay = 0
         prefill_s = replay_s = 0.0
         for level in range(1 + max((u.level for u in units), default=-1)):
             ks = [k for k, u in enumerate(units) if u.level == level]
             t0 = time.perf_counter()
-            n_prefill += self._restore_prefill(units, ks, owner)
+            n_prefill += self._restore_prefill(units, ks, owners)
             self._sync()
             t1 = time.perf_counter()
             n_replay += self._restore_replay([units[k] for k in ks])
@@ -2420,7 +2609,7 @@ class Engine:
         return view
 
     def _restore_prefill(self, units: List[_Unit], ks: List[int],
-                         owner: dict) -> int:
+                         owners: List[dict]) -> int:
         """The prefill rounds of units ``ks`` (one level) in
         :meth:`_replay_device_state`; returns the number of calls made."""
         calls = 0
@@ -2433,11 +2622,11 @@ class Engine:
                         (units[k], (k, s, e)))
             for key in sorted(groups):
                 for call in self._restore_calls(groups[key]):
-                    self._restore_prefill_call(call, owner)
+                    self._restore_prefill_call(call, owners)
                     calls += 1
         return calls
 
-    def _restore_prefill_call(self, call: dict, owner: dict):
+    def _restore_prefill_call(self, call: dict, owners: List[dict]):
         """One prefill call of a restore: ``call`` maps row → (unit, (unit
         index, start, end)).  Paged rows map blocks below the start to the
         unit's blocks (read) and blocks from it on to the unit's where it
@@ -2457,7 +2646,7 @@ class Engine:
             offs[row] = u.req.sampling.counter_offset
             if bt is not None:
                 for j, phys in enumerate(u.table):
-                    if j < s // self.block_size or owner[phys] == k:
+                    if j < s // self.block_size or owners[u.shard][phys] == k:
                         bt[row, j] = phys
         tok_dev = self._tensor(toks).long()
         lens_dev, offs_dev = self._tensor(lens), self._tensor(offs)

@@ -24,9 +24,17 @@ their buffers in place.
 
 Only the policy-free window is captured: under a matmul policy the dither
 kernels take the tick counter as a host constant, which a capture would
-freeze (a follow-up of ROADMAP Queue 1 item 6).  The engine decides at
-construction whether it replays (CUDA and no policy) or runs eagerly; a
-capture that fails raises, and nothing falls back.
+freeze (a follow-up of ROADMAP Queue 1 item 6).  Under sharded serving
+(DESIGN.md §9) a rank's window holds its data shard's rows: with the
+'model' axis at 1 it is captured as here, the 'data' all-gather of its
+tokens sitting outside the graph, on the host side; with the heads
+sharded the window holds a 'model' all-gather per layer, which this port
+does not capture (a gloo collective cannot be, and an NCCL capture has
+no multi-card host to be checked on), so those windows run eagerly.  The
+engine decides at construction whether it replays (CUDA, no policy, no
+sharded heads) or runs eagerly (``Engine.window_mode``, and its
+``eager_windows`` count); a capture that fails raises, and nothing falls
+back.
 
 :class:`PrefillGraphs` does the same for the scanned prefill of a model
 with recurrent state (SSD, RG-LRU) or of the encoder-decoder (whose

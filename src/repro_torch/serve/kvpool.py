@@ -40,10 +40,10 @@ The pool also knows nothing about meshes: under sharded serving
 (DESIGN.md §9) the engine instantiates one ``KVPool`` *per data shard*
 (capacity = admission budget of that shard) and keeps every request's
 blocks, prefix hits, copy-on-write copies and deadlock-breaking inside its
-home shard's pool.  Physical ids are then shard-local — the device lays
-the shards' sub-pools (each with its own trash block) back to back, and
-each shard's kernels see only their local slice, so the id space above
-never changes shape.  Prefix sharing is consequently per data shard.
+home shard's pool.  Physical ids are then shard-local: each rank holds
+its own shard's sub-pool (with its own trash block) on its device, and
+every rank keeps all the shards' host pools, so the id space above never
+changes shape.  Prefix sharing is consequently per data shard.
 """
 
 from __future__ import annotations

@@ -9,8 +9,10 @@ rules, all load-bearing:
 
 * **host-side only** — every value recorded here is a Python int/float the
   engine already holds on the host (scheduler depth, slot occupancy, pool
-  allocator counts, wall-clock deltas).  Nothing reads a device tensor, so
-  metrics add no kernel launch and no host↔device sync to a window.
+  allocator counts — summed over the data shards' pools under a mesh —
+  and wall-clock deltas).  Nothing reads a device tensor, so metrics add
+  no kernel launch and no host↔device sync to a window; under a mesh
+  every rank's host state, and so its metrics, are the same.
 * **buffered** — per-window records accumulate in a list and reach the
   sink in batches of ``flush_every``, so a slow sink (file, socket)
   amortises instead of stalling every window.

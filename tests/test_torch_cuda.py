@@ -8,7 +8,8 @@ numerators, the wrappers' input checks, the serving path's launch
 counts and streams, and decode windows replayed from CUDA graphs against
 the same windows run eagerly, byte for byte; kernel 1 at head dim 256 and
 the recurrent configs' scanned prefill replayed from its captured step;
-the encoder-decoder's engine and train step.  They import torch and the port
+the encoder-decoder's engine and train step; sharded serving with ranks
+sharing the card (gloo).  They import torch and the port
 only (the card's machine has no JAX) and skip where
 ``torch.cuda.is_available()`` is false:
 
@@ -1618,3 +1619,32 @@ def test_encdec_train_step_through_kernel6_equals_plain(cuda):
     for a, b in zip(tree.leaves(out["cuda"][0]),
                     tree.leaves(out["torch-ref"][0])):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_mesh_ranks_sharing_the_card(cuda, tmp_path, shape):
+    """Sharded serving with every rank on the one card (gloo; NCCL refuses
+    two ranks on one GPU), SmolLM-135M reduced at head dim 64: every
+    rank's host streams are equal, KV heads shard on a 2-way 'model' axis,
+    and the streams are the single-device engine's bit for bit where the
+    shard-purity probe finds every library op summing in the same order
+    at the shard's shapes (the card's libraries may pick another order at
+    N/tp columns or B/dp rows)."""
+    import _torch_mesh
+
+    names = ["purity", "stream-ring-int8", "stream-paged-bf16"]
+    ranks = _torch_mesh.run_mesh(shape, names, str(tmp_path), device="cuda")
+    for rank, res in enumerate(ranks):
+        assert "error" not in res, res["error"]
+        for name in names:
+            assert "error" not in res[name], (rank, res[name]["error"])
+    pure = not any(n for part in ranks[0]["purity"].values()
+                   for n in part.values())
+    for name in names[1:]:
+        outs = [r[name] for r in ranks]
+        assert all(o["got"] == outs[0]["got"] for o in outs), name
+        assert outs[0]["heads_sharded"] is (shape[1] > 1)
+        assert outs[0]["window_mode"] == ("eager" if shape[1] > 1
+                                          else "graph")
+        if pure:
+            assert outs[0]["got"] == outs[0]["want"], name

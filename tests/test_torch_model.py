@@ -215,9 +215,11 @@ def test_decode_from_reference_cache():
 
 
 def test_out_of_slice_knobs_raise():
-    """The engine knob not ported yet (``mesh``) raises
-    NotImplementedError naming its ROADMAP item.  (The paged cache, once
-    on this list, is ported: it needs a block size.  Speculative decoding,
+    """No engine knob raises NotImplementedError any more.  (``mesh``, the
+    last on this list, is ported: a mesh whose data axis does not divide
+    the batch, or under a recurrent model, raises ValueError, as the
+    reference's does, and a one-device mesh serves in process.  The paged
+    cache, once on this list, is ported: it needs a block size.  Speculative decoding,
     once on it too, is ported: its gates raise ValueError, as the
     reference's do.  So is the quantised-matmul policy: an unknown scheme
     raises ValueError, as the reference's does.  So are decode windows and
@@ -235,15 +237,20 @@ def test_out_of_slice_knobs_raise():
               QuantPolicy(scheme="bogus"))
     # the encoder-decoder is ported (item 11b-ii): as in the reference, a
     # decoder-only config builds its decoder under the ``audio`` family
-    # name and its engine ignores ``frames``; only ``mesh`` raises
+    # name and its engine ignores ``frames``
     audio = registry.init_model(dataclasses.replace(PCFG, family="audio"),
                                 device="cpu")
     assert sorted(audio) == sorted(TORCH_PARAMS)
     assert Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu",
                   frames="x")._frames is None
-    for knob, item in [("mesh", 10)]:
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", **{knob: "x"})
+    from repro_torch.dist.sharding import MeshShape
+
+    one = MeshShape(("data", "model"), (1, 1))
+    eng = Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", mesh=one)
+    assert (eng.dp, eng.tp, eng.heads_sharded) == (1, 1, False)
+    with pytest.raises(ValueError, match="multiple of the mesh's data axis"):
+        Engine(TORCH_PARAMS, PCFG, 3, 16, device="cpu",
+               mesh=MeshShape(("data", "model"), (2, 1)))
     with pytest.raises(ValueError, match="unknown metrics sink spec"):
         Engine(TORCH_PARAMS, PCFG, 2, 16, device="cpu", metrics="x")
     with pytest.raises(ValueError, match="decode_ticks must be >= 1"):

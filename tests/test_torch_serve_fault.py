@@ -236,8 +236,11 @@ def test_knob_checks_match_the_reference():
                dict(degrade_high=1.5), dict(degrade_low=0.0)):
         with pytest.raises(ValueError):
             _engine(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(mesh=object())
+    # the mesh is ported (item 10): a data axis that does not divide the
+    # batch raises ValueError, as the reference's does
+    from repro_torch.dist.sharding import MeshShape
+    with pytest.raises(ValueError, match="multiple of the mesh's data axis"):
+        _engine(mesh=MeshShape(("data", "model"), (4, 1)))
     # frames are ported (item 11b-ii); a decoder-only engine ignores them,
     # as the reference's does
     assert _engine(frames=object())._frames is None
