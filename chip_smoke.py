@@ -189,7 +189,9 @@ import functools
 import itertools
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -245,6 +247,18 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
+
+
+def part_timer():
+    """(mark, parts): ``mark(name)`` records the seconds since the last
+    mark under ``name`` in ``parts`` — where a phase's time goes."""
+    parts, last = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        parts[name] = round(now - last[0], 2)
+        last[0] = now
+    return mark, parts
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -2863,6 +2877,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 10
 # cosine peak and warm-up steps of the train runs (a peak of 3e-3 made the
 # loss of 20 steps rise at full width on an H100)
 TRAIN_LR = (1e-3, 5)
+TRAIN_RESTART_LAYERS = 2    # the restart run's depth (its gates: bitwise)
 TRAIN_CRASHES = {1: "after_save", 2: "before_save"}   # the restart run's
 CORE_N = (16, 64, 256, 1024)     # pulse counts of the core phase
 CORE_TRIALS = 256                # encodings of each x (as test_paper_stats)
@@ -3134,10 +3149,17 @@ def train_phase(torch, dm, cfg, device="cuda", steps=TRAIN_STEPS):
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "schedule": {"cosine_peak": TRAIN_LR[0], "warmup": TRAIN_LR[1],
                         "total": steps}}
+    mark, parts = part_timer()
     res["runs"] = [train_run(torch, dm, cfg, pol, steps, device)
                    for pol in (None, dither)]
+    mark("runs")
     res["parity"] = train_parity(torch, dm, cfg, QuantPolicy, device)
-    res["restart"] = train_restart(torch, cfg, dither, device)
+    mark("parity")
+    res["restart"] = train_restart(
+        torch, dataclasses.replace(cfg, n_layers=TRAIN_RESTART_LAYERS),
+        dither, device)
+    mark("restart")
+    res["part_s"] = parts
     return res
 
 
@@ -3231,14 +3253,27 @@ ZOO_POLICY = "granite_moe_1b_a400m"       # served under the dither policy
 ZOO_POLICY_NEW = 4          # new tokens a request of a zoo policy run
 # a scanned prefill's policy prompts (tokens): eager under the policy,
 # one forward a position (served and held to the plain route)
-ZOO_POLICY_PARITY_LEN = 16
+ZOO_POLICY_PARITY_LEN = 8
 ZOO_TRAIN = ("granite_moe_1b_a400m", "internvl2_1b")
+# granite-moe trains at 8 of its 24 layers (its widths, and so
+# every product shape, stay; its plain-route parity step was most of the
+# time)
+ZOO_TRAIN_LAYERS = {"granite_moe_1b_a400m": 8}
 ZOO_TRAIN_STEPS = 2
 ZOO_PARITY_STEPS = 8
 # the recurrent configs (ROADMAP Queue 1 item 11b-i): mamba2 served under
 # the policy and trained; recurrentgemma (≈ 15 GB of weights, f32 AdamW
 # moments alone ≈ 72 GB) served only, with a crashed run
 RECURRENT_ZOO = ("mamba2_370m", "recurrentgemma_9b")
+# their depth on the card (the widths, and so every kernel and
+# library shape, stay the model's; recurrentgemma keeps its two remainder
+# layers after whole (rglru, rglru, attn) periods): the scanned prefill
+# steps every layer once a prompt position, so depth was most of their
+# phases' time (PERF.md §4)
+RECURRENT_LAYERS = {"mamba2_370m": 16, "recurrentgemma_9b": 14}
+# the parity's prompts of a scanned-prefill config (the ring traffic's,
+# cut): its prefill is one eager forward a position
+ZOO_PARITY_SCANNED_LEN = 64
 RECURRENT_POLICY = ("mamba2_370m",)
 RECURRENT_TRAIN = ("mamba2_370m",)
 # kernel 1 at recurrentgemma's attention (1 KV head, group 16, head dim
@@ -3554,6 +3589,9 @@ def zoo_parity(torch, cfg, params, frames=None):
 
     atol, mean_atol = ZOO_PARITY_ATOL["moe" if cfg.n_experts else "dense"]
     reqs = zoo_requests(cfg, "ring")
+    if not registry.supports_batched_prefill(cfg):
+        for r in reqs:
+            r.prompt = r.prompt[:ZOO_PARITY_SCANNED_LEN]
     lens = np.array([len(r.prompt) for r in reqs], np.int32)
     toks = np.zeros((8, int(lens.max())), np.int64)
     for i, r in enumerate(reqs):
@@ -3777,6 +3815,7 @@ def zoo_phase(torch, name, da, pda, va, pva, dm, ref):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
+    mark, parts = part_timer()
     res = {"phase": "zoo", "model": cfg.name, "family": cfg.family,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd()],
@@ -3790,6 +3829,7 @@ def zoo_phase(torch, name, da, pda, va, pva, dm, ref):
     res["init_s"] = time.perf_counter() - t0
     res["weights_gb"] = sum(t.numel() * t.element_size()
                             for t in tree.leaves(params)) / 1e9
+    mark("kernels_and_init")
     runs = {}
     runs["ring_bf16"], ring_bf16, _ = zoo_serve(torch, cfg, params, "ring",
                                                 False)
@@ -3804,7 +3844,9 @@ def zoo_phase(torch, name, da, pda, va, pva, dm, ref):
                 "share": int(v[0]) / max(1, int(v[1]))}
             for k, v in acc.items()}
         res["moe_decode_capacity"] = moe.moe_capacity(8, cfg)
+    mark("ring_bf16")
     runs["ring_int8"], _, _ = zoo_serve(torch, cfg, params, "ring", True)
+    mark("ring_int8")
     runs["paged_bf16_cold"], paged_bf16, _ = zoo_serve(
         torch, cfg, params, "paged", False, traffic="ring",
         prefix_cache=False)
@@ -3815,6 +3857,7 @@ def zoo_phase(torch, name, da, pda, va, pva, dm, ref):
     runs["paged_int8_prefix"], _, _ = zoo_serve(torch, cfg, params, "paged",
                                                 True, staged=True)
     assert runs["paged_int8_prefix"]["prefix_hit_tokens"] > 0
+    mark("paged")
     if registry.supports_spec_decode(cfg):
         runs["spec_ring_bf16"], spec, _ = zoo_serve(
             torch, cfg, params, "ring", False, spec_decode=True,
@@ -3836,18 +3879,26 @@ def zoo_phase(torch, name, da, pda, va, pva, dm, ref):
         assert all(len(r.out) == ZOO_NEW for r in done)
         del eng
     res["runs"] = runs
+    mark("spec_or_window")
     res["parity"] = zoo_parity(torch, cfg, params)
+    mark("parity")
     res["profile_tick"] = profile_phase(torch, cfg, params, False)
+    mark("profile")
     if name == ZOO_POLICY:
         res["policy"] = zoo_policy(torch, cfg, params)
+        mark("policy")
         res["fault"] = zoo_fault(torch, cfg, params, ring_bf16)
+        mark("fault")
     res["serve_peak_memory_allocated_gb"] = (
         torch.cuda.max_memory_allocated() / 1e9)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     if name in ZOO_TRAIN:
-        res["train"] = zoo_train(torch, dm, cfg)
+        res["train"] = zoo_train(torch, dm, dataclasses.replace(
+            cfg, n_layers=ZOO_TRAIN_LAYERS.get(name, cfg.n_layers)))
+        mark("train")
+    res["part_s"] = parts
     res["peak_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res["seconds"] = time.perf_counter() - t_start
     gc.collect()
@@ -3993,9 +4044,9 @@ def zoo_fault(torch, cfg, params, want, frames=None):
 
 
 def recurrent_phase(torch, name, da, dm, ref):
-    """One recurrent config (``RECURRENT_ZOO``) at full width and depth on
-    the card, random bf16 weights from seed 0, loaded alone and freed
-    after: kernel 1 at head dim 256 (recurrentgemma) and kernel 6's
+    """One recurrent config (``RECURRENT_ZOO``) at full width on the card,
+    its depth cut to ``RECURRENT_LAYERS``, random bf16 weights from seed
+    0, loaded alone and freed after: kernel 1 at head dim 256 (recurrentgemma) and kernel 6's
     policy entry at mamba2's products against their plain versions; the
     zoo's ring traffic in bf16 and int8 (mamba2 has no KV, so int8 must
     serve the bf16 streams), every prompt prefilled by the scanned prefill
@@ -4014,14 +4065,16 @@ def recurrent_phase(torch, name, da, dm, ref):
     from repro_torch.models import registry
     from repro_torch.serve import Engine
 
-    cfg = get_config(name)
+    cfg = dataclasses.replace(get_config(name),
+                              n_layers=RECURRENT_LAYERS[name])
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
+    mark, parts = part_timer()
     res = {"phase": "zoo", "model": cfg.name, "family": cfg.family,
            "nvidia_smi": nvidia_smi(),
-           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "layers": cfg.n_layers, "full_layers": get_config(name).n_layers, "d_model": cfg.d_model,
            "attention_layers": attn_layers(cfg),
            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd()],
            "vocab_padded": cfg.vocab_padded(),
@@ -4035,15 +4088,18 @@ def recurrent_phase(torch, name, da, dm, ref):
     res["init_s"] = time.perf_counter() - t0
     res["weights_gb"] = sum(t.numel() * t.element_size()
                             for t in tree.leaves(params)) / 1e9
+    mark("kernels_and_init")
     runs = {}
     runs["ring_bf16"], ring_bf16, eng = zoo_serve(torch, cfg, params, "ring",
                                                   False)
+    mark("ring_bf16")
     pf = eng._prefill
     runs["ring_bf16"].update(
         prefill_graph_replays=pf.replays,
         prefill_graph_steps_per_call=pf.replays / eng.stats["prefill_calls"],
         prefill_graph_capture_s=pf.capture_s)
     res["prefill_step"] = prefill_step_times(torch, eng, params)
+    mark("prefill_step")
     del eng, pf
     runs["ring_int8"], ring_int8, eng = zoo_serve(torch, cfg, params, "ring",
                                                   True)
@@ -4052,6 +4108,7 @@ def recurrent_phase(torch, name, da, dm, ref):
         assert ring_int8 == ring_bf16, (cfg.name, "int8 flag not inert")
         runs["ring_int8"]["streams_equal_ring_bf16"] = True
     res["runs"] = runs
+    mark("ring_int8")
     eng = Engine(params, cfg, 8, 1024, device="cuda", decode_ticks=WINDOW)
     for req in zoo_requests(cfg, "ring"):
         eng.submit(req)
@@ -4064,14 +4121,18 @@ def recurrent_phase(torch, name, da, dm, ref):
         cfg.name, "W = 8 != W = 1")
     res["window_streams_equal_w1"] = True
     del eng
+    mark("window")
     res["parity"] = zoo_parity(torch, cfg, params)
+    mark("parity")
     if name in RECURRENT_POLICY:
         # prompts cut to the parity's 16 tokens: the eager scanned
         # prefill under the policy is one forward a position
         res["policy"] = zoo_policy(torch, cfg, params,
                                    prompt_len=ZOO_POLICY_PARITY_LEN)
+    mark("policy")
     if not cfg.n_experts and attn_layers(cfg):
         res["fault"] = zoo_fault(torch, cfg, params, ring_bf16)
+    mark("fault")
     res["serve_peak_memory_allocated_gb"] = (
         torch.cuda.max_memory_allocated() / 1e9)
     del params
@@ -4079,6 +4140,8 @@ def recurrent_phase(torch, name, da, dm, ref):
     torch.cuda.empty_cache()
     if name in RECURRENT_TRAIN:
         res["train"] = zoo_train(torch, dm, cfg)
+    mark("train")
+    res["part_s"] = parts
     res["peak_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res["seconds"] = time.perf_counter() - t_start
     gc.collect()
@@ -4171,6 +4234,7 @@ def encdec_phase(torch, da, dm, ref):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
+    mark, parts = part_timer()
     res = {"phase": "zoo", "model": cfg.name, "family": cfg.family,
            "nvidia_smi": nvidia_smi(), "layers": cfg.n_layers,
            "encoder_layers": cfg.n_enc_layers,
@@ -4202,6 +4266,7 @@ def encdec_phase(torch, da, dm, ref):
     res["cross_kv_gb"] = sum(t.numel() * t.element_size()
                              for t in cache["cross"].values()) / 1e9
     del cache
+    mark("kernels_init_cache")
     runs = {}
     runs["ring_bf16"], ring_bf16, eng = zoo_serve(torch, cfg, params, "ring",
                                                   False, frames=frames)
@@ -4210,8 +4275,10 @@ def encdec_phase(torch, da, dm, ref):
         prefill_graph_replays=pf.replays,
         prefill_graph_steps_per_call=pf.replays / eng.stats["prefill_calls"],
         prefill_graph_capture_s=pf.capture_s)
+    mark("ring_bf16")
     res["tick"] = tick_times(torch, eng)
     res["prefill_step"] = prefill_step_times(torch, eng, params)
+    mark("tick_prefill_step")
     del eng, pf
     runs["ring_kv_quant_flag"], flagged, eng = zoo_serve(
         torch, cfg, params, "ring", True, frames=frames)
@@ -4220,6 +4287,7 @@ def encdec_phase(torch, da, dm, ref):
     runs["ring_kv_quant_flag"]["streams_equal_ring_bf16"] = True
     del eng
     res["runs"] = runs
+    mark("ring_flag")
     eng = Engine(params, cfg, 8, 1024, device="cuda", decode_ticks=WINDOW,
                  frames=frames)
     for req in zoo_requests(cfg, "ring"):
@@ -4243,10 +4311,14 @@ def encdec_phase(torch, da, dm, ref):
         cfg.name, "W = 8 != W = 1")
     res["window_streams_equal_w1"] = True
     del eng
+    mark("window_restore")
     res["parity"] = zoo_parity(torch, cfg, params, frames=frames)
+    mark("parity")
     res["policy"] = zoo_policy(torch, cfg, params, frames=frames,
                                prompt_len=ZOO_POLICY_PARITY_LEN)
+    mark("policy")
     res["fault"] = zoo_fault(torch, cfg, params, ring_bf16, frames=frames)
+    mark("fault")
     res["serve_peak_memory_allocated_gb"] = (
         torch.cuda.max_memory_allocated() / 1e9)
     del params, frames
@@ -4254,6 +4326,8 @@ def encdec_phase(torch, da, dm, ref):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     res["train"] = zoo_train(torch, dm, cfg)
+    mark("train")
+    res["part_s"] = parts
     res["train_peak_memory_allocated_gb"] = (
         torch.cuda.max_memory_allocated() / 1e9)
     res["seconds"] = time.perf_counter() - t_start
@@ -4391,7 +4465,7 @@ def mesh_codes(torch, cfg, mesh_shape, coord, seed=5):
     return got.numel() + 4 * gscale.numel()
 
 
-def mesh_rank(rank, world, shape, store, q, jobs, record=False):
+def mesh_rank(rank, world, store, q, shape, jobs, record=False):
     """One rank of a mesh whose ranks share the card (spawned; prints
     nothing: its result goes back on ``q``): gloo over a file store, every
     rank on ``cuda:0``; for each (model, layers, cases) of ``jobs`` in
@@ -4432,49 +4506,6 @@ def mesh_rank(rank, world, shape, store, q, jobs, record=False):
         dist.destroy_process_group()
     except BaseException:
         q.put((rank, {"error": traceback.format_exc()}))
-
-
-def spawn_mesh(shape, jobs, timeout=900, record=False):
-    """``mesh_rank`` of ``jobs`` on ``shape``'s ranks, all on the one card;
-    returns the ranks' results in rank order (raises with a rank's
-    traceback)."""
-    import queue
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    world = shape[0] * shape[1]
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    store = tempfile.mktemp(prefix="mesh_store_", dir=str(ROOT / "build"))
-    procs = [ctx.Process(target=mesh_rank, args=(r, world, shape, store, q,
-                                                 jobs, record))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    got, deadline = {}, time.monotonic() + timeout
-    try:
-        while len(got) < world:
-            try:
-                rank, res = q.get(timeout=5)
-            except queue.Empty:
-                dead = [r for r, p in enumerate(procs)
-                        if not p.is_alive() and r not in got]
-                if (dead and q.empty()) or time.monotonic() > deadline:
-                    raise RuntimeError(f"mesh {shape}: ranks {dead or '?'} "
-                                       "gave no result") from None
-                continue
-            if "error" in res:
-                raise RuntimeError(f"mesh {shape} rank {rank}:\n"
-                                   f"{res['error']}")
-            got[rank] = res
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    return [got[r] for r in range(world)]
 
 
 def record_decisions(torch, cfg, params, layout, kv_quant, mesh=None):
@@ -4744,7 +4775,8 @@ def mesh_phase(torch, da, pda, ref):
         if shape == (1, 2):
             jobs.append((MESH_GQA, SMOLLM_LAYERS, (("ring", True),)))
         name = f"{shape[0]}x{shape[1]}"
-        out = spawn_mesh(shape, jobs, record=not pure[name])
+        out = spawn_ranks(shape[0] * shape[1], mesh_rank,
+                          (shape, jobs, not pure[name]))
         ranks = [r[MESH_MODEL] for r in out]
         if shape == (1, 2):
             gqa = [r[MESH_GQA] for r in out]
@@ -4843,9 +4875,677 @@ def mesh_phase(torch, da, pda, ref):
             "seconds": time.perf_counter() - t_start}
 
 
+# ------------------------------------------------ the training mesh (10b)
+
+TRAIN_MESH_LAYERS = 28           # qwen2-1.5b's depth, on the (1, 1) mesh
+TRAIN_MESH_FULL_STEPS = 3
+# the meshes of ranks sharing the card, at the mesh block's cut depth:
+# four ranks each hold their blocks of the 8-layer state (≈ 8 GB a rank)
+TRAIN_MESH_SHARED = ((2, 2), (2, 1), (1, 2))
+TRAIN_MESH_STEPS = 2
+TRAIN_MESH_LR = 1e-3
+TRAIN_MESH_SEQ_SPLIT = "smollm_135m"     # 9 heads: the sequence split at tp 2
+TRAIN_MESH_MOE = "granite_moe_1b_a400m"
+TRAIN_MESH_CKPT = ("smollm_135m", 2)     # the elastic checkpoint's model
+# tests/test_torch_train.py's step-1 loss tolerances (no policy, policy)
+TRAIN_MESH_LOSS_TOL = {False: 2.0 ** -10, True: 2.0 ** -6}
+
+
+def train_mesh_policy(backend):
+    from repro_torch.numerics.policy import QuantPolicy
+
+    return (None if backend is None else
+            QuantPolicy(scheme="dither", bits=8, backend=backend))
+
+
+def train_mesh_batch(cfg, step=0):
+    """The global batch of every training-mesh run: 8 × 512 synthetic
+    tokens (seed 0) on the card."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+
+    return synthetic_batch(cfg, DataConfig(batch=TRAIN_BATCH,
+                                           seq=TRAIN_SEQ, seed=0), step,
+                           device="cuda")
+
+
+def tensor_digest(torch, t):
+    """A device-side digest of a tensor's bytes: the int64 sums of its
+    16- or 32-bit words, plain and position-weighted (integer sums do not
+    depend on their order)."""
+    flat = t.detach().reshape(-1)
+    word = torch.int16 if flat.element_size() == 2 else torch.int32
+    w = flat.contiguous().view(word).to(torch.int64)
+    pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+    return [int(w.sum()), int((w * pos).sum())]
+
+
+def state_digests(torch, state):
+    from repro_torch import tree
+
+    return {k: [tensor_digest(torch, t) for t in tree.leaves(v)]
+            for k, v in (("params", state["params"]),
+                         ("m", state["opt"]["m"]), ("v", state["opt"]["v"]))}
+
+
+def train_mesh_steps(torch, cfg, mesh, backend, steps, plain_check=False):
+    """``steps`` sharded AdamW steps of ``cfg`` on this rank of ``mesh``
+    from the seed-0 state, the global batch's rows of this data shard:
+    losses, digests of the local params, m and v after every step, step
+    ms (wall, ranks sharing the card), the sharded kernel's launches and
+    the collectives of the last step, peak memory.  ``plain_check``: the
+    first step again from the same state through kernel 6's plain version
+    (``torch-ref``), its loss and digests bit for bit the kernel's."""
+    import gc
+
+    from repro_torch import interop
+    from repro_torch.dist import ctx
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import trainer
+
+    sh = ctx.train_shard_of(mesh)
+    coord = {"data": sh.data, "model": sh.model}
+    batch = train_mesh_batch(cfg)
+    rows = slice(sh.data * TRAIN_BATCH // sh.dp,
+                 (sh.data + 1) * TRAIN_BATCH // sh.dp)
+    local = {k: v[rows] for k, v in batch.items()}
+
+    def fresh():
+        return interop.shard_train_state(
+            trainer.init_train_state(cfg, seed=0, device="cuda"), cfg,
+            coord, mesh)
+
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = trainer.make_train_step(cfg, AdamW(lr=TRAIN_MESH_LR),
+                                   policy=train_mesh_policy(backend),
+                                   mesh=mesh)
+    out = {"losses": [], "digests": [], "step_ms": []}
+    dm.dither_matmul_sharded.launches = 0
+    dm.dither_matmul_sharded.by_block = dict.fromkeys(
+        dm.dither_matmul_sharded.by_block, 0)
+    dm.dither_matmul_epilogue.launches = 0
+    for i in range(steps):
+        before = {k: dict(v) for k, v in ctx.COLLECTIVES.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, local)
+        out["losses"].append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["digests"].append(state_digests(torch, state))
+        out["collectives_a_step"] = {
+            k: {f: ctx.COLLECTIVES[k][f] - before[k][f]
+                for f in ("calls", "bytes")} for k in ctx.COLLECTIVES}
+    out["kernel6_sharded_launches"] = dm.dither_matmul_sharded.launches
+    out["kernel6_sharded_by_block"] = dict(dm.dither_matmul_sharded.by_block)
+    out["kernel6_epilogue_launches"] = dm.dither_matmul_epilogue.launches
+    out["peak_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if plain_check:
+        plain = trainer.make_train_step(
+            cfg, AdamW(lr=TRAIN_MESH_LR),
+            policy=train_mesh_policy("torch-ref"), mesh=mesh)
+        state, metrics = plain(fresh(), local)
+        out["plain_step1_equal"] = (
+            float(metrics["loss"]) == out["losses"][0]
+            and state_digests(torch, state) == out["digests"][0])
+        del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_ckpt(torch, mesh, path, save):
+    """The elastic checkpoint: ``save``: one step of smollm-135m (2
+    layers) on this mesh, checkpointed (rank (0, 0) writes the gathered
+    state); else restored onto this mesh from what (2, 2) wrote, each
+    local leaf byte for byte its block of the checkpoint's global array."""
+    import numpy as np
+
+    from repro_torch import interop, tree
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.dist import ctx
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import trainer
+
+    name, layers = TRAIN_MESH_CKPT
+    cfg = mesh_cfg(name, layers)
+    sh = ctx.train_shard_of(mesh)
+    coord = {"data": sh.data, "model": sh.model}
+    state = interop.shard_train_state(
+        trainer.init_train_state(cfg, seed=0, device="cuda"), cfg, coord,
+        mesh)
+    ck = Checkpointer(path, mesh=mesh, cfg=cfg)
+    if save:
+        batch = train_mesh_batch(cfg)
+        rows = slice(sh.data * TRAIN_BATCH // sh.dp,
+                     (sh.data + 1) * TRAIN_BATCH // sh.dp)
+        step = trainer.make_train_step(cfg, AdamW(lr=TRAIN_MESH_LR),
+                                       mesh=mesh)
+        state, _ = step(state, {k: v[rows] for k, v in batch.items()})
+        t0 = time.perf_counter()
+        ck.save(1, state)
+        return {"saved": True, "save_s": time.perf_counter() - t0}
+    places = interop.train_state_shardings(state, cfg, mesh, coord)
+    t0 = time.perf_counter()
+    got = ck.restore(1, state, places)
+    restore_s = time.perf_counter() - t0
+    with np.load(os.path.join(path, "step_00000001",
+                              "arrays.npz")) as data:
+        glob = [torch.from_numpy(np.array(data[f"leaf_{i}"]))
+                for i in range(len(data.files))]
+    equal = all(
+        torch.equal(g.cpu().float(), p.local(w)) and g.dtype == like.dtype
+        for g, w, p, like in zip(tree.leaves(got), glob, tree.leaves(places),
+                                 tree.leaves(state)))
+    return {"restored_equal": equal, "restore_s": restore_s,
+            "bytes": sum(w.numel() * w.element_size() for w in glob)}
+
+
+# the training ranks' allocators grow segments instead of caching fixed
+# ones: four ranks each hold ≈ 11 GB of the card's 80 GB at once
+TRAIN_MESH_ALLOC = "expandable_segments:True"
+
+
+def train_mesh_rank(rank, world, store, q, jobs):
+    """One rank of training meshes whose ranks share the card (spawned;
+    prints nothing, results go back on ``q``): gloo over a file store,
+    every rank on ``cuda:0``; each job in turn on its own ('data',
+    'model') mesh over the same processes."""
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.dist import ctx
+        from repro_torch.launch.mesh import make_serve_mesh
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=world, rank=rank)
+        out = {}
+        for job in jobs:
+            kind, shape = job[0], job[1]
+            mesh = make_serve_mesh(*shape, device="cuda")
+            res = {"coord": ctx.mesh_coordinate(mesh)}
+            if kind == "steps":
+                _, _, model, layers, backend, steps, plain = job
+                res.update(train_mesh_steps(torch, mesh_cfg(model, layers),
+                                            mesh, backend, steps, plain))
+            elif kind == "ckpt":
+                res.update(train_mesh_ckpt(torch, mesh, job[2], job[3]))
+            out[tuple(job[:2]) + tuple(str(j) for j in job[2:5])] = res
+        q.put((rank, out))
+        dist.destroy_process_group()
+    except BaseException:
+        q.put((rank, {"error": traceback.format_exc()}))
+
+
+def replicas_equal(specs, shape, ranks, key):
+    """After every step: the data replicas' params, m and v digests equal
+    (ranks of one 'model' coordinate), and the 'model' ranks' replicated
+    leaves' (``specs``: the training layout's spec of each leaf)."""
+    runs = [r[key] for r in ranks]
+    for s in range(len(runs[0]["digests"])):
+        by_model = {}
+        for r in runs:
+            by_model.setdefault(r["coord"]["model"], []).append(
+                r["digests"][s])
+        for group in by_model.values():
+            assert all(g == group[0] for g in group), (shape, key, s)
+        for kind in ("params", "m", "v"):
+            for i, spec in enumerate(specs):
+                if "model" not in spec:
+                    assert len({str(r["digests"][s][kind][i])
+                                for r in runs}) == 1, (shape, key, s, kind)
+    return True
+
+
+def spawn_ranks(world, target, args, timeout=900, alloc_conf=None):
+    """``target(rank, world, store, q, *args)`` on ``world`` spawned
+    ranks, all on the one card (``alloc_conf``: their
+    ``PYTORCH_CUDA_ALLOC_CONF``); returns their results in rank order
+    (raises with a rank's traceback)."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = tempfile.mktemp(prefix="mesh_store_", dir=str(ROOT / "build"))
+    procs = [ctx.Process(target=target, args=(r, world, store, q, *args))
+             for r in range(world)]
+    old = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    if alloc_conf is not None:
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if old is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old
+    got, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(got) < world:
+            try:
+                rank, res = q.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if not p.is_alive() and r not in got]
+                if (dead and q.empty()) or time.monotonic() > deadline:
+                    raise RuntimeError(f"ranks {dead or '?'} of {world} "
+                                       "gave no result") from None
+                continue
+            if "error" in res:
+                raise RuntimeError(f"rank {rank} of {world}:\n"
+                                   f"{res['error']}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(world)]
+
+
+def partials_bound(m, k, n):
+    """Least time for kernel 6's sharded entry in partials mode: the bf16
+    operands read once and the int32 accumulator and code sums written
+    once; its int8 tensor ops, the codes' INT32 ops and f32 ops (with the
+    normalisation); no epilogue."""
+    codes = m * k + k * n
+    return least_time({
+        "bytes": (2 * codes + 4 * (m * n + m + n)) / HBM_BYTES_PER_S,
+        "int8 tensor ops": 2 * m * k * n / PEAK_OPS["int8"],
+        "INT32 ops": QUANT_INT_OPS * codes / int32_ops_per_s()[0],
+        "f32 ops": (QUANT_F32_OPS + NORM_F32_OPS) * codes / PEAK_F32})
+
+
+def epilogue_bound(m, n):
+    """Least time for kernel 6's epilogue over all-reduced partials: the
+    int32 accumulator and code sums read once, the bf16 product written
+    once; its f32 ops and the rescale per output."""
+    return least_time({
+        "bytes": (4 * (m * n + m + n) + 2 * m * n) / HBM_BYTES_PER_S,
+        "f32 ops": (EPILOGUE_F32_OPS + 1) * m * n / PEAK_F32})
+
+
+def sharded_kernel_checks(torch, dm, ref):
+    """Kernel 6's sharded entry at the training mesh's local shapes
+    (qwen2-1.5b, 8 × 512 tokens), one row a wrapper call of the kind the
+    mesh launches: a row block of a data shard (M 2,048, ``wu``), a
+    column block of ``wu`` at N / 2, one K half of ``wd`` in partials
+    mode (the int32 accumulator and code sums of its K slice) and the
+    epilogue over the two halves' summed partials (what the all-reduce
+    over 'model' computes).  Each result bit for bit its plain version
+    on the same inputs; the rows and columns blocks and the reassembled K
+    blocks bit for bit the slice of the unsharded product.  Event ms
+    (back-to-back calls), device ms (``torch.profiler``: everything the
+    call launches), the plain version's ms, the bound, and
+    ``torch.matmul``'s bf16 time on the same local operands (the
+    epilogue: none)."""
+    cfg = mesh_cfg(MESH_MODEL)
+    d, f = cfg.d_model, cfg.d_ff
+    m = TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = (torch.randn((m, d), generator=gen, device="cuda")).bfloat16()
+    h = (torch.randn((m, f), generator=gen, device="cuda") * 0.3).bfloat16()
+    wu = (torch.randn((d, f), generator=gen, device="cuda") * 0.03).bfloat16()
+    wd = (torch.randn((f, d), generator=gen, device="cuda") * 0.01).bfloat16()
+    kw = dict(bits=8, scheme="dither", counter=3, seed=6)
+
+    def sharded(xs, w, ax, aw, block, partials=False):
+        return (lambda: dm.dither_matmul_sharded(
+            xs, w, ax, aw, block=block, partials=partials, **kw),
+            lambda: ref.dither_matmul_scaled_ref(
+                xs, w, aw, x_absmax=ax, block=block, partials=partials,
+                **kw))
+
+    def row(label, call, plain, shape, glob, bound, lib, note=None):
+        bound_ms, term = bound
+        return {
+            "name": f"dither_matmul_sharded[{label}]" if label != "epilogue"
+            else "dither_matmul_epilogue", "block": label,
+            "shape": shape, "global": glob,
+            "max_abs_err": 0.0, "bitwise_plain": True,
+            "bitwise_unsharded_slice": True,
+            "ms": cuda_ms(call, 10), "device_ms": device_ms(torch, call, 5),
+            "plain_ms": cuda_ms(plain, 2, warmup=1),
+            "bound_ms": bound_ms, "bound_term": term,
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "library_ms": None if lib is None else cuda_ms(lib, 10),
+            "library": None if lib is None else
+            "torch.matmul bf16, the same local operands", "note": note}
+
+    rows = []
+    for label, xs, w, full_x, full_w, block, want in (
+            ("rows", x[:m // 2].contiguous(), wu, x, wu,
+             ref.MatmulBlock(m, d, f, m0=0), lambda o: o[:m // 2]),
+            ("columns", x, wu[:, :f // 2].contiguous(), x, wu,
+             ref.MatmulBlock(m, d, f, n0=0), lambda o: o[:, :f // 2])):
+        ax, aw = ref.policy_absmax(full_x), ref.policy_absmax(full_w)
+        call, plain = sharded(xs, w, ax, aw, block)
+        got = call()
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain()), label
+        assert torch.equal(got, want(dm.dither_matmul_scaled(
+            full_x, full_w, aw, **kw))), label
+        mm, kk, nn = xs.shape[0], xs.shape[1], w.shape[1]
+        rows.append(row(label, call, plain, [mm, kk, nn],
+                        [block.M, block.K, block.N],
+                        matmul_bound(mm, kk, nn, policy=True),
+                        lambda: torch.matmul(xs, w)))
+    # the K blocks of wd: two halves' partials, summed, one epilogue
+    ax, aw = ref.policy_absmax(h), ref.policy_absmax(wd)
+    halves = [(h[:, i * f // 2:(i + 1) * f // 2].contiguous(),
+               wd[i * f // 2:(i + 1) * f // 2].contiguous(),
+               ref.MatmulBlock(m, f, d, k0=i * f // 2)) for i in range(2)]
+    parts, calls = [], []
+    for xs, w, block in halves:
+        call, plain = sharded(xs, w, ax, aw, block, partials=True)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), "k_block"
+        parts.append(got)
+        calls.append((call, plain))
+    summed = [(parts[0][i] + parts[1][i]).contiguous() for i in range(3)]
+    full = dm.dither_matmul_scaled(h, wd, aw, **kw)
+
+    def epi():
+        return dm.dither_matmul_epilogue(*summed, ax, aw, bits=8, k=f)
+
+    def epi_plain():
+        return ref.dither_matmul_scaled_epilogue_ref(*summed, ax, aw,
+                                                     bits=8, k=f)
+    got = epi()
+    torch.cuda.synchronize()
+    assert torch.equal(got, epi_plain()), "epilogue"
+    assert torch.equal(got, full), "k blocks reassembled"
+    xs, w, block = halves[0]
+    rows.append(row("k_block", *calls[0], [m, f // 2, d], [m, f, d],
+                    partials_bound(m, f // 2, d),
+                    lambda: torch.matmul(xs, w),
+                    "one K half's int32 partials (a rank at tp 2)"))
+    rows.append(row("epilogue", epi, epi_plain, [m, d], [m, f, d],
+                    epilogue_bound(m, d), None,
+                    "over the two K halves' summed partials"))
+    return rows
+
+
+def train_full_depth(torch, cfg, mesh):
+    """``TRAIN_MESH_FULL_STEPS`` AdamW steps of ``cfg`` (no policy) from
+    the seed-0 state on the whole global batch, on one device
+    (``mesh`` None) or on the (1, 1) mesh's path (the scope, the gradient
+    bucket and the loss reduced over its one-rank 'data' group): losses,
+    digests of params, m and v after every step, the 'data' reduces run,
+    wall seconds and peak memory of this run alone (the state freed
+    after)."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.dist import ctx
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_train_state(cfg, seed=0, device="cuda")
+    step = trainer.make_train_step(cfg, AdamW(lr=TRAIN_MESH_LR), mesh=mesh)
+    before = {k: ctx.COLLECTIVES[k]["calls"] for k in ("grads", "loss")}
+    out = {"losses": [], "digests": [],
+           "params": sum(t.numel() for t in tree.leaves(state["params"]))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_MESH_FULL_STEPS):
+        state, metrics = step(state, train_mesh_batch(cfg, i))
+        out["losses"].append(float(metrics["loss"]))
+        out["digests"].append(state_digests(torch, state))
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["reduces"] = {k: ctx.COLLECTIVES[k]["calls"] - before[k]
+                      for k in before}
+    out["peak_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_phase(torch, dm, ref):
+    """The training mesh (ROADMAP Queue 1 item 10b): one summary line.
+
+    1. Kernel 6's sharded entry at this block's local shapes
+       (``sharded_kernel_checks``).
+    2. qwen2-1.5b at full width and depth (28 layers) on the (1, 1) mesh
+       through NCCL (``train_full_depth``: the mesh path, its gradient
+       bucket and loss reduced over the one-rank 'data' group): 3 steps
+       of 8 × 512, no policy; losses and params, m and v after every step
+       bit for bit the same steps on one device.
+    3. Ranks sharing the card (gloo), qwen2-1.5b at 8 layers, 2 steps, no
+       policy and ``QuantPolicy(scheme="dither", bits=8, backend="auto")``:
+       (2, 2) in a spawn of four ranks (and the elastic checkpoint's save),
+       (2, 1) and (1, 2) in one spawn of two (two meshes over the same
+       processes, and the checkpoint's restore at (2, 1), granite-moe at
+       (2, 1) and smollm-135m's sequence split at (1, 2), each at 8
+       layers).  Gates: every
+       step, the data replicas' params, m and v bit for bit equal, and the
+       'model' ranks' replicated leaves; step-1 loss within
+       ``tests/test_torch_train.py``'s tolerance of the single-device
+       step at the same depth; at (2, 2) one policy step through kernel
+       6 bit for bit the same step through its plain version; kernel 6's
+       sharded entry launched; the checkpoint restored at (2, 1) and
+       (1, 1) byte for byte.  granite-moe's (2, 1) loss is the port's own
+       step with two capacity groups (the mean of the halves' losses)
+       bit for bit; smollm's (1, 2) loss within the tolerance of its
+       single-device one.  Ranks sharing one card give no sharded rate."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import interop, tree
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import MeshShape
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import trainer
+
+    t_start = time.perf_counter()
+    res = {"phase": "train_mesh", "model": MESH_MODEL,
+           "nvidia_smi": nvidia_smi(), "batch": [TRAIN_BATCH, TRAIN_SEQ]}
+    res["kernels"] = sharded_kernel_checks(torch, dm, ref)
+    emit({"phase": "train_mesh", "kernels": res["kernels"]})
+
+    # single-device baselines at the shared meshes' depth
+    scfg = mesh_cfg(MESH_MODEL, MESH_SHARED_LAYERS)
+    base = {}
+    for backend in (None, "auto"):
+        state = trainer.init_train_state(scfg, seed=0, device="cuda")
+        step = trainer.make_train_step(scfg, AdamW(lr=TRAIN_MESH_LR),
+                                       policy=train_mesh_policy(backend))
+        base[backend] = float(step(state, train_mesh_batch(scfg))[1]["loss"])
+        specs = {s: sharding.spec_leaves(sharding.train_param_specs(
+            state["params"], scfg, MeshShape(("data", "model"), s)))
+            for s in TRAIN_MESH_SHARED}
+        del state, step
+    qcfg = mesh_cfg(TRAIN_MESH_SEQ_SPLIT, SMOLLM_LAYERS)
+    state = trainer.init_train_state(qcfg, seed=0, device="cuda")
+    base["seq"] = float(trainer.make_train_step(qcfg, AdamW(
+        lr=TRAIN_MESH_LR))(state, train_mesh_batch(qcfg))[1]["loss"])
+    del state
+    mcfg = mesh_cfg(TRAIN_MESH_MOE, MESH_SHARED_LAYERS)
+    params = registry_init(mcfg)
+    batch = train_mesh_batch(mcfg)
+    with torch.no_grad():
+        halves = [float(trainer.loss_fn(params, mcfg, {
+            k: v[i * TRAIN_BATCH // 2:(i + 1) * TRAIN_BATCH // 2]
+            for k, v in batch.items()}, None, 0)) for i in range(2)]
+    base["moe_groups"] = float(
+        (torch.tensor(halves[0]) + torch.tensor(halves[1])) / 2)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2 — the (1, 1) mesh through NCCL at full depth, against one device
+    fcfg = mesh_cfg(MESH_MODEL, TRAIN_MESH_LAYERS)
+    store = tempfile.mktemp(prefix="mesh_store_", dir=str(ROOT / "build"))
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        single = train_full_depth(torch, fcfg, None)
+        meshed = train_full_depth(torch, fcfg, make_serve_mesh(1, 1))
+    finally:
+        dist.destroy_process_group()
+    assert meshed["losses"] == single["losses"], (meshed, single)
+    assert meshed["digests"] == single["digests"], "(1, 1) mesh != one device"
+    assert meshed["reduces"] == {"grads": TRAIN_MESH_FULL_STEPS,
+                                 "loss": TRAIN_MESH_FULL_STEPS}, meshed
+    one = {"mesh": [1, 1], "backend": "nccl", "layers": fcfg.n_layers,
+           "steps": TRAIN_MESH_FULL_STEPS, "losses": meshed["losses"],
+           "bitwise_single_device": True, "nccl_reduces": meshed["reduces"],
+           "params": meshed["params"], "run_s": meshed["run_s"],
+           "single_run_s": single["run_s"],
+           "peak_memory_allocated_gb": meshed["peak_memory_allocated_gb"],
+           "single_peak_memory_allocated_gb":
+               single["peak_memory_allocated_gb"]}
+    emit({"phase": "train_mesh", **one})
+
+    # 3 — ranks sharing the card
+    ckpt = tempfile.mkdtemp(prefix="train_mesh_ckpt_", dir=str(ROOT / "build"))
+    steps = [("steps", (2, 2), MESH_MODEL, MESH_SHARED_LAYERS, None,
+              TRAIN_MESH_STEPS, False),
+             ("steps", (2, 2), MESH_MODEL, MESH_SHARED_LAYERS, "auto",
+              TRAIN_MESH_STEPS, True),
+             ("ckpt", (2, 2), ckpt, True)]
+    t0 = time.perf_counter()
+    four = spawn_ranks(4, train_mesh_rank, (steps,),
+                       alloc_conf=TRAIN_MESH_ALLOC)
+    four_s = time.perf_counter() - t0
+    pairs = [("ckpt", (2, 1), ckpt, False)]
+    for shape in ((2, 1), (1, 2)):
+        for backend in (None, "auto"):
+            pairs.append(("steps", shape, MESH_MODEL, MESH_SHARED_LAYERS,
+                          backend, TRAIN_MESH_STEPS, False))
+    pairs.append(("steps", (2, 1), TRAIN_MESH_MOE, MESH_SHARED_LAYERS, None,
+                  1, False))
+    pairs.append(("steps", (1, 2), TRAIN_MESH_SEQ_SPLIT, SMOLLM_LAYERS, None,
+                  1, False))
+    t0 = time.perf_counter()
+    two = spawn_ranks(2, train_mesh_rank, (pairs,),
+                      alloc_conf=TRAIN_MESH_ALLOC)
+    two_s = time.perf_counter() - t0
+    ranks_of = {(2, 2): four, (2, 1): two, (1, 2): two}
+    meshes = {}
+    for shape in TRAIN_MESH_SHARED:
+        line = {"mesh": list(shape), "backend": "gloo", "shared_card": True,
+                "layers": MESH_SHARED_LAYERS, "runs": {}}
+        for backend in (None, "auto"):
+            key = ("steps", shape, MESH_MODEL, str(MESH_SHARED_LAYERS),
+                   str(backend))
+            ranks = ranks_of[shape]
+            replicas_equal(specs[shape], shape, ranks, key)
+            r0 = ranks[0][key]
+            losses = [r[key]["losses"] for r in ranks]
+            assert all(x == losses[0] for x in losses), (shape, backend)
+            tol = TRAIN_MESH_LOSS_TOL[backend is not None]
+            assert abs(r0["losses"][0] - base[backend]) <= tol, (
+                shape, backend, r0["losses"][0], base[backend])
+            if backend is not None:
+                assert all(r[key]["kernel6_sharded_launches"] > 0
+                           for r in ranks), (shape, "kernel 6 not launched")
+            if shape == (2, 2) and backend is not None:
+                assert all(r[key]["plain_step1_equal"] for r in ranks), (
+                    "kernel 6 != plain on the (2, 2) step")
+            line["runs"]["dither" if backend else "none"] = {
+                "losses": r0["losses"], "single_device_step1": base[backend],
+                "replicas_bitwise": True,
+                "kernel_equals_plain_step1": r0.get("plain_step1_equal"),
+                "step_ms_by_rank": [r[key]["step_ms"] for r in ranks],
+                "kernel6_sharded_launches": r0["kernel6_sharded_launches"],
+                "kernel6_sharded_by_block": r0["kernel6_sharded_by_block"],
+                "kernel6_epilogue_launches": r0["kernel6_epilogue_launches"],
+                "collectives_a_step": r0["collectives_a_step"],
+                "peak_memory_allocated_gb_by_rank": [
+                    r[key]["peak_memory_allocated_gb"] for r in ranks]}
+        line["note"] = "ranks sharing one card: no sharded rate"
+        meshes[f"{shape[0]}x{shape[1]}"] = line
+        emit({"phase": "train_mesh", **line})
+    # the checkpoint written at (2, 2): restored at (2, 1) and (1, 1)
+    ck_key = ("ckpt", (2, 1), ckpt, "False")
+    assert all(r[ck_key]["restored_equal"] for r in two), "(2, 1) restore"
+    name, layers = TRAIN_MESH_CKPT
+    ccfg = mesh_cfg(name, layers)
+    like = trainer.init_train_state(ccfg, seed=0, device="cuda")
+    got = Checkpointer(ckpt).restore(1, like, interop.train_state_shardings(
+        like, ccfg, MeshShape(("data", "model"), (1, 1)),
+        {"data": 0, "model": 0}))
+    import numpy as np
+    with np.load(os.path.join(ckpt, "step_00000001", "arrays.npz")) as data:
+        assert all(torch.equal(g.cpu().float(),
+                               torch.from_numpy(np.array(data[f"leaf_{i}"])))
+                   for i, g in enumerate(tree.leaves(got))), "(1, 1) restore"
+    del like, got
+    moe_key = ("steps", (2, 1), TRAIN_MESH_MOE, str(MESH_SHARED_LAYERS),
+               "None")
+    moe = two[0][moe_key]
+    assert [r[moe_key]["losses"] for r in two] == [moe["losses"]] * 2
+    assert moe["losses"][0] == base["moe_groups"], (moe["losses"],
+                                                     base["moe_groups"])
+    seq = two[0][("steps", (1, 2), TRAIN_MESH_SEQ_SPLIT, str(SMOLLM_LAYERS),
+                  "None")]
+    assert abs(seq["losses"][0] - base["seq"]) <= TRAIN_MESH_LOSS_TOL[False]
+    assert seq["collectives_a_step"]["gather_from_model"]["calls"] > 0
+    launches = {f"{k} dither": {
+        **v["runs"]["dither"]["kernel6_sharded_by_block"],
+        "epilogue": v["runs"]["dither"]["kernel6_epilogue_launches"]}
+        for k, v in meshes.items()}
+    for mesh_key, kind in (("2x1", "rows"), ("1x2", "columns"),
+                           ("1x2", "k_block"), ("1x2", "epilogue")):
+        assert launches[f"{mesh_key} dither"][kind] > 0, (
+            mesh_key, kind, "kernel 6 not launched")
+    res.update(
+        one_by_one=one, meshes=meshes,
+        elastic={"saved_at": [2, 2], "restored_at": [[2, 1], [1, 1]],
+                 "bytes_equal": True, "model": f"{name}, {layers} layers",
+                 "save_s": four[0][("ckpt", (2, 2), ckpt, "True")]["save_s"],
+                 "restore_s_2x1": two[0][ck_key]["restore_s"],
+                 "bytes": two[0][ck_key]["bytes"]},
+        moe_2x1={"loss": moe["losses"][0], "two_capacity_groups":
+                 base["moe_groups"], "bitwise": True,
+                 "peak_memory_allocated_gb": moe["peak_memory_allocated_gb"]},
+        seq_split_1x2={"model": TRAIN_MESH_SEQ_SPLIT, "loss":
+                       seq["losses"][0], "single_device": base["seq"],
+                       "gathers_a_step":
+                           seq["collectives_a_step"]["gather_from_model"]},
+        spawn_s={"four_ranks": four_s, "two_ranks": two_s},
+        launches=launches,
+        seconds=time.perf_counter() - t_start)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return res
+
+
+def registry_init(cfg):
+    from repro_torch.models import registry
+
+    return registry.init_model(cfg, seed=0, device="cuda")
+
+
 def mesh_main() -> int:
     """``--mesh-block``: the device and build phases, then the mesh block
-    alone (for a short call on the card)."""
+    and the training-mesh block alone (for a short call on the card)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4860,6 +5560,9 @@ def mesh_main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__})
     emit({"phase": "build", "seconds": _build.build()})
     emit(mesh_phase(torch, da, pda, ref))
+    from repro_torch.kernels import dither_matmul as dm
+
+    emit(train_mesh_phase(torch, dm, ref))
     return 0
 
 
@@ -5039,6 +5742,9 @@ def main() -> int:
     # sharded serving on a (data, model) mesh (ROADMAP Queue 1 item 10)
     mesh = mesh_phase(torch, da, pda, ref)
     emit(mesh)
+    # the training mesh (ROADMAP Queue 1 item 10b)
+    train_mesh = train_mesh_phase(torch, dm, ref)
+    emit(train_mesh)
 
     kernels = []
     for kv_quant in (False, True):
@@ -5213,6 +5919,23 @@ def main() -> int:
                          for c in dither_rows
                          if c["name"] == "policy_product"
                          and c["shape"][0] == TRAIN_BATCH * TRAIN_SEQ]})
+    # kernel 6's sharded entry at the training mesh's local shapes, each
+    # row's launches of its own kind from a shared-card mesh's dither run
+    # (rank 0): row blocks at (2, 1), the rest at (1, 2)
+    for row in train_mesh["kernels"]:
+        mesh_key = "2x1" if row["block"] == "rows" else "1x2"
+        kernels.append({
+            "name": row["name"], "route": "cuda", "source": dm.SOURCE,
+            "replaces": MATMUL_REPLACES,
+            "launches": train_mesh["launches"][f"{mesh_key} dither"][
+                row["block"]],
+            "launches_note": f"{mesh_key} training mesh, rank 0: "
+                             f"{TRAIN_MESH_STEPS} dither-policy steps "
+                             f"({row['block']} launches, remat)",
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "bound_term",
+                                   "library_ms", "device_ms", "shape",
+                                   "global", "note")}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

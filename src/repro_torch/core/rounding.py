@@ -161,10 +161,30 @@ def dither_bit(frac: torch.Tensor, slot: torch.Tensor, u: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _flat_index(x: torch.Tensor) -> torch.Tensor:
-    """Row-major element index of every element of x (uint32 in int64)."""
-    return torch.arange(x.numel(), dtype=torch.int64,
-                        device=x.device).reshape(x.shape)
+def _flat_index(x: torch.Tensor, view=None) -> torch.Tensor:
+    """Row-major element index of every element of x (uint32 in int64).
+
+    ``view`` (a ``dist.sharding.ShardView``: ``shape``, the global
+    tensor's, and ``offset``, x's place in it, one entry a dim of x): x is
+    one shard of a larger tensor, and the index of each element is its
+    global row-major index, computed in int64 and wrapped to uint32 as
+    the reference's ``jnp.arange(size, dtype=uint32)`` over the whole
+    tensor wraps."""
+    if view is None:
+        return torch.arange(x.numel(), dtype=torch.int64,
+                            device=x.device).reshape(x.shape)
+    if len(view.shape) != x.dim():
+        raise ValueError(f"view {view} does not describe a {tuple(x.shape)} "
+                         "shard")
+    idx = torch.zeros((), dtype=torch.int64, device=x.device)
+    stride = 1
+    for d in range(x.dim() - 1, -1, -1):
+        ar = torch.arange(x.shape[d], dtype=torch.int64, device=x.device)
+        shape = [1] * x.dim()
+        shape[d] = x.shape[d]
+        idx = idx + ((ar + view.offset[d]) * stride).reshape(shape)
+        stride *= int(view.shape[d])
+    return idx.expand(x.shape) & _MASK
 
 
 def deterministic_round(x: torch.Tensor) -> torch.Tensor:

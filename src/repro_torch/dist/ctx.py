@@ -24,11 +24,26 @@ code finds them:
 The host-state gather (:func:`gather_rows`) brings each data shard's
 per-row outputs — sampled tokens, a window's token matrix, a verify
 window's draws — to every rank, so every rank's host mirrors stay equal.
-These two functions, and :func:`barrier` (after a snapshot write), are
-the port's only calls into ``torch.distributed`` collectives; ``GATHERS``
-counts the calls and bytes of each gather.  A collective must be called
-the same number of times, with the same shapes, on every rank of its
-group: the engine's host loop is the same on every rank, so it is.
+``GATHERS`` counts the calls and bytes of each gather.  A collective
+must be called the same number of times, with the same shapes, on every
+rank of its group: the engine's host loop is the same on every rank, so
+it is.
+
+The training mesh (DESIGN.md §5) runs one process per shard too, with
+explicit collectives at fixed points in place of the reference's GSPMD
+partitioning: Megatron tensor parallelism on 'model' and data parallelism
+on 'data'.  :func:`train_shard_scope` installs this rank's groups and
+coordinates (:func:`train_shard`), and four autograd collectives carry
+their own backward: :func:`copy_to_model` (identity, all-reduce back),
+:func:`reduce_from_model` (all-reduce, identity back),
+:func:`gather_from_model` (all-gather, back all-reduce-and-slice or just
+slice) and :func:`all_reduce_max` (the policy's absmax, no gradient).
+:func:`all_reduce_sum` and :func:`all_reduce_mean` carry the exact
+integer partials of kernel 6's K blocks and the gradient bucket.
+``COLLECTIVES`` counts the calls and bytes of each kind.  Every quantity
+the reference computes over a whole tensor (the policy's absmax and hash
+index, kernel 6's pulse counts) stays global, so dither rounding is the
+same on every shard.
 """
 
 from __future__ import annotations
@@ -43,7 +58,9 @@ __all__ = [
     "mesh_context", "current_mesh", "mesh_sizes", "mesh_coordinate",
     "axis_size", "tp_size", "dp_axes", "dp_shards", "seq_shard_attention",
     "constrain", "serve_shard_scope", "kv_shard_info", "gather_heads",
-    "gather_rows", "barrier", "GATHERS",
+    "gather_rows", "barrier", "GATHERS", "train_shard_scope", "train_shard",
+    "train_shard_of", "TrainShard", "copy_to_model", "reduce_from_model", "gather_from_model",
+    "all_reduce_max", "all_reduce_sum", "all_reduce_mean", "COLLECTIVES",
 ]
 
 _MESH_STACK: list = []
@@ -128,10 +145,12 @@ def seq_shard_attention(n_heads: int) -> bool:
 
 def constrain(x: torch.Tensor, *entries) -> torch.Tensor:
     """Identity.  The reference's ``constrain`` is a sharding constraint
-    for XLA's partitioner; eager torch has none, and the serving engine
-    shards by running one process per shard, never through it.  What
-    replaces it on the training mesh (DTensor placements or DDP) comes
-    with the training mesh (ROADMAP Queue 1 item 10b)."""
+    for XLA's partitioner; eager torch has none.  The port shards by
+    running one process per shard, and the explicit collectives of
+    sharded serving (:func:`gather_heads`, :func:`gather_rows`) and of
+    the training mesh (:func:`copy_to_model`, :func:`reduce_from_model`,
+    :func:`gather_from_model`, :func:`all_reduce_max`) stand where the
+    reference's partitioner would place its own."""
     return x
 
 
@@ -221,3 +240,223 @@ def barrier():
 
     if dist.is_initialized() and dist.get_world_size() > 1:
         dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# the training mesh (one process per shard, DESIGN.md §5)
+# ---------------------------------------------------------------------------
+
+# calls and bytes (this rank's tensors) of each training collective
+COLLECTIVES = {k: {"calls": 0, "bytes": 0}
+               for k in ("copy_to_model", "reduce_from_model",
+                         "gather_from_model", "absmax", "partials",
+                         "grads", "loss")}
+
+
+class TrainShard:
+    """This rank's place on the training mesh: ``dp`` and ``tp`` (the
+    'data' and 'model' sizes), its coordinates ``data`` and ``model``, and
+    the process groups of its 'data' and 'model' axes (None on a one-rank
+    axis, except the 'data' group of a one-rank mesh: its step runs the
+    mesh path's gradient and loss reduces over that group of one, each
+    the identity)."""
+
+    def __init__(self, dp: int, tp: int, data: int, model: int,
+                 data_group=None, model_group=None):
+        self.dp, self.tp = int(dp), int(tp)
+        self.data, self.model = int(data), int(model)
+        self.data_group = data_group if self.dp > 1 or self.tp == 1 else None
+        self.model_group = model_group if self.tp > 1 else None
+
+    def groups(self, *axes) -> tuple:
+        """The groups of ``axes`` ('data', 'model') that split anything."""
+        return tuple(g for g in (self.data_group if "data" in axes else None,
+                                 self.model_group if "model" in axes
+                                 else None) if g is not None)
+
+
+_TRAIN_SHARD: list = []
+
+
+def train_shard_of(mesh) -> TrainShard:
+    """This rank's :class:`TrainShard` on ``mesh`` (a ('data', 'model')
+    ``DeviceMesh``, or a (1, 1) ``MeshShape``)."""
+    sizes = mesh_sizes(mesh)
+    if set(sizes) - {"data", "model"}:
+        raise NotImplementedError(
+            f"the training mesh takes ('data', 'model') axes; got "
+            f"{tuple(sizes)}")
+    dp, tp = sizes.get("data", 1), sizes.get("model", 1)
+    coord = mesh_coordinate(mesh)
+    groups = {}
+    if hasattr(mesh, "get_group"):
+        for a in ("data", "model"):
+            if sizes.get(a, 1) > 1 or dp == tp == 1:
+                groups[a] = mesh.get_group(a)
+    return TrainShard(dp, tp, coord.get("data", 0), coord.get("model", 0),
+                      groups.get("data"), groups.get("model"))
+
+
+@contextlib.contextmanager
+def train_shard_scope(mesh):
+    """Install ``mesh`` (a ('data', 'model') ``DeviceMesh``, or a (1, 1)
+    ``MeshShape``) as the ambient mesh and this rank's :class:`TrainShard`
+    for the model code of one training step (DESIGN.md §5).  Yields the
+    shard."""
+    shard = train_shard_of(mesh)
+    _TRAIN_SHARD.append(shard)
+    try:
+        with mesh_context(mesh):
+            yield shard
+    finally:
+        _TRAIN_SHARD.pop()
+
+
+def train_shard() -> Optional[TrainShard]:
+    """The active training shard, or None outside a training mesh."""
+    return _TRAIN_SHARD[-1] if _TRAIN_SHARD else None
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    COLLECTIVES[kind]["calls"] += 1
+    COLLECTIVES[kind]["bytes"] += t.numel() * t.element_size()
+
+
+def _sum_f32(x: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """All-reduce (sum) of ``x`` over ``group`` in f32 (gloo's CUDA path
+    takes f32; a sum of two bf16 values rounds once either way), cast
+    back to x's dtype.  A new tensor."""
+    import torch.distributed as dist
+
+    t = x.detach().to(torch.float32).clone()
+    _count(kind, t)
+    dist.all_reduce(t, group=group)
+    return t.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.group, "copy_to_model"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x, group, "reduce_from_model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    _count("gather_from_model", out)
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, reduce_grad):
+        import torch.distributed as dist
+
+        ctx.group, ctx.dim, ctx.reduce_grad = group, dim, reduce_grad
+        ctx.size, ctx.rank = x.shape[dim], dist.get_rank(group)
+        return _gather(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce_grad:
+            g = _sum_f32(g, ctx.group, "gather_from_model")
+        return (g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size).contiguous(),
+                None, None, None)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; backward all-reduces the gradient over 'model'.
+    Before a column-parallel product (each 'model' rank's part of x's
+    gradient is partial), and around a replicated weight that each rank
+    applies to its own token shard (the sequence split).  Identity
+    outside a training mesh with tp > 1."""
+    s = train_shard()
+    if s is None or s.model_group is None:
+        return x
+    return _CopyToModel.apply(x, s.model_group)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """All-reduce (sum, in f32) over 'model' forward; identity backward.
+    After a row-parallel product's partial sums and the vocab-parallel
+    embedding's masked rows."""
+    s = train_shard()
+    if s is None or s.model_group is None:
+        return x
+    return _ReduceFromModel.apply(x, s.model_group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int,
+                      reduce_grad: bool = True) -> torch.Tensor:
+    """All-gather ``x`` along ``dim`` over 'model' in coordinate order.
+    Backward: the gradient all-reduced over 'model' and this rank's slice
+    taken (``reduce_grad``: each rank used the gathered tensor for its own
+    part of the work, as the sequence split's K and V), or only sliced
+    (every rank continues with the same replicated computation, as the
+    sequence split's output rows).  Not reduce-scatter: gloo has none."""
+    s = train_shard()
+    if s is None or s.model_group is None:
+        return x
+    return _GatherFromModel.apply(x, s.model_group, dim, reduce_grad)
+
+
+def all_reduce_max(x: torch.Tensor, groups=()) -> torch.Tensor:
+    """The maximum of ``x`` (a 0-dim absmax) over every group of
+    ``groups``, in f32 and cast back (a bf16 value is exact in f32); no
+    gradient (the policy's absmax is outside autograd in the reference
+    too).  Identity with no groups."""
+    import torch.distributed as dist
+
+    if not groups:
+        return x
+    t = x.detach().to(torch.float32).clone()
+    for g in groups:
+        _count("absmax", t)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
+    return t.to(x.dtype)
+
+
+def all_reduce_sum(x: torch.Tensor, group, kind: str = "partials"
+                   ) -> torch.Tensor:
+    """Exact all-reduce (sum) of an integer tensor over ``group``, in
+    place; returns it.  Kernel 6's K-block partials."""
+    import torch.distributed as dist
+
+    if group is not None:
+        _count(kind, x)
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def all_reduce_mean(flat: torch.Tensor, group, n: int,
+                    kind: str = "grads") -> torch.Tensor:
+    """The mean of an f32 bucket over ``group`` of ``n`` ranks, in place
+    (the data-parallel gradient reduce); returns it."""
+    import torch.distributed as dist
+
+    if group is not None:
+        _count(kind, flat)
+        dist.all_reduce(flat, group=group)
+        flat /= n
+    return flat

@@ -22,7 +22,10 @@ leading 'pod' DP axis):
 Every entry is divisibility-guarded against the mesh, so any (arch ×
 mesh) combination yields a legal spec tree.  Serving shards by
 :func:`serve_param_specs` (QKV only), which ``interop.shard_serve_params``
-applies to one rank's weights.
+applies to one rank's weights; training by :func:`train_param_specs`,
+which ``interop.shard_train_state`` applies to params, m and v.  Both go
+through :func:`local_block`, the one slicing rule, and
+:func:`shard_view` says where a rank's block sits in the global leaf.
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ from typing import Any, Tuple
 
 from repro_torch.dist.ctx import mesh_sizes
 
-__all__ = ["MeshShape", "param_specs", "cache_specs", "batch_specs",
-           "data_axes", "serve_param_specs", "serve_heads_shardable"]
+__all__ = ["MeshShape", "ShardView", "param_specs", "cache_specs",
+           "batch_specs", "data_axes", "serve_param_specs",
+           "serve_heads_shardable", "train_param_specs", "local_block",
+           "shard_view", "spec_leaves", "Placement", "placements"]
 
 _DP_AXIS_NAMES = ("pod", "data")
 
@@ -48,6 +53,20 @@ class MeshShape:
     @property
     def size(self) -> int:
         return math.prod(self.axis_sizes)
+
+
+@dataclass(frozen=True)
+class ShardView:
+    """Where one rank's block of a tensor sits: the global ``shape`` and
+    the block's ``offset`` in each dim.  The dither hash keys every
+    element on its global row-major index (``core.rounding._flat_index``),
+    so a shard rounds as the whole tensor would."""
+    shape: Tuple[int, ...]
+    offset: Tuple[int, ...]
+
+    @classmethod
+    def whole(cls, shape) -> "ShardView":
+        return cls(tuple(int(n) for n in shape), (0,) * len(shape))
 
 
 # leaf-name → (which dim shards on 'model' counted from the END, head-count
@@ -111,6 +130,12 @@ def _tp(mesh) -> int:
 
 def param_specs(params: Any, cfg, mesh) -> Any:
     """Spec tree mirroring ``params`` (leaves: anything with ``.shape``)."""
+    return _map_with_path(param_rule(cfg, mesh), params)
+
+
+def param_rule(cfg, mesh):
+    """The rule of :func:`param_specs` for one leaf: ``rule(path, leaf)``
+    → its spec."""
     tp = _tp(mesh)
 
     def rule(path, leaf):
@@ -127,7 +152,96 @@ def param_specs(params: Any, cfg, mesh) -> Any:
                     return tuple(spec)
         return _replicated(len(shape))
 
-    return _map_with_path(rule, params)
+    return rule
+
+
+def train_param_specs(params: Any, cfg, mesh) -> Any:
+    """Spec tree of the training layout (DESIGN.md §5): the reference's
+    GSPMD placement, :func:`param_specs` itself — QKV and up/gate
+    column-parallel, W_O and W_down row-parallel, embed and head by
+    vocab, the MoE experts' ``wg``/``wu``/``wd`` (E, d, f) / (E, f, d) on
+    their FFN dim, everything else replicated.  Its own name so that the
+    training code states the layout it trains on."""
+    return param_specs(params, cfg, mesh)
+
+
+def _axes_block(entry, sizes, coords) -> Tuple[int, int]:
+    """(number of blocks, this rank's block) of a spec entry: row-major
+    over its axes."""
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    n, c = 1, 0
+    for a in axes:
+        n, c = n * int(sizes[a]), c * int(sizes[a]) + int(coords[a])
+    return n, c
+
+
+def local_block(leaf, spec, sizes: dict, coords: dict):
+    """One rank's block of a global leaf under ``spec``: each sharded dim
+    narrowed to the contiguous block at the rank's coordinates
+    (``coords``: axis name → coordinate), as a contiguous copy; a
+    replicated leaf is the leaf itself."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n, c = _axes_block(entry, sizes, coords)
+        size = leaf.shape[dim] // n
+        leaf = leaf.narrow(dim, c * size, size).contiguous()
+    return leaf
+
+
+def shard_view(global_shape, spec, sizes: dict, coords: dict) -> ShardView:
+    """The :class:`ShardView` of one rank's block of a leaf of
+    ``global_shape`` under ``spec``."""
+    off = []
+    for dim, n_g in enumerate(global_shape):
+        entry = spec[dim] if dim < len(spec) else None
+        if entry is None:
+            off.append(0)
+            continue
+        n, c = _axes_block(entry, sizes, coords)
+        off.append(c * (int(n_g) // n))
+    return ShardView(tuple(int(n) for n in global_shape), tuple(off))
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Where a rank's block of one leaf lives: its spec, the mesh's axis
+    sizes and the rank's coordinates (the port's counterpart of a
+    ``NamedSharding`` for ``Checkpointer.restore``)."""
+    spec: tuple
+    sizes: tuple
+    coords: tuple
+
+    def local(self, leaf):
+        """The rank's block of the global ``leaf``."""
+        return local_block(leaf, self.spec, dict(self.sizes),
+                           dict(self.coords))
+
+
+def placements(specs: Any, mesh, coords: dict) -> Any:
+    """A spec tree → a tree of :class:`Placement` for the rank at
+    ``coords`` (axis name → coordinate) on ``mesh``."""
+    sizes = tuple(sorted(mesh_sizes(mesh).items()))
+    crd = tuple(sorted((a, int(c)) for a, c in coords.items()))
+
+    def one(spec):
+        return Placement(tuple(spec), sizes, crd)
+
+    if isinstance(specs, dict):
+        return {k: placements(v, mesh, coords) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [placements(v, mesh, coords) for v in specs]
+    return one(specs)
+
+
+def spec_leaves(specs: Any) -> list:
+    """A spec tree's specs in ``repro_torch.tree`` flatten order (dict keys
+    sorted, lists in order), one a leaf."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [s for v in specs for s in spec_leaves(v)]
+    return [specs]
 
 
 def serve_heads_shardable(cfg, tp: int) -> bool:

@@ -18,7 +18,9 @@ import torch
 from repro_torch.tree import tree_map
 
 __all__ = ["tensor_from_numpy", "params_from_numpy", "cache_from_numpy",
-           "train_state_from_numpy", "shard_serve_params"]
+           "train_state_from_numpy", "shard_serve_params",
+           "shard_train_state", "gather_train_state",
+           "train_state_shardings", "global_shapes"]
 
 
 def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
@@ -78,17 +80,130 @@ def shard_serve_params(params, cfg, mesh_coords: dict, mesh):
 
     sizes = mesh_sizes(mesh)
     specs = sharding.serve_param_specs(params, cfg, mesh)
+    return tree_map(lambda leaf, spec: sharding.local_block(
+        leaf, spec, sizes, mesh_coords), params, specs)
 
-    def local(leaf, spec):
-        for dim, entry in enumerate(spec):
-            if entry is None:
-                continue
-            axes = entry if isinstance(entry, tuple) else (entry,)
-            n, c = 1, 0
-            for a in axes:                   # row-major over the axes
-                n, c = n * sizes[a], c * sizes[a] + int(mesh_coords[a])
-            size = leaf.shape[dim] // n
-            leaf = leaf.narrow(dim, c * size, size).contiguous()
-        return leaf
 
-    return tree_map(local, params, specs)
+def _is_numpy_tree(tree) -> bool:
+    from repro_torch import tree as tree_mod
+
+    return not isinstance(tree_mod.leaves(tree)[0], torch.Tensor)
+
+
+def shard_train_state(state, cfg, mesh_coords: dict, mesh, device=None):
+    """A global train state ``{params, opt: {m, v, step}, counter}`` (port
+    tensors, or the reference's numpy arrays, carried over bit for bit on
+    ``device``) → one rank's local state on the training mesh
+    (DESIGN.md §5): params, m and v each cut to the rank's block of
+    ``dist.sharding.train_param_specs`` at ``mesh_coords`` (axis name →
+    coordinate); ``step`` and ``counter`` whole."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.ctx import mesh_sizes
+
+    if _is_numpy_tree(state["params"]):
+        state = train_state_from_numpy(state, device or "cuda")
+    sizes = mesh_sizes(mesh)
+    specs = sharding.train_param_specs(state["params"], cfg, mesh)
+
+    def cut(tree):
+        return tree_map(lambda leaf, spec: sharding.local_block(
+            leaf, spec, sizes, mesh_coords), tree, specs)
+
+    return {"params": cut(state["params"]),
+            "opt": {"m": cut(state["opt"]["m"]), "v": cut(state["opt"]["v"]),
+                    "step": state["opt"]["step"]},
+            "counter": state["counter"]}
+
+
+def gather_train_state(state, cfg, mesh):
+    """One rank's local train state → the global one, on every rank: each
+    leaf that ``train_param_specs`` of the global shapes shards on
+    'model' all-gathered over the mesh's 'model' group, in coordinate
+    order (data replicas hold equal blocks, so 'data' needs no gather).
+    Collectives: call it on every rank, on the training loop's thread.
+    Identity on a (1, 1) mesh."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.dist import sharding
+    from repro_torch.dist.ctx import mesh_sizes
+
+    sizes = mesh_sizes(mesh)
+    tp = int(sizes.get("model", 1))
+    if tp == 1:
+        return state
+    import torch.distributed as dist
+
+    group = mesh.get_group("model")
+    params = state["params"]
+    specs = sharding.train_param_specs(
+        global_shapes(params, cfg, mesh), cfg, mesh)
+
+    def full(leaf, spec):
+        if "model" not in spec:
+            return leaf
+        dim = spec.index("model")
+        src = leaf.movedim(dim, 0).contiguous()
+        out = src.new_empty((tp * src.shape[0],) + tuple(src.shape[1:]))
+        gather = getattr(dist, "all_gather_single", None) \
+            or dist.all_gather_into_tensor
+        gather(out, src, group=group)
+        return out.movedim(0, dim).contiguous()
+
+    def whole(tree):
+        return tree_mod.tree_map(full, tree, specs)
+
+    return {"params": whole(params),
+            "opt": {"m": whole(state["opt"]["m"]),
+                    "v": whole(state["opt"]["v"]),
+                    "step": state["opt"]["step"]},
+            "counter": state["counter"]}
+
+
+class _Shape:
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
+def global_shapes(params, cfg, mesh):
+    """The global shapes (objects with ``.shape``) of a rank's local
+    params on the training mesh: a leaf is widened ``tp``-fold on the dim
+    its rule names where the spec rule shards the widened shape (the rules
+    guard on head counts and on the global dim, so this is exactly where
+    the global leaf is sharded)."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.ctx import mesh_sizes
+
+    tp = int(mesh_sizes(mesh).get("model", 1))
+    rule = sharding.param_rule(cfg, mesh)
+
+    def widen(path, leaf):
+        shape = list(leaf.shape)
+        name = sharding._leaf_name(path)
+        if tp > 1 and name in sharding._TP_RULES and shape:
+            from_end, _ = sharding._TP_RULES[name]
+            if from_end <= len(shape):
+                cand = list(shape)
+                cand[len(shape) - from_end] *= tp
+                if "model" in rule(path, _Shape(cand)):
+                    return _Shape(cand)
+        return _Shape(shape)
+
+    return sharding._map_with_path(widen, params)
+
+
+def train_state_shardings(state, cfg, mesh, mesh_coords: dict):
+    """A tree of ``dist.sharding.Placement`` matching this rank's local
+    train state on ``mesh``: params, m and v at their
+    ``train_param_specs`` blocks for the rank at ``mesh_coords``, ``step``
+    and ``counter`` whole — the ``shardings`` of ``Checkpointer.restore``
+    onto that mesh."""
+    from repro_torch.dist import sharding
+
+    params = state["params"]
+    if int(dict(sharding.mesh_sizes(mesh)).get("model", 1)) > 1:
+        params = global_shapes(params, cfg, mesh)
+    specs = sharding.train_param_specs(params, cfg, mesh)
+    tree_p = sharding.placements(specs, mesh, mesh_coords)
+    whole = sharding.placements((), mesh, mesh_coords)
+    return {"params": tree_p, "opt": {"m": tree_p, "v": tree_p,
+                                      "step": whole},
+            "counter": whole}

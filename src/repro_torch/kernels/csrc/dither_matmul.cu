@@ -165,6 +165,20 @@ __device__ __forceinline__ void store(bf16* out, int64_t i, float o,
   out[i] = __float2bfloat16_rn(__fmul_rn(o, scale));
 }
 
+// One output of gemm_u8: dequantised (f32, or the policy's bf16), or, for
+// the sharded entry's partials (int32 out), the raw int32 accumulator.
+template <typename O>
+__device__ __forceinline__ void emit(O* out, int64_t i, int32_t acc,
+                                     int32_t colsum, int32_t rowsum,
+                                     const Epilogue& e, float scale) {
+  store(out, i, dequant(acc, colsum, rowsum, e), scale);
+}
+__device__ __forceinline__ void emit(int32_t* out, int64_t i, int32_t acc,
+                                     int32_t, int32_t, const Epilogue&,
+                                     float) {
+  out[i] = acc;
+}
+
 // ---------------------------------------------------------------- absmax
 
 // *out_bits = max(*out_bits, bits of max |x|) over n bf16 values: the bits
@@ -187,8 +201,12 @@ __global__ void absmax_rows(const bf16* __restrict__ x, int64_t n,
 // The codes of an (R, C) operand with row stride ld, one block a row of
 // blockDim.x = prep_threads(C) threads (one or two codes each): codes
 // (Rp, Cp) u8, k contiguous, code 0 past R or C; rowsum[r] = the row's
-// code sum.  The hash index of (r, c) is r*ir + c*ic (A: ir = K, ic = 1; a
-// transposed weight's row n: ir = 1, ic = N).  norm 0: the values as they
+// code sum.  The hash index of (r, c) is g(r)*ir + c*ic + base, with g(r) =
+// (r / seg) * seg_stride + r % seg the row's global row (A: ir = K, ic = 1;
+// a transposed weight's row n: ir = 1, ic = N; g(r) = r and base 0 for an
+// unsharded operand, seg = INT_MAX; the sharded entry's blocks give their
+// global offsets, every product wrapping at 2^32 as the reference's uint32
+// index does).  norm 0: the values as they
 // are; 1: normalised by clamp(max |src|), which each block reduces over
 // the whole (contiguous) operand itself and block 0 stores (clamped) to
 // *absmax; 2:
@@ -198,7 +216,8 @@ __global__ void __launch_bounds__(1024)
     prep_rows(const T* __restrict__ src, uint8_t* __restrict__ codes,
               int32_t* __restrict__ rowsum, int R, int C, int64_t ld, int Cp,
               uint32_t ir, uint32_t ic, int norm, float* __restrict__ absmax,
-              const bf16* __restrict__ absmax_bf16, Params p) {
+              const bf16* __restrict__ absmax_bf16, uint32_t base, int seg,
+              uint32_t seg_stride, Params p) {
   __shared__ float red_f[32];
   __shared__ int red_i[32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -237,6 +256,9 @@ __global__ void __launch_bounds__(1024)
   }
   const int r = blockIdx.x;
   uint8_t* row = codes + static_cast<int64_t>(r) * Cp;
+  const uint32_t row_idx =
+      (static_cast<uint32_t>(r / seg) * seg_stride +
+       static_cast<uint32_t>(r % seg)) * ir + base;
   int sum = 0;
   for (int c = tid; c < Cp; c += threads) {
     int code = 0;
@@ -244,8 +266,7 @@ __global__ void __launch_bounds__(1024)
       float v = to_f32(src[r * ld + c]);
       if (norm) v = dither_quant::normalise(v, scale);
       code = dither_quant::code_of<kFast>(
-          v, static_cast<uint32_t>(r) * ir + static_cast<uint32_t>(c) * ic,
-          p);
+          v, row_idx + static_cast<uint32_t>(c) * ic, p);
     }
     row[c] = static_cast<uint8_t>(code);
     sum += code;
@@ -258,6 +279,9 @@ __global__ void __launch_bounds__(1024)
     rowsum[r] = sum;
   }
 }
+
+// prep_rows' row map of an unsharded operand: one segment, g(r) = r.
+constexpr int kWhole = 0x7FFFFFFF;
 
 // prep_rows' block: a warp multiple covering half of the padded row, at
 // most 1024 threads.
@@ -548,13 +572,15 @@ constexpr int kGemmSmem = kStages * kGemmStage;   // 61,440 bytes
 // column's 32 codes are written as eight 4-byte words, k contiguous, into
 // codes_t (Np, Kp).  Column sums: one atomic per column (colsum zeroed by
 // the caller).  absmax: null, or the weight's clamped absmax (policy
-// entry: values normalised first).
+// entry: values normalised first).  The hash index of (k, n) is k*nidx + n
+// + base (nidx = N and base 0 unless a sharded entry's block gives the
+// global width and offset).
 template <typename T, bool kFast>
 __global__ void quantize_bt(const T* __restrict__ b,
                             uint8_t* __restrict__ codes_t,
                             int32_t* __restrict__ colsum, int K, int N,
                             int Kp, const bf16* __restrict__ absmax,
-                            Params p) {
+                            uint32_t nidx, uint32_t base, Params p) {
   __shared__ __align__(16) uint8_t tile[32][36];
   __shared__ int part[8][32];
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -572,9 +598,7 @@ __global__ void quantize_bt(const T* __restrict__ b,
       float v = to_f32(b[static_cast<int64_t>(k) * N + n]);
       if (absmax) v = dither_quant::normalise(v, scale);
       code = dither_quant::code_of<kFast>(
-          v,
-          static_cast<uint32_t>(k) * static_cast<uint32_t>(N) +
-              static_cast<uint32_t>(n),
+          v, static_cast<uint32_t>(k) * nidx + static_cast<uint32_t>(n) + base,
           p);
     }
     tile[tx][kl] = static_cast<uint8_t>(code);
@@ -688,9 +712,32 @@ __global__ void __launch_bounds__(kThreads)
         const int m = m0 + wm * 64 + i * 16 + g + (r >= 2 ? 8 : 0);
         const int n = n0 + wn * 32 + j * 8 + tq * 2 + (r & 1);
         if (m >= M || n >= N) continue;
-        store(out, static_cast<int64_t>(m) * N + n,
-              dequant(acc[i][j][r], colsum[n], rowsum[m], e), scale);
+        emit(out, static_cast<int64_t>(m) * N + n, acc[i][j][r], colsum[n],
+             rowsum[m], e, scale);
       }
+}
+
+// ---------------------------------------------------------------- sharded
+
+// The sharded entry's epilogue over all-reduced partials: out[m, n] =
+// bf16(dequant(acc, colsum[n], rowsum[m]) * f32(bf16(ax * aw))), the
+// epilogue gemm_u8 applies, at the global K's constants; one thread an
+// output.
+__global__ void epilogue_bf16(const int32_t* __restrict__ acc,
+                              const int32_t* __restrict__ rowsum,
+                              const int32_t* __restrict__ colsum,
+                              bf16* __restrict__ out, int M, int N,
+                              const float* __restrict__ x_absmax,
+                              const bf16* __restrict__ w_absmax, Epilogue e) {
+  const float scale = out_scale(x_absmax, w_absmax);
+  const int64_t total = static_cast<int64_t>(M) * N;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < total; i += stride) {
+    const int m = static_cast<int>(i / N), n = static_cast<int>(i % N);
+    store(out, i, dequant(acc[i], colsum[n], rowsum[m], e), scale);
+  }
 }
 
 // ---------------------------------------------------------------- checks
@@ -762,7 +809,8 @@ int launch_decode(const Args& g, int cps, int splits, int async,
   launch_prep<T>(8 * kMT, 32 * KC, s, pa, static_cast<const T*>(g.a),
                  g.codes_a, g.rowsum, g.M, g.K, static_cast<int64_t>(g.K),
                  32 * KC, static_cast<uint32_t>(g.K), 1u, scaled ? 1 : 0,
-                 g.x_absmax, static_cast<const bf16*>(nullptr));
+                 g.x_absmax, static_cast<const bf16*>(nullptr), 0u, kWhole,
+                 0u);
   fused_decode<T, O, kTrans, kMT>
       <<<dim3((g.N + 15) / 16, splits), kDecThreads, 0, s>>>(
           static_cast<const T*>(g.b), g.codes_a, g.rowsum, g.acc, g.colsum,
@@ -801,12 +849,12 @@ int launch_prefill(const Args& g, int Mp, int Np, int Kp, const Params& pa,
   launch_prep<T>(Mp, Kp, s, pa, static_cast<const T*>(g.a), g.codes_a,
                  g.rowsum, g.M, g.K, static_cast<int64_t>(g.K), Kp,
                  static_cast<uint32_t>(g.K), 1u, scaled ? 2 : 0, g.x_absmax,
-                 static_cast<const bf16*>(nullptr));
+                 static_cast<const bf16*>(nullptr), 0u, kWhole, 0u);
   if (kTrans) {   // row n of the (N, K) weight: index k * N + n
     launch_prep<T>(Np, Kp, s, pb, static_cast<const T*>(g.b), g.codes_bt,
                    g.colsum, g.N, g.K, static_cast<int64_t>(g.K), Kp, 1u,
                    static_cast<uint32_t>(g.N), 3, static_cast<float*>(nullptr),
-                   g.w_absmax);
+                   g.w_absmax, 0u, kWhole, 0u);
   } else {
     cudaMemsetAsync(g.colsum, 0, sizeof(int32_t) * g.N, s);
     const dim3 grid(Np / 32, Kp / 32), block(32, 8);
@@ -814,17 +862,75 @@ int launch_prefill(const Args& g, int Mp, int Np, int Kp, const Params& pa,
     if (dither_quant::fast_path(pb))
       quantize_bt<T, true><<<grid, block, 0, s>>>(
           static_cast<const T*>(g.b), g.codes_bt, g.colsum, g.K, g.N, Kp, aw,
-          pb);
+          static_cast<uint32_t>(g.N), 0u, pb);
     else
       quantize_bt<T, false><<<grid, block, 0, s>>>(
           static_cast<const T*>(g.b), g.codes_bt, g.colsum, g.K, g.N, Kp, aw,
-          pb);
+          static_cast<uint32_t>(g.N), 0u, pb);
   }
   cudaFuncSetAttribute(gemm_u8<O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kGemmSmem);
   gemm_u8<O><<<dim3(Np / kBN, Mp / kBM), kThreads, kGemmSmem, s>>>(
       g.codes_a, g.codes_bt, g.rowsum, g.colsum, static_cast<O*>(g.out), g.M,
       g.N, Kp, scaled ? g.x_absmax : nullptr, g.w_absmax, e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sharded policy entry: one block of a product whose operands are
+// split over a mesh, always in the prefill regime.  x (M, K) bf16 is the
+// block's rows and K slice, w (K, N) its K slice and columns (row-major,
+// or the transposed view of a row-major (N, K) weight); the hash indices
+// are the global ones (A: g(m) * Kg + k0 + k with g(m) = m0 + (m / seg) *
+// seg_stride + m % seg; B: (k0 + k) * Ng + n0 + n) and the pulse counts,
+// in pa and pb, the global N and M.  x_absmax (an f32 word) and w_absmax
+// (bf16) are the global operands' clamped absmaxes.  partials 0: out is
+// the bf16 product; 1: out is the int32 accumulator (M, N), rowsum and
+// colsum the code sums of this K slice, for an exact all-reduce and
+// epilogue_bf16.
+template <bool kTrans>
+int launch_sharded(const Args& g, int Mp, int Np, int Kp, uint32_t a_base,
+                   int seg, uint32_t seg_stride, uint32_t Kg, uint32_t b_base,
+                   uint32_t Ng, int partials, const Params& pa,
+                   const Params& pb, const Epilogue& e, cudaStream_t s) {
+  launch_prep<bf16>(Mp, Kp, s, pa, static_cast<const bf16*>(g.a), g.codes_a,
+                    g.rowsum, g.M, g.K, static_cast<int64_t>(g.K), Kp, Kg, 1u,
+                    2, g.x_absmax, static_cast<const bf16*>(nullptr), a_base,
+                    seg, seg_stride);
+  if (kTrans) {   // row n of the (N, K) weight: index (k0 + k) Ng + n0 + n
+    launch_prep<bf16>(Np, Kp, s, pb, static_cast<const bf16*>(g.b),
+                      g.codes_bt, g.colsum, g.N, g.K,
+                      static_cast<int64_t>(g.K), Kp, 1u, Ng, 3,
+                      static_cast<float*>(nullptr), g.w_absmax, b_base, kWhole,
+                      0u);
+  } else {
+    cudaMemsetAsync(g.colsum, 0, sizeof(int32_t) * g.N, s);
+    const dim3 grid(Np / 32, Kp / 32), block(32, 8);
+    if (dither_quant::fast_path(pb))
+      quantize_bt<bf16, true><<<grid, block, 0, s>>>(
+          static_cast<const bf16*>(g.b), g.codes_bt, g.colsum, g.K, g.N, Kp,
+          g.w_absmax, Ng, b_base, pb);
+    else
+      quantize_bt<bf16, false><<<grid, block, 0, s>>>(
+          static_cast<const bf16*>(g.b), g.codes_bt, g.colsum, g.K, g.N, Kp,
+          g.w_absmax, Ng, b_base, pb);
+  }
+  const dim3 grid(Np / kBN, Mp / kBM);
+  if (partials) {
+    cudaFuncSetAttribute(gemm_u8<int32_t>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kGemmSmem);
+    gemm_u8<int32_t><<<grid, kThreads, kGemmSmem, s>>>(
+        g.codes_a, g.codes_bt, g.rowsum, g.colsum,
+        static_cast<int32_t*>(g.out), g.M, g.N, Kp, g.x_absmax, g.w_absmax,
+        e);
+  } else {
+    cudaFuncSetAttribute(gemm_u8<bf16>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kGemmSmem);
+    gemm_u8<bf16><<<grid, kThreads, kGemmSmem, s>>>(
+        g.codes_a, g.codes_bt, g.rowsum, g.colsum, static_cast<bf16*>(g.out),
+        g.M, g.N, Kp, g.x_absmax, g.w_absmax, e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -881,6 +987,60 @@ int repro_dither_matmul(const void* a, const void* b, void* out,
   if (kind == 1)
     return launch_prefill<bf16, bf16, false>(g, Mp, Np, Kp, *pa, *pb, e, s);
   return launch_prefill<bf16, bf16, true>(g, Mp, Np, Kp, *pa, *pb, e, s);
+}
+
+// The sharded policy entry (launch_sharded): x (M, K) and w bf16 (kind 1
+// row-major (K, N), kind 2 the transposed view of a row-major (N, K)),
+// local shapes; Mp, Np multiples of 128 and Kp of 64; a_base = m0 * Kg +
+// k0 and b_base = k0 * Ng + n0 mod 2^32; x_absmax an f32 word, w_absmax
+// bf16; out bf16 (M, N), or with partials int32 (M, N) beside rowsum (M,)
+// and colsum (N,).
+int repro_dither_matmul_sharded(const void* x, const void* w, void* out,
+                                void* codes_a, void* codes_bt, void* rowsum,
+                                void* colsum, void* x_absmax,
+                                const void* w_absmax, int M, int K, int N,
+                                int kind, int Mp, int Np, int Kp,
+                                unsigned a_base, int seg, unsigned seg_stride,
+                                unsigned Kg, unsigned b_base, unsigned Ng,
+                                int partials, const dither_quant::Params* pa,
+                                const dither_quant::Params* pb, float r_acc,
+                                float c_col, float c_row, float c_k,
+                                int cross, void* stream) {
+  const Args g{x, w, out, static_cast<uint8_t*>(codes_a),
+               static_cast<uint8_t*>(codes_bt), static_cast<int32_t*>(rowsum),
+               static_cast<int32_t*>(colsum), nullptr, nullptr,
+               static_cast<float*>(x_absmax),
+               static_cast<const bf16*>(w_absmax), M, K, N};
+  const Epilogue e{r_acc, c_col, c_row, c_k, cross};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((kind != 1 && kind != 2) || seg < 1 || Mp % kBM || Np % kBN ||
+      Kp % kBK || M > Mp || N > Np || K > Kp)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kind == 1)
+    return launch_sharded<false>(g, Mp, Np, Kp, a_base, seg, seg_stride, Kg,
+                                 b_base, Ng, partials, *pa, *pb, e, s);
+  return launch_sharded<true>(g, Mp, Np, Kp, a_base, seg, seg_stride, Kg,
+                              b_base, Ng, partials, *pa, *pb, e, s);
+}
+
+// epilogue_bf16 over all-reduced partials: acc (M, N), rowsum (M,), colsum
+// (N,) int32, x_absmax an f32 word, w_absmax bf16 → out (M, N) bf16.
+int repro_dither_matmul_epilogue(const void* acc, const void* rowsum,
+                                 const void* colsum, void* out, int M, int N,
+                                 const void* x_absmax, const void* w_absmax,
+                                 float r_acc, float c_col, float c_row,
+                                 float c_k, int cross, void* stream) {
+  const Epilogue e{r_acc, c_col, c_row, c_k, cross};
+  const int64_t total = static_cast<int64_t>(M) * N;
+  const int64_t want = (total + 255) / 256;
+  epilogue_bf16<<<static_cast<int>(want < 4096 ? (want > 0 ? want : 1)
+                                                : 4096),
+                  256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(acc), static_cast<const int32_t*>(rowsum),
+      static_cast<const int32_t*>(colsum), static_cast<bf16*>(out), M, N,
+      static_cast<const float*>(x_absmax), static_cast<const bf16*>(w_absmax),
+      e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // mismatches (two uint64 on the card, zeroed by the caller) += div_check's

@@ -3,7 +3,7 @@
 ``dither_matmul_kernel_call`` of the reference's
 ``kernels/dither_matmul.py``.
 
-Two entries, one kernel source:
+Four entries, one kernel source:
 
 * ``dither_matmul(a, b, ...)`` — f32 operands and static ranges → f32, what
   ``dispatch.matmul`` and the reference's kernel compute;
@@ -12,7 +12,14 @@ Two entries, one kernel source:
   operands normalised by their absmax in the kernel, the product over
   (-1, 1), rescaled to bf16.  The weight may be row-major (K, N) or the
   transposed view of a row-major (N, K) tensor (the tied LM head);
-  ``weight_absmax`` computes its absmax once per weight.
+  ``weight_absmax`` computes its absmax once per weight;
+* ``dither_matmul_sharded(x, w, x_absmax, w_absmax, block=...)`` — the
+  policy's product on one block of operands split over a training mesh
+  (``ref.MatmulBlock``): the global absmaxes given, hash indices and pulse
+  counts the global product's, so a row or column block is the slice of
+  the unsharded product bit for bit; with ``partials`` the int32
+  accumulator and code sums of a K block, whose exact all-reduce
+  ``dither_matmul_epilogue`` turns into the unsharded product.
 
 Each takes CUDA tensors to the kernel and CPU tensors to its plain version
 (``ref.dither_matmul_ref``, ``ref.dither_matmul_scaled_ref``); any other
@@ -23,8 +30,12 @@ prefill), allocates the output and the per-call scratch with
 ``torch.empty``, keeps the decode regime's split scratch (zero between
 calls; the kernel leaves it so) per device and stream, launches on the
 current stream without synchronising, and adds one to
-``dither_matmul.launches`` per call of either entry (the policy entry also
-to ``dither_matmul_scaled.launches``).
+``dither_matmul.launches`` per call of any entry but the epilogue (the
+policy entry also
+to ``dither_matmul_scaled.launches``, the sharded entry to
+``dither_matmul_sharded.launches`` and to its block kind's count in
+``dither_matmul_sharded.by_block``; the epilogue counts in
+``dither_matmul_epilogue.launches`` only).
 """
 
 from __future__ import annotations
@@ -38,12 +49,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import launch_on
 from repro_torch.kernels.quantize import QuantParams, check_scheme, quant_params
-from repro_torch.kernels.ref import (dequant_constants, dither_matmul_ref,
+from repro_torch.kernels.ref import (MatmulBlock, dequant_constants,
+                                     dither_matmul_ref,
+                                     dither_matmul_scaled_epilogue_ref,
                                      dither_matmul_scaled_ref, policy_absmax)
 
-__all__ = ["dither_matmul", "dither_matmul_scaled", "weight_absmax", "plan",
-           "SOURCE", "MAX_BITS", "DECODE_MAX_M", "MIN_BLOCKS",
-           "TARGET_BLOCKS", "normalise_mismatches"]
+__all__ = ["dither_matmul", "dither_matmul_scaled", "dither_matmul_sharded",
+           "dither_matmul_epilogue", "weight_absmax", "plan", "SOURCE",
+           "MAX_BITS", "DECODE_MAX_M", "MIN_BLOCKS", "TARGET_BLOCKS",
+           "normalise_mismatches"]
 
 SOURCE = "src/repro_torch/kernels/csrc/dither_matmul.cu"
 MAX_BITS = 8                 # codes are u8 in the tensor-core product
@@ -57,6 +71,8 @@ _GRID_MAX = 65535            # CUDA's limit on gridDim.y
 _KINDS = {"f32": 0, "row": 1, "trans": 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U = ctypes.c_uint
+_WHOLE = 0x7FFFFFFF          # csrc kWhole: one row segment
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,6 +87,16 @@ def _lib() -> ctypes.CDLL:
         + [params] * 2                # A's and B's quantiser
         + [_F] * 4 + [_I, _P])        # epilogue constants, cross, stream
     lib.repro_dither_matmul.restype = _I
+    lib.repro_dither_matmul_sharded.argtypes = (
+        [_P] * 9                      # x, w, out, scratch, absmaxes
+        + [_I] * 7                    # M, K, N, kind, Mp, Np, Kp
+        + [_U, _I] + [_U] * 4         # a_base, seg, seg_stride, Kg, b, Ng
+        + [_I, params, params]        # partials, quantisers
+        + [_F] * 4 + [_I, _P])        # epilogue constants, cross, stream
+    lib.repro_dither_matmul_sharded.restype = _I
+    lib.repro_dither_matmul_epilogue.argtypes = (
+        [_P] * 4 + [_I] * 2 + [_P] * 2 + [_F] * 4 + [_I, _P])
+    lib.repro_dither_matmul_epilogue.restype = _I
     lib.repro_div_check.argtypes = [_P, _P]
     lib.repro_div_check.restype = _I
     return lib
@@ -297,6 +323,132 @@ def dither_matmul_scaled(x: torch.Tensor, w: torch.Tensor,
 
 
 dither_matmul_scaled.launches = 0
+
+def _check_bf16(ref, **named):
+    for name, t in named.items():
+        if t.dtype != torch.bfloat16 or t.device != ref.device:
+            raise ValueError(f"{name} must be bfloat16 on {ref.device}; got "
+                             f"{t.dtype} on {t.device}")
+
+
+def dither_matmul_sharded(x: torch.Tensor, w: torch.Tensor,
+                          x_absmax: torch.Tensor, w_absmax: torch.Tensor, *,
+                          block: MatmulBlock, partials: bool = False,
+                          bits: int, scheme: str = "dither", counter=0,
+                          seed: int = 0, fmt: str = "spread"):
+    """The policy's product on one block of a sharded product → (M, N)
+    bf16, or with ``partials`` the int32 ``(acc (M, N), rowsum (M,),
+    colsum (N,))`` of a K block: x (M, K) and w (K, N) bf16 (w row-major
+    or the transposed view of a row-major (N, K) weight), ``x_absmax`` and
+    ``w_absmax`` the global operands' 0-dim bf16 absmaxes, ``block`` the
+    global shape and this block's offsets.  The CUDA kernel for CUDA
+    tensors, ``ref.dither_matmul_scaled_ref`` for CPU tensors."""
+    kw = dict(bits=bits, scheme=scheme, counter=counter, seed=seed, fmt=fmt)
+    if x.device.type == "cpu":
+        return dither_matmul_scaled_ref(x, w, w_absmax, x_absmax=x_absmax,
+                                        block=block, partials=partials, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"dither_matmul_sharded runs on cuda (or cpu), not "
+                         f"{x.device}")
+    _check_bf16(x, x=x, w=w, x_absmax=x_absmax, w_absmax=w_absmax)
+    if x.dim() != 2 or w.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous 2-D and w 2-D; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    (m, k), (k2, n) = x.shape, w.shape
+    if k != k2 or min(m, k, n) < 1:
+        raise ValueError(f"bad operands: {tuple(x.shape)} @ {tuple(w.shape)}")
+    if (block.m0 + m > block.M and not block.seg) or block.k0 + k > block.K \
+            or block.n0 + n > block.N:
+        raise ValueError(f"block {block} does not hold a {m} x {k} @ {k} x "
+                         f"{n} product")
+    _check_common(bits, scheme, fmt, block.K)
+    kind = _weight_layout(w)
+    mp, np_, kp = (_round_up(m, _TILE_MN), _round_up(n, _TILE_MN),
+                   _round_up(k, _TILE_K))
+    if mp // _TILE_MN > _GRID_MAX:
+        raise ValueError(f"M={m} too large for the kernel's grid")
+    sa, sb, r_acc, c_col, c_row, c_k = _constants(bits, (-1.0, 1.0),
+                                                  (-1.0, 1.0), block.K)
+    q = dict(bits=bits, scheme=scheme, fmt=fmt, counter=counter)
+    pa = quant_params(scale=sa, zero=-1.0, seed=seed,
+                      n_pulses=max(block.N, 2), **q)
+    pb = quant_params(scale=sb, zero=-1.0, seed=seed + 1,
+                      n_pulses=max(block.M, 2), **q)
+    dev = x.device
+    out = torch.empty((m, n), dtype=torch.int32 if partials
+                      else torch.bfloat16, device=dev)
+    rowsum = torch.empty((m,), dtype=torch.int32, device=dev)
+    colsum = torch.empty((n,), dtype=torch.int32, device=dev)
+    codes_a = torch.empty((mp, kp), dtype=torch.uint8, device=dev)
+    codes_bt = torch.empty((np_, kp), dtype=torch.uint8, device=dev)
+    ax = x_absmax.to(torch.float32).reshape(1)
+    mask = 0xFFFFFFFF
+    rc = launch_on(
+        dev, _lib().repro_dither_matmul_sharded, x.data_ptr(), w.data_ptr(),
+        out.data_ptr(), codes_a.data_ptr(), codes_bt.data_ptr(),
+        rowsum.data_ptr(), colsum.data_ptr(), ax.data_ptr(),
+        w_absmax.data_ptr(), m, k, n, _KINDS[kind], mp, np_, kp,
+        (block.m0 * block.K + block.k0) & mask, block.seg or _WHOLE,
+        block.seg_stride & mask, block.K & mask,
+        (block.k0 * block.N + block.n0) & mask, block.N & mask,
+        int(partials), ctypes.byref(pa), ctypes.byref(pb), r_acc, c_col,
+        c_row, c_k, 1)
+    if rc != 0:
+        raise RuntimeError(f"dither_matmul_sharded kernel launch failed: CUDA "
+                           f"error {rc} for {tuple(x.shape)} @ "
+                           f"{tuple(w.shape)}")
+    dither_matmul.launches += 1
+    dither_matmul_sharded.launches += 1
+    dither_matmul_sharded.by_block[
+        "k_block" if partials else "columns" if n < block.N else "rows"] += 1
+    return (out, rowsum, colsum) if partials else out
+
+
+dither_matmul_sharded.launches = 0
+# launches by the kind of block: a K block's partials, a block of the
+# weight's columns (on a (2, 2) mesh of rows too), else a block of rows
+dither_matmul_sharded.by_block = {"rows": 0, "columns": 0, "k_block": 0}
+
+
+def dither_matmul_epilogue(acc: torch.Tensor, rowsum: torch.Tensor,
+                           colsum: torch.Tensor, x_absmax: torch.Tensor,
+                           w_absmax: torch.Tensor, *, bits: int,
+                           k: int) -> torch.Tensor:
+    """The sharded policy product from all-reduced partials → (M, N) bf16:
+    the epilogue at the global ``k`` and the scale ``bf16(ax · aw)``; the
+    CUDA kernel for CUDA tensors, ``ref.dither_matmul_scaled_epilogue_ref``
+    for CPU tensors."""
+    if acc.device.type == "cpu":
+        return dither_matmul_scaled_epilogue_ref(acc, rowsum, colsum,
+                                                 x_absmax, w_absmax,
+                                                 bits=bits, k=k)
+    if acc.device.type != "cuda":
+        raise ValueError(f"dither_matmul_epilogue runs on cuda (or cpu), not "
+                         f"{acc.device}")
+    (m, n) = acc.shape
+    for name, t, want in (("acc", acc, (m, n)), ("rowsum", rowsum, (m,)),
+                          ("colsum", colsum, (n,))):
+        if t.dtype != torch.int32 or tuple(t.shape) != want \
+                or not t.is_contiguous() or t.device != acc.device:
+            raise ValueError(f"{name} must be a contiguous int32 {want} "
+                             f"tensor on {acc.device}")
+    _check_bf16(acc, x_absmax=x_absmax, w_absmax=w_absmax)
+    _, _, r_acc, c_col, c_row, c_k = _constants(bits, (-1.0, 1.0),
+                                                (-1.0, 1.0), k)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=acc.device)
+    ax = x_absmax.to(torch.float32).reshape(1)
+    rc = launch_on(acc.device, _lib().repro_dither_matmul_epilogue,
+                   acc.data_ptr(), rowsum.data_ptr(), colsum.data_ptr(),
+                   out.data_ptr(), m, n, ax.data_ptr(), w_absmax.data_ptr(),
+                   r_acc, c_col, c_row, c_k, 1)
+    if rc != 0:
+        raise RuntimeError(f"dither_matmul_epilogue launch failed: CUDA "
+                           f"error {rc} for ({m}, {n})")
+    dither_matmul_epilogue.launches += 1
+    return out
+
+
+dither_matmul_epilogue.launches = 0
 
 _ABSMAX = {}
 _ABSMAX_MAX = 4096

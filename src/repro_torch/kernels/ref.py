@@ -9,6 +9,7 @@ reference, and the card's checks hold every kernel against them.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -18,7 +19,8 @@ from repro_torch.core import rounding
 
 __all__ = ["quantize_codes_ref", "dither_round_ref", "stochastic_round_ref",
            "dither_matmul_ref", "dither_matmul_scaled_ref", "policy_absmax",
-           "dequant_constants", "fma_f32",
+           "dequant_constants", "fma_f32", "MatmulBlock",
+           "dither_matmul_epilogue_ref", "dither_matmul_scaled_epilogue_ref",
            "decode_attention_ref",
            "paged_decode_attention_ref", "verify_attention_ref",
            "paged_verify_attention_ref", "shrink_block"]
@@ -42,17 +44,19 @@ def quantize_codes_ref(
     seed: int,
     n_pulses: int,
     fmt: str = "spread",
+    index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """k-bit integer codes of a 2-D tensor (the reference's
     ``quantize_codes_ref``): ``clip(round_scheme((x - zero) * scale), 0,
     2^bits - 1)`` as int32, where the hash's element index is the
-    unpadded global row-major index.  Every step is the reference's f32
+    unpadded global row-major index (``index``, uint32 in int64, where x
+    is one block of a larger operand).  Every step is the reference's f32
     op in its order, so the codes are bitwise the reference's."""
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
     levels = (1 << bits) - 1
     scaled = (x.to(torch.float32) - _f32(zero)) * _f32(scale)
-    idx = rounding._flat_index(scaled)
+    idx = rounding._flat_index(scaled) if index is None else index
     if scheme == "deterministic":
         codes = rounding.deterministic_round(scaled)
     elif scheme == "stochastic":
@@ -108,6 +112,58 @@ def dequant_constants(bits: int, a_range, b_range, k: int):
     return sa, sb, float(r_acc), float(c_col), float(c_row), float(c_k)
 
 
+@dataclass(frozen=True)
+class MatmulBlock:
+    """One block of an (M, K) @ (K, N) product whose operands are split
+    over a mesh: the global ``M``, ``K``, ``N``, and where the block sits.
+    Its local row m is global row ``m0 + (m // seg) * seg_stride + m %
+    seg`` (``seg`` 0: one segment, ``m0 + m``; a token shard of the
+    sequence split is ``seg`` = its S/tp rows, ``seg_stride`` = S); its K
+    slice starts at ``k0`` and its columns at ``n0``.  Hash indices and
+    pulse counts are the global operands' (kernel 6's sharded entry)."""
+    M: int
+    K: int
+    N: int
+    m0: int = 0
+    seg: int = 0
+    seg_stride: int = 0
+    k0: int = 0
+    n0: int = 0
+
+    def global_rows(self, m: int, device, r0: int = 0) -> torch.Tensor:
+        """The global rows of local rows ``r0 .. r0 + m``."""
+        r = torch.arange(r0, r0 + m, dtype=torch.int64, device=device)
+        if self.seg:
+            r = (r // self.seg) * self.seg_stride + r % self.seg
+        return r + self.m0
+
+    def a_index(self, m: int, k: int, device, r0: int = 0) -> torch.Tensor:
+        """A's global row-major indices (uint32 in int64) of the block's
+        local rows ``r0 .. r0 + m`` and its K slice of width k."""
+        cols = torch.arange(k, dtype=torch.int64, device=device) + self.k0
+        return (self.global_rows(m, device, r0)[:, None] * self.K
+                + cols[None, :]) & 0xFFFFFFFF
+
+    def b_index(self, k: int, n: int, device, r0: int = 0) -> torch.Tensor:
+        """B's global row-major indices of the block's local rows ``r0 ..
+        r0 + k`` (its K slice) and its n columns."""
+        rows = torch.arange(r0, r0 + k, dtype=torch.int64,
+                            device=device) + self.k0
+        cols = torch.arange(n, dtype=torch.int64, device=device) + self.n0
+        return (rows[:, None] * self.N + cols[None, :]) & 0xFFFFFFFF
+
+
+# elements of an operand or output the plain versions work on at once: the
+# hash's int64 temporaries of a whole LM head would take gigabytes; every
+# step is elementwise or a row's own, so chunking rows changes no bit
+_CHUNK = 1 << 22
+
+
+def _row_chunks(rows: int, cols: int):
+    step = max(1, _CHUNK // max(1, cols))
+    return [(i, min(rows, i + step)) for i in range(0, rows, step)]
+
+
 def dither_matmul_ref(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -119,7 +175,9 @@ def dither_matmul_ref(
     counter=0,
     seed: int = 0,
     fmt: str = "spread",
-) -> torch.Tensor:
+    block: Optional[MatmulBlock] = None,
+    partials: bool = False,
+):
     """Quantise-and-multiply, §VIII 'separate' (the reference's
     ``dither_matmul_ref``): A quantised with ``seed`` and N_A =
     max(N, 2) pulses, B with ``seed + 1`` and N_B = max(M, 2), multiplied
@@ -129,24 +187,59 @@ def dither_matmul_ref(
     integers below 2^53 are exact in any order) and rounded once to f32;
     the reference's f32 HIGHEST dot is the same wherever K·(2^bits−1)²
     < 2^24.  Then the reference's dequantisation (``dequant_constants``).
+
+    ``block``: a and b are one block of a larger product
+    (``MatmulBlock``): hash indices, pulse counts and the dequantisation's
+    K are the global product's, so a row or column block is the slice of
+    the unsharded product bit for bit.  ``partials``: return the block's
+    int32 ``(acc (M, N), rowsum (M,), colsum (N,))`` instead, whose sums
+    over the K blocks ``dither_matmul_epilogue_ref`` maps to the unsharded
+    product bit for bit.
     """
     (p, q), (q2, r) = a.shape, b.shape
     if q != q2:
         raise ValueError(f"inner dims differ: {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
-    sa, sb, r_acc, c_col, c_row, c_k = dequant_constants(bits, a_range,
-                                                         b_range, q)
-    ca = quantize_codes_ref(a, scale=sa, zero=a_range[0], bits=bits,
-                            scheme=scheme, counter=counter, seed=seed,
-                            n_pulses=max(r, 2), fmt=fmt)
-    cb = quantize_codes_ref(b, scale=sb, zero=b_range[0], bits=bits,
-                            scheme=scheme, counter=counter, seed=seed + 1,
-                            n_pulses=max(p, 2), fmt=fmt)
-    acc = (ca.double() @ cb.double()).to(torch.float32)
+    g = block if block is not None else MatmulBlock(p, q, r)
+    sa, sb = dequant_constants(bits, a_range, b_range, g.K)[:2]
+    q_kw = dict(bits=bits, scheme=scheme, counter=counter, fmt=fmt)
+    ca = torch.cat([quantize_codes_ref(
+        a[i:j], scale=sa, zero=a_range[0], seed=seed, n_pulses=max(g.N, 2),
+        index=g.a_index(j - i, q, a.device, i), **q_kw)
+        for i, j in _row_chunks(p, q)])
+    cb = torch.cat([quantize_codes_ref(
+        b[i:j], scale=sb, zero=b_range[0], seed=seed + 1,
+        n_pulses=max(g.M, 2), index=g.b_index(j - i, r, b.device, i),
+        **q_kw) for i, j in _row_chunks(q, r)])
+    colsum = cb.sum(dim=0, dtype=torch.int64)
+    rowsum = ca.sum(dim=1, dtype=torch.int64)
+    cbd = cb.double()
+    parts = []
+    for i, j in _row_chunks(p, r):
+        acc = (ca[i:j].double() @ cbd).to(torch.int64)
+        parts.append(acc.to(torch.int32) if partials else
+                     dither_matmul_epilogue_ref(
+                         acc, rowsum[i:j], colsum, bits=bits,
+                         a_range=a_range, b_range=b_range, k=g.K))
+    out = torch.cat(parts)
+    if partials:
+        return out, rowsum.to(torch.int32), colsum.to(torch.int32)
+    return out
+
+
+def dither_matmul_epilogue_ref(acc, rowsum, colsum, *, bits: int,
+                               a_range=(0.0, 1.0), b_range=(0.0, 1.0),
+                               k: int) -> torch.Tensor:
+    """The dequantisation of an integer product → (M, N) f32: ``acc``
+    (M, N), ``rowsum`` (M,) and ``colsum`` (N,) summed over the whole K
+    (``k``), then the reference's compiled epilogue
+    (``dequant_constants``)."""
+    _, _, r_acc, c_col, c_row, c_k = dequant_constants(bits, a_range,
+                                                      b_range, k)
+    acc = acc.to(torch.float32)
     if a_range[0] == 0.0 and b_range[0] == 0.0:
         return acc * r_acc
-    colsum = cb.sum(dim=0, dtype=torch.int64).to(torch.float32)
-    rowsum = ca.sum(dim=1, dtype=torch.int64).to(torch.float32)
+    colsum, rowsum = colsum.to(torch.float32), rowsum.to(torch.float32)
     out = fma_f32(acc, r_acc, (colsum * c_col)[None, :])
     out = out + (rowsum * c_row)[:, None]
     return out + c_k
@@ -168,20 +261,44 @@ def dither_matmul_scaled_ref(
     counter=0,
     seed: int = 0,
     fmt: str = "spread",
-) -> torch.Tensor:
+    x_absmax: Optional[torch.Tensor] = None,
+    block: Optional[MatmulBlock] = None,
+    partials: bool = False,
+):
     """The quantised-matmul policy's product (``numerics/policy.py``
     ``_fused_matmul``), the plain version of ``dither_matmul_scaled``: both
     operands normalised by their absmax (``policy_absmax``; the weight's
     may be given) in their own dtype, taken in f32 through
     ``dither_matmul_ref`` over the range (-1, 1), and the product scaled
-    back by ``ax * aw`` and cast to x's dtype."""
-    ax = policy_absmax(x)
+    back by ``ax * aw`` and cast to x's dtype.
+
+    The plain version of kernel 6's sharded entry
+    (``dither_matmul_sharded``) too: ``x_absmax`` given (the global
+    operand's), ``block`` and ``partials`` as ``dither_matmul_ref``'s;
+    partials are scaled by ``dither_matmul_scaled_epilogue_ref``."""
+    ax = policy_absmax(x) if x_absmax is None else x_absmax
     aw = policy_absmax(w) if w_absmax is None else w_absmax
     out = dither_matmul_ref(
         (x / ax).to(torch.float32), (w / aw).to(torch.float32), bits=bits,
         scheme=scheme, a_range=(-1.0, 1.0), b_range=(-1.0, 1.0),
-        counter=counter, seed=seed, fmt=fmt)
+        counter=counter, seed=seed, fmt=fmt, block=block, partials=partials)
+    if partials:
+        return out
     return (out * (ax * aw)).to(x.dtype)
+
+
+def dither_matmul_scaled_epilogue_ref(acc, rowsum, colsum, x_absmax,
+                                      w_absmax, *, bits: int, k: int,
+                                      dtype=torch.bfloat16) -> torch.Tensor:
+    """The policy product from all-reduced partials of
+    ``dither_matmul_scaled_ref(..., partials=True)``: the epilogue over
+    (-1, 1) at the global ``k``, scaled by ``x_absmax * w_absmax`` and cast
+    to ``dtype``, the plain version of ``dither_matmul_epilogue``."""
+    scale = x_absmax * w_absmax
+    return torch.cat([(dither_matmul_epilogue_ref(
+        acc[i:j], rowsum[i:j], colsum, bits=bits, a_range=(-1.0, 1.0),
+        b_range=(-1.0, 1.0), k=k) * scale).to(dtype)
+        for i, j in _row_chunks(acc.shape[0], acc.shape[1])])
 
 
 def fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:

@@ -19,10 +19,18 @@ CPU):
 ``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS``; a
 ``vit_stub`` config trains on the pipeline's ``embeds`` beside its tokens,
 the encoder-decoder on its ``frames`` (the audio stub's hashed frames).
-Takes the reference launcher's flags, plus ``--device``.  Runs on one
-device with no mesh: the training mesh (``launch/mesh.make_local_mesh``
-as DDP or DTensor, and what replaces ``dist/ctx.constrain``) is ROADMAP
-Queue 1 item 10b.  Weights
+Takes the reference launcher's flags, plus ``--device``.  Under
+``torchrun`` it trains data-parallel on ``launch/mesh.make_local_mesh``
+(the world size × 1 ('data', 'model') mesh, as the reference's launcher
+does), each rank on ``cuda:$LOCAL_RANK`` (NCCL) or the CPU (gloo), every
+rank taking its rows of the same global batch; only rank 0 prints::
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch smollm_135m --reduced \
+      --device cpu --steps 4 --batch 4 --seq 16
+
+``run_training(mesh=...)`` takes any ('data', 'model') mesh (tensor
+parallel too, DESIGN.md §5).  Weights
 are random, drawn from ``--seed``'s generator (the reference draws its own
 from ``PRNGKey(seed)``, so the values differ).
 """
@@ -30,8 +38,10 @@ from ``PRNGKey(seed)``, so the values differ).
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
+from repro_torch import interop
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, synthetic_batch
@@ -62,26 +72,56 @@ def run_training(
     injector: FailureInjector | None = None,
     log=print,
     device="cuda",
+    mesh=None,
 ):
     """One training run on ``device``; resumes from the latest checkpoint
     if present.  Returns (final step, losses).  A crash leaves the loop
     only after the checkpoint writer has finished, so a restarted run reads
-    a settled directory."""
+    a settled directory.
+
+    In a process group (``torchrun``, or ranks started by the caller) the
+    run is one rank of a ('data', 'model') training mesh: ``mesh``, by
+    default ``make_local_mesh`` (world size × 1).  Each rank builds the
+    same seeded global state and keeps its blocks
+    (``interop.shard_train_state``), takes rows ``[r·B/dp, (r+1)·B/dp)``
+    of every global batch, checkpoints the gathered global state (rank
+    (0, 0) writes) and restores onto its own mesh shape, whatever mesh
+    wrote the checkpoint."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import ctx
+    from repro_torch.launch.mesh import make_local_mesh
+
+    if mesh is None and dist.is_initialized():
+        mesh = make_local_mesh(device=device)
+    shard = ctx.train_shard_of(mesh) if mesh is not None else None
+    if shard is not None and batch % shard.dp:
+        raise ValueError(f"batch {batch} does not split over {shard.dp} "
+                         "data shards")
     lr = (wsd_schedule(peak_lr, 10, steps // 2, steps // 2)
           if schedule == "wsd" else cosine_schedule(peak_lr, 10, steps))
     opt = AdamW(lr=lr)
     step_fn = trainer.make_train_step(cfg, opt, policy=policy,
-                                      grad_policy=grad_policy)
+                                      grad_policy=grad_policy, mesh=mesh)
     state = trainer.init_train_state(cfg, seed=seed, device=device)
+    coords = {"data": 0, "model": 0}
+    if shard is not None:
+        coords = {"data": shard.data, "model": shard.model}
+        state = interop.shard_train_state(state, cfg, coords, mesh)
 
-    ck = Checkpointer(ckpt_dir) if ckpt_dir else None
+    ck = Checkpointer(ckpt_dir, mesh=mesh, cfg=cfg) if ckpt_dir else None
     start = 0
     if ck is not None:
         latest = ck.latest_step()
         if latest is not None:
-            state = ck.restore(latest, state)
+            places = (interop.train_state_shardings(state, cfg, mesh, coords)
+                      if shard is not None else None)
+            state = ck.restore(latest, state, places)
             start = latest
             log(f"resumed from step {start}")
+    rows = (slice(None) if shard is None else
+            slice(shard.data * batch // shard.dp,
+                  (shard.data + 1) * batch // shard.dp))
 
     dcfg = DataConfig(batch=batch, seq=seq, seed=seed)
     watchdog = StragglerWatchdog()
@@ -89,7 +129,8 @@ def run_training(
     try:
         for step in range(start, steps):
             t0 = time.time()
-            data = synthetic_batch(cfg, dcfg, step, device=device)
+            data = {k: v[rows] for k, v in synthetic_batch(
+                cfg, dcfg, step, device=device).items()}
             if injector:
                 injector.maybe_fail(step, "before_save")
             state, metrics = step_fn(state, data)
@@ -136,6 +177,19 @@ def train_main(argv=None):
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
     args = ap.parse_args(argv)
+    device, rank0 = args.device, True
+    if "RANK" in os.environ:
+        import torch
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            if torch.device(device).type == "cuda":
+                device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+                torch.cuda.set_device(device)
+            dist.init_process_group("nccl" if device.startswith("cuda")
+                                    else "gloo")
+        rank0 = dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -148,9 +202,9 @@ def train_main(argv=None):
     steps, losses = run_training(
         cfg, steps=args.steps, batch=args.batch, seq=args.seq,
         policy=policy, grad_policy=gpolicy, ckpt_dir=args.ckpt_dir,
-        schedule=args.schedule, peak_lr=args.lr, device=args.device,
+        schedule=args.schedule, peak_lr=args.lr, device=device, log=say,
     )
-    print(f"done: {steps} steps; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    say(f"done: {steps} steps; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
 
 
 if __name__ == "__main__":

@@ -7,6 +7,16 @@ hold at tight tolerances: matmuls and einsums run on bf16 operands and come
 out in bf16, ``rope`` and the norms compute in f32 and cast back, softmax
 runs in f32 and is cast back to bf16.  Prefill attention stays plain torch
 ops, as the reference leaves it to XLA rather than a kernel.
+
+On the training mesh (``dist.ctx.train_shard``, DESIGN.md §5) the layers
+run Megatron tensor parallelism on 'model' over the blocks that
+``dist.sharding.train_param_specs`` gives each rank: attention on local
+heads (``copy_to_model`` before QKV, W_O row-parallel), or, where the head
+count does not divide the 'model' axis, the reference's sequence split
+(:func:`_attention_seq`); the MLP with up/gate column-parallel and down
+row-parallel; the embedding vocab-parallel.  Each product tells ``dense``
+where its operands sit in the reference's global ones
+(``policy.ProductShard``).
 """
 
 from __future__ import annotations
@@ -17,15 +27,17 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.dist import ctx
+from repro_torch.dist.sharding import ShardView
 from repro_torch.models.config import ModelConfig
-from repro_torch.numerics.policy import dense, matmul
+from repro_torch.numerics.policy import ProductShard, dense, matmul
 
 Params = Dict[str, Any]
 
 __all__ = ["rms_norm", "layer_norm", "rope", "attention", "qkv",
            "grouped_logits", "grouped_values", "mlp", "gelu", "softmax",
            "make_causal_mask", "init_attention", "init_mlp",
-           "init_embedding"]
+           "init_embedding", "embed_lookup", "act_view", "col_shard",
+           "row_shard", "tp_shard"]
 
 
 def _init(gen: torch.Generator, shape, scale=None, device="cuda"):
@@ -175,6 +187,21 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
     comes out in bf16 before the f32 cast, as the reference's einsum
     does.
     """
+    sh = tp_shard()
+    if sh is not None:
+        if kv_src is not None or not use_rope or not causal or return_kv:
+            raise NotImplementedError(
+                "attention at tp > 1 takes causal self-attention with RoPE "
+                "(the encoder and cross-attention are ROADMAP Queue 1 item "
+                "10c)")
+        if not ctx.seq_shard_attention(cfg.n_heads):
+            return _attention_tp(params, cfg, x, positions, window, policy,
+                                 counter, sh), None
+        if x.shape[1] % sh.tp == 0:
+            return _attention_seq(params, cfg, x, positions, window, policy,
+                                  counter, sh), None
+        # the reference's fallback: S not divisible either — every 'model'
+        # rank computes the whole (replicated) attention
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
     if kv_src is None and use_rope:
@@ -201,6 +228,174 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
     # W_O (DESIGN.md §9); identity elsewhere
     out = ctx.gather_heads(grouped_values(probs, v).reshape(b, s, nh * hd))
     return dense(out, params["wo"], policy, counter, seed=4), kv_out
+
+
+# ---------------------------------------------------------------------------
+# the training mesh: where each product's operands sit
+# ---------------------------------------------------------------------------
+
+
+def tp_shard():
+    """The active training shard when its 'model' axis splits anything
+    (tp > 1), else None."""
+    s = ctx.train_shard()
+    return s if s is not None and s.tp > 1 else None
+
+
+def act_view(x: torch.Tensor, sh, *, k_split: bool = False,
+             seq: bool = False):
+    """An activation's view and groups on the training mesh: x (B_l, …, K)
+    holds the data shard's rows of the global (B, …, K) (offset ``data ·
+    B_l``); ``seq``: also the 'model' rank's token shard of dim 1;
+    ``k_split``: also its block of the last dim (the K-sharded input of a
+    row-parallel product).  Returns ``(ShardView, groups)``: the groups
+    that split x, over which its absmax is taken."""
+    shape, off = list(x.shape), [0] * x.dim()
+    shape[0], off[0] = x.shape[0] * sh.dp, sh.data * x.shape[0]
+    if seq:
+        shape[1], off[1] = x.shape[1] * sh.tp, sh.model * x.shape[1]
+    if k_split:
+        shape[-1], off[-1] = x.shape[-1] * sh.tp, sh.model * x.shape[-1]
+    axes = ("data", "model") if seq or k_split else ("data",)
+    return ShardView(tuple(shape), tuple(off)), sh.groups(*axes)
+
+
+def col_shard(x: torch.Tensor, w: torch.Tensor, sh) -> ProductShard:
+    """A column-parallel product: x replicated over 'model' (split over
+    'data'), w this rank's block of columns."""
+    xv, xg = act_view(x, sh)
+    k, n = w.shape
+    return ProductShard(xv, xg, ShardView((k, n * sh.tp), (0, sh.model * n)),
+                        sh.groups("model"))
+
+
+def row_shard(x: torch.Tensor, w: torch.Tensor, sh) -> ProductShard:
+    """A row-parallel product: x this rank's K block (and data rows), w its
+    block of rows; the partial sums are summed over 'model'."""
+    xv, xg = act_view(x, sh, k_split=True)
+    k, n = w.shape
+    return ProductShard(xv, xg, ShardView((k * sh.tp, n), (sh.model * k, 0)),
+                        sh.groups("model"), k_split=True)
+
+
+def _kv_heads(cfg: ModelConfig, tp: int, model: int):
+    """(first KV head, KV heads, query heads a KV head) of this 'model'
+    rank's query heads when the KV projections stay replicated
+    (``n_kv_heads`` does not divide ``tp``)."""
+    nh_l, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
+    h0 = model * nh_l
+    if nh_l % group == 0:
+        return h0 // group, nh_l // group, group
+    if group % nh_l == 0:
+        return h0 // group, 1, nh_l
+    raise NotImplementedError(
+        f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads at tp "
+        f"{tp}: a rank's query heads straddle KV groups")
+
+
+def _attention_tp(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                  positions, window: int, policy, counter, sh
+                  ) -> torch.Tensor:
+    """Attention on this 'model' rank's heads (the head count divides
+    tp): QKV column-parallel after ``copy_to_model``, W_O row-parallel
+    (its partial sums reduced in ``dense``).  KV projections that the
+    layout keeps replicated (``n_kv_heads`` does not divide tp) are
+    computed whole and cut to the KV heads of the rank's query heads; their
+    weights pass ``copy_to_model``, so their gradient, partial on each
+    rank, is summed."""
+    b, s, _ = x.shape
+    hd, tp = cfg.hd(), sh.tp
+    nh_l = cfg.n_heads // tp
+    xin = ctx.copy_to_model(x)
+    kv_split = params["wk"].shape[-1] != cfg.n_kv_heads * hd
+    q = dense(xin, params["wq"], policy, counter, seed=1,
+              shard=col_shard(xin, params["wq"], sh))
+    wk, wv = params["wk"], params["wv"]
+    if kv_split:
+        k = dense(xin, wk, policy, counter, seed=2,
+                  shard=col_shard(xin, wk, sh))
+        v = dense(xin, wv, policy, counter, seed=3,
+                  shard=col_shard(xin, wv, sh))
+        nkv_l, group_l, kv0 = cfg.n_kv_heads // tp, cfg.n_heads // \
+            cfg.n_kv_heads, None
+    else:
+        kv0, nkv_l, group_l = _kv_heads(cfg, tp, sh.model)
+        k = dense(xin, ctx.copy_to_model(wk), policy, counter, seed=2)
+        v = dense(xin, ctx.copy_to_model(wv), policy, counter, seed=3)
+    if cfg.qkv_bias and "bq" in params:
+        bk, bv = params["bk"], params["bv"]
+        if not kv_split:
+            bk, bv = ctx.copy_to_model(bk), ctx.copy_to_model(bv)
+        q, k, v = q + params["bq"], k + bk, v + bv
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
+    if kv0 is not None:
+        k, v = k[:, :, kv0:kv0 + nkv_l], v[:, :, kv0:kv0 + nkv_l]
+    q = rope(q.reshape(b, s, nh_l, hd), positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    logits = grouped_logits(q.reshape(b, s, nkv_l, group_l, hd), k)
+    mask = make_causal_mask(s, s, window=window, device=x.device)
+    logits = torch.where(mask[None, None, None, :, :], logits, -1e30)
+    probs = softmax(logits, dim=-1).to(x.dtype)
+    out = grouped_values(probs, v).reshape(b, s, nh_l * hd)
+    return dense(out, params["wo"], policy, counter, seed=4,
+                 shard=row_shard(out, params["wo"], sh))
+
+
+def _attention_seq(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                   positions, window: int, policy, counter, sh
+                   ) -> torch.Tensor:
+    """The reference's sequence split (``layers.py:133-135``), for a head
+    count that does not divide tp: the QKV/O weights are replicated, each
+    'model' rank takes its S/tp query rows at their global positions (RoPE
+    and the causal mask offset), K and V come from ``gather_from_model``,
+    W_O runs on the rank's own rows, and the rows are gathered back.  The
+    weights pass ``copy_to_model`` (each rank's gradient covers its own
+    rows), and so does x (each rank reads its own rows of it)."""
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
+    s_l = s // sh.tp
+    s0 = sh.model * s_l
+    xl = ctx.copy_to_model(x)[:, s0:s0 + s_l]
+    w = {k: ctx.copy_to_model(t) for k, t in params.items()}
+    xv, xg = act_view(xl, sh, seq=True)
+    shard = ProductShard(xv, xg)
+    q = dense(xl, w["wq"], policy, counter, seed=1, shard=shard)
+    k = dense(xl, w["wk"], policy, counter, seed=2, shard=shard)
+    v = dense(xl, w["wv"], policy, counter, seed=3, shard=shard)
+    if cfg.qkv_bias and "bq" in w:
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    pos = positions[:, s0:s0 + s_l]
+    q = rope(q.reshape(b, s_l, nh, hd), pos, cfg.rope_theta)
+    k = rope(k.reshape(b, s_l, nkv, hd), pos, cfg.rope_theta)
+    k = ctx.gather_from_model(k, 1)
+    v = ctx.gather_from_model(v.reshape(b, s_l, nkv, hd), 1)
+    logits = grouped_logits(q.reshape(b, s_l, nkv, nh // nkv, hd), k)
+    mask = make_causal_mask(s, s, window=window,
+                            device=x.device)[s0:s0 + s_l]
+    logits = torch.where(mask[None, None, None, :, :], logits, -1e30)
+    probs = softmax(logits, dim=-1).to(x.dtype)
+    out = grouped_values(probs, v).reshape(b, s_l, nh * hd)
+    ov, og = act_view(out, sh, seq=True)
+    out = dense(out, w["wo"], policy, counter, seed=4,
+                shard=ProductShard(ov, og))
+    return ctx.gather_from_model(out, 1, reduce_grad=False)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
+                 vocab_padded: int) -> torch.Tensor:
+    """``embed[tokens]``; on the training mesh with the embedding split by
+    vocab (``embed`` this rank's rows), the vocab-parallel form: rows
+    outside the rank's range masked to 0, then ``reduce_from_model`` —
+    exact, as one rank holds each row."""
+    sh = tp_shard()
+    if sh is None or embed.shape[0] == vocab_padded:
+        return embed[tokens]
+    v_l = embed.shape[0]
+    local = tokens - sh.model * v_l
+    inside = (local >= 0) & (local < v_l)
+    x = embed[local.clamp(0, v_l - 1)] * inside[..., None].to(embed.dtype)
+    return ctx.reduce_from_model(x)
 
 
 # ---------------------------------------------------------------------------
@@ -237,19 +432,35 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(params: Params, x: torch.Tensor, act: str = "swiglu", policy=None,
-        counter=0) -> torch.Tensor:
+        counter=0, d_ff: int = 0) -> torch.Tensor:
     """SwiGLU MLP (silu in f32, cast back, times the up projection), or
     the GELU MLP: up projection plus its bias, GELU, down projection plus
-    its bias, each sum in bf16 as the reference's."""
+    its bias, each sum in bf16 as the reference's.
+
+    On the training mesh, weights narrower than the global width ``d_ff``
+    are this rank's blocks: up/gate column-parallel after
+    ``copy_to_model``, down row-parallel."""
     _check_act(act)
+    sh = tp_shard()
+    split = sh is not None and d_ff and params["wd"].shape[0] != d_ff
+    col = row = None
+    if split:
+        x = ctx.copy_to_model(x)
+        col = col_shard(x, params["wu"], sh)
     if act == "swiglu":
-        g = dense(x, params["wg"], policy, counter, seed=5)
-        u = dense(x, params["wu"], policy, counter, seed=6)
+        g = dense(x, params["wg"], policy, counter, seed=5, shard=col)
+        u = dense(x, params["wu"], policy, counter, seed=6, shard=col)
         gf = g.to(torch.float32)
         h = (gf * torch.sigmoid(gf)).to(x.dtype) * u
-        return dense(h, params["wd"], policy, counter, seed=7)
-    h = gelu(dense(x, params["wu"], policy, counter, seed=5) + params["bu"])
-    return dense(h, params["wd"], policy, counter, seed=7) + params["bd"]
+        if split:
+            row = row_shard(h, params["wd"], sh)
+        return dense(h, params["wd"], policy, counter, seed=7, shard=row)
+    h = gelu(dense(x, params["wu"], policy, counter, seed=5, shard=col)
+             + params["bu"])
+    if split:
+        row = row_shard(h, params["wd"], sh)
+    return dense(h, params["wd"], policy, counter, seed=7,
+                 shard=row) + params["bd"]
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int,

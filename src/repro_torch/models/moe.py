@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN (granite-3-moe, qwen2-moe) on one device: the
-port's counterpart of the reference's ``models/moe.py``.
+"""Mixture-of-Experts FFN (granite-3-moe, qwen2-moe): the port's
+counterpart of the reference's ``models/moe.py``.
 
 Dispatch is scatter-based, as there: top-k routing → per-expert capacity
 slots from a cumulative count over the flattened (token, k) assignments →
@@ -11,8 +11,14 @@ the top-k order and on every token of the call, padding included.
 Serving under a mesh runs this on one data shard's rows, as the
 reference's ``shard_map`` body does (its ``dp_shards()`` is 1 there), so
 capacity ranks count the shard's local tokens and the experts need no
-padding (``e_pad == e``).  The training mesh's form, with the expert
-padding, waits for ROADMAP Queue 1 item 10b.  The expert
+padding (``e_pad == e``).  On the training mesh (DESIGN.md §5) a rank
+also runs its data shard's rows, so capacity is counted per data shard,
+as the reference counts it on purpose; under TP the experts' FFN dim is
+split (``wd``'s partial sums reduced over 'model') and the router stays
+replicated.  The reference pads the expert axis to the TP size only to
+lay out GSPMD's buffers; the port pads nothing, but under a policy it
+hashes the dispatch buffer and the hidden activations at the padded
+buffer's global index, ((s·e_pad + e)·cap + c)·d + j.  The expert
 products are plain ``einsum``s, because the reference computes them
 outside any kernel; under a policy their operands are fake-quantised
 with the reference's seeds 11–15.  qwen2-moe's shared expert runs through
@@ -27,6 +33,8 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.dist import ctx
+from repro_torch.dist.sharding import ShardView
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.numerics.policy import fake_quant, matmul
@@ -119,16 +127,20 @@ def moe_ffn(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
     # expert SwiGLU: batched products over the expert axis (``matmul``:
     # f32 accumulation, bf16 out, as the reference's einsums)
-    wg = fake_quant(params["wg"], policy, counter, seed=11)
-    wu = fake_quant(params["wu"], policy, counter, seed=12)
-    wd = fake_quant(params["wd"], policy, counter, seed=13)
-    bufq = fake_quant(buf, policy, counter, seed=14)
-    g = matmul(bufq, wg)
-    u = matmul(bufq, wu)
-    gf = g.to(torch.float32)
-    h = (gf * torch.sigmoid(gf)).to(x.dtype) * u
-    hq = fake_quant(h, policy, counter, seed=15)
-    y = matmul(hq, wd)                                        # (E, cap, d)
+    sh = ctx.train_shard()
+    if sh is None:
+        wg = fake_quant(params["wg"], policy, counter, seed=11)
+        wu = fake_quant(params["wu"], policy, counter, seed=12)
+        wd = fake_quant(params["wd"], policy, counter, seed=13)
+        bufq = fake_quant(buf, policy, counter, seed=14)
+        g = matmul(bufq, wg)
+        u = matmul(bufq, wu)
+        gf = g.to(torch.float32)
+        h = (gf * torch.sigmoid(gf)).to(x.dtype) * u
+        hq = fake_quant(h, policy, counter, seed=15)
+        y = matmul(hq, wd)                                    # (E, cap, d)
+    else:
+        y = _experts_sharded(params, cfg, buf, policy, counter, sh)
 
     # combine: gather each assignment's row back, weight by gate · valid
     y_assign = y[expert, slot]                                # (t·k, d)
@@ -137,5 +149,49 @@ def moe_ffn(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
     if "shared" in params:
         out = out + layers.mlp(params["shared"], xf, "swiglu", policy,
-                               counter)
+                               counter, d_ff=cfg.shared_d_ff)
     return out.reshape(b, s, d)
+
+
+def _experts_sharded(params: Params, cfg: ModelConfig, buf: torch.Tensor,
+                     policy, counter, sh) -> torch.Tensor:
+    """The expert SwiGLU of one rank of the training mesh: ``buf`` (E, cap,
+    d) is its data shard's dispatch buffer, ``wg``/``wu`` (E, d, f/tp) and
+    ``wd`` (E, f/tp, d) its FFN blocks where the FFN dim is split.  Under
+    a policy every operand is fake-quantised as its slice of the
+    reference's global one: the weights over 'model', the buffer and the
+    hidden activations at the padded (dp, e_pad, cap, ·) buffer's global
+    indices.  Returns (E, cap, d), summed over 'model' where split."""
+    e, cap, d = buf.shape
+    f = cfg.d_ff
+    f_l = params["wd"].shape[1]
+    split = f_l != f
+    f0 = sh.model * f_l if split else 0
+    e_pad = -(-e // sh.tp) * sh.tp if sh.tp > 1 else e
+    w_groups = sh.groups("model") if split else ()
+    if split:
+        buf = ctx.copy_to_model(buf)
+
+    def quant(t, seed, view, groups):
+        return fake_quant(t, policy, counter, seed=seed, view=view,
+                          groups=groups)
+
+    wview_up = ShardView((e, d, f), (0, 0, f0))
+    wg = quant(params["wg"], 11, wview_up, w_groups)
+    wu = quant(params["wu"], 12, wview_up, w_groups)
+    wd = quant(params["wd"], 13, ShardView((e, f, d), (0, f0, 0)), w_groups)
+    bufq = quant(buf[None], 14, ShardView((sh.dp, e_pad, cap, d),
+                                          (sh.data, 0, 0, 0)),
+                 sh.groups("data"))[0]
+    g = matmul(bufq, wg)
+    u = matmul(bufq, wu)
+    gf = g.to(torch.float32)
+    h = (gf * torch.sigmoid(gf)).to(buf.dtype) * u
+    hq = quant(h[None], 15, ShardView((sh.dp, e_pad, cap, f),
+                                      (sh.data, 0, 0, f0)),
+               sh.groups("data", "model") if split else sh.groups("data"))[0]
+    if not split:
+        return matmul(hq, wd)
+    return ctx.reduce_from_model(
+        torch.matmul(hq.to(torch.float32), wd.to(torch.float32))
+    ).to(buf.dtype)

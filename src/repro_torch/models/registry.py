@@ -1,8 +1,8 @@
 """Model API of the port over every family (counterpart of the
 reference's ``models/registry.py``): training's full-sequence logits and
 the serving entry points, hiding the decoder-only vs encoder-decoder
-split.  ``batch_spec`` waits for the training mesh (ROADMAP Queue 1
-item 10b).  Batches are dicts: ``tokens`` (B, S), and ``embeds`` (B, F, d) (the
+split, and ``batch_spec``, the shapes of a training batch.  Batches are
+dicts: ``tokens`` (B, S), and ``embeds`` (B, F, d) (the
 VLM stub frontend's, prepended in ``apply_model``) or ``frames`` (B,
 T_enc, d) (the audio stub frontend's, the encoder-decoder's input).
 
@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.dist import ctx as dist_ctx
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 
@@ -29,7 +30,7 @@ __all__ = ["init_model", "apply_model", "make_cache", "apply_prefill",
            "apply_prefill_chunked", "apply_decode", "apply_verify",
            "verify_row_purity", "spec_commit", "merge_prefill",
            "supports_batched_prefill", "supports_paged_kv",
-           "supports_chunked_prefill", "supports_spec_decode"]
+           "supports_chunked_prefill", "supports_spec_decode", "batch_spec"]
 
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
@@ -94,8 +95,18 @@ def apply_model(params: Params, cfg: ModelConfig,
     logits-only prefill (``transformer.forward``), with ``batch["embeds"]``
     (B, F, d) prepended where given (the VLM stub frontend); the
     encoder-decoder's (B, S, vocab_padded) over ``batch["frames"]``
-    (``encdec.forward_encdec``)."""
+    (``encdec.forward_encdec``).
+
+    Under ``dist.ctx.train_shard_scope`` (the training mesh) params are
+    this rank's blocks and the batch its data shard's rows; a 'model'
+    axis wider than 1 takes the attention-only families (the recurrent and
+    encoder-decoder ones raise: ROADMAP Queue 1 item 10c)."""
     _check_family(cfg)
+    sh = dist_ctx.train_shard()
+    if sh is not None and sh.tp > 1 and not supports_batched_prefill(cfg):
+        raise NotImplementedError(
+            f"{cfg.name!r} ({cfg.family}) at tp > 1: ROADMAP Queue 1 item "
+            "10c (in_proj column-parallel, out_proj row-parallel)")
     if cfg.is_encdec:
         return encdec.forward_encdec(params, cfg, batch["tokens"],
                                      batch["frames"], policy=policy,
@@ -285,3 +296,20 @@ def merge_prefill(cfg: ModelConfig, old: Params, new: Params,
     if cfg.is_encdec:
         return encdec.merge_cache_encdec(old, new, active)
     return transformer.merge_cache(old, new, active)
+
+
+def batch_spec(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, tuple]:
+    """The shapes and dtypes of a training batch (the reference's
+    ``batch_spec``, with ``(shape, dtype)`` pairs in place of
+    ``jax.ShapeDtypeStruct``): int32 ``tokens`` and ``labels`` (B, S), and
+    the frontends' bf16 ``embeds`` (B, F, d) or ``frames`` (B, T_enc,
+    d)."""
+    spec = {"tokens": ((batch, seq), torch.int32),
+            "labels": ((batch, seq), torch.int32)}
+    if cfg.frontend == "vit_stub":
+        spec["embeds"] = ((batch, cfg.n_frontend_tokens, cfg.d_model),
+                          torch.bfloat16)
+    if cfg.is_encdec:
+        spec["frames"] = ((batch, cfg.n_enc_tokens, cfg.d_model),
+                          torch.bfloat16)
+    return spec

@@ -392,7 +392,8 @@ def _ffn(bp: Params, cfg: ModelConfig, x: torch.Tensor, policy,
     h2 = layers.rms_norm(x, bp["ln2"], cfg.norm_eps)
     if "moe" in bp:
         return x + moe.moe_ffn(bp["moe"], cfg, h2, policy, counter)
-    return x + layers.mlp(bp["mlp"], h2, cfg.mlp_act, policy, counter)
+    return x + layers.mlp(bp["mlp"], h2, cfg.mlp_act, policy, counter,
+                          d_ff=cfg.d_ff)
 
 
 def _write_state(entry: Params, new: Params, active) -> None:
@@ -461,10 +462,17 @@ def _layers(params: Params, cfg: ModelConfig):
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor, policy,
             counter):
     """The LM head over every row of x (under a policy its quantiser sees
-    them all, as the reference's does), f32."""
+    them all, as the reference's does), f32.  On the training mesh with
+    the head split by vocab, this rank's columns: (B, S, V_pad / tp)."""
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return dense(x, head, policy, counter, seed=9).to(torch.float32)
+    sh = layers.tp_shard()
+    shard = None
+    if sh is not None and head.shape[1] != cfg.vocab_padded():
+        x = dist_ctx.copy_to_model(x)
+        shard = layers.col_shard(x, head, sh)
+    return dense(x, head, policy, counter, seed=9,
+                 shard=shard).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -472,11 +480,12 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor, policy,
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(params: Params, tokens: torch.Tensor,
+def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   embeds: Optional[torch.Tensor]) -> torch.Tensor:
-    """Token embeddings, with a stub frontend's ``embeds`` (B, F, d)
+    """Token embeddings (vocab-parallel on the training mesh,
+    ``layers.embed_lookup``), with a stub frontend's ``embeds`` (B, F, d)
     prepended in the embedding's dtype (the VLM's patch embeddings)."""
-    x = params["embed"][tokens]
+    x = layers.embed_lookup(params["embed"], tokens, cfg.vocab_padded())
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     return x
@@ -492,8 +501,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     (``torch.utils.checkpoint``, non-reentrant), as the reference's
     ``jax.checkpoint`` of its scanned body; the remainder layers and the
     LM head are not recomputed, as there.  Under a kernel-backend policy a
-    recomputed layer launches its dense products again."""
-    x = _embed_inputs(params, tokens, embeds)
+    recomputed layer launches its dense products again.
+
+    On the training mesh (``dist.ctx.train_shard``, DESIGN.md §5) params
+    are this rank's blocks, tokens its data shard's rows, and the logits
+    come out vocab-sharded, (B / dp, F + S, vocab_padded / tp), where the
+    head is split."""
+    x = _embed_inputs(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
 

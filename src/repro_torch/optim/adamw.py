@@ -50,17 +50,36 @@ def init_opt_state(params: Any) -> Any:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _global_norm(grads: Any) -> torch.Tensor:
-    total = 0
-    for g in tree.leaves(grads):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
-    return torch.sqrt(total)
+def _global_norm(grads: Any, norm_shard=None) -> torch.Tensor:
+    """The gradients' global L2 norm.  ``norm_shard`` (training mesh):
+    ``(sharded, group)``, per leaf whether it is this rank's block of a
+    leaf split over 'model': those leaves' squares are summed over
+    ``group`` (in f32), every replicated leaf counted once."""
+    if norm_shard is None:
+        total = 0
+        for g in tree.leaves(grads):
+            total = total + torch.sum(torch.square(g.to(torch.float32)))
+        return torch.sqrt(total)
+    sharded, group = norm_shard
+    parts = [0, 0]
+    for g, s in zip(tree.leaves(grads), sharded):
+        parts[s] = parts[s] + torch.sum(torch.square(g.to(torch.float32)))
+    split = torch.as_tensor(parts[1], dtype=torch.float32,
+                            device=tree.leaves(grads)[0].device)
+    if group is not None:
+        import torch.distributed as dist
+
+        split = split.clone()
+        dist.all_reduce(split, group=group)
+    return torch.sqrt(parts[0] + split)
 
 
-def apply_updates(opt: AdamW, params: Any, grads: Any, state: Any):
-    """One AdamW step → (new_params, new_state, metrics)."""
+def apply_updates(opt: AdamW, params: Any, grads: Any, state: Any,
+                  norm_shard=None):
+    """One AdamW step → (new_params, new_state, metrics).  ``norm_shard``:
+    the training mesh's layout for the global norm (``_global_norm``)."""
     step = state["step"] + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, norm_shard)
     # tensor / tensor: a Python number over a tensor is a reciprocal product
     scale = (torch.clamp_max(_f32(opt.grad_clip, step) / (gnorm + 1e-9), 1.0)
              if opt.grad_clip else 1.0)

@@ -42,10 +42,15 @@ def case(name):
 # --------------------------------------------------------------- harness
 
 
-def _worker(rank, world, shape, store, tmp, names, q, device):
+def _worker(rank, world, shape, store, tmp, names, q, device, modules=()):
     global DEVICE
     try:
+        import importlib
+
         import torch.distributed as dist
+
+        for mod in modules:          # modules that register more cases
+            importlib.import_module(mod)
 
         DEVICE = device
         torch.set_num_threads(1)
@@ -68,8 +73,9 @@ def _worker(rank, world, shape, store, tmp, names, q, device):
         q.put((rank, {"error": traceback.format_exc()}))
 
 
-def run_mesh(shape, names, tmp, timeout=600, device="cpu"):
-    """Run ``names`` on a ``shape`` mesh → one result dict per rank."""
+def run_mesh(shape, names, tmp, timeout=600, device="cpu", modules=()):
+    """Run ``names`` on a ``shape`` mesh → one result dict per rank;
+    ``modules`` are imported in each rank first (they may add cases)."""
     import torch.multiprocessing as mp
 
     world = shape[0] * shape[1]
@@ -78,7 +84,7 @@ def run_mesh(shape, names, tmp, timeout=600, device="cpu"):
     store = os.path.join(tmp, "store")
     procs = [ctx.Process(target=_worker,
                          args=(r, world, shape, store, tmp, list(names), q,
-                               device))
+                               device, tuple(modules)))
              for r in range(world)]
     for p in procs:
         p.start()

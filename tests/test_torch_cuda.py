@@ -9,7 +9,8 @@ counts and streams, and decode windows replayed from CUDA graphs against
 the same windows run eagerly, byte for byte; kernel 1 at head dim 256 and
 the recurrent configs' scanned prefill replayed from its captured step;
 the encoder-decoder's engine and train step; sharded serving with ranks
-sharing the card (gloo).  They import torch and the port
+sharing the card (gloo); kernel 6's sharded entry against its plain
+version and the training mesh's step through it.  They import torch and the port
 only (the card's machine has no JAX) and skip where
 ``torch.cuda.is_available()`` is false:
 
@@ -1648,3 +1649,82 @@ def test_mesh_ranks_sharing_the_card(cuda, tmp_path, shape):
                                           else "graph")
         if pure:
             assert outs[0]["got"] == outs[0]["want"], name
+
+
+@pytest.mark.parametrize("m,k,n,trans", [(256, 576, 384, False),
+                                         (300, 200, 260, True),
+                                         (2048, 1536, 1792, False)])
+def test_kernel6_sharded_entry_equals_plain(cuda, m, k, n, trans):
+    """Kernel 6's sharded entry on row, column and K blocks (partials, an
+    exact sum, the epilogue kernel) and a token shard, each bit for bit its
+    plain version, and together the unsharded policy product; each launch
+    counted under its block kind."""
+    from repro_torch.kernels import dither_matmul as dm
+
+    counts = (dict(dm.dither_matmul_sharded.by_block),
+              dm.dither_matmul_epilogue.launches)
+
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 2).bfloat16()
+    w = torch.randn((n, k) if trans else (k, n), generator=gen,
+                    device="cuda").bfloat16()
+    wv = w.T if trans else w
+    ax, aw = ref.policy_absmax(x), ref.policy_absmax(w)
+    kw = dict(bits=8, scheme="dither", counter=5, seed=9)
+    full = dm.dither_matmul_scaled(x, wv, aw, **kw)
+
+    def both(xb, wb, block, partials=False):
+        got = dm.dither_matmul_sharded(xb, wb, ax, aw, block=block,
+                                       partials=partials, **kw)
+        plain = ref.dither_matmul_scaled_ref(xb, wb, aw, x_absmax=ax,
+                                             block=block, partials=partials,
+                                             **kw)
+        for g, p in zip(got if partials else (got,),
+                        plain if partials else (plain,)):
+            assert torch.equal(g, p)
+        return got
+
+    h, c, kk = m // 2, n // 2, k // 2
+    rows = [both(x[i * h:(i + 1) * h].contiguous(), wv,
+                 ref.MatmulBlock(m, k, n, m0=i * h)) for i in range(2)]
+    assert torch.equal(torch.cat(rows), full)
+    cols = [both(x, w[i * c:(i + 1) * c].T if trans
+                 else w[:, i * c:(i + 1) * c].contiguous(),
+                 ref.MatmulBlock(m, k, n, n0=i * c)) for i in range(2)]
+    assert torch.equal(torch.cat(cols, 1), full)
+    parts = [both(x[:, i * kk:(i + 1) * kk].contiguous(),
+                  w[:, i * kk:(i + 1) * kk].contiguous().T if trans
+                  else w[i * kk:(i + 1) * kk].contiguous(),
+                  ref.MatmulBlock(m, k, n, k0=i * kk), partials=True)
+             for i in range(2)]
+    acc, rowsum, colsum = (parts[0][i] + parts[1][i] for i in range(3))
+    got = dm.dither_matmul_epilogue(acc, rowsum, colsum, ax, aw, bits=8, k=k)
+    assert torch.equal(got, full)
+    assert torch.equal(got, ref.dither_matmul_scaled_epilogue_ref(
+        acc, rowsum, colsum, ax, aw, bits=8, k=k))
+    s = m // 4
+    xs = x.reshape(4, s, k)[:, s // 2:].reshape(-1, k).contiguous()
+    seg = both(xs, wv, ref.MatmulBlock(m, k, n, m0=s // 2, seg=s - s // 2,
+                                       seg_stride=s))
+    assert torch.equal(seg, full.reshape(4, s, n)[:, s // 2:].reshape(-1, n))
+    assert {b: c - counts[0][b] for b, c in
+            dm.dither_matmul_sharded.by_block.items()} == {
+        "rows": 3, "columns": 2, "k_block": 2}
+    assert dm.dither_matmul_epilogue.launches - counts[1] == 1
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_train_mesh_step_through_kernel6_equals_plain(cuda, tmp_path, shape):
+    """A training-mesh step with every rank on the one card (gloo): through
+    kernel 6's sharded entry and through its plain version, bit for bit on
+    every rank, with the sharded entry launched."""
+    import _torch_mesh
+    import _torch_train_mesh  # noqa: F401  (registers the cases)
+
+    ranks = _torch_mesh.run_mesh(shape, ["train-kernel6-parity"],
+                                 str(tmp_path), device="cuda",
+                                 modules=("_torch_train_mesh",))
+    for res in ranks:
+        r = res["train-kernel6-parity"]
+        assert "error" not in r, r["error"]
+        assert r["equal"] and r["launches"] > 0

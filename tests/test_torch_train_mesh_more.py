@@ -1,0 +1,41 @@
+"""The training mesh against the reference's sharded step, continued (the
+setting and the tolerances of ``tests/test_torch_train_mesh.py``):
+gradient compression after the data reduce (rank 0's per-leaf seeds,
+``PYTHONHASHSEED=0`` in both packages), two microbatches a data shard,
+the sequence split (3 heads, 1 KV head on a 2-way 'model' axis, fused
+policy) and query heads split over replicated KV heads (4 heads, 1 KV
+head, unfused policy)."""
+
+import pytest
+
+import _torch_train_mesh as tm
+from test_torch_train import TOL
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+CASES = ["compress", "microbatch", "seq-split", "kv-replicated"]
+_RUN = {}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    if not _RUN:
+        tmp = str(tmp_path_factory.mktemp("train_mesh_more"))
+        _RUN["ref"] = tm.reference(tmp, CASES)
+        _RUN["port"] = tm.port(tmp, CASES)
+    return _RUN
+
+
+@pytest.mark.parametrize("name,shape", tm.params(CASES),
+                         ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_sharded_step_matches_reference(runs, name, shape):
+    tol = TOL[tm.REF_CASES[name][1] != "none"]
+    tm.check_against_reference(runs["port"][shape], runs["ref"][name], name,
+                               shape, tol)
+
+
+@pytest.mark.parametrize("name,shape", tm.params(CASES),
+                         ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_replicas_bitwise(runs, name, shape):
+    tm.check_replicas(runs["port"][shape], name, shape)
