@@ -37,7 +37,8 @@ coordinates (:func:`train_shard`), and four autograd collectives carry
 their own backward: :func:`copy_to_model` (identity, all-reduce back),
 :func:`reduce_from_model` (all-reduce, identity back),
 :func:`gather_from_model` (all-gather, back all-reduce-and-slice or just
-slice) and :func:`all_reduce_max` (the policy's absmax, no gradient).
+slice), :func:`scatter_to_model` (this rank's slice, all-gather back) and
+:func:`all_reduce_max` (the policy's absmax, no gradient).
 :func:`all_reduce_sum` and :func:`all_reduce_mean` carry the exact
 integer partials of kernel 6's K blocks and the gradient bucket.
 ``COLLECTIVES`` counts the calls and bytes of each kind.  Every quantity
@@ -59,8 +60,9 @@ __all__ = [
     "axis_size", "tp_size", "dp_axes", "dp_shards", "seq_shard_attention",
     "constrain", "serve_shard_scope", "kv_shard_info", "gather_heads",
     "gather_rows", "barrier", "GATHERS", "train_shard_scope", "train_shard",
-    "train_shard_of", "TrainShard", "copy_to_model", "reduce_from_model", "gather_from_model",
-    "all_reduce_max", "all_reduce_sum", "all_reduce_mean", "COLLECTIVES",
+    "train_shard_of", "TrainShard", "copy_to_model", "reduce_from_model",
+    "gather_from_model", "scatter_to_model", "all_reduce_max",
+    "all_reduce_sum", "all_reduce_mean", "COLLECTIVES",
 ]
 
 _MESH_STACK: list = []
@@ -249,7 +251,8 @@ def barrier():
 # calls and bytes (this rank's tensors) of each training collective
 COLLECTIVES = {k: {"calls": 0, "bytes": 0}
                for k in ("copy_to_model", "reduce_from_model",
-                         "gather_from_model", "absmax", "partials",
+                         "gather_from_model", "scatter_to_model", "absmax",
+                         "partials",
                          "grads", "loss")}
 
 
@@ -355,13 +358,14 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
-def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+def _gather(x: torch.Tensor, group, dim: int,
+            kind: str = "gather_from_model") -> torch.Tensor:
     import torch.distributed as dist
 
     n = dist.get_world_size(group)
     src = x.detach().movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-    _count("gather_from_model", out)
+    _count(kind, out)
     gather = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
     gather(out, src, group=group)
@@ -383,6 +387,21 @@ class _GatherFromModel(torch.autograd.Function):
             g = _sum_f32(g, ctx.group, "gather_from_model")
         return (g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size).contiguous(),
                 None, None, None)
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        import torch.distributed as dist
+
+        ctx.group, ctx.dim = group, dim
+        size = x.shape[dim] // dist.get_world_size(group)
+        return x.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_gather(g, ctx.group, ctx.dim, "scatter_to_model")
+                .contiguous(), None, None)
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
@@ -419,6 +438,21 @@ def gather_from_model(x: torch.Tensor, dim: int,
     if s is None or s.model_group is None:
         return x
     return _GatherFromModel.apply(x, s.model_group, dim, reduce_grad)
+
+
+def scatter_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This 'model' rank's block of ``x`` (replicated over 'model') along
+    ``dim``, in coordinate order; backward all-gathers the gradient, so
+    every rank continues with the whole gradient of ``x``.  Before a
+    row-parallel product whose input every rank computed in full (the
+    SSD's ``out_proj``): with a plain slice each rank's gradient of x
+    would hold only its own block, and the replicated leaves that made x
+    would update differently on each rank.  Identity outside a training
+    mesh with tp > 1."""
+    s = train_shard()
+    if s is None or s.model_group is None:
+        return x
+    return _ScatterToModel.apply(x, s.model_group, dim)
 
 
 def all_reduce_max(x: torch.Tensor, groups=()) -> torch.Tensor:

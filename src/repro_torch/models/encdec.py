@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.dist import ctx as dist_ctx
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.numerics.policy import dense, matmul
@@ -103,7 +104,7 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
                                 counter=counter, use_rope=False)
         x = x + a
         x = x + layers.mlp(bp["mlp"], _lnorm(x, bp["ln2"], cfg), "gelu",
-                           policy, counter)
+                           policy, counter, d_ff=cfg.d_ff)
     return _lnorm(x, params["enc_norm"], cfg)
 
 
@@ -115,10 +116,18 @@ def forward_encdec(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     a policy, quantised).  ``remat`` recomputes each decoder layer in the
     backward pass (non-reentrant ``torch.utils.checkpoint``), as the
     reference's ``jax.checkpoint`` of its scanned decoder body; the
-    encoder is not recomputed, as there."""
+    encoder is not recomputed, as there.
+
+    On the training mesh (``dist.ctx.train_shard``, DESIGN.md §5) params
+    are this rank's blocks and tokens and frames its data shard's rows:
+    every attention (the encoder's, the decoder's and the cross one) runs
+    on the rank's heads (``layers.attention``), the MLPs column/row
+    parallel, ``enc_pos`` and the LayerNorms replicated, and the tied
+    head by vocab: the logits come out (B / dp, S, vocab_padded / tp)
+    for the trainer's sharded loss."""
     enc = encode(params, cfg, frames, policy=policy, counter=counter)
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = layers.embed_lookup(params["embed"], tokens, cfg.vocab_padded())
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
 
     def body(bp, h):
@@ -132,7 +141,7 @@ def forward_encdec(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                 counter=counter, use_rope=False)
         h = h + c
         return h + layers.mlp(bp["mlp"], _lnorm(h, bp["ln2"], cfg), "gelu",
-                              policy, counter)
+                              policy, counter, d_ff=cfg.d_ff)
 
     for i in range(cfg.n_layers):
         bp = transformer._index(params["dec_blocks"], i)
@@ -142,6 +151,8 @@ def forward_encdec(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             x = body(bp, x)
     x = _lnorm(x, params["final_norm"], cfg)
+    if params["embed"].shape[0] != cfg.vocab_padded():
+        x = dist_ctx.copy_to_model(x)      # the vocab-parallel tied head
     return matmul(x, params["embed"].T).to(torch.float32)
 
 

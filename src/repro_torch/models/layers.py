@@ -189,17 +189,19 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
     """
     sh = tp_shard()
     if sh is not None:
-        if kv_src is not None or not use_rope or not causal or return_kv:
+        if return_kv:
             raise NotImplementedError(
-                "attention at tp > 1 takes causal self-attention with RoPE "
-                "(the encoder and cross-attention are ROADMAP Queue 1 item "
-                "10c)")
+                "attention at tp > 1 returns no per-call K/V (return_kv): "
+                "the training mesh fills no cache, and sharded serving "
+                "runs under serve_shard_scope")
+        mode = dict(causal=causal, window=window, kv_src=kv_src,
+                    use_rope=use_rope and kv_src is None)
         if not ctx.seq_shard_attention(cfg.n_heads):
-            return _attention_tp(params, cfg, x, positions, window, policy,
-                                 counter, sh), None
-        if x.shape[1] % sh.tp == 0:
-            return _attention_seq(params, cfg, x, positions, window, policy,
-                                  counter, sh), None
+            return _attention_tp(params, cfg, x, positions, policy,
+                                 counter, sh, **mode), None
+        if x.shape[1] > 1 and x.shape[1] % sh.tp == 0:
+            return _attention_seq(params, cfg, x, positions, policy,
+                                  counter, sh, **mode), None
         # the reference's fallback: S not divisible either — every 'model'
         # rank computes the whole (replicated) attention
     b, s, _ = x.shape
@@ -294,48 +296,58 @@ def _kv_heads(cfg: ModelConfig, tp: int, model: int):
 
 
 def _attention_tp(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                  positions, window: int, policy, counter, sh
-                  ) -> torch.Tensor:
+                  positions, policy, counter, sh, *, causal: bool,
+                  window: int, kv_src: Optional[torch.Tensor],
+                  use_rope: bool) -> torch.Tensor:
     """Attention on this 'model' rank's heads (the head count divides
     tp): QKV column-parallel after ``copy_to_model``, W_O row-parallel
     (its partial sums reduced in ``dense``).  KV projections that the
     layout keeps replicated (``n_kv_heads`` does not divide tp) are
     computed whole and cut to the KV heads of the rank's query heads; their
     weights pass ``copy_to_model``, so their gradient, partial on each
-    rank, is summed."""
+    rank, is summed.  ``kv_src`` (cross-attention) enters through
+    ``copy_to_model`` too: each rank's K/V products see only its heads,
+    so the gradient flowing back into the encoder output is summed over
+    'model' (without it the encoder's replicated leaves would drift
+    apart between ranks)."""
     b, s, _ = x.shape
     hd, tp = cfg.hd(), sh.tp
     nh_l = cfg.n_heads // tp
     xin = ctx.copy_to_model(x)
+    src = xin if kv_src is None else ctx.copy_to_model(kv_src)
     kv_split = params["wk"].shape[-1] != cfg.n_kv_heads * hd
     q = dense(xin, params["wq"], policy, counter, seed=1,
               shard=col_shard(xin, params["wq"], sh))
     wk, wv = params["wk"], params["wv"]
     if kv_split:
-        k = dense(xin, wk, policy, counter, seed=2,
-                  shard=col_shard(xin, wk, sh))
-        v = dense(xin, wv, policy, counter, seed=3,
-                  shard=col_shard(xin, wv, sh))
+        k = dense(src, wk, policy, counter, seed=2,
+                  shard=col_shard(src, wk, sh))
+        v = dense(src, wv, policy, counter, seed=3,
+                  shard=col_shard(src, wv, sh))
         nkv_l, group_l, kv0 = cfg.n_kv_heads // tp, cfg.n_heads // \
             cfg.n_kv_heads, None
     else:
         kv0, nkv_l, group_l = _kv_heads(cfg, tp, sh.model)
-        k = dense(xin, ctx.copy_to_model(wk), policy, counter, seed=2)
-        v = dense(xin, ctx.copy_to_model(wv), policy, counter, seed=3)
+        k = dense(src, ctx.copy_to_model(wk), policy, counter, seed=2)
+        v = dense(src, ctx.copy_to_model(wv), policy, counter, seed=3)
     if cfg.qkv_bias and "bq" in params:
         bk, bv = params["bk"], params["bv"]
         if not kv_split:
             bk, bv = ctx.copy_to_model(bk), ctx.copy_to_model(bv)
         q, k, v = q + params["bq"], k + bk, v + bv
-    k = k.reshape(b, s, -1, hd)
-    v = v.reshape(b, s, -1, hd)
+    k = k.reshape(b, src.shape[1], -1, hd)
+    v = v.reshape(b, src.shape[1], -1, hd)
     if kv0 is not None:
         k, v = k[:, :, kv0:kv0 + nkv_l], v[:, :, kv0:kv0 + nkv_l]
-    q = rope(q.reshape(b, s, nh_l, hd), positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q = q.reshape(b, s, nh_l, hd)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     logits = grouped_logits(q.reshape(b, s, nkv_l, group_l, hd), k)
-    mask = make_causal_mask(s, s, window=window, device=x.device)
-    logits = torch.where(mask[None, None, None, :, :], logits, -1e30)
+    if causal:
+        mask = make_causal_mask(s, k.shape[1], window=window,
+                                device=x.device)
+        logits = torch.where(mask[None, None, None, :, :], logits, -1e30)
     probs = softmax(logits, dim=-1).to(x.dtype)
     out = grouped_values(probs, v).reshape(b, s, nh_l * hd)
     return dense(out, params["wo"], policy, counter, seed=4,
@@ -343,15 +355,19 @@ def _attention_tp(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _attention_seq(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                   positions, window: int, policy, counter, sh
-                   ) -> torch.Tensor:
+                   positions, policy, counter, sh, *, causal: bool,
+                   window: int, kv_src: Optional[torch.Tensor],
+                   use_rope: bool) -> torch.Tensor:
     """The reference's sequence split (``layers.py:133-135``), for a head
     count that does not divide tp: the QKV/O weights are replicated, each
     'model' rank takes its S/tp query rows at their global positions (RoPE
-    and the causal mask offset), K and V come from ``gather_from_model``,
-    W_O runs on the rank's own rows, and the rows are gathered back.  The
-    weights pass ``copy_to_model`` (each rank's gradient covers its own
-    rows), and so does x (each rank reads its own rows of it)."""
+    and the causal mask offset), K and V come from ``gather_from_model``
+    (self-attention) or from the whole ``kv_src`` (cross-attention, which
+    the reference leaves unsplit), W_O runs on the rank's own rows, and
+    the rows are gathered back.  The weights pass ``copy_to_model`` (each
+    rank's gradient covers its own rows), and so do x and ``kv_src``
+    (each rank reads its own rows of x, and uses all of ``kv_src`` for
+    its own rows' scores)."""
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
     s_l = s // sh.tp
@@ -360,20 +376,30 @@ def _attention_seq(params: Params, cfg: ModelConfig, x: torch.Tensor,
     w = {k: ctx.copy_to_model(t) for k, t in params.items()}
     xv, xg = act_view(xl, sh, seq=True)
     shard = ProductShard(xv, xg)
+    src, src_shard = xl, shard
+    if kv_src is not None:
+        src = ctx.copy_to_model(kv_src)
+        src_shard = ProductShard(*act_view(src, sh))
     q = dense(xl, w["wq"], policy, counter, seed=1, shard=shard)
-    k = dense(xl, w["wk"], policy, counter, seed=2, shard=shard)
-    v = dense(xl, w["wv"], policy, counter, seed=3, shard=shard)
+    k = dense(src, w["wk"], policy, counter, seed=2, shard=src_shard)
+    v = dense(src, w["wv"], policy, counter, seed=3, shard=src_shard)
     if cfg.qkv_bias and "bq" in w:
         q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
-    pos = positions[:, s0:s0 + s_l]
-    q = rope(q.reshape(b, s_l, nh, hd), pos, cfg.rope_theta)
-    k = rope(k.reshape(b, s_l, nkv, hd), pos, cfg.rope_theta)
-    k = ctx.gather_from_model(k, 1)
-    v = ctx.gather_from_model(v.reshape(b, s_l, nkv, hd), 1)
+    q = q.reshape(b, s_l, nh, hd)
+    k = k.reshape(b, src.shape[1], nkv, hd)
+    v = v.reshape(b, src.shape[1], nkv, hd)
+    if use_rope:
+        pos = positions[:, s0:s0 + s_l]
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    if kv_src is None:
+        k = ctx.gather_from_model(k, 1)
+        v = ctx.gather_from_model(v, 1)
     logits = grouped_logits(q.reshape(b, s_l, nkv, nh // nkv, hd), k)
-    mask = make_causal_mask(s, s, window=window,
-                            device=x.device)[s0:s0 + s_l]
-    logits = torch.where(mask[None, None, None, :, :], logits, -1e30)
+    if causal:
+        mask = make_causal_mask(s, k.shape[1], window=window,
+                                device=x.device)[s0:s0 + s_l]
+        logits = torch.where(mask[None, None, None, :, :], logits, -1e30)
     probs = softmax(logits, dim=-1).to(x.dtype)
     out = grouped_values(probs, v).reshape(b, s_l, nh * hd)
     ov, og = act_view(out, sh, seq=True)

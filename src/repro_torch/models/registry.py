@@ -19,7 +19,6 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.dist import ctx as dist_ctx
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 
@@ -98,15 +97,9 @@ def apply_model(params: Params, cfg: ModelConfig,
     (``encdec.forward_encdec``).
 
     Under ``dist.ctx.train_shard_scope`` (the training mesh) params are
-    this rank's blocks and the batch its data shard's rows; a 'model'
-    axis wider than 1 takes the attention-only families (the recurrent and
-    encoder-decoder ones raise: ROADMAP Queue 1 item 10c)."""
+    this rank's blocks and the batch its data shard's rows, every family
+    on any ('data', 'model') mesh."""
     _check_family(cfg)
-    sh = dist_ctx.train_shard()
-    if sh is not None and sh.tp > 1 and not supports_batched_prefill(cfg):
-        raise NotImplementedError(
-            f"{cfg.name!r} ({cfg.family}) at tp > 1: ROADMAP Queue 1 item "
-            "10c (in_proj column-parallel, out_proj row-parallel)")
     if cfg.is_encdec:
         return encdec.forward_encdec(params, cfg, batch["tokens"],
                                      batch["frames"], policy=policy,

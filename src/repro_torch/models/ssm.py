@@ -13,6 +13,16 @@ Every step keeps the reference's dtypes: the projections and the causal
 conv run in bf16, the recurrence and the decays in f32.  ``softplus`` is
 ``jax.nn.softplus``, ``logaddexp(x, 0)`` (torch's own ``softplus``
 switches to x above 20).
+
+On the training mesh (tp > 1) the layout is the reference's: ``in_proj``
+column-parallel, ``out_proj`` row-parallel, everything else replicated.
+The column split cuts through the [z, x, B, C, dt] segments, so the
+projection's columns are all-gathered over 'model' (each column is the
+unsharded product's) and the conv, the scan and the gated norm run
+replicated; each rank then takes its K block of ``y`` for ``out_proj``
+(``ctx.scatter_to_model``, whose backward gathers the whole gradient of
+``y`` back, so the replicated leaves' gradients stay equal on every
+rank), and the partial sums are reduced over 'model' in ``dense``.
 """
 
 from __future__ import annotations
@@ -22,6 +32,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.dist import ctx
+from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.numerics.policy import dense
 
@@ -126,7 +138,7 @@ def ssm_block(params: Params, cfg: ModelConfig, u: torch.Tensor,
     nc = lp // q
     f32 = torch.float32
 
-    proj = dense(u, params["in_proj"], policy, counter, seed=21)
+    proj = _in_proj(params["in_proj"], cfg, u, policy, counter)
     x, z, bmat, cmat, dt = _split_proj(cfg, proj)
     xbc = _silu_f32(causal_conv(torch.cat([x, bmat, cmat], dim=-1),
                                 params["conv_w"]))
@@ -172,7 +184,34 @@ def ssm_block(params: Params, cfg: ModelConfig, u: torch.Tensor,
     y = (y_diag + y_off).reshape(b, lp, nh, hd)
     y = y + params["d_skip"][None, None, :, None] * xh.to(f32)
     y = _gated_norm(params, cfg, y.reshape(b, lp, d_in).to(u.dtype), z)
-    return dense(y, params["out_proj"], policy, counter, seed=22)[:, :length]
+    return _out_proj(params["out_proj"], y, policy, counter)[:, :length]
+
+
+def _in_proj(w: torch.Tensor, cfg: ModelConfig, u: torch.Tensor, policy,
+             counter) -> torch.Tensor:
+    """u @ in_proj; on the training mesh with the columns split, this
+    rank's column block all-gathered over 'model' (the module
+    docstring)."""
+    d_in, nh, _, n = _dims(cfg)
+    sh = layers.tp_shard()
+    if sh is None or w.shape[-1] == 2 * d_in + 2 * n + nh:
+        return dense(u, w, policy, counter, seed=21)
+    u = ctx.copy_to_model(u)
+    part = dense(u, w, policy, counter, seed=21,
+                 shard=layers.col_shard(u, w, sh))
+    return ctx.gather_from_model(part, part.dim() - 1, reduce_grad=False)
+
+
+def _out_proj(w: torch.Tensor, y: torch.Tensor, policy,
+              counter) -> torch.Tensor:
+    """y @ out_proj; on the training mesh with the rows split, row-parallel
+    on this rank's K block of the replicated y."""
+    sh = layers.tp_shard()
+    if sh is None or w.shape[0] == y.shape[-1]:
+        return dense(y, w, policy, counter, seed=22)
+    y = ctx.scatter_to_model(y, y.dim() - 1)
+    return dense(y, w, policy, counter, seed=22,
+                 shard=layers.row_shard(y, w, sh))
 
 
 def ssm_decode_step(params: Params, cfg: ModelConfig, u: torch.Tensor,

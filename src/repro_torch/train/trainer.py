@@ -132,12 +132,6 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamW,
     policy = policy.resolved() if policy is not None else None
     grad_policy = grad_policy.resolved() if grad_policy is not None else None
     sh = None if mesh is None else ctx.train_shard_of(mesh)
-    if sh is not None and sh.tp > 1 and (cfg.is_encdec or any(
-            cfg.layer_kind(i) != "attn" for i in range(cfg.n_layers))):
-        raise NotImplementedError(
-            f"{cfg.name!r} ({cfg.family}) trains at tp > 1 only with "
-            "ROADMAP Queue 1 item 10c (the recurrent and encoder-decoder "
-            "families' column- and row-parallel in_proj / out_proj)")
     layout = {}
 
     def local_layout(params):

@@ -61,6 +61,11 @@ MODELS = {
     # 5 experts on a 2-way 'model' axis: the reference pads them to 6
     "granite-moe-e5": ("granite_moe_1b_a400m", dict(n_experts=5)),
     "internvl2": ("internvl2_1b", {}),
+    "mamba2": ("mamba2_370m", {}),
+    # (rglru, rglru, attn): the RG-LRU replicated, MQA attention on
+    # local query heads over the replicated KV head, GELU MLP split
+    "rgemma": ("recurrentgemma_9b", {}),
+    "whisper": ("whisper_small", {}),
 }
 
 # case → (model, policy, meshes, microbatch, gradient compression)
@@ -76,6 +81,12 @@ REF_CASES = {
     "moe-epad": ("granite-moe-e5", "unfused", [(1, 1), (2, 1), (2, 2)], 0,
                  False),
     "vlm": ("internvl2", "fused", [(1, 1), (2, 2)], 0, False),
+    "ssm": ("mamba2", "none", [(1, 2), (2, 2)], 0, False),
+    "ssm-fused": ("mamba2", "fused", [(1, 2), (2, 2)], 0, False),
+    "hybrid": ("rgemma", "none", [(1, 2), (2, 2)], 0, False),
+    "hybrid-fused": ("rgemma", "fused", [(1, 2), (2, 2)], 0, False),
+    "encdec": ("whisper", "none", [(1, 2), (2, 2)], 0, False),
+    "encdec-fused": ("whisper", "fused", [(1, 2), (2, 2)], 0, False),
 }
 
 _MODELS = {}
@@ -105,23 +116,31 @@ def ref_cfg(name):
 
 
 def batch(cfg):
-    """One global batch as numpy: int32 tokens = labels (B, S), and for a
-    ``vit_stub`` config bf16-representable f32 ``embeds`` (B, F, d)."""
+    """One global batch as numpy: int32 tokens = labels (B, S), and
+    bf16-representable f32 ``embeds`` (B, F, d) for a ``vit_stub`` config
+    or ``frames`` (B, T_enc, d) for the encoder-decoder."""
     rng = np.random.default_rng(3)
     tokens = rng.integers(0, cfg.vocab_size, size=(BATCH, SEQ)).astype(
         np.int32)
     out = {"tokens": tokens, "labels": tokens.copy()}
-    if cfg.frontend == "vit_stub":
-        e = rng.normal(size=(BATCH, cfg.n_frontend_tokens, cfg.d_model))
-        out["embeds"] = torch.from_numpy(e.astype(np.float32)).bfloat16() \
-            .float().numpy()
+    for key, rows in (("embeds", cfg.n_frontend_tokens
+                       if cfg.frontend == "vit_stub" else 0),
+                      ("frames", cfg.n_enc_tokens if cfg.is_encdec else 0)):
+        if rows:
+            e = rng.normal(size=(BATCH, rows, cfg.d_model))
+            out[key] = torch.from_numpy(e.astype(np.float32)).bfloat16() \
+                .float().numpy()
     return out
+
+
+BF16_INPUTS = ("embeds", "frames")
 
 
 def port_batch(cfg):
     b = {k: torch.from_numpy(v) for k, v in batch(cfg).items()}
-    if "embeds" in b:
-        b["embeds"] = b["embeds"].bfloat16()
+    for k in BF16_INPUTS:
+        if k in b:
+            b[k] = b[k].bfloat16()
     return b
 
 
@@ -175,18 +194,18 @@ def train_case(mesh, shape, name):
     step = trainer.make_train_step(cfg, AdamW(lr=LR), policy=policy,
                                    grad_policy=gpol, microbatch=mb,
                                    mesh=mesh)
-    losses, first = [], None
+    losses, first, digests = [], None, []
     for _ in range(STEPS):
         state, metrics = step(state, local)
         losses.append(float(metrics["loss"]))
+        digests.append({k: [digest(t) for t in tree.leaves(v)]
+                        for k, v in (("params", state["params"]),
+                                     ("m", state["opt"]["m"]),
+                                     ("v", state["opt"]["v"]))})
         if first is None:    # the step-1 gradients as the step applied them
             first = interop.gather_train_state(state, cfg, mesh)
     whole = interop.gather_train_state(state, cfg, mesh)
-    out = {"coord": coord, "losses": losses,
-           "digests": {k: [digest(t) for t in tree.leaves(v)]
-                       for k, v in (("params", state["params"]),
-                                    ("m", state["opt"]["m"]),
-                                    ("v", state["opt"]["v"]))}}
+    out = {"coord": coord, "losses": losses, "digests": digests}
     if dist.get_rank() == 0:
         out["grads"] = [f32(g) for g in tree.leaves(first["opt"]["m"])]
         out["v"] = [f32(v) for v in tree.leaves(first["opt"]["v"])]
@@ -304,23 +323,42 @@ def elastic_restore_case(mesh, shape, tmp):
 
 
 def limits_case(mesh, shape, tmp):
-    """What the training mesh refuses: the recurrent and encoder-decoder
-    families at tp > 1 (ROADMAP item 10c), a batch the data axis does not
-    divide, and microbatches that do not divide a data shard's rows."""
-    from repro_torch.configs import get_config
+    """What the training mesh refuses: query heads that straddle KV groups
+    when the KV projections stay replicated (6 heads over 3 KV heads on a
+    2-way 'model' axis), attention's per-call K/V (``return_kv``) at
+    tp > 1, a batch the data axis does not divide, and microbatches that
+    do not divide a data shard's rows."""
+    from repro_torch import interop
+    from repro_torch.dist import ctx
     from repro_torch.launch.train import run_training
+    from repro_torch.models import layers
     from repro_torch.optim.adamw import AdamW
     from repro_torch.train import trainer
 
     out = {}
-    for arch in ("mamba2_370m", "recurrentgemma_9b", "whisper_small"):
-        try:
-            trainer.make_train_step(get_config(arch).reduced(),
-                                    AdamW(lr=LR), mesh=mesh)
-            out[arch] = None
-        except NotImplementedError as e:
-            out[arch] = str(e)
     cfg, _ = model("smollm")
+    straddle = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3)
+    step = trainer.make_train_step(straddle, AdamW(lr=LR), mesh=mesh)
+    state = interop.shard_train_state(
+        trainer.init_train_state(straddle, device="cpu"), straddle,
+        ctx.mesh_coordinate(mesh), mesh)
+    try:
+        step(state, {k: v[:BATCH // shape[0]]
+                     for k, v in port_batch(cfg).items()})
+        out["straddle"] = None
+    except NotImplementedError as e:
+        out["straddle"] = str(e)
+    attn = {k: v[0] for k, v in model("smollm")[1]["blocks"][0]["attn"]
+            .items()}
+    x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
+    try:
+        with ctx.train_shard_scope(mesh):
+            layers.attention(attn, cfg, x, torch.zeros((1, 4),
+                                                       dtype=torch.long),
+                             return_kv=True)
+        out["return_kv"] = None
+    except NotImplementedError as e:
+        out["return_kv"] = str(e)
     try:
         run_training(cfg, steps=1, batch=shape[0] + 1, seq=8, device="cpu",
                      mesh=mesh, log=lambda *a: None)
@@ -495,24 +533,29 @@ def check_against_reference(res, ref, name, shape, tol):
 
 
 def check_replicas(res, name, shape):
-    """The data replicas' params, m and v bit for bit equal (ranks with one
-    'model' coordinate), and the 'model' ranks' replicated leaves too."""
+    """After every step: the data replicas' params, m and v bit for bit
+    equal (ranks with one 'model' coordinate), and the 'model' ranks'
+    replicated leaves too."""
     from repro_torch.dist import sharding
     from repro_torch.dist.sharding import MeshShape
 
     out = [r[f"train-{name}"] for r in res]
     for r in out:
         assert "error" not in r, r.get("error")
-    by_model = {}
-    for r in out:
-        by_model.setdefault(r["coord"]["model"], []).append(r["digests"])
-    for group in by_model.values():
-        assert all(g == group[0] for g in group), (name, shape, "data")
     cfg, p = model(REF_CASES[name][0])
     specs = sharding.spec_leaves(sharding.train_param_specs(
         p, cfg, MeshShape(("data", "model"), shape)))
-    for kind in ("params", "m", "v"):
-        for i, spec in enumerate(specs):
-            if "model" not in spec:
-                assert len({r["digests"][kind][i] for r in out}) == 1, (
-                    name, shape, kind, i)
+    for step in range(STEPS):
+        by_model = {}
+        for r in out:
+            by_model.setdefault(r["coord"]["model"], []).append(
+                r["digests"][step])
+        for group in by_model.values():
+            assert all(g == group[0] for g in group), (name, shape, step,
+                                                       "data")
+        for kind in ("params", "m", "v"):
+            for i, spec in enumerate(specs):
+                if "model" not in spec:
+                    assert len({r["digests"][step][kind][i]
+                                for r in out}) == 1, (name, shape, step,
+                                                      kind, i)

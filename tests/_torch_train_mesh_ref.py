@@ -49,8 +49,9 @@ def run_case(name):
     state0 = trainer.init_train_state(jax.random.PRNGKey(0), cfg)
     state0["params"] = params
     b = {k: jnp.asarray(v) for k, v in tm.batch(cfg).items()}
-    if "embeds" in b:
-        b["embeds"] = b["embeds"].astype(jnp.bfloat16)
+    for k in tm.BF16_INPUTS:
+        if k in b:
+            b[k] = b[k].astype(jnp.bfloat16)
     policy = tm.ref_policy(pol)
     gpol = tm.ref_policy("unfused") if compress else None
     out = {}
