@@ -80,7 +80,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     """Random bf16 weights from a ``torch.Generator`` seeded with ``seed``
     on ``device``."""
     _check_family(cfg)
-    gen = torch.Generator(device=device)
+    # meta tensors (the dry run) draw nothing: a CPU generator serves
+    gen = torch.Generator(device="cpu" if torch.device(device).type ==
+                          "meta" else device)
     gen.manual_seed(seed)
     if cfg.is_encdec:
         return encdec.init_encdec(gen, cfg, device=device)
