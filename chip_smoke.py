@@ -3,7 +3,7 @@
 
   PYTHONPATH=src python chip_smoke.py
 
-Drives the port (``src/repro_torch``) on one card, in eleven phases, each
+Drives the port (``src/repro_torch``) on one card, in twelve phases, each
 printing JSON lines:
 
 1. device — refuses to run without CUDA; the card's name and power limit
@@ -157,7 +157,24 @@ printing JSON lines:
    single-device codes of its heads, all-gathers and bytes a tick and
    decode ms a tick (ranks sharing one card: not a sharded rate); the GQA
    fallback (smollm-135m, 3 KV heads) on (1, 2) bit for bit; kernels 1
-   and 2 checked and timed at the local shape (1, 6, 128).
+   and 2 checked and timed at the local shape (1, 6, 128);
+12. the training mesh (``train_mesh``) — kernel 6's sharded entry at the
+   meshes' local shapes (``SHARDED_CASES``: qwen2-1.5b's rows, columns
+   and K halves with their epilogue, mamba2-370m's ``in_proj`` columns and
+   ``out_proj`` K halves, whisper-small's encoder QKV columns), bit for
+   bit its plain version and the slice of the unsharded product, timed
+   beside bf16 ``torch.matmul``; qwen2-1.5b trained on the (1, 1) mesh
+   through NCCL at 28 layers, bit for bit one device; (2, 2), (2, 1)
+   and (1, 2) as gloo ranks sharing the card at 8 layers, with and
+   without the dither policy, granite-moe at (2, 1), smollm-135m's
+   sequence split and (ROADMAP item 10c) mamba2-370m (16 layers),
+   recurrentgemma-9b (3 layers) and whisper-small (12 + 12) at (1, 2):
+   replicas bit for bit after every step, step-1 losses within the
+   one-device tolerance, a dither step through kernel 6's sharded entry
+   bit for bit its plain version, its launches by block kind; the
+   elastic checkpoint; and the dry run (``launch/dryrun.py``, meta
+   tensors on a fake process group) predicting the (2, 2) step's
+   collectives exactly and the (1, 1) run's peak beside the measured one.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
@@ -177,7 +194,8 @@ tick under the profiler (bf16 and int8 KV).
 
   PYTHONPATH=src python chip_smoke.py --mesh-block
 
-runs the device and build phases and the mesh block alone.
+runs the device and build phases, the mesh block and the training-mesh
+block alone.
 """
 
 from __future__ import annotations
@@ -4887,6 +4905,14 @@ TRAIN_MESH_LR = 1e-3
 TRAIN_MESH_SEQ_SPLIT = "smollm_135m"     # 9 heads: the sequence split at tp 2
 TRAIN_MESH_MOE = "granite_moe_1b_a400m"
 TRAIN_MESH_CKPT = ("smollm_135m", 2)     # the elastic checkpoint's model
+# tensor-parallel training of the recurrent and encoder-decoder families
+# (ROADMAP item 10c) at (1, 2), full width: model → (layers, one step
+# under the dither policy through kernel 6's sharded entry?).  mamba2 at
+# the zoo's 16 of 48 layers, recurrentgemma at one (rglru, rglru, attn)
+# period of 38 layers (≈ 1.65 B parameters, most of them its 256,000 ×
+# 4,096 embedding), whisper at its full 12 + 12
+TRAIN_MESH_TP = {"mamba2_370m": (16, True), "recurrentgemma_9b": (3, False),
+                 "whisper_small": (12, True)}
 # tests/test_torch_train.py's step-1 loss tolerances (no policy, policy)
 TRAIN_MESH_LOSS_TOL = {False: 2.0 ** -10, True: 2.0 ** -6}
 
@@ -4937,9 +4963,10 @@ def train_mesh_steps(torch, cfg, mesh, backend, steps, plain_check=False):
     (``torch-ref``), its loss and digests bit for bit the kernel's."""
     import gc
 
-    from repro_torch import interop
-    from repro_torch.dist import ctx
+    from repro_torch import tree
+    from repro_torch.dist import ctx, sharding
     from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.optim import adamw
     from repro_torch.optim.adamw import AdamW
     from repro_torch.train import trainer
 
@@ -4951,9 +4978,20 @@ def train_mesh_steps(torch, cfg, mesh, backend, steps, plain_check=False):
     local = {k: v[rows] for k, v in batch.items()}
 
     def fresh():
-        return interop.shard_train_state(
-            trainer.init_train_state(cfg, seed=0, device="cuda"), cfg,
-            coord, mesh)
+        """This rank's blocks of the seed-0 state: the global params cut
+        by the training layout, zero moments made at the local shapes
+        (``shard_train_state`` of ``init_train_state`` bit for bit,
+        without the global moments: recurrentgemma's would take 20 GB a
+        rank)."""
+        glob = registry_init(cfg)
+        specs = sharding.train_param_specs(glob, cfg, mesh)
+        sizes = ctx.mesh_sizes(mesh)
+        params = tree.tree_map(lambda leaf, spec: sharding.local_block(
+            leaf, spec, sizes, coord), glob, specs)
+        del glob
+        return {"params": params, "opt": adamw.init_opt_state(params),
+                "counter": torch.zeros((), dtype=torch.int32,
+                                       device="cuda")}
 
     torch.cuda.reset_peak_memory_stats()
     state = fresh()
@@ -5181,28 +5219,34 @@ def epilogue_bound(m, n):
         "f32 ops": (EPILOGUE_F32_OPS + 1) * m * n / PEAK_F32})
 
 
-def sharded_kernel_checks(torch, dm, ref):
-    """Kernel 6's sharded entry at the training mesh's local shapes
-    (qwen2-1.5b, 8 × 512 tokens), one row a wrapper call of the kind the
-    mesh launches: a row block of a data shard (M 2,048, ``wu``), a
-    column block of ``wu`` at N / 2, one K half of ``wd`` in partials
-    mode (the int32 accumulator and code sums of its K slice) and the
-    epilogue over the two halves' summed partials (what the all-reduce
-    over 'model' computes).  Each result bit for bit its plain version
-    on the same inputs; the rows and columns blocks and the reassembled K
-    blocks bit for bit the slice of the unsharded product.  Event ms
-    (back-to-back calls), device ms (``torch.profiler``: everything the
-    call launches), the plain version's ms, the bound, and
-    ``torch.matmul``'s bf16 time on the same local operands (the
-    epilogue: none)."""
-    cfg = mesh_cfg(MESH_MODEL)
-    d, f = cfg.d_model, cfg.d_ff
-    m = TRAIN_BATCH * TRAIN_SEQ
+# kernel 6's sharded entry at the training meshes' local shapes: (kind of
+# block, label or None for qwen2-1.5b's, global M, K, N).  qwen2-1.5b's
+# ``wu`` as a data shard's rows and as a column block, ``wd`` as K halves;
+# (ROADMAP item 10c, 8 × 512 tokens at tp 2) mamba2-370m's ``in_proj``
+# column block and ``out_proj`` K halves, whisper-small's encoder QKV
+# column block over 8 × 1,500 frames
+SHARDED_CASES = (("rows", None, 4096, 1536, 8960),
+                 ("columns", None, 4096, 1536, 8960),
+                 ("k_block", None, 4096, 8960, 1536),
+                 ("columns", "mamba2 in_proj", 4096, 1024, 4384),
+                 ("k_block", "mamba2 out_proj", 4096, 2048, 1024),
+                 ("columns", "whisper encoder QKV", 12000, 768, 768))
+
+
+def sharded_kernel_checks(torch, dm, ref, cases=SHARDED_CASES):
+    """Kernel 6's sharded entry at the training meshes' local shapes
+    (``SHARDED_CASES``), one row a wrapper call of the kind the mesh
+    launches: a data shard's half of the rows, a column block at N / 2,
+    one K half in partials mode (the int32 accumulator and code sums of
+    its K slice) and the epilogue over the two halves' summed partials
+    (what the all-reduce over 'model' computes).  Each result bit for bit
+    its plain version on the same inputs; the rows and columns blocks and
+    the reassembled K blocks bit for bit the slice of the unsharded
+    product.  Event ms (back-to-back calls), device ms
+    (``torch.profiler``: everything the call launches), the plain
+    version's ms, the bound, and ``torch.matmul``'s bf16 time on the same
+    local operands (the epilogue: none)."""
     gen = torch.Generator(device="cuda").manual_seed(17)
-    x = (torch.randn((m, d), generator=gen, device="cuda")).bfloat16()
-    h = (torch.randn((m, f), generator=gen, device="cuda") * 0.3).bfloat16()
-    wu = (torch.randn((d, f), generator=gen, device="cuda") * 0.03).bfloat16()
-    wd = (torch.randn((f, d), generator=gen, device="cuda") * 0.01).bfloat16()
     kw = dict(bits=8, scheme="dither", counter=3, seed=6)
 
     def sharded(xs, w, ax, aw, block, partials=False):
@@ -5212,11 +5256,14 @@ def sharded_kernel_checks(torch, dm, ref):
                 xs, w, aw, x_absmax=ax, block=block, partials=partials,
                 **kw))
 
-    def row(label, call, plain, shape, glob, bound, lib, note=None):
+    def row(kind, label, call, plain, shape, glob, bound, lib, note=None):
         bound_ms, term = bound
+        tag = kind if label is None else f"{kind}, {label}"
+        name = (f"dither_matmul_sharded[{tag}]" if kind != "epilogue" else
+                "dither_matmul_epilogue" + ("" if label is None
+                                            else f"[{label}]"))
         return {
-            "name": f"dither_matmul_sharded[{label}]" if label != "epilogue"
-            else "dither_matmul_epilogue", "block": label,
+            "name": name, "block": kind, "model_shapes": label,
             "shape": shape, "global": glob,
             "max_abs_err": 0.0, "bitwise_plain": True,
             "bitwise_unsharded_slice": True,
@@ -5229,57 +5276,63 @@ def sharded_kernel_checks(torch, dm, ref):
             "torch.matmul bf16, the same local operands", "note": note}
 
     rows = []
-    for label, xs, w, full_x, full_w, block, want in (
-            ("rows", x[:m // 2].contiguous(), wu, x, wu,
-             ref.MatmulBlock(m, d, f, m0=0), lambda o: o[:m // 2]),
-            ("columns", x, wu[:, :f // 2].contiguous(), x, wu,
-             ref.MatmulBlock(m, d, f, n0=0), lambda o: o[:, :f // 2])):
-        ax, aw = ref.policy_absmax(full_x), ref.policy_absmax(full_w)
-        call, plain = sharded(xs, w, ax, aw, block)
-        got = call()
-        torch.cuda.synchronize()
-        assert torch.equal(got, plain()), label
-        assert torch.equal(got, want(dm.dither_matmul_scaled(
-            full_x, full_w, aw, **kw))), label
-        mm, kk, nn = xs.shape[0], xs.shape[1], w.shape[1]
-        rows.append(row(label, call, plain, [mm, kk, nn],
-                        [block.M, block.K, block.N],
-                        matmul_bound(mm, kk, nn, policy=True),
-                        lambda: torch.matmul(xs, w)))
-    # the K blocks of wd: two halves' partials, summed, one epilogue
-    ax, aw = ref.policy_absmax(h), ref.policy_absmax(wd)
-    halves = [(h[:, i * f // 2:(i + 1) * f // 2].contiguous(),
-               wd[i * f // 2:(i + 1) * f // 2].contiguous(),
-               ref.MatmulBlock(m, f, d, k0=i * f // 2)) for i in range(2)]
-    parts, calls = [], []
-    for xs, w, block in halves:
-        call, plain = sharded(xs, w, ax, aw, block, partials=True)
-        got, want = call(), plain()
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), "k_block"
-        parts.append(got)
-        calls.append((call, plain))
-    summed = [(parts[0][i] + parts[1][i]).contiguous() for i in range(3)]
-    full = dm.dither_matmul_scaled(h, wd, aw, **kw)
+    for kind, label, m, k, n in cases:
+        x = (torch.randn((m, k), generator=gen, device="cuda")).bfloat16()
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             / math.sqrt(k)).bfloat16()
+        ax, aw = ref.policy_absmax(x), ref.policy_absmax(w)
+        full = dm.dither_matmul_scaled(x, w, aw, **kw)
+        if kind != "k_block":
+            xs, ws, block, want = (
+                (x[:m // 2].contiguous(), w, ref.MatmulBlock(m, k, n, m0=0),
+                 full[:m // 2]) if kind == "rows" else
+                (x, w[:, :n // 2].contiguous(),
+                 ref.MatmulBlock(m, k, n, n0=0), full[:, :n // 2]))
+            call, plain = sharded(xs, ws, ax, aw, block)
+            got = call()
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain()), (kind, label)
+            assert torch.equal(got, want), (kind, label)
+            rows.append(row(kind, label, call, plain,
+                            [xs.shape[0], k, ws.shape[1]], [m, k, n],
+                            matmul_bound(xs.shape[0], k, ws.shape[1],
+                                         policy=True),
+                            lambda xs=xs, ws=ws: torch.matmul(xs, ws)))
+            continue
+        # K blocks: two halves' partials, summed, one epilogue
+        halves = [(x[:, i * k // 2:(i + 1) * k // 2].contiguous(),
+                   w[i * k // 2:(i + 1) * k // 2].contiguous(),
+                   ref.MatmulBlock(m, k, n, k0=i * k // 2)) for i in range(2)]
+        parts, calls = [], []
+        for xs, ws, block in halves:
+            call, plain = sharded(xs, ws, ax, aw, block, partials=True)
+            got, want = call(), plain()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                "k_block", label)
+            parts.append(got)
+            calls.append((call, plain))
+        summed = [(parts[0][i] + parts[1][i]).contiguous() for i in range(3)]
 
-    def epi():
-        return dm.dither_matmul_epilogue(*summed, ax, aw, bits=8, k=f)
+        def epi(summed=summed, ax=ax, aw=aw, k=k):
+            return dm.dither_matmul_epilogue(*summed, ax, aw, bits=8, k=k)
 
-    def epi_plain():
-        return ref.dither_matmul_scaled_epilogue_ref(*summed, ax, aw,
-                                                     bits=8, k=f)
-    got = epi()
-    torch.cuda.synchronize()
-    assert torch.equal(got, epi_plain()), "epilogue"
-    assert torch.equal(got, full), "k blocks reassembled"
-    xs, w, block = halves[0]
-    rows.append(row("k_block", *calls[0], [m, f // 2, d], [m, f, d],
-                    partials_bound(m, f // 2, d),
-                    lambda: torch.matmul(xs, w),
-                    "one K half's int32 partials (a rank at tp 2)"))
-    rows.append(row("epilogue", epi, epi_plain, [m, d], [m, f, d],
-                    epilogue_bound(m, d), None,
-                    "over the two K halves' summed partials"))
+        def epi_plain(summed=summed, ax=ax, aw=aw, k=k):
+            return ref.dither_matmul_scaled_epilogue_ref(*summed, ax, aw,
+                                                         bits=8, k=k)
+        got = epi()
+        torch.cuda.synchronize()
+        assert torch.equal(got, epi_plain()), ("epilogue", label)
+        assert torch.equal(got, full), ("k blocks reassembled", label)
+        xs, ws, _ = halves[0]
+        rows.append(row("k_block", label, *calls[0], [m, k // 2, n],
+                        [m, k, n], partials_bound(m, k // 2, n),
+                        lambda xs=xs, ws=ws: torch.matmul(xs, ws),
+                        "one K half's int32 partials (a rank at tp 2)"))
+        rows.append(row("epilogue", label, epi, epi_plain, [m, n], [m, k, n],
+                        epilogue_bound(m, n), None,
+                        "over the two K halves' summed partials"))
+        del x, w, full, halves, parts, summed
     return rows
 
 
@@ -5359,7 +5412,9 @@ def train_mesh_phase(torch, dm, ref):
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.dist import sharding
     from repro_torch.dist.sharding import MeshShape
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import registry
     from repro_torch.optim.adamw import AdamW
     from repro_torch.train import trainer
 
@@ -5386,6 +5441,31 @@ def train_mesh_phase(torch, dm, ref):
     base["seq"] = float(trainer.make_train_step(qcfg, AdamW(
         lr=TRAIN_MESH_LR))(state, train_mesh_batch(qcfg))[1]["loss"])
     del state
+    # the 10c families: the step-1 loss of one device is the loss of the
+    # seed-0 params (the forward alone: recurrentgemma's whole step,
+    # ≈ 59 GB, would not fit beside the card's other tenants); without a
+    # policy, with the row-parallel products summed as the mesh sums them
+    # (``row_parallel_rule``), the plain loss beside it
+    tp_specs = {}
+    for fam, (depth, pol) in TRAIN_MESH_TP.items():
+        tcfg = mesh_cfg(fam, depth)
+        params = registry_init(tcfg)
+        batch = train_mesh_batch(tcfg)
+        with torch.no_grad():
+            base[fam, "plain"] = float(trainer.loss_fn(params, tcfg, batch,
+                                                        None, 0))
+            with row_parallel_rule(torch, tcfg, params, 2):
+                base[fam, None] = float(trainer.loss_fn(params, tcfg, batch,
+                                                         None, 0))
+            if pol:
+                base[fam, "auto"] = float(trainer.loss_fn(
+                    params, tcfg, batch, train_mesh_policy("auto"), 0))
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_specs[fam] = sharding.spec_leaves(sharding.train_param_specs(
+            registry.init_model(tcfg, device="meta"), tcfg,
+            MeshShape(("data", "model"), (1, 2))))
     mcfg = mesh_cfg(TRAIN_MESH_MOE, MESH_SHARED_LAYERS)
     params = registry_init(mcfg)
     batch = train_mesh_batch(mcfg)
@@ -5443,6 +5523,11 @@ def train_mesh_phase(torch, dm, ref):
                   1, False))
     pairs.append(("steps", (1, 2), TRAIN_MESH_SEQ_SPLIT, SMOLLM_LAYERS, None,
                   1, False))
+    for fam, (depth, pol) in TRAIN_MESH_TP.items():
+        pairs.append(("steps", (1, 2), fam, depth, None, TRAIN_MESH_STEPS,
+                      False))
+        if pol:
+            pairs.append(("steps", (1, 2), fam, depth, "auto", 1, True))
     t0 = time.perf_counter()
     two = spawn_ranks(2, train_mesh_rank, (pairs,),
                       alloc_conf=TRAIN_MESH_ALLOC)
@@ -5512,10 +5597,51 @@ def train_mesh_phase(torch, dm, ref):
         **v["runs"]["dither"]["kernel6_sharded_by_block"],
         "epilogue": v["runs"]["dither"]["kernel6_epilogue_launches"]}
         for k, v in meshes.items()}
+    # the recurrent and encoder-decoder families at (1, 2) (item 10c)
+    tp_lines = {}
+    for fam, (depth, pol) in TRAIN_MESH_TP.items():
+        line = {"mesh": [1, 2], "backend": "gloo", "shared_card": True,
+                "model": fam, "layers": depth, "runs": {}}
+        for backend in (None, "auto") if pol else (None,):
+            key = ("steps", (1, 2), fam, str(depth), str(backend))
+            replicas_equal(tp_specs[fam], (1, 2), two, key)
+            r0 = two[0][key]
+            assert all(r[key]["losses"] == r0["losses"] for r in two), key
+            tol = TRAIN_MESH_LOSS_TOL[backend is not None]
+            assert abs(r0["losses"][0] - base[fam, backend]) <= tol, (
+                fam, backend, r0["losses"][0], base[fam, backend])
+            if backend is not None:
+                assert all(r[key]["plain_step1_equal"] for r in two), (
+                    fam, "kernel 6 != plain")
+                by = {**r0["kernel6_sharded_by_block"],
+                      "epilogue": r0["kernel6_epilogue_launches"]}
+                for kind in ("columns", "k_block", "epilogue"):
+                    assert by[kind] > 0, (fam, kind, "kernel 6 not launched")
+                launches[f"1x2 {fam} dither"] = by
+            line["runs"]["dither" if backend else "none"] = {
+                "losses": r0["losses"],
+                "single_device_step1": base[fam, backend],
+                "single_device_plain_step1":
+                    base[fam, "plain"] if backend is None else None,
+                "replicas_bitwise": True,
+                "kernel_equals_plain_step1": r0.get("plain_step1_equal"),
+                "step_ms_by_rank": [r[key]["step_ms"] for r in two],
+                "kernel6_sharded_by_block": r0["kernel6_sharded_by_block"],
+                "kernel6_epilogue_launches": r0["kernel6_epilogue_launches"],
+                "collectives_a_step": {
+                    k: v for k, v in r0["collectives_a_step"].items()
+                    if v["calls"]},
+                "peak_memory_allocated_gb_by_rank": [
+                    r[key]["peak_memory_allocated_gb"] for r in two]}
+        line["note"] = "ranks sharing one card: no sharded rate"
+        tp_lines[fam] = line
+        emit({"phase": "train_mesh", **line})
     for mesh_key, kind in (("2x1", "rows"), ("1x2", "columns"),
                            ("1x2", "k_block"), ("1x2", "epilogue")):
         assert launches[f"{mesh_key} dither"][kind] > 0, (
             mesh_key, kind, "kernel 6 not launched")
+    dry = dryrun_checks(torch, dryrun, scfg, fcfg, meshes, one)
+    emit({"phase": "train_mesh", "dryrun": dry})
     res.update(
         one_by_one=one, meshes=meshes,
         elastic={"saved_at": [2, 2], "restored_at": [[2, 1], [1, 1]],
@@ -5531,10 +5657,95 @@ def train_mesh_phase(torch, dm, ref):
                        "gathers_a_step":
                            seq["collectives_a_step"]["gather_from_model"]},
         spawn_s={"four_ranks": four_s, "two_ranks": two_s},
-        launches=launches,
+        launches=launches, tp_families=tp_lines, dryrun=dry,
         seconds=time.perf_counter() - t_start)
     shutil.rmtree(ckpt, ignore_errors=True)
     return res
+
+
+# the row-parallel weights of the training layout (K split over 'model')
+ROW_PARALLEL = ("wo", "wd", "out_proj")
+
+
+@contextlib.contextmanager
+def row_parallel_rule(torch, cfg, params, tp):
+    """One device computing each row-parallel product of a ``tp``-way
+    'model' axis as the mesh does (``policy.dense`` with a K-split
+    ``ProductShard``, the reference's GSPMD rule): the ``tp`` K blocks'
+    products each rounded to bf16, summed in f32, rounded once.  Only
+    policy-free products of ``params``' ``ROW_PARALLEL`` leaves that the
+    training layout splits on K; every other product is plain.  The
+    mesh's step-1 loss is then this device's loss up to the column
+    blocks' and the vocab-parallel loss's summation order: mamba2's 16
+    layers move by ≈ 1e-3 from the plain loss under the rule alone."""
+    from repro_torch import tree
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import MeshShape
+    from repro_torch.models import encdec, hybrid, layers, ssm, transformer
+    from repro_torch.numerics import policy as pol
+
+    specs = sharding.spec_leaves(sharding.train_param_specs(
+        params, cfg, MeshShape(("data", "model"), (1, tp))))
+    split = {leaf.untyped_storage().data_ptr()
+             for (path, leaf), spec in zip(tree.leaves_with_path(params),
+                                           specs)
+             if path[-1] in ROW_PARALLEL and spec[-2:-1] == ("model",)}
+    plain = pol.dense
+
+    def dense(x, w, policy=None, counter=0, seed=0, shard=None):
+        if (policy is not None or shard is not None
+                or w.untyped_storage().data_ptr() not in split):
+            return plain(x, w, policy, counter, seed, shard)
+        k = w.shape[0] // tp
+        total = pol.matmul(x[..., :k], w[:k]).to(torch.float32)
+        for i in range(1, tp):
+            total = total + pol.matmul(x[..., i * k:(i + 1) * k],
+                                       w[i * k:(i + 1) * k])
+        return total.to(x.dtype)
+
+    mods = (layers, ssm, hybrid, encdec, transformer)
+    for m in mods:
+        m.dense = dense
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.dense = plain
+
+
+def dryrun_checks(torch, dryrun, scfg, fcfg, meshes, one):
+    """The dry run (``launch/dryrun.py``, meta tensors on a fake process
+    group in this process) against this block's own runs: its collectives
+    of one qwen2-1.5b step at 8 layers on (2, 2), 8 × 512, with no policy
+    and under the dither policy, equal to rank 0's last step by kind,
+    calls and bytes; its peak of live bytes for the 28-layer (1, 1) step
+    beside the measured peak of that run (init and 3 steps)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out = {"collectives_equal": {}}
+    try:
+        mesh = dryrun.fake_mesh(2, 2)
+        for backend in (None, "auto"):
+            run = "dither" if backend else "none"
+            got = dryrun.measure(scfg, "train", TRAIN_SEQ, TRAIN_BATCH, mesh,
+                                 policy=train_mesh_policy(backend))
+            real = {k: v for k, v in meshes["2x2"]["runs"][run][
+                "collectives_a_step"].items() if v["calls"]}
+            assert got["collectives"] == real, (run, got["collectives"],
+                                                real)
+            out["collectives_equal"][run] = got["collectives"]
+        full = dryrun.measure(fcfg, "train", TRAIN_SEQ, TRAIN_BATCH,
+                              dryrun.fake_mesh(1, 1))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out.update(
+        peak_1x1_predicted_gb=full["peak_bytes"] / 1e9,
+        peak_1x1_measured_gb=one["peak_memory_allocated_gb"],
+        state_1x1_gb=full["state_bytes"] / 1e9,
+        flops_1x1_step=full["flops"], seconds=time.perf_counter() - t0)
+    return out
 
 
 def registry_init(cfg):
@@ -5923,15 +6134,21 @@ def main() -> int:
     # row's launches of its own kind from a shared-card mesh's dither run
     # (rank 0): row blocks at (2, 1), the rest at (1, 2)
     for row in train_mesh["kernels"]:
-        mesh_key = "2x1" if row["block"] == "rows" else "1x2"
+        label = row["model_shapes"]
+        if label is None:
+            run = "2x1 dither" if row["block"] == "rows" else "1x2 dither"
+            steps = TRAIN_MESH_STEPS
+        else:
+            model = next(m for m in TRAIN_MESH_TP
+                         if m.startswith(label.split()[0]))
+            run, steps = f"1x2 {model} dither", 1
         kernels.append({
             "name": row["name"], "route": "cuda", "source": dm.SOURCE,
             "replaces": MATMUL_REPLACES,
-            "launches": train_mesh["launches"][f"{mesh_key} dither"][
-                row["block"]],
-            "launches_note": f"{mesh_key} training mesh, rank 0: "
-                             f"{TRAIN_MESH_STEPS} dither-policy steps "
-                             f"({row['block']} launches, remat)",
+            "launches": train_mesh["launches"][run][row["block"]],
+            "launches_note": f"{run} training mesh, rank 0: {steps} "
+                             f"dither-policy step(s) ({row['block']} "
+                             "launches of every product, remat)",
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "bound_term",
                                    "library_ms", "device_ms", "shape",

@@ -34,6 +34,8 @@ import math
 from dataclasses import dataclass
 from typing import Any, Tuple
 
+import torch
+
 from repro_torch.dist.ctx import mesh_sizes
 
 __all__ = ["MeshShape", "ShardView", "param_specs", "cache_specs",
@@ -178,14 +180,17 @@ def _axes_block(entry, sizes, coords) -> Tuple[int, int]:
 def local_block(leaf, spec, sizes: dict, coords: dict):
     """One rank's block of a global leaf under ``spec``: each sharded dim
     narrowed to the contiguous block at the rank's coordinates
-    (``coords``: axis name → coordinate), as a contiguous copy; a
-    replicated leaf is the leaf itself."""
+    (``coords``: axis name → coordinate), as a contiguous copy of its own
+    (a block of leading rows is contiguous already, and ``contiguous``
+    would keep the whole global storage alive behind it); a replicated
+    leaf is the leaf itself."""
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
         n, c = _axes_block(entry, sizes, coords)
         size = leaf.shape[dim] // n
-        leaf = leaf.narrow(dim, c * size, size).contiguous()
+        leaf = leaf.narrow(dim, c * size, size).clone(
+            memory_format=torch.contiguous_format)
     return leaf
 
 

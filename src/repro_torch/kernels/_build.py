@@ -29,18 +29,10 @@ from typing import Dict, Iterable, Optional
 
 from repro_torch import coldstart
 
-__all__ = ["KERNELS", "BUILD_DIR", "library_path", "build", "load",
-           "runs_plain"]
+__all__ = ["KERNELS", "BUILD_DIR", "library_path", "build", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-
-def runs_plain(t) -> bool:
-    """Does a wrapper given ``t`` take its kernel's plain version?  On CPU
-    tensors, and on meta tensors, which hold shapes only (the dry run,
-    ``launch/dryrun.py``): no kernel is built or launched for either."""
-    return t.device.type in ("cpu", "meta")
-
 
 # kernel name → its source under csrc/
 KERNELS = {"decode_attention": "decode_attention.cu",

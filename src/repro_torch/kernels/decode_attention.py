@@ -171,7 +171,7 @@ def decode_attention(
     """Flash-decode attention over the ring cache → (B, n_kv, group, hd) f32:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if not q.is_cuda:
-        if _build.runs_plain(q):
+        if q.device.type == "cpu":
             return decode_attention_ref(q, k, v, k_pos, pos, k_scale,
                                         v_scale, window=window)
         raise ValueError(f"decode_attention runs on cuda (or cpu), not "

@@ -236,7 +236,7 @@ def dither_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int,
                   fmt: str = "spread") -> torch.Tensor:
     """C = dequant(Q(A) · Q(B)) → (M, N) f32 (§VIII 'separate'): the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
-    if _build.runs_plain(a):
+    if a.device.type == "cpu":
         return dither_matmul_ref(a, b, bits=bits, scheme=scheme,
                                  a_range=a_range, b_range=b_range,
                                  counter=counter, seed=seed, fmt=fmt)
@@ -288,7 +288,7 @@ def dither_matmul_scaled(x: torch.Tensor, w: torch.Tensor,
     with ``seed`` / ``seed + 1``, multiplied, dequantised and scaled by
     ``bf16(ax · aw)``: the CUDA kernel for CUDA tensors, the plain version
     (``ref.dither_matmul_scaled_ref``) for CPU tensors."""
-    if _build.runs_plain(x):
+    if x.device.type == "cpu":
         return dither_matmul_scaled_ref(x, w, w_absmax, bits=bits,
                                         scheme=scheme, counter=counter,
                                         seed=seed, fmt=fmt)
@@ -344,7 +344,7 @@ def dither_matmul_sharded(x: torch.Tensor, w: torch.Tensor,
     global shape and this block's offsets.  The CUDA kernel for CUDA
     tensors, ``ref.dither_matmul_scaled_ref`` for CPU tensors."""
     kw = dict(bits=bits, scheme=scheme, counter=counter, seed=seed, fmt=fmt)
-    if _build.runs_plain(x):
+    if x.device.type == "cpu":
         return dither_matmul_scaled_ref(x, w, w_absmax, x_absmax=x_absmax,
                                         block=block, partials=partials, **kw)
     if x.device.type != "cuda":
@@ -418,7 +418,7 @@ def dither_matmul_epilogue(acc: torch.Tensor, rowsum: torch.Tensor,
     the epilogue at the global ``k`` and the scale ``bf16(ax · aw)``; the
     CUDA kernel for CUDA tensors, ``ref.dither_matmul_scaled_epilogue_ref``
     for CPU tensors."""
-    if _build.runs_plain(acc):
+    if acc.device.type == "cpu":
         return dither_matmul_scaled_epilogue_ref(acc, rowsum, colsum,
                                                  x_absmax, w_absmax,
                                                  bits=bits, k=k)

@@ -118,7 +118,7 @@ def paged_decode_attention(
     """Flash-decode attention over the paged block pool →
     (B, n_kv, group, hd) f32: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    if _build.runs_plain(q):
+    if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k, v, block_tables, pos, k_scale,
                                           v_scale, window=window)
     if q.device.type != "cuda":

@@ -128,7 +128,7 @@ def quantize(x: torch.Tensor, *, scale: float, zero: float, bits: int,
              fmt: str = "spread") -> torch.Tensor:
     """k-bit codes of a 2-D f32 tensor → int32 codes of its shape: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
-    if _build.runs_plain(x):
+    if x.device.type == "cpu":
         return quantize_codes_ref(x, scale=scale, zero=zero, bits=bits,
                                   scheme=scheme, counter=counter, seed=seed,
                                   n_pulses=n_pulses, fmt=fmt)

@@ -159,7 +159,11 @@ class MatmulBlock:
 _CHUNK = 1 << 22
 
 
-def _row_chunks(rows: int, cols: int):
+def _row_chunks(rows: int, cols: int, device=None):
+    """Row blocks of at most ``_CHUNK`` elements; one block on the meta
+    device, where nothing is stored (the dry run, ``launch/dryrun.py``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return [(0, rows)]
     step = max(1, _CHUNK // max(1, cols))
     return [(i, min(rows, i + step)) for i in range(0, rows, step)]
 
@@ -206,16 +210,16 @@ def dither_matmul_ref(
     ca = torch.cat([quantize_codes_ref(
         a[i:j], scale=sa, zero=a_range[0], seed=seed, n_pulses=max(g.N, 2),
         index=g.a_index(j - i, q, a.device, i), **q_kw)
-        for i, j in _row_chunks(p, q)])
+        for i, j in _row_chunks(p, q, a.device)])
     cb = torch.cat([quantize_codes_ref(
         b[i:j], scale=sb, zero=b_range[0], seed=seed + 1,
         n_pulses=max(g.M, 2), index=g.b_index(j - i, r, b.device, i),
-        **q_kw) for i, j in _row_chunks(q, r)])
+        **q_kw) for i, j in _row_chunks(q, r, b.device)])
     colsum = cb.sum(dim=0, dtype=torch.int64)
     rowsum = ca.sum(dim=1, dtype=torch.int64)
     cbd = cb.double()
     parts = []
-    for i, j in _row_chunks(p, r):
+    for i, j in _row_chunks(p, r, a.device):
         acc = (ca[i:j].double() @ cbd).to(torch.int64)
         parts.append(acc.to(torch.int32) if partials else
                      dither_matmul_epilogue_ref(
@@ -298,7 +302,7 @@ def dither_matmul_scaled_epilogue_ref(acc, rowsum, colsum, x_absmax,
     return torch.cat([(dither_matmul_epilogue_ref(
         acc[i:j], rowsum[i:j], colsum, bits=bits, a_range=(-1.0, 1.0),
         b_range=(-1.0, 1.0), k=k) * scale).to(dtype)
-        for i, j in _row_chunks(acc.shape[0], acc.shape[1])])
+        for i, j in _row_chunks(acc.shape[0], acc.shape[1], acc.device)])
 
 
 def fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:

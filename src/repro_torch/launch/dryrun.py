@@ -8,9 +8,10 @@ device**, as the reference runs on fake host devices: a
 ``torch.distributed`` group on the ``"fake"`` backend (every collective
 returns at once), ``init_device_mesh("cpu", (D, M))`` with axes ('data',
 'model'), and every tensor on ``meta`` (shapes and dtypes, no storage).
-No kernel is built or launched: the wrappers take their plain versions on
-meta tensors (``kernels/_build.runs_plain``).  The model code is the
-code that trains and serves, run on this rank's local shapes.
+No kernel is built or launched: on meta tensors every dispatch resolves
+to the kernels' plain versions (``kernels/dispatch.resolve_backend``).
+The model code is the code that trains and serves, run on this rank's
+local shapes.
 
 Cells (the reference's ``SHAPES`` and its skip rule, DESIGN.md §5):
 

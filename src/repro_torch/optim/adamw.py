@@ -74,6 +74,17 @@ def _global_norm(grads: Any, norm_shard=None) -> torch.Tensor:
     return torch.sqrt(parts[0] + split)
 
 
+# leaves of more elements than this update in blocks of leading rows
+CHUNK_ELEMENTS = 1 << 26
+
+
+def _rows_a_chunk(p: torch.Tensor):
+    """Rows of ``p`` a block of its update, or None to update it whole."""
+    if p.numel() <= CHUNK_ELEMENTS or p.dim() == 0 or p.shape[0] < 2:
+        return None
+    return max(1, CHUNK_ELEMENTS // (p.numel() // p.shape[0]))
+
+
 def apply_updates(opt: AdamW, params: Any, grads: Any, state: Any,
                   norm_shard=None):
     """One AdamW step → (new_params, new_state, metrics).  ``norm_shard``:
@@ -90,16 +101,32 @@ def apply_updates(opt: AdamW, params: Any, grads: Any, state: Any,
     bc2 = 1.0 - torch.pow(_f32(b2, step), stepf)
     lr = opt.lr_at(step)
 
-    def upd(p, g, m, v):
+    def upd_rows(p, g, m, v, decay):
         g = g.to(torch.float32) * scale
         m_new = b1 * m + (1.0 - b1) * g
         v_new = b2 * v + (1.0 - b2) * g * g
         mh = m_new / bc1
         vh = v_new / bc2
         delta = mh / (torch.sqrt(vh) + opt.eps)
-        if opt.weight_decay and p.dim() >= 2:  # decay matrices only
+        if decay:
             delta = delta + opt.weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * delta).to(p.dtype), m_new, v_new
+
+    def upd(p, g, m, v):
+        decay = bool(opt.weight_decay) and p.dim() >= 2  # matrices only
+        rows = _rows_a_chunk(p)
+        if rows is None:
+            return upd_rows(p, g, m, v, decay)
+        # a large leaf in blocks of rows (elementwise: the same bits), so
+        # its f32 temporaries stay small beside the new state
+        outs = (torch.empty_like(p), torch.empty_like(m),
+                torch.empty_like(v))
+        for r0 in range(0, p.shape[0], rows):
+            sl = slice(r0, r0 + rows)
+            for out, part in zip(outs, upd_rows(p[sl], g[sl], m[sl], v[sl],
+                                                decay)):
+                out[sl] = part
+        return outs
 
     flat_p = tree.leaves(params)
     out = [upd(p, g, m, v) for p, g, m, v in zip(

@@ -66,6 +66,10 @@ MODELS = {
     # local query heads over the replicated KV head, GELU MLP split
     "rgemma": ("recurrentgemma_9b", {}),
     "whisper": ("whisper_small", {}),
+    # 3 heads on a 2-way 'model' axis: the encoder's, the decoder's and
+    # the cross-attention's sequence split (K/V of the whole encoder
+    # output)
+    "whisper-h3": ("whisper_small", dict(n_heads=3, n_kv_heads=3)),
 }
 
 # case → (model, policy, meshes, microbatch, gradient compression)
@@ -87,6 +91,7 @@ REF_CASES = {
     "hybrid-fused": ("rgemma", "fused", [(1, 2), (2, 2)], 0, False),
     "encdec": ("whisper", "none", [(1, 2), (2, 2)], 0, False),
     "encdec-fused": ("whisper", "fused", [(1, 2), (2, 2)], 0, False),
+    "encdec-seq": ("whisper-h3", "fused", [(1, 2)], 0, False),
 }
 
 _MODELS = {}

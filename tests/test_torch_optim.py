@@ -158,6 +158,36 @@ def test_adamw_decays_matrices_only_and_clips():
     assert p["w"].eq(1).all()                     # nothing updated in place
 
 
+def test_adamw_large_leaves_update_in_row_blocks_bit_for_bit(monkeypatch):
+    """Leaves above ``CHUNK_ELEMENTS`` update in blocks of rows: params,
+    m and v bit for bit the whole-leaf update (bf16 and f32 leaves, a
+    transposed gradient, a vector), in the layouts of params and
+    moments, and the caller's trees untouched."""
+    gen = torch.Generator().manual_seed(3)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(dtype)
+
+    p = {"w": rand(37, 24, dtype=torch.bfloat16), "e": rand(50, 8),
+         "b": rand(300)}
+    g = {"w": rand(24, 37, dtype=torch.bfloat16).T, "e": rand(50, 8),
+         "b": rand(300)}
+    state = adamw.init_opt_state(p)
+    state["m"] = tree.tree_map(lambda t: torch.randn(
+        t.shape, generator=gen), state["m"])
+    opt = adamw.AdamW(lr=1e-2)
+    want = adamw.apply_updates(opt, p, g, state)
+    keep = [t.clone() for t in tree.leaves((p, state))]
+    monkeypatch.setattr(adamw, "CHUNK_ELEMENTS", 100)
+    assert adamw._rows_a_chunk(p["w"]) == 4
+    got = adamw.apply_updates(opt, p, g, state)
+    for a, b in zip(tree.leaves(got[:2]), tree.leaves(want[:2])):
+        assert a.dtype == b.dtype and a.stride() == b.stride()
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves((p, state)),
+                                                 keep))
+
+
 @pytest.mark.parametrize("scheme", ["dither", "stochastic"])
 def test_compress_grads_matches_reference_bitwise(scheme):
     """``compress_grads`` over a params-like tree (f32 and bf16 leaves,

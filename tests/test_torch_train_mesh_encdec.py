@@ -2,7 +2,9 @@
 reference's sharded step (the setting and the tolerances of
 ``tests/test_torch_train_mesh.py``): whisper ``.reduced()`` (4 heads, 2 +
 2 layers, 32 stub frames a row), with no policy and under the fused
-dither policy, at (1, 2) and (2, 2).  The encoder's bidirectional
+dither policy, at (1, 2) and (2, 2), and with 3 heads (the sequence
+split of every attention, the cross-attention's K/V projected from the
+whole encoder output) at (1, 2) under the fused policy.  The encoder's bidirectional
 attention without RoPE, the decoder's causal self-attention and its
 cross-attention over the encoder output run on local heads (the encoder
 output entering through ``copy_to_model``), the GELU MLPs column/row
@@ -18,7 +20,7 @@ import _torch_train_mesh as tm
 from test_torch_train import TOL
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-CASES = ["encdec", "encdec-fused"]
+CASES = ["encdec", "encdec-fused", "encdec-seq"]
 _RUN = {}
 
 
