@@ -76,7 +76,6 @@ does.  Usage::
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import math
@@ -505,7 +504,7 @@ def main(argv=None):
                                  auto_microbatch=args.auto_microbatch,
                                  remat=not args.no_remat,
                                  kv_quant=args.kv_quant)
-                except Exception as e:  # noqa: BLE001 — record, keep sweeping
+                except Exception as e:  # noqa: BLE001 — record, go on
                     r = dict(status="error", arch=arch, shape=shape, mesh=mk,
                              error=f"{type(e).__name__}: {e}",
                              trace=traceback.format_exc()[-2000:])
@@ -518,11 +517,10 @@ def main(argv=None):
                       f"dom={r.get('dominant', '-')} peak="
                       f"{'-' if peak is None else f'{peak / 1e9:.2f}GB'} "
                       f"wall={r['wall_seconds']}s", flush=True)
-    with contextlib.suppress(Exception):
-        import torch.distributed as dist
+    import torch.distributed as dist
 
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

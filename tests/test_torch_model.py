@@ -94,7 +94,8 @@ def _rope_f64(x, pos, theta):
     per-element bound 2⁻²³·(|x1| + |x2|)·(1 + |angle|) on an f32 rope's
     error against it."""
     half = x.shape[-1] // 2
-    ang = pos[..., None].astype(np.float64) * theta ** (-np.arange(half) / half)
+    freqs = theta ** (-np.arange(half) / half)
+    ang = pos[..., None].astype(np.float64) * freqs
     cos, sin = np.cos(ang)[:, :, None], np.sin(ang)[:, :, None]
     x1, x2 = x[..., :half].astype(np.float64), x[..., half:].astype(np.float64)
     exact = np.concatenate([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)

@@ -22,7 +22,10 @@ Parity classes, each for its reason:
 * **chunked prefill against the reference's**: the classes
   ``tests/test_torch_model.py`` holds ``prefill_with_cache`` to — logits
   within ``LOGIT_TOL``, positions and ``k_pos`` exact, the first layer's
-  cache within one bf16 ulp or one int8 code.
+  cache within one bf16 ulp or one int8 code, made from the reference's
+  norm and RoPE outputs (``_torch_equal_inputs``: on some hosts the two
+  libraries' f32 sums differ in a way that moves layer 0's V by two bf16
+  ulps).
 * **chunked ≡ whole-prompt, to rounding**: a chunk writes the codes
   whole-prompt prefill writes, but joining the ring history (or the
   paged prefix) re-associates the softmax, so the logits move: at most
@@ -55,6 +58,7 @@ from repro_torch.interop import cache_from_numpy, params_from_numpy
 from repro_torch.models import registry
 from repro_torch.numerics.policy import QuantPolicy
 from repro_torch.serve import Engine, Request, SamplingParams
+from _torch_equal_inputs import reference_norm_and_rope
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = get_config("smollm_135m").reduced()
@@ -373,10 +377,11 @@ def test_prefill_chunked_matches_reference(kv_quant):
             PARAMS, CFG, jnp.asarray(toks), jnp.asarray(clen),
             jnp.asarray(starts), jc, kv_quant=kv_quant,
             kv_offset=jnp.asarray(off))
-        tl, tc = registry.apply_prefill_chunked(
-            TORCH_PARAMS, PCFG, torch.from_numpy(toks).long(),
-            torch.from_numpy(clen), torch.from_numpy(starts), tc,
-            kv_quant=kv_quant, kv_offset=torch.from_numpy(off))
+        with reference_norm_and_rope():
+            tl, tc = registry.apply_prefill_chunked(
+                TORCH_PARAMS, PCFG, torch.from_numpy(toks).long(),
+                torch.from_numpy(clen), torch.from_numpy(starts), tc,
+                kv_quant=kv_quant, kv_offset=torch.from_numpy(off))
         active = clen > 0
         np.testing.assert_allclose(tl.numpy()[active],
                                    np.asarray(jl)[active], atol=LOGIT_TOL,

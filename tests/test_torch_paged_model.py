@@ -7,21 +7,14 @@ Tolerances, each for its reason (as in ``tests/test_torch_model.py``):
   within one bf16 ulp.  Layer 0 sees only the embedding, and the
   projections, the scatter and the quantiser are bitwise for the same
   inputs.  The port's prefill runs here with the reference's ``rms_norm``
-  and ``rope`` (``_reference_norm_and_rope``) so that its layer-0 K/V are
-  made from identical f32 inputs: XLA's CPU row sum in the norm's mean and
-  its ``exp`` in RoPE's frequencies differ from ATen's by an f32 ulp, in a
-  way that depends on the host's vector ISA, and one such ulp can move a
-  bf16 norm output and then eight V elements by two bf16 ulps and their
-  codes by one (an AVX-512 host).  Both ops are held on their own in
-  ``tests/test_torch_model.py::test_rms_norm_and_rope``.  Deeper layers'
-  K/V come out of the previous layers' bf16 activations, which differ
-  from the reference's by bf16 ulps (see below), so they are held through
-  the logits.
+  and ``rope`` (``_torch_equal_inputs.reference_norm_and_rope``, which
+  says why) so that its layer-0 K/V are made from identical f32 inputs.
+  Deeper layers' K/V come out of the previous layers' bf16 activations,
+  which differ from the reference's by bf16 ulps (see below), so they are
+  held through the logits.
 * Logits within ``LOGIT_TOL`` = 2⁻⁶: the reference's jit keeps excess f32
   precision through some bf16 intermediates and sums in another order.
 """
-
-import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -30,12 +23,12 @@ import pytest
 import torch
 
 from repro.configs import get_config as ref_get_config
-from repro.models import layers as ref_layers
 from repro.models import registry as ref_registry
 from repro.models import transformer as ref_tf
 from repro_torch.configs import get_config
 from repro_torch.interop import cache_from_numpy, params_from_numpy
-from repro_torch.models import layers, registry, transformer
+from repro_torch.models import registry, transformer
+from _torch_equal_inputs import reference_norm_and_rope
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = ref_get_config("smollm_135m").reduced()
@@ -115,39 +108,13 @@ def _tables(lens, starts, shared=None):
     return bt
 
 
-@contextlib.contextmanager
-def _reference_norm_and_rope():
-    """The port's ``layers.rms_norm`` and ``layers.rope`` computed by the
-    reference's, results cast back to the port's dtype."""
-    def to_jax(t):
-        return jnp.asarray(t.float().numpy(), jnp.dtype(str(t.dtype)[6:]))
-
-    def back(a, like):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(like.dtype)
-
-    def rms_norm(x, gamma, eps=1e-6, var=None):
-        assert var is None
-        return back(ref_layers.rms_norm(to_jax(x), to_jax(gamma), eps), x)
-
-    def rope(x, positions, theta=10000.0):
-        return back(ref_layers.rope(to_jax(x), jnp.asarray(positions.numpy()),
-                                    theta), x)
-
-    saved = layers.rms_norm, layers.rope
-    layers.rms_norm, layers.rope = rms_norm, rope
-    try:
-        yield
-    finally:
-        layers.rms_norm, layers.rope = saved
-
-
 def _both_prefill(toks, lens, starts, bt, jc, tc, kv_quant, off,
                   prefix_blocks):
     jl, jc = ref_tf.prefill_with_cache_paged(
         PARAMS, CFG, jnp.asarray(toks), jnp.asarray(lens),
         jnp.asarray(starts), jnp.asarray(bt), jc, kv_quant=kv_quant,
         kv_offset=jnp.asarray(off), prefix_blocks=prefix_blocks)
-    with _reference_norm_and_rope():
+    with reference_norm_and_rope():
         tl, tc = transformer.prefill_with_cache_paged(
             TORCH_PARAMS, PCFG, torch.from_numpy(toks).long(),
             torch.from_numpy(lens), torch.from_numpy(starts),

@@ -4,8 +4,9 @@ reference's sharded step (the setting and the tolerances of
 2 layers, 32 stub frames a row), with no policy and under the fused
 dither policy, at (1, 2) and (2, 2), and with 3 heads (the sequence
 split of every attention, the cross-attention's K/V projected from the
-whole encoder output) at (1, 2) under the fused policy.  The encoder's bidirectional
-attention without RoPE, the decoder's causal self-attention and its
+whole encoder output) at (1, 2) under the fused policy.  The encoder's
+bidirectional attention without RoPE, the decoder's causal
+self-attention and its
 cross-attention over the encoder output run on local heads (the encoder
 output entering through ``copy_to_model``), the GELU MLPs column/row
 parallel, ``enc_pos`` and the LayerNorms replicated, the tied head
