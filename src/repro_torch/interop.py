@@ -19,7 +19,7 @@ from repro_torch.tree import tree_map
 
 __all__ = ["tensor_from_numpy", "params_from_numpy", "cache_from_numpy",
            "train_state_from_numpy", "shard_serve_params",
-           "shard_train_state", "gather_train_state",
+           "shard_train_params", "shard_train_state", "gather_train_state",
            "train_state_shardings", "global_shapes"]
 
 
@@ -90,26 +90,38 @@ def _is_numpy_tree(tree) -> bool:
     return not isinstance(tree_mod.leaves(tree)[0], torch.Tensor)
 
 
-def shard_train_state(state, cfg, mesh_coords: dict, mesh, device=None):
-    """A global train state ``{params, opt: {m, v, step}, counter}`` (port
-    tensors, or the reference's numpy arrays, carried over bit for bit on
-    ``device``) → one rank's local state on the training mesh
-    (DESIGN.md §5): params, m and v each cut to the rank's block of
-    ``dist.sharding.train_param_specs`` at ``mesh_coords`` (axis name →
-    coordinate); ``step`` and ``counter`` whole."""
+def shard_train_params(tree, cfg, mesh_coords: dict, mesh, like=None):
+    """A tree shaped like the global params (the params, or one of AdamW's
+    moments) → one rank's blocks on the training mesh (DESIGN.md §5):
+    each leaf cut to its block of ``dist.sharding.train_param_specs`` at
+    ``mesh_coords`` (axis name → coordinate).  ``like``: the global params
+    the specs are read from, when ``tree`` is not they."""
     from repro_torch.dist import sharding
     from repro_torch.dist.ctx import mesh_sizes
 
+    sizes = mesh_sizes(mesh)
+    specs = sharding.train_param_specs(tree if like is None else like, cfg,
+                                       mesh)
+    return tree_map(lambda leaf, spec: sharding.local_block(
+        leaf, spec, sizes, mesh_coords), tree, specs)
+
+
+def shard_train_state(state, cfg, mesh_coords: dict, mesh, device=None):
+    """A global train state ``{params, opt: {m, v, step}, counter}`` (port
+    tensors, or the reference's numpy arrays, carried over bit for bit on
+    ``device``) → one rank's local state on the training mesh: params, m
+    and v each cut by :func:`shard_train_params`; ``step`` and
+    ``counter`` whole.  A new state is made on the rank by
+    ``train.trainer.init_train_state(mesh=, coords=)``, which never holds
+    the global moments."""
     if _is_numpy_tree(state["params"]):
         state = train_state_from_numpy(state, device or "cuda")
-    sizes = mesh_sizes(mesh)
-    specs = sharding.train_param_specs(state["params"], cfg, mesh)
+    params = state["params"]
 
     def cut(tree):
-        return tree_map(lambda leaf, spec: sharding.local_block(
-            leaf, spec, sizes, mesh_coords), tree, specs)
+        return shard_train_params(tree, cfg, mesh_coords, mesh, like=params)
 
-    return {"params": cut(state["params"]),
+    return {"params": cut(params),
             "opt": {"m": cut(state["opt"]["m"]), "v": cut(state["opt"]["v"]),
                     "step": state["opt"]["step"]},
             "counter": state["counter"]}

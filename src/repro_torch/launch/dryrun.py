@@ -76,7 +76,6 @@ does.  Usage::
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import os
@@ -277,12 +276,12 @@ def _local_state(cfg: ModelConfig, mesh, coord: dict):
     """Rank ``coord``'s train state on ``mesh``, on meta: params, m and v
     at their ``train_param_specs`` blocks; the counter a real CPU scalar
     (the step reads it on the host once)."""
-    from repro_torch import interop
     from repro_torch.train import trainer
 
-    state = trainer.init_train_state(cfg, device="meta")
+    state = trainer.init_train_state(cfg, device="meta", mesh=mesh,
+                                     coords=coord)
     state["counter"] = torch.zeros((), dtype=torch.int32)
-    return interop.shard_train_state(state, cfg, coord, mesh)
+    return state
 
 
 def _state_bytes(tr) -> int:
@@ -325,24 +324,12 @@ def _prefill(cfg, mesh, coord, meta, *, policy, chunks, **_):
 def _decode(cfg, mesh, coord, meta, *, policy, kv_quant, **_):
     from repro_torch import interop
     from repro_torch.dist import ctx
-    from repro_torch.dist import sharding
     from repro_torch.models import registry
+    from repro_torch.serve.engine import mesh_layout
 
-    dp, tp = mesh.shape
-    # the sharded engine's own refusals (serve/engine.py)
-    if not registry.supports_batched_prefill(cfg):
-        raise ValueError("mesh serving requires an attention-only decoder "
-                         f"(arch {cfg.name!r} has recurrent state / an "
-                         "encoder)")
-    if meta["batch"] % dp:
-        raise ValueError(f"batch {meta['batch']} must be a multiple of the "
-                         f"mesh's data axis ({dp})")
+    # the sharded engine's own layout, and its refusals
+    dp, tp, shardable, cfg_l = mesh_layout(cfg, meta["batch"], mesh)
     rows = meta["batch"] // dp
-    shardable = sharding.serve_heads_shardable(cfg, tp)
-    cfg_l = (dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
-                                 n_kv_heads=cfg.n_kv_heads // tp,
-                                 head_dim=cfg.hd())
-             if shardable else cfg)
     params = registry.init_model(cfg, device="meta")
     if shardable:
         params = interop.shard_serve_params(params, cfg, coord, mesh)

@@ -81,9 +81,9 @@ def run_training(
 
     In a process group (``torchrun``, or ranks started by the caller) the
     run is one rank of a ('data', 'model') training mesh: ``mesh``, by
-    default ``make_local_mesh`` (world size × 1).  Each rank builds the
-    same seeded global state and keeps its blocks
-    (``interop.shard_train_state``), takes rows ``[r·B/dp, (r+1)·B/dp)``
+    default ``make_local_mesh`` (world size × 1).  Each rank builds its
+    blocks of the same seeded state (``trainer.init_train_state`` with
+    ``mesh=``), takes rows ``[r·B/dp, (r+1)·B/dp)``
     of every global batch, checkpoints the gathered global state (rank
     (0, 0) writes) and restores onto its own mesh shape, whatever mesh
     wrote the checkpoint."""
@@ -103,11 +103,12 @@ def run_training(
     opt = AdamW(lr=lr)
     step_fn = trainer.make_train_step(cfg, opt, policy=policy,
                                       grad_policy=grad_policy, mesh=mesh)
-    state = trainer.init_train_state(cfg, seed=seed, device=device)
     coords = {"data": 0, "model": 0}
     if shard is not None:
         coords = {"data": shard.data, "model": shard.model}
-        state = interop.shard_train_state(state, cfg, coords, mesh)
+    state = trainer.init_train_state(cfg, seed=seed, device=device,
+                                     mesh=None if shard is None else mesh,
+                                     coords=coords)
 
     ck = Checkpointer(ckpt_dir, mesh=mesh, cfg=cfg) if ckpt_dir else None
     start = 0

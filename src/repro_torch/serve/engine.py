@@ -100,13 +100,39 @@ __all__ = ["make_serve_fns", "make_decode_and_sample", "make_fused_decode",
            "make_paged_prefill", "make_chunked_prefill", "make_spec_verify",
            "Engine", "Request", "SamplingParams", "Scheduler", "KVPool",
            "Metrics", "Tracer", "WindowGraphs", "PrefillGraphs",
-           "DEFAULT_BLOCK_SIZE"]
+           "DEFAULT_BLOCK_SIZE", "mesh_layout"]
 
 # The paged pool's default block size: the CUDA kernels' tile (64 keys), so
 # at the default settings the paged kernel runs the ring kernel's tiles and
 # ring == paged holds bit for bit on the card.  (The reference picks its
 # default with a TPU cost model, kernels/autotune.py, which is not ported.)
 DEFAULT_BLOCK_SIZE = MAX_BLOCK_SIZE
+
+
+def mesh_layout(cfg: ModelConfig, batch: int, mesh
+                ) -> Tuple[int, int, bool, ModelConfig]:
+    """How the engine serves ``cfg`` with ``batch`` slots on ``mesh``
+    (DESIGN.md §9): (dp, tp, whether the KV heads shard on 'model', the
+    local config the model code sees).  Slots partition on 'data'; the
+    heads shard when ``dist.sharding.serve_heads_shardable`` says so
+    (head counts scaled down, head_dim pinned so ``cfg.hd()`` is
+    unchanged), else they stay replicated.  Raises ``ValueError`` for
+    what the sharded engine does not serve: recurrent state or an
+    encoder, and a batch the data axis does not divide."""
+    sizes = dist_ctx.mesh_sizes(mesh)
+    dp, tp = int(sizes.get("data", 1)), int(sizes.get("model", 1))
+    if not registry.supports_batched_prefill(cfg):
+        raise ValueError(
+            "mesh serving requires an attention-only decoder "
+            f"(arch {cfg.name!r} has recurrent state / an encoder)")
+    if batch % dp:
+        raise ValueError(f"batch {batch} must be a multiple of the "
+                         f"mesh's data axis ({dp})")
+    sharded = dist_sharding.serve_heads_shardable(cfg, tp)
+    local = (_dc_replace(cfg, n_heads=cfg.n_heads // tp,
+                         n_kv_heads=cfg.n_kv_heads // tp, head_dim=cfg.hd())
+             if sharded else cfg)
+    return dp, tp, sharded, local
 
 
 def _resolved(policy):
@@ -602,38 +628,21 @@ class Engine:
             raise ValueError(f"params live on {pdev}, engine device is "
                              f"{self.device}")
         self.cfg, self.batch, self.max_len = cfg, batch, max_len
-        # ---- mesh layout (DESIGN.md §9): slots partition on 'data', KV
-        # heads on 'model' (replicated when the GQA head count does not
-        # divide, mirroring dist.sharding's guards)
+        # ---- mesh layout (DESIGN.md §9, ``mesh_layout``): the model code
+        # sees local shapes and this data shard's slot rows
         self.mesh = mesh
         self.dp = self.tp = 1
+        self.heads_sharded, self._cfg_local = False, cfg
         self._data_group = self._model_group = None
         coord = {}
         if mesh is not None:
-            sizes = dist_ctx.mesh_sizes(mesh)
-            self.dp = int(sizes.get("data", 1))
-            self.tp = int(sizes.get("model", 1))
-            if not registry.supports_batched_prefill(cfg):
-                raise ValueError(
-                    "mesh serving requires an attention-only decoder "
-                    f"(arch {cfg.name!r} has recurrent state / an encoder)")
-            if batch % self.dp:
-                raise ValueError(f"batch {batch} must be a multiple of the "
-                                 f"mesh's data axis ({self.dp})")
+            self.dp, self.tp, self.heads_sharded, self._cfg_local = \
+                mesh_layout(cfg, batch, mesh)
             coord = dist_ctx.mesh_coordinate(mesh)
             if self.dp > 1:
                 self._data_group = mesh.get_group("data")
             if self.tp > 1:
                 self._model_group = mesh.get_group("model")
-        self.heads_sharded = (mesh is not None and
-                              dist_sharding.serve_heads_shardable(cfg,
-                                                                  self.tp))
-        # the model code sees local shapes: head counts scaled down (head_dim
-        # pinned, so cfg.hd() is unchanged) and this data shard's slot rows
-        self._cfg_local = (_dc_replace(cfg, n_heads=cfg.n_heads // self.tp,
-                                       n_kv_heads=cfg.n_kv_heads // self.tp,
-                                       head_dim=cfg.hd())
-                           if self.heads_sharded else cfg)
         self._rows = batch // self.dp
         self._shard = coord.get("data", 0)
         self._lo = self._shard * self._rows

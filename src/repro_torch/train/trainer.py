@@ -10,7 +10,7 @@ reference takes ``jax.value_and_grad`` of a jitted function.
 On a training mesh (``mesh=``, a ('data', 'model') ``DeviceMesh`` with one
 process per rank, DESIGN.md §5) every rank runs the same step on its data
 shard's rows and its blocks of params, m and v
-(``interop.shard_train_state``): the model runs Megatron TP under
+(``init_train_state(mesh=, coords=)``): the model runs Megatron TP under
 ``dist.ctx.train_shard_scope``, the loss is taken over vocab-sharded
 logits, the gradients are averaged over 'data' as one flat f32 bucket,
 compressed after that reduce (as the reference compresses the reduced
@@ -83,11 +83,24 @@ def _sharded_loss(logits, labels, cfg: ModelConfig, sh):
     return -torch.mean(picked - torch.log(sumexp))
 
 
-def init_train_state(cfg: ModelConfig, *, seed: int = 0,
-                     device="cuda") -> Dict[str, Any]:
+def init_train_state(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+                     mesh=None, coords: Optional[dict] = None
+                     ) -> Dict[str, Any]:
     """Random params from ``seed`` (``registry.init_model``), zero AdamW
-    moments and a 0-d int32 counter, on ``device``."""
+    moments and a 0-d int32 counter, on ``device``.
+
+    ``mesh`` and ``coords`` (axis name → this rank's coordinate): the
+    rank's local state on the training mesh, ``interop.shard_train_state``
+    of the global state bit for bit, without ever holding the global
+    moments: the seeded global params are cut to the rank's blocks
+    (``interop.shard_train_params``) and the moments made at the local
+    shapes.  (recurrentgemma-9b's global f32 moments alone take 20 GB at
+    3 of its 38 layers, on every rank.)"""
     params = registry.init_model(cfg, seed=seed, device=device)
+    if mesh is not None:
+        from repro_torch import interop
+
+        params = interop.shard_train_params(params, cfg, coords, mesh)
     return {"params": params,
             "opt": adamw.init_opt_state(params),
             "counter": torch.zeros((), dtype=torch.int32, device=device)}

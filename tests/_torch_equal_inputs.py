@@ -7,7 +7,9 @@ such ulp can move a bf16 norm output, then eight V elements by two bf16
 ulps and their int8 codes by one (an AVX-512 host).  Under
 :func:`reference_norm_and_rope` the port's layer-0 K/V are made from the
 reference's inputs, so the projections, the scatter and the quantiser
-are compared on equal inputs; both ops are held on their own in
+are compared on equal inputs.  The tests run it only for a second
+prefill whose layer-0 cache they compare; their logits come from the
+port's prefill on its own ops.  Both ops are held on their own in
 ``tests/test_torch_model.py::test_rms_norm_and_rope``."""
 
 import contextlib

@@ -6,10 +6,12 @@ Tolerances, each for its reason (as in ``tests/test_torch_model.py``):
 * The first layer's pool: int8 codes and scales **bitwise**, bf16 K/V
   within one bf16 ulp.  Layer 0 sees only the embedding, and the
   projections, the scatter and the quantiser are bitwise for the same
-  inputs.  The port's prefill runs here with the reference's ``rms_norm``
-  and ``rope`` (``_torch_equal_inputs.reference_norm_and_rope``, which
-  says why) so that its layer-0 K/V are made from identical f32 inputs.
-  Deeper layers' K/V come out of the previous layers' bf16 activations,
+  inputs.  The pool compared is a second prefill's, run with the
+  reference's ``rms_norm`` and ``rope``
+  (``_torch_equal_inputs.reference_norm_and_rope``, which says why) so
+  that its layer-0 K/V are made from identical f32 inputs; the logits
+  and positions come from the port's prefill on its own ops.  Deeper
+  layers' K/V come out of the previous layers' bf16 activations,
   which differ from the reference's by bf16 ulps (see below), so they are
   held through the logits.
 * Logits within ``LOGIT_TOL`` = 2⁻⁶: the reference's jit keeps excess f32
@@ -108,19 +110,31 @@ def _tables(lens, starts, shared=None):
     return bt
 
 
+def _port_prefill(toks, lens, starts, bt, tc, kv_quant, off, prefix_blocks):
+    return transformer.prefill_with_cache_paged(
+        TORCH_PARAMS, PCFG, torch.from_numpy(toks).long(),
+        torch.from_numpy(lens), torch.from_numpy(starts),
+        torch.from_numpy(bt), tc, kv_quant=kv_quant,
+        kv_offset=torch.from_numpy(off), prefix_blocks=prefix_blocks)
+
+
 def _both_prefill(toks, lens, starts, bt, jc, tc, kv_quant, off,
-                  prefix_blocks):
+                  prefix_blocks, eq=None):
+    """The reference's prefill and the port's, on its own ops, from the
+    same inputs: (jl, jc, tl, tc).  ``eq``: a second port cache, which the
+    same prefill fills under ``reference_norm_and_rope`` (its layer-0
+    pool is the one held to the reference's); returned last."""
     jl, jc = ref_tf.prefill_with_cache_paged(
         PARAMS, CFG, jnp.asarray(toks), jnp.asarray(lens),
         jnp.asarray(starts), jnp.asarray(bt), jc, kv_quant=kv_quant,
         kv_offset=jnp.asarray(off), prefix_blocks=prefix_blocks)
+    args = (toks, lens, starts, bt)
+    tl, tc = _port_prefill(*args, tc, kv_quant, off, prefix_blocks)
+    if eq is None:
+        return jl, jc, tl, tc
     with reference_norm_and_rope():
-        tl, tc = transformer.prefill_with_cache_paged(
-            TORCH_PARAMS, PCFG, torch.from_numpy(toks).long(),
-            torch.from_numpy(lens), torch.from_numpy(starts),
-            torch.from_numpy(bt), tc, kv_quant=kv_quant,
-            kv_offset=torch.from_numpy(off), prefix_blocks=prefix_blocks)
-    return jl, jc, tl, tc
+        _, eq = _port_prefill(*args, eq, kv_quant, off, prefix_blocks)
+    return jl, jc, tl, tc, eq
 
 
 @pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
@@ -139,12 +153,13 @@ def test_prefill_paged_cold_and_prefix_hit(kv_quant):
                            kv_layout="paged", block_size=BS,
                            num_blocks=NUM_BLOCKS)
     tc = cache_from_numpy(jax.tree.map(np.asarray, jc), "cpu")
-    jl, jc, tl, tc = _both_prefill(toks, lens, starts, bt, jc, tc, kv_quant,
-                                   off, 0)
+    eq = cache_from_numpy(jax.tree.map(np.asarray, jc), "cpu")
+    jl, jc, tl, tc, eq = _both_prefill(toks, lens, starts, bt, jc, tc,
+                                       kv_quant, off, 0, eq)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL,
                                rtol=0)
     assert np.array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
-    _assert_pool(tc, jc, kv_quant)
+    _assert_pool(eq, jc, kv_quant)
 
     # wave 2: row 2 shares row 0's first 8 tokens (2 blocks) and the offset
     suffix = rng.integers(1, CFG.vocab_size, size=5).astype(np.int32)
@@ -156,12 +171,12 @@ def test_prefill_paged_cold_and_prefix_hit(kv_quant):
     bt2[2, :2] = bt[0, :2]
     used = set(bt[bt < NUM_BLOCKS].tolist())
     bt2[2, 2:4] = [i for i in range(NUM_BLOCKS) if i not in used][:2]
-    jl, jc, tl, tc = _both_prefill(toks2, lens2, starts2, bt2, jc, tc,
-                                   kv_quant, off, MAX_LEN // BS)
+    jl, jc, tl, tc, eq = _both_prefill(toks2, lens2, starts2, bt2, jc, tc,
+                                       kv_quant, off, MAX_LEN // BS, eq)
     np.testing.assert_allclose(tl.numpy()[2], np.asarray(jl)[2],
                                atol=LOGIT_TOL, rtol=0)
     assert tc["pos"][2].item() == 13
-    _assert_pool(tc, jc, kv_quant)
+    _assert_pool(eq, jc, kv_quant)
 
     # in bf16 the prefix hit equals a cold prefill of the whole 13-token
     # prompt (an int8 hit reads its prefix back dequantised, so there only

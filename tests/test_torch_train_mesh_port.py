@@ -341,3 +341,29 @@ def test_train_layout_matches_reference(arch, shape):
             sl = tuple(slice(o, o + n) for o, n in zip(view.offset,
                                                        l_.shape))
             assert torch.equal(g[sl], l_)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_init_train_state_on_mesh_is_the_shard_of_the_global(arch, shape):
+    """``init_train_state(mesh=, coords=)``, which never holds the global
+    moments, is ``shard_train_state`` of the global state bit for bit at
+    every coordinate: params, m, v, step and counter."""
+    from repro_torch import interop, tree
+    from repro_torch.dist.sharding import MeshShape
+    from repro_torch.train import trainer
+
+    cfg = get_config(arch).reduced()
+    mesh = MeshShape(("data", "model"), shape)
+    glob = trainer.init_train_state(cfg, seed=3, device="cpu")
+    for d in range(shape[0]):
+        for m in range(shape[1]):
+            coords = {"data": d, "model": m}
+            want = interop.shard_train_state(glob, cfg, coords, mesh)
+            got = trainer.init_train_state(cfg, seed=3, device="cpu",
+                                           mesh=mesh, coords=coords)
+            pairs = list(zip(tree.leaves(got), tree.leaves(want)))
+            assert len(pairs) == len(tree.leaves(want))
+            for g, w in pairs:
+                assert g.dtype == w.dtype and g.shape == w.shape
+                assert torch.equal(g, w)
