@@ -161,7 +161,8 @@ printing JSON lines:
 12. the training mesh (``train_mesh``) — kernel 6's sharded entry at the
    meshes' local shapes (``SHARDED_CASES``: qwen2-1.5b's rows, columns
    and K halves with their epilogue, mamba2-370m's ``in_proj`` columns and
-   ``out_proj`` K halves, whisper-small's encoder QKV columns), bit for
+   ``out_proj`` K halves, whisper-small's encoder QKV columns, and the
+   decode's 8-row blocks of mamba2 and whisper), bit for
    bit its plain version and the slice of the unsharded product, timed
    beside bf16 ``torch.matmul``; qwen2-1.5b trained on the (1, 1) mesh
    through NCCL at 28 layers, bit for bit one device; (2, 2), (2, 1)
@@ -173,10 +174,17 @@ printing JSON lines:
    one-device tolerance (qwen2-1.5b's (2, 2) dither step bit for bit
    through kernel 6's plain version; mamba2's and whisper's dither step
    against one device's through the kernel), kernel 6's launches by
-   block kind; the elastic checkpoint; and the dry run
-   (``launch/dryrun.py``, meta tensors on a fake process group)
-   predicting the (2, 2) step's collectives exactly and the (1, 1) run's
-   peak beside the measured one.
+   block kind; the same three families' sharded decode on the training
+   layout at (1, 2) (ROADMAP Queue 3): 8 greedy ticks after a one-device
+   prefill, against one device's (logits and each rank's state and KV
+   within their tolerances, replicated leaves bit for bit on both ranks,
+   under the dither policy bit for bit through kernel 6's sharded
+   entry), kernel 1 at the local heads (recurrentgemma's (1, 8, 256),
+   whisper's (6, 1, 64)) checked, timed and counted; the elastic
+   checkpoint; and the dry run (``launch/dryrun.py``, meta tensors on a
+   fake process group) predicting the (2, 2) step's and the (1, 2)
+   decode ticks' collectives exactly and the (1, 1) run's peak beside
+   the measured one.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
@@ -4946,6 +4954,32 @@ TRAIN_MESH_LOSS_TOL = {False: 2.0 ** -10, True: 2.0 ** -6}
 # §6; recurrentgemma 1.85e-4, whisper 7.3e-5), so the gate is the next
 # power of two above it
 TRAIN_MESH_TP_LOSS_TOL = 2.0 ** -9
+# sharded decode of the same families on the training layout (ROADMAP
+# Queue 3, the dry run's decode cells), in the same (1, 2) spawn: one
+# device prefills TP_DECODE_BATCH rows of a TP_DECODE_PROMPT-token prompt
+# into a TP_DECODE_LEN ring, then TP_DECODE_TICKS greedy ticks run on one
+# device and the same tokens on the mesh
+TP_DECODE_BATCH = 8
+TP_DECODE_PROMPT = 64
+TP_DECODE_TICKS = 8
+TP_DECODE_LEN = 128
+# the mesh's logits (absolute) and state (each leaf's largest gap over its
+# largest magnitude) against one device's, no policy: a row-parallel
+# product's K blocks are rounded to bf16 before their sum on the mesh, as
+# the reference's GSPMD decode rounds them, and cuBLAS sums a column
+# block in another order than the whole; the next powers of two above
+# the first card runs' largest gaps, mamba2's 0.299 and 0.089 after 8
+# ticks of 16 layers (recurrentgemma 0.0625 / 0.0074, whisper 0.029 /
+# 0.0099; PERF.md §6)
+TP_DECODE_LOGIT_TOL = 2.0 ** -1
+TP_DECODE_STATE_TOL = 2.0 ** -3
+# tests/conftest.assert_argmax_margin's floor: greedy tokens must agree
+# where the one-device margin clears it and twice the logit gap
+ARGMAX_FLOOR = 1e-4
+# kernel 1 at the decode's local heads on a 2-way 'model' axis: the
+# family → (n_kv, group, head dim, window)
+TP_DECODE_HEADS = {"recurrentgemma_9b": (1, 8, 256, 2048),
+                   "whisper_small": (6, 1, 64, 0)}
 
 
 def train_mesh_policy(backend):
@@ -5100,6 +5134,160 @@ def train_mesh_ckpt(torch, mesh, path, save):
             "bytes": sum(w.numel() * w.element_size() for w in glob)}
 
 
+def _clone_tree(tree_):
+    from repro_torch import tree
+
+    return tree.tree_map(lambda t: t.clone(), tree_)
+
+
+def train_mesh_decode(torch, cfg, mesh, with_policy):
+    """Sharded decode of ``cfg`` on this rank of ``mesh`` (the training
+    layout: ``interop.shard_train_params``, ``interop.shard_cache``,
+    ``train_shard_scope``), against one device's.  One device prefills
+    ``TP_DECODE_BATCH`` seeded prompts (whisper: seeded frames) with
+    ``registry.apply_prefill`` and decodes ``TP_DECODE_TICKS`` greedy
+    ticks from a copy of that cache; the mesh decodes the same tokens from
+    its blocks of the same cache.  Returns, with no policy: each tick's
+    largest logit gap, the largest relative state gap (each float leaf of
+    the rank's cache against its block of one device's final cache, over
+    that block's largest magnitude; integer leaves must be equal), every
+    greedy token that differs with its one-device margin, digests of the
+    logits and of every local cache leaf, tick ms on the mesh and on one
+    device (ranks sharing the card), and the mesh run's kernel 1 launches
+    by head shape and its collectives a tick.  ``with_policy``: the same
+    ticks under the dither policy (``backend="auto"``) on both sides, the
+    logits and the state compared bit for bit, and kernel 6's sharded
+    launches, and the seconds the whole job took."""
+    import gc
+
+    from repro_torch import interop, tree
+    from repro_torch.dist import ctx
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.models import registry
+
+    sh = ctx.train_shard_of(mesh)
+    coord = {"data": sh.data, "model": sh.model}
+    b = TP_DECODE_BATCH
+    rows = slice(sh.data * b // sh.dp, (sh.data + 1) * b // sh.dp)
+
+    t_job = time.perf_counter()
+    gc.collect()
+    params = registry_init(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (b, TP_DECODE_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    frames = (torch.randn((b, cfg.n_enc_tokens, cfg.d_model), generator=gen,
+                          device="cuda").bfloat16() if cfg.is_encdec
+              else None)
+    with torch.no_grad():
+        last, start = registry.apply_prefill(
+            params, cfg, prompt, torch.full((b,), TP_DECODE_PROMPT,
+                                            dtype=torch.int32,
+                                            device="cuda"),
+            TP_DECODE_LEN, frames=frames)
+    local_p = interop.shard_train_params(params, cfg, coord, mesh)
+
+    def run(p, cache, tokens, policy=None, scope=None):
+        """The ticks from ``cache``, under ``scope()`` where given (the
+        rows of this data shard): logits a tick, the cache, ms a tick, the
+        collectives of the first tick.  Greedy where ``tokens`` holds only
+        the first token (each tick appends its argmax), else the tokens
+        given."""
+        out, coll = [], None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for t in range(TP_DECODE_TICKS):
+                before = {k: dict(v) for k, v in ctx.COLLECTIVES.items()}
+                tok = tokens[t] if scope is None else tokens[t][rows]
+                with scope() if scope else contextlib.nullcontext():
+                    logits, cache = registry.apply_decode(
+                        p, cfg, tok, cache, policy=policy, counter=t + 1)
+                out.append(logits)
+                if len(tokens) == t + 1:
+                    tokens.append(logits.argmax(-1).to(torch.int32))
+                coll = coll or {
+                    k: {f: ctx.COLLECTIVES[k][f] - before[k][f]
+                        for f in ("calls", "bytes")}
+                    for k in ctx.COLLECTIVES
+                    if ctx.COLLECTIVES[k]["calls"] != before[k]["calls"]}
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / TP_DECODE_TICKS
+        return out, cache, ms, coll
+
+    def state_gap(mine, one):
+        """Largest relative gap of the float leaves, integer leaves
+        equal."""
+        gap, ints = 0.0, True
+        for a, c in zip(tree.leaves(mine), tree.leaves(
+                interop.shard_cache(one, cfg, coord, mesh))):
+            if a.is_floating_point():
+                c = c.float()
+                gap = max(gap, float((a.float() - c).abs().max()) /
+                          max(float(c.abs().max()), 1e-30))
+            else:
+                ints = ints and torch.equal(a, c)
+        return gap, ints
+
+    tokens = [last.argmax(-1).to(torch.int32)]
+    want, one, one_ms, _ = run(params, _clone_tree(start), tokens)
+    da.decode_attention.launches = 0
+    da.decode_attention.by_heads = {}
+    got, cache, mesh_ms, coll = run(
+        local_p, interop.shard_cache(start, cfg, coord, mesh), tokens,
+        scope=lambda: ctx.train_shard_scope(mesh))
+    out = {"kernel1_launches": da.decode_attention.launches,
+           "kernel1_by_heads": {"x".join(map(str, k)): v for k, v in
+                                da.decode_attention.by_heads.items()},
+           "collectives_a_tick": coll, "tick_ms": mesh_ms,
+           "one_device_tick_ms": one_ms,
+           "logit_digests": [tensor_digest(torch, x) for x in got],
+           "logit_gap_by_tick": [float((g - w[rows]).abs().max())
+                                 for g, w in zip(got, want)],
+           "logit_scale": max(float(w.abs().max()) for w in want),
+           "greedy_flips": []}
+    out["logit_gap"] = max(out["logit_gap_by_tick"])
+    for t, (g, w) in enumerate(zip(got, want)):
+        top = torch.topk(w[rows], 2, dim=-1).values
+        margin = top[:, 0] - top[:, 1]
+        for i in torch.nonzero(g.argmax(-1) != w[rows].argmax(-1)).flatten():
+            out["greedy_flips"].append((t, int(i), float(margin[i])))
+    out["state_gap"], out["int_leaves_equal"] = state_gap(cache, one)
+    out["digests"] = [tensor_digest(torch, t) for t in tree.leaves(cache)]
+    del cache, one
+    if with_policy:
+        policy = train_mesh_policy("auto")
+        want, one, _, _ = run(params, _clone_tree(start), tokens,
+                              policy)
+        dm.dither_matmul_sharded.launches = 0
+        dm.dither_matmul_sharded.by_block = dict.fromkeys(
+            dm.dither_matmul_sharded.by_block, 0)
+        dm.dither_matmul_epilogue.launches = 0
+        got, cache, ms, _ = run(
+            local_p, interop.shard_cache(start, cfg, coord, mesh), tokens,
+            policy, lambda: ctx.train_shard_scope(mesh))
+        gap, ints = state_gap(cache, one)
+        out["policy"] = {
+            "bitwise": all(torch.equal(g, w[rows]) for g, w in zip(got,
+                                                                   want)),
+            "logit_gap": max(float((g - w[rows]).abs().max())
+                             for g, w in zip(got, want)),
+            "state_bitwise": gap == 0.0 and ints, "state_gap": gap,
+            "tick_ms": ms,
+            "kernel6_sharded_launches": dm.dither_matmul_sharded.launches,
+            "kernel6_sharded_by_block": dict(
+                dm.dither_matmul_sharded.by_block),
+            "kernel6_epilogue_launches": dm.dither_matmul_epilogue.launches,
+            "logit_digests": [tensor_digest(torch, x) for x in got]}
+        del one, cache
+    del params, local_p, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_job
+    return out
+
+
 # the training ranks' allocators grow segments instead of caching fixed
 # ones: four ranks each hold ≈ 11 GB of the card's 80 GB at once
 TRAIN_MESH_ALLOC = "expandable_segments:True"
@@ -5134,6 +5322,10 @@ def train_mesh_rank(rank, world, store, q, jobs):
                                             mesh, backend, steps, plain))
             elif kind == "ckpt":
                 res.update(train_mesh_ckpt(torch, mesh, job[2], job[3]))
+            elif kind == "decode":
+                _, _, model, layers, pol = job
+                res.update(train_mesh_decode(torch, mesh_cfg(model, layers),
+                                             mesh, pol))
             out[tuple(job[:2]) + tuple(str(j) for j in job[2:5])] = res
         q.put((rank, out))
         dist.destroy_process_group()
@@ -5245,7 +5437,14 @@ SHARDED_CASES = (("rows", None, 4096, 1536, 8960),
                  ("k_block", None, 4096, 8960, 1536),
                  ("columns", "mamba2 in_proj", 4096, 1024, 4384),
                  ("k_block", "mamba2 out_proj", 4096, 2048, 1024),
-                 ("columns", "whisper encoder QKV", 12000, 768, 768))
+                 ("columns", "whisper encoder QKV", 12000, 768, 768),
+                 # the (1, 2) decode's policy tick: one row a slot
+                 ("columns", "mamba2 in_proj decode", TP_DECODE_BATCH, 1024,
+                  4384),
+                 ("k_block", "mamba2 out_proj decode", TP_DECODE_BATCH, 2048,
+                  1024),
+                 ("columns", "whisper wq decode", TP_DECODE_BATCH, 768, 768),
+                 ("k_block", "whisper wo decode", TP_DECODE_BATCH, 768, 768))
 
 
 def sharded_kernel_checks(torch, dm, ref, cases=SHARDED_CASES):
@@ -5351,6 +5550,37 @@ def sharded_kernel_checks(torch, dm, ref, cases=SHARDED_CASES):
     return rows
 
 
+def tp_decode_kernel_checks(torch, da, ref):
+    """Kernel 1 at the (1, 2) decode's local heads (``TP_DECODE_HEADS``):
+    ``TP_DECODE_BATCH`` rows of a ``TP_DECODE_LEN``-slot bf16 ring at the
+    decode's positions (the prompt and its ticks), against the plain
+    version (``check_kernel``), with cold times, SDPA's, and the bound."""
+    gen = torch.Generator().manual_seed(13)
+    pos = [TP_DECODE_PROMPT + t for t in range(TP_DECODE_TICKS)]
+    rows = []
+    for fam, (nkv, group, hd, window) in TP_DECODE_HEADS.items():
+        heads = dict(nkv=nkv, group=group, hd=hd)
+        dims = dict(b=TP_DECODE_BATCH, cap=TP_DECODE_LEN, **heads)
+        t = ring_inputs(gen, quant=False, pos_vals=pos, **dims)
+        _, res = check_kernel(torch, da.decode_attention,
+                              ref.decode_attention_ref, t, window,
+                              dict(block=(da.KERNEL_BLOCK,),
+                                   split=da.SPLIT_TILES))
+        res.update(cold_times(
+            t, functools.partial(da.decode_attention, window=window),
+            functools.partial(ref.decode_attention_ref, window=window),
+            lambda c, w=window: library_call(c, w), (200, 5, 100)))
+        bound_ms, bound_by = decode_bound(pos, quant=False, window=window,
+                                          **dims)
+        rows.append({"name": f"decode_attention[bf16, {fam} tp 2 local]",
+                     "model": fam, "heads": "x".join(map(str, (nkv, group,
+                                                               hd))),
+                     "shape": {"B": TP_DECODE_BATCH, "cap": TP_DECODE_LEN,
+                               **heads}, "window": window, "pos": pos,
+                     **res, "bound_ms": bound_ms, "bound_by": bound_by})
+    return rows
+
+
 def train_full_depth(torch, cfg, mesh):
     """``TRAIN_MESH_FULL_STEPS`` AdamW steps of ``cfg`` (no policy) from
     the seed-0 state on the whole global batch, on one device
@@ -5429,9 +5659,26 @@ def train_mesh_phase(torch, dm, ref, dry=None):
        dither step's K blocks are exact int32 partials); launches of
        column blocks, K blocks and epilogues.  The kernel rows hold the
        entry bit for bit at these runs' shapes.
+    4b. (ROADMAP Queue 3) the same families' sharded decode on the
+       training layout, in the same spawn after each family's steps
+       (``train_mesh_decode``): a one-device prefill of 8 × 64 tokens,
+       then 8 greedy ticks on one device and the same tokens on the (1, 2)
+       mesh.  Gates: the logits within ``TP_DECODE_LOGIT_TOL`` and each
+       rank's state and KV within ``TP_DECODE_STATE_TOL`` (relative) of
+       one device's (integer leaves equal), greedy tokens equal where the
+       one-device margin clears the floor and twice the logit gap, the
+       logits and the replicated cache leaves bit for bit equal on both
+       ranks; kernel 1 launched at the local heads only
+       (``TP_DECODE_HEADS``, attention layers × ticks); under the dither
+       policy (mamba2, whisper: the same ticks) the logits and the state
+       bit for bit one device's and kernel 6's column blocks, K halves and
+       epilogues launched.  Kernel 1 at those heads is checked and timed
+       (``tp_decode_kernel_checks``), kernel 6's sharded entry at the
+       decode's shapes with the rest (``SHARDED_CASES``).
     5. The dry run against this block (``dryrun_checks``), its counts
        made in a spawned CPU process (``dry``: started by ``main`` before
-       the zoo; else from the block's start)."""
+       the zoo; else from the block's start); its (1, 2) decode cells'
+       collectives against 4b's."""
     import gc
     import tempfile
 
@@ -5454,8 +5701,14 @@ def train_mesh_phase(torch, dm, ref, dry=None):
     started = dry or start_dryrun(scfg, fcfg)
     res = {"phase": "train_mesh", "model": MESH_MODEL,
            "nvidia_smi": nvidia_smi(), "batch": [TRAIN_BATCH, TRAIN_SEQ]}
+    from repro_torch.kernels import decode_attention as da
+
     res["kernels"] = sharded_kernel_checks(torch, dm, ref)
-    emit({"phase": "train_mesh", "kernels": res["kernels"]})
+    t0 = time.perf_counter()
+    res["decode_kernels"] = tp_decode_kernel_checks(torch, da, ref)
+    res["decode_kernels_s"] = time.perf_counter() - t0
+    emit({"phase": "train_mesh", "kernels": res["kernels"],
+          "decode_kernels": res["decode_kernels"]})
 
     # single-device baselines at the shared meshes' depth
     base = {}
@@ -5536,6 +5789,7 @@ def train_mesh_phase(torch, dm, ref, dry=None):
                       False))
         if pol:
             pairs.append(("steps", (1, 2), fam, depth, "auto", 1, False))
+        pairs.append(("decode", (1, 2), fam, depth, pol))
     emit({"phase": "train_mesh", "before": "two-rank spawn",
           "at": time.time(), "device_memory": device_memory(torch)})
     t0 = time.perf_counter()
@@ -5663,6 +5917,8 @@ def train_mesh_phase(torch, dm, ref, dry=None):
                     if v["calls"]},
                 "peak_memory_allocated_gb_by_rank": [
                     r[key]["peak_memory_allocated_gb"] for r in two]}
+        line["decode"] = decode_gates(torch, two, fam, depth, pol, off,
+                                      launches)
         line["note"] = "ranks sharing one card: no sharded rate"
         tp_lines[fam] = line
         emit({"phase": "train_mesh", **line})
@@ -5672,7 +5928,7 @@ def train_mesh_phase(torch, dm, ref, dry=None):
                            ("1x2", "k_block"), ("1x2", "epilogue")):
         assert launches[f"{mesh_key} dither"][kind] > 0, (
             mesh_key, kind, "kernel 6 not launched")
-    dry = dryrun_checks(started, meshes, one)
+    dry = dryrun_checks(started, meshes, one, tp_lines)
     emit({"phase": "train_mesh", "dryrun": dry})
     res.update(
         one_by_one=one, meshes=meshes,
@@ -5693,6 +5949,84 @@ def train_mesh_phase(torch, dm, ref, dry=None):
         seconds=time.perf_counter() - t_start)
     shutil.rmtree(ckpt, ignore_errors=True)
     return res
+
+
+def decode_gates(torch, ranks, fam, depth, pol, off, launches):
+    """Step 4b's gates on the ranks' ``train_mesh_decode`` results (gaps
+    over their tolerance go to ``off``, the policy tick's kernel 6
+    launches to ``launches``); returns the family's ``decode`` entry."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import MeshShape
+    from repro_torch.models import registry
+
+    cfg = mesh_cfg(fam, depth)
+    key = ("decode", (1, 2), fam, str(depth), str(pol))
+    dec = [r[key] for r in ranks]
+    d0 = dec[0]
+    assert all(d["logit_digests"] == d0["logit_digests"] for d in dec), (
+        fam, "decode logits differ across 'model' ranks")
+    meta = registry.init_model(cfg, device="meta")
+    frames = (torch.zeros((TP_DECODE_BATCH, cfg.n_enc_tokens, cfg.d_model),
+                          dtype=torch.bfloat16, device="meta")
+              if cfg.is_encdec else None)
+    with torch.no_grad():
+        cache = registry.make_cache(meta, cfg, TP_DECODE_BATCH,
+                                    TP_DECODE_LEN, frames, device="meta")
+    specs = sharding.spec_leaves(sharding.cache_specs(
+        cache, cfg, MeshShape(("data", "model"), (1, 2))))
+    for i, spec in enumerate(specs):
+        if "model" not in spec:
+            assert len({str(d["digests"][i]) for d in dec}) == 1, (
+                fam, "a replicated cache leaf differs across ranks", i)
+    for d in dec:
+        assert d["int_leaves_equal"], (fam, "integer cache leaves")
+        clear = max(ARGMAX_FLOOR, 2 * d["logit_gap"])
+        assert all(m < clear for _, _, m in d["greedy_flips"]), (
+            fam, "a greedy token left one device's where the margin clears",
+            d["greedy_flips"])
+        for what, tol in (("logit_gap", TP_DECODE_LOGIT_TOL),
+                          ("state_gap", TP_DECODE_STATE_TOL)):
+            if d[what] > tol:
+                off.append((fam, "decode", what, d[what]))
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)) \
+        if not cfg.is_encdec else cfg.n_layers
+    if fam in TP_DECODE_HEADS:
+        heads = "x".join(map(str, TP_DECODE_HEADS[fam][:3]))
+        for d in dec:
+            assert d["kernel1_by_heads"] == {heads: attn * TP_DECODE_TICKS}, (
+                fam, "kernel 1 not at the local heads", d["kernel1_by_heads"])
+    out = {k: d0[k] for k in ("logit_gap", "logit_gap_by_tick",
+                              "logit_scale", "state_gap", "greedy_flips",
+                              "kernel1_launches", "kernel1_by_heads",
+                              "collectives_a_tick")}
+    out.update(seconds_by_rank=[d["seconds"] for d in dec],
+               ticks=TP_DECODE_TICKS, batch=TP_DECODE_BATCH,
+               prompt=TP_DECODE_PROMPT, ring=TP_DECODE_LEN,
+               logit_tolerance=TP_DECODE_LOGIT_TOL,
+               state_tolerance=TP_DECODE_STATE_TOL, replicas_bitwise=True,
+               logit_gap_by_rank=[d["logit_gap"] for d in dec],
+               state_gap_by_rank=[d["state_gap"] for d in dec],
+               tick_ms_by_rank=[d["tick_ms"] for d in dec],
+               one_device_tick_ms_by_rank=[d["one_device_tick_ms"]
+                                           for d in dec],
+               note="ranks sharing one card: no sharded rate")
+    if pol:
+        p0 = d0["policy"]
+        assert all(d["policy"]["logit_digests"] == p0["logit_digests"]
+                   for d in dec), (fam, "policy logits differ across ranks")
+        by = {**p0["kernel6_sharded_by_block"],
+              "epilogue": p0["kernel6_epilogue_launches"]}
+        for kind in ("columns", "k_block", "epilogue"):
+            assert by[kind] > 0, (fam, kind, "kernel 6 not launched")
+        launches[f"1x2 {fam} decode dither"] = by
+        if not all(d["policy"]["bitwise"] and d["policy"]["state_bitwise"]
+                   for d in dec):
+            off.append((fam, "decode policy ticks", p0["logit_gap"],
+                        p0["state_gap"]))
+        out["policy"] = {k: p0[k] for k in (
+            "bitwise", "state_bitwise", "logit_gap", "state_gap", "tick_ms",
+            "kernel6_sharded_by_block", "kernel6_epilogue_launches")}
+    return out
 
 
 def dryrun_predictions(q, scfg, fcfg):
@@ -5718,6 +6052,14 @@ def dryrun_predictions(q, scfg, fcfg):
                                      mesh, policy=train_mesh_policy(backend))
                 out["collectives"]["dither" if backend else "none"] = \
                     got["collectives"]
+            # step 4b's decode cells (1, 2): one tick each, no policy
+            mesh = dryrun.fake_mesh(1, 2)
+            out["decode"] = {}
+            for fam, (depth, _) in TRAIN_MESH_TP.items():
+                got = dryrun.measure(mesh_cfg(fam, depth), "decode",
+                                     TP_DECODE_LEN, TP_DECODE_BATCH, mesh)
+                out["decode"][fam] = {k: got[k] for k in (
+                    "collectives", "layout", "state_bytes")}
             full = dryrun.measure(fcfg, "train", TRAIN_SEQ, TRAIN_BATCH,
                                   dryrun.fake_mesh(1, 1))
         finally:
@@ -5745,12 +6087,14 @@ def start_dryrun(scfg, fcfg):
     return proc, q
 
 
-def dryrun_checks(started, meshes, one, timeout=600):
+def dryrun_checks(started, meshes, one, tp_lines, timeout=600):
     """The dry run's counts (``start_dryrun``) against this block's own
     runs: its collectives of the qwen2-1.5b (2, 2) step, with no policy
     and under the dither policy, equal to rank 0's last step by kind,
-    calls and bytes; its peak of live bytes for the 28-layer (1, 1) step
-    beside the measured peak of that run (init and 3 steps).  Stops the
+    calls and bytes; its (1, 2) decode cells of the item-10c families on
+    the training layout, their collectives equal to a tick of step 4b
+    (rank 0); its peak of live bytes for the 28-layer (1, 1) step beside
+    the measured peak of that run (init and 3 steps).  Stops the
     process."""
     import queue
 
@@ -5779,6 +6123,13 @@ def dryrun_checks(started, meshes, one, timeout=600):
             "collectives_a_step"].items() if v["calls"]}
         assert got == real, (run, got, real)
         out["collectives_equal"][run] = got
+    out["decode_collectives_equal"] = {}
+    for fam, got in pred["decode"].items():
+        real = tp_lines[fam]["decode"]["collectives_a_tick"]
+        assert got["layout"] == "train", (fam, got["layout"])
+        assert got["collectives"] == real, (fam, got["collectives"], real)
+        out["decode_collectives_equal"][fam] = got["collectives"]
+        out.setdefault("decode_state_bytes", {})[fam] = got["state_bytes"]
     full = pred["full"]
     out.update(
         peak_1x1_predicted_gb=full["peak_bytes"] / 1e9,
@@ -6195,18 +6546,39 @@ def main() -> int:
         else:
             model = next(m for m in TRAIN_MESH_TP
                          if m.startswith(label.split()[0]))
-            run, steps = f"1x2 {model} dither", 1
+            decode = label.endswith("decode")
+            run = f"1x2 {model} {'decode ' if decode else ''}dither"
+            steps = 1
         kernels.append({
             "name": row["name"], "route": "cuda", "source": dm.SOURCE,
             "replaces": MATMUL_REPLACES,
             "launches": train_mesh["launches"][run][row["block"]],
-            "launches_note": f"{run} training mesh, rank 0: {steps} "
-                             f"dither-policy step(s) ({row['block']} "
-                             "launches of every product, remat)",
+            "launches_note": (
+                f"(1, 2) training-layout decode of {model}, rank 0: "
+                f"{TP_DECODE_TICKS} dither-policy ticks ({row['block']} "
+                "launches of every product)"
+                if label is not None and decode else
+                f"{run} training mesh, rank 0: {steps} "
+                f"dither-policy step(s) ({row['block']} "
+                "launches of every product, remat)"),
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "bound_term",
                                    "library_ms", "device_ms", "shape",
                                    "global", "note")}})
+    # kernel 1 at the local heads of the (1, 2) training-layout decode,
+    # its launches from that run (rank 0)
+    for row in train_mesh["decode_kernels"]:
+        dec = train_mesh["tp_families"][row["model"]]["decode"]
+        kernels.append({
+            "name": row["name"], "route": "cuda", "source": da.SOURCE,
+            "replaces": REPLACES,
+            "launches": dec["kernel1_by_heads"][row["heads"]],
+            "launches_note": "(1, 2) training-layout decode, rank 0: "
+                             "attention layers x ticks, eager",
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "device_ms", "library_device_ms",
+                                   "host_ms", "shape", "window", "pos")}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -283,8 +283,10 @@ def serve_param_specs(params: Any, cfg, mesh) -> Any:
 _HEADS_AT_2 = {"k", "v", "k_scale", "v_scale", "cross_k", "cross_v"}
 _HEADS_AT_1 = {"h"}
 # tree keys under which cache entries carry a leading stack axis; the
-# "remainder" entries do not
-_STACKED_KEYS = {"layers", "self", "cross_k", "cross_v"}
+# "remainder" entries do not.  "cross" holds the port's encoder-decoder
+# cross-KV, ``{"k", "v"}`` (L, B, T, n_kv, hd): the reference's stacked
+# ``cross_k`` / ``cross_v`` under one key
+_STACKED_KEYS = {"layers", "self", "cross_k", "cross_v", "cross"}
 
 
 def cache_specs(cache: Any, cfg, mesh) -> Any:

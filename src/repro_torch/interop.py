@@ -20,7 +20,8 @@ from repro_torch.tree import tree_map
 __all__ = ["tensor_from_numpy", "params_from_numpy", "cache_from_numpy",
            "train_state_from_numpy", "shard_serve_params",
            "shard_train_params", "shard_train_state", "gather_train_state",
-           "train_state_shardings", "global_shapes"]
+           "train_state_shardings", "global_shapes", "shard_cache",
+           "gather_cache"]
 
 
 def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
@@ -82,6 +83,64 @@ def shard_serve_params(params, cfg, mesh_coords: dict, mesh):
     specs = sharding.serve_param_specs(params, cfg, mesh)
     return tree_map(lambda leaf, spec: sharding.local_block(
         leaf, spec, sizes, mesh_coords), params, specs)
+
+
+def shard_cache(cache, cfg, mesh_coords: dict, mesh):
+    """A global decode cache (ring, or the encoder-decoder's) → one rank's
+    local cache on the training mesh: each leaf cut to its block of
+    ``dist.sharding.cache_specs`` at ``mesh_coords`` (axis name →
+    coordinate): the slot rows on the DP axes, the KV heads, the SSD
+    state's heads and the RG-LRU state's width on 'model', where they
+    divide.  Every leaf is a copy, the replicated ones too: decode
+    updates the cache in place, and the rank's cache must not write
+    through to the global one."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.ctx import mesh_sizes
+
+    sizes = mesh_sizes(mesh)
+    specs = sharding.cache_specs(cache, cfg, mesh)
+
+    def cut(leaf, spec):
+        block = sharding.local_block(leaf, spec, sizes, mesh_coords)
+        return block.clone() if block is leaf else block
+
+    return tree_map(cut, cache, specs)
+
+
+def gather_cache(cache, cfg, mesh, like):
+    """One rank's local cache (``shard_cache``'s) → the global one, on
+    every rank: each leaf that ``cache_specs`` of the global cache
+    ``like`` (its leaves need only ``.shape``) shards is all-gathered over
+    the groups of its axes, in coordinate order.  Collectives: call it on
+    every rank.  Identity on a one-rank mesh."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.dist import sharding
+    from repro_torch.dist.ctx import mesh_sizes
+
+    if all(n == 1 for n in mesh_sizes(mesh).values()):
+        return cache
+    import torch.distributed as dist
+
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    specs = sharding.cache_specs(like, cfg, mesh)
+
+    def full(leaf, spec):
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            for axis in reversed(entry if isinstance(entry, tuple)
+                                 else (entry,)):
+                group = mesh.get_group(axis)
+                n = dist.get_world_size(group)
+                src = leaf.movedim(dim, 0).contiguous()
+                out = src.new_empty((n * src.shape[0],) +
+                                    tuple(src.shape[1:]))
+                gather(out, src, group=group)
+                leaf = out.movedim(0, dim).contiguous()
+        return leaf
+
+    return tree_mod.tree_map(full, cache, specs)
 
 
 def _is_numpy_tree(tree) -> bool:

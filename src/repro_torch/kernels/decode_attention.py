@@ -10,7 +10,10 @@ raises on anything the kernel does not take, allocates the output (and,
 when a slot's tiles can span several splits, the f32 scratch of their
 partials) with ``torch.empty``, launches on the current stream without
 synchronising, and adds one to ``decode_attention.launches`` — a plain
-integer that shows a run went through the kernel.  The kernel computes
+integer that shows a run went through the kernel — and to
+``decode_attention.by_heads[(n_kv, group, hd)]``, the same launches by
+the head shape they ran at (a sharded step's local heads).  The kernel
+computes
 ``ref.decode_attention_ref(..., block=(bk,), split=SPLIT_TILES)``.
 
 The launch path is kept short, since a decode tick makes one call per
@@ -206,7 +209,11 @@ def decode_attention(
                            f"error {rc} for shapes q={tuple(q.shape)} "
                            f"k={tuple(k.shape)} {k.dtype}")
     decode_attention.launches += 1
+    heads = (nkv, group, hd)
+    decode_attention.by_heads[heads] = \
+        decode_attention.by_heads.get(heads, 0) + 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.by_heads = {}

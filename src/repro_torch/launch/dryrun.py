@@ -19,12 +19,19 @@ Cells (the reference's ``SHAPES`` and its skip rule, DESIGN.md §5):
                seq 4096, global batch 256
   prefill_32k  ``registry.apply_model`` on the training layout, no grad,
                seq 32768, global batch 32
-  decode_32k   one ``registry.apply_decode`` of the port's sharded
-               serving (``serve_shard_scope``, ``serve_param_specs``: QKV
-               split by heads, the heads all-gathered before W_O), cache
-               32768, batch 128.  The reference lowers decode under its
-               training ``param_specs``; the port measures what it serves
-               with.
+  decode_32k   one ``registry.apply_decode``, cache 32768, batch 128.
+               An attention-only decoder decodes as the port's sharded
+               engine serves it (``"layout": "serve"``:
+               ``serve_shard_scope``, ``serve_param_specs``, QKV split by
+               heads, the heads all-gathered before W_O).  A family the
+               engine does not serve on a mesh (recurrent state, an
+               encoder: ``serve.engine.mesh_layout`` refuses it) decodes
+               as the reference lowers every decode cell
+               (``"layout": "train"``): params under ``train_param_specs``
+               (``interop.shard_train_params``), the cache under
+               ``cache_specs`` (``interop.shard_cache``), the step under
+               ``train_shard_scope``; whisper's cross-KV is made from meta
+               frames.
   long_500k    the same at cache 524288, batch 1 — sub-quadratic archs
                only
 
@@ -35,7 +42,7 @@ reference's v5e (16, 16) and (2, 16, 16): 'model' stays inside one host's
 Per cell, per rank:
 
 * ``state_bytes`` — the train state's (params, m, v, the step and the
-  counter) or the serving params' and cache's bytes, exact from the
+  counter) or the decode params' and cache's bytes, exact from the
   local shapes;
 * ``peak_bytes`` — the most live bytes over the step: a dispatch mode
   counts every storage as it is allocated and as it is freed (the
@@ -327,7 +334,11 @@ def _decode(cfg, mesh, coord, meta, *, policy, kv_quant, **_):
     from repro_torch.models import registry
     from repro_torch.serve.engine import mesh_layout
 
+    if not registry.supports_batched_prefill(cfg):
+        return _decode_train(cfg, mesh, coord, meta, policy=policy,
+                             kv_quant=kv_quant)
     # the sharded engine's own layout, and its refusals
+    meta["layout"] = "serve"
     dp, tp, shardable, cfg_l = mesh_layout(cfg, meta["batch"], mesh)
     rows = meta["batch"] // dp
     params = registry.init_model(cfg, device="meta")
@@ -344,6 +355,38 @@ def _decode(cfg, mesh, coord, meta, *, policy, kv_quant, **_):
         with torch.no_grad(), ctx.serve_shard_scope(
                 head0=0, heads_sharded=shardable, group=group):
             return registry.apply_decode(params, cfg_l, token, cache,
+                                         policy=policy)
+
+    return {"params": params, "cache": cache}, {"token": token}, run
+
+
+def _decode_train(cfg, mesh, coord, meta, *, policy, kv_quant):
+    """A decode cell on the training layout, as the reference lowers it:
+    the global params and cache on meta cut to this rank's blocks, the
+    step under ``train_shard_scope`` on the data shard's rows (the whole
+    batch where 'data' does not divide it, as ``cache_specs`` leaves it)."""
+    from repro_torch import interop
+    from repro_torch.dist import ctx
+    from repro_torch.models import registry
+
+    meta["layout"] = "train"
+    params = registry.init_model(cfg, device="meta")
+    frames = (torch.zeros((meta["batch"], cfg.n_enc_tokens, cfg.d_model),
+                          dtype=torch.bfloat16, device="meta")
+              if cfg.is_encdec else None)
+    with torch.no_grad():
+        cache = registry.make_cache(params, cfg, meta["batch"], meta["seq"],
+                                    frames, kv_quant=kv_quant,
+                                    device="meta")
+    meta["cache_bytes_global"] = float(_state_bytes(cache))
+    cache = interop.shard_cache(cache, cfg, coord, mesh)
+    params = interop.shard_train_params(params, cfg, coord, mesh)
+    token = torch.zeros((_rows(meta["batch"], mesh.shape[0]),),
+                        dtype=torch.int32, device="meta")
+
+    def run():
+        with torch.no_grad(), ctx.train_shard_scope(mesh):
+            return registry.apply_decode(params, cfg, token, cache,
                                          policy=policy)
 
     return {"params": params, "cache": cache}, {"token": token}, run
@@ -441,6 +484,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
         out.update(microbatch=mb, prefill_chunks=chunks,
                    fits_hbm=bool(m["peak_bytes"] <= HBM_BYTES),
                    status="ok")
+        if kind == "decode":
+            out["layout"] = m["layout"]
     except SkipCell as e:
         out = dict(status="skip", reason=str(e))
     out.update(arch=arch, shape=shape, mesh=mesh_kind, mesh_shape=[dp, tp])

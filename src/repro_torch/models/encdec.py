@@ -214,15 +214,30 @@ def _cross_decode(params: Params, cfg: ModelConfig, h: torch.Tensor,
     """One query row per slot against the static cross K/V (B, T, n_kv,
     hd), in the reference's order: the score product out in bf16, cast to
     f32 and divided by sqrt(hd), softmax, the probs cast to bf16 before
-    the value product.  q and o are ``dense`` (seeds 1 and 4)."""
+    the value product.  q and o are ``dense`` (seeds 1 and 4).
+
+    On the training mesh with the heads split (``train_param_specs``),
+    ``wq`` is column-parallel and ``wo`` row-parallel (partials summed
+    over 'model'), and ``xk`` / ``xv`` hold the rank's heads, as
+    ``cache_specs`` cuts them; where the KV heads do not divide, the
+    cross-KV is whole and the rank reads its query heads' KV heads."""
     b = h.shape[0]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
-    q = dense(h, params["wq"], policy, counter, seed=1).reshape(
-        b, 1, nkv, nh // nkv, hd)
+    sh = layers.tp_shard()
+    split = sh is not None and params["wq"].shape[-1] != nh * hd
+    col = layers.col_shard(h, params["wq"], sh) if split else None
+    nh_l = params["wq"].shape[-1] // hd
+    if split and xk.shape[2] == nkv:
+        kv0, nkv_l, _ = layers._kv_heads(cfg, sh.tp, sh.model)
+        xk, xv = xk[:, :, kv0:kv0 + nkv_l], xv[:, :, kv0:kv0 + nkv_l]
+    nkv_l = xk.shape[2]
+    q = dense(h, params["wq"], policy, counter, seed=1, shard=col).reshape(
+        b, 1, nkv_l, nh_l // nkv_l, hd)
     logits = layers.grouped_logits(q, xk)
     probs = layers.softmax(logits, dim=-1).to(h.dtype)
-    c = layers.grouped_values(probs, xv).reshape(b, 1, nh * hd)
-    return dense(c, params["wo"], policy, counter, seed=4)
+    c = layers.grouped_values(probs, xv).reshape(b, 1, nh_l * hd)
+    row = layers.row_shard(c, params["wo"], sh) if split else None
+    return dense(c, params["wo"], policy, counter, seed=4, shard=row)
 
 
 def decode_step_encdec(params: Params, cfg: ModelConfig,
@@ -236,9 +251,18 @@ def decode_step_encdec(params: Params, cfg: ModelConfig,
     ``cache["pos"]`` is per slot (B,); the self-KV is written in place
     (rows where ``active`` is False write their slot's old contents
     back).  ``kv_offset`` is accepted for the API's sake: the self-KV is
-    bf16."""
+    bf16.
+
+    On the training mesh (``dist.ctx.train_shard_scope``) params and cache
+    are this rank's blocks (``interop.shard_train_params``,
+    ``interop.shard_cache``) and ``token`` its data shard's rows: the
+    self- and cross-attention run on the rank's heads where the head
+    count divides ``tp`` (else replicated, as the layout keeps them), the
+    MLP column/row-parallel, the tied head vocab-parallel with the logits
+    gathered over 'model'."""
     del kv_offset
-    x = params["embed"][token[:, None]]
+    x = layers.embed_lookup(params["embed"], token[:, None],
+                            cfg.vocab_padded())
     b = x.shape[0]
     pos = torch.broadcast_to(cache["pos"].to(torch.int32), (b,)).contiguous()
     cross = cache["cross"]
@@ -252,9 +276,9 @@ def decode_step_encdec(params: Params, cfg: ModelConfig,
         x = x + _cross_decode(bp["xattn"], cfg, _lnorm(x, bp["ln_x"], cfg),
                               cross["k"][i], cross["v"][i], policy, counter)
         x = x + layers.mlp(bp["mlp"], _lnorm(x, bp["ln2"], cfg), "gelu",
-                           policy, counter)
+                           policy, counter, d_ff=cfg.d_ff)
     x = _lnorm(x, params["final_norm"], cfg)
-    logits = matmul(x, params["embed"].T)[:, 0].to(torch.float32)
-    return logits[:, : cfg.vocab_size], {
+    logits = matmul(x, params["embed"].T).to(torch.float32)
+    return transformer._gather_vocab(logits, cfg), {
         "pos": pos + 1, "layers": cache["layers"],
         "remainder": cache["remainder"], "cross": cross}

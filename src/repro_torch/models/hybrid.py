@@ -19,6 +19,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import gelu
 from repro_torch.models.ssm import causal_conv
@@ -126,7 +127,18 @@ def rglru_block(params: Params, cfg: ModelConfig, u: torch.Tensor,
 def rglru_decode_step(params: Params, cfg: ModelConfig, u: torch.Tensor,
                       state: Params, policy=None, counter=0):
     """Single-token decode, u (B, 1, d) → ((B, 1, d), new state ``{"h",
-    "conv"}``, as new tensors)."""
+    "conv"}``, as new tensors).
+
+    On the training mesh the block's params and the conv state stay
+    replicated (the reference has no rule for them); where
+    ``dist.sharding.cache_specs`` cuts ``h`` by width, the rank updates
+    its block (B, lru / tp) from the replicated gates (the recurrence is
+    diagonal) and runs ``out`` row-parallel on that block (the rows of
+    the replicated weight), the partials summed over 'model' in
+    ``dense``: the reference's GSPMD decode partitions it so.  Gathering
+    ``h`` for a whole ``out`` instead left the reduced recurrentgemma's
+    logits 8.7e-3 from the reference's sharded ones, where this form
+    gives them bit for bit (``tests/test_torch_decode_mesh.py``)."""
     nb = _n_blocks(cfg)
     bd = cfg.d_model // nb
     x = dense(u, params["in_x"], policy, counter, seed=31)
@@ -135,7 +147,13 @@ def rglru_decode_step(params: Params, cfg: ModelConfig, u: torch.Tensor,
     new_conv = torch.cat([state["conv"], x.to(state["conv"].dtype)],
                          dim=1)[:, 1:]
     a, b = _coefficients(params, xc, nb, bd)
-    h = state["h"] * a + b
-    y = h[:, None, :].to(u.dtype) * gelu(gate)
-    return dense(y, params["out"], policy, counter, seed=33), {
+    width = state["h"].shape[-1]          # lru, or this rank's block
+    sh = layers.tp_shard() if width != cfg.d_model else None
+    w0 = 0 if sh is None else sh.model * width
+    blk = slice(w0, w0 + width)
+    h = state["h"] * a[:, blk] + b[:, blk]
+    y = h[:, None, :].to(u.dtype) * gelu(gate[..., blk])
+    w = params["out"][blk]
+    row = None if sh is None else layers.row_shard(y, w, sh)
+    return dense(y, w, policy, counter, seed=33, shard=row), {
         "h": h, "conv": new_conv}

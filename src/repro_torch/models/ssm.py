@@ -23,6 +23,9 @@ replicated; each rank then takes its K block of ``y`` for ``out_proj``
 (``ctx.scatter_to_model``, whose backward gathers the whole gradient of
 ``y`` back, so the replicated leaves' gradients stay equal on every
 rank), and the partial sums are reduced over 'model' in ``dense``.
+Decode on that mesh (``ssm_decode_step``) keeps the layout and holds the
+state by heads, as ``dist.sharding.cache_specs`` cuts it: each rank
+updates its heads' block of ``h`` and gathers ``y`` for the gated norm.
 """
 
 from __future__ import annotations
@@ -217,11 +220,20 @@ def _out_proj(w: torch.Tensor, y: torch.Tensor, policy,
 def ssm_decode_step(params: Params, cfg: ModelConfig, u: torch.Tensor,
                     state: Params, policy=None, counter=0):
     """Single-token decode, u (B, 1, d_model) → ((B, 1, d_model), new
-    state ``{"h", "conv"}``, as new tensors)."""
+    state ``{"h", "conv"}``, as new tensors).
+
+    On the training mesh (the module docstring's layout) ``in_proj`` is
+    column-parallel with its columns gathered and the conv and its state
+    replicated, as in training; where ``dist.sharding.cache_specs`` cuts
+    the state ``h`` by heads (a rank's (B, H / tp, hd, N) block), the
+    state update and ``y = C·h + D·x`` run on the rank's heads only, ``y``
+    is all-gathered over 'model' for the gated norm over all of d_in,
+    and ``out_proj`` is row-parallel on the rank's K block.  Each head's
+    update is the one-device update of that head."""
     b = u.shape[0]
     d_in, nh, hd, n = _dims(cfg)
     f32 = torch.float32
-    proj = dense(u, params["in_proj"], policy, counter, seed=21)
+    proj = _in_proj(params["in_proj"], cfg, u, policy, counter)
     x, z, bmat, cmat, dt = _split_proj(cfg, proj)
     xbc = torch.cat([x, bmat, cmat], dim=-1)                        # (B,1,·)
     out = _silu_f32(causal_conv(xbc, params["conv_w"], carry=state["conv"]))
@@ -230,14 +242,21 @@ def ssm_decode_step(params: Params, cfg: ModelConfig, u: torch.Tensor,
     x, bmat, cmat = (out[:, 0, :d_in], out[:, 0, d_in:d_in + n],
                      out[:, 0, d_in + n:])
 
-    dt = softplus(dt[:, 0].to(f32) + params["dt_bias"])             # (B,H)
-    dec = torch.exp(dt * -torch.exp(params["a_log"]))
-    xh = x.reshape(b, nh, hd).to(f32)
+    # this rank's heads: all of them, or its block where h is cut by heads
+    nh_l = state["h"].shape[1]
+    h0 = layers.tp_shard().model * nh_l if nh_l != nh else 0
+    heads = slice(h0, h0 + nh_l)
+    dt = softplus(dt[:, 0, heads].to(f32) + params["dt_bias"][heads])
+    dec = torch.exp(dt * -torch.exp(params["a_log"][heads]))
+    xh = x.reshape(b, nh, hd)[:, heads].to(f32)
     dtx = dt[:, :, None] * xh                                       # (B,H,hd)
     h = (state["h"] * dec[:, :, None, None]
          + dtx[:, :, :, None] * bmat.to(f32)[:, None, None, :])
     y = torch.einsum("bhpn,bn->bhp", h, cmat.to(f32))
-    y = y + params["d_skip"][None, :, None] * xh
-    y = _gated_norm(params, cfg, y.reshape(b, 1, d_in).to(u.dtype), z)
-    out = dense(y, params["out_proj"], policy, counter, seed=22)
-    return out, {"h": h, "conv": new_conv}
+    y = y + params["d_skip"][heads][None, :, None] * xh
+    y = y.reshape(b, 1, nh_l * hd).to(u.dtype)
+    if nh_l != nh:
+        y = ctx.gather_from_model(y, y.dim() - 1, reduce_grad=False)
+    y = _gated_norm(params, cfg, y, z)
+    return _out_proj(params["out_proj"], y, policy, counter), {
+        "h": h, "conv": new_conv}

@@ -77,16 +77,19 @@ def _kv_q8(t: torch.Tensor, ctr, idx, seed: int):
     return (torch.clamp(codes, 0.0, 255.0) - 128.0).to(torch.int8), scale
 
 
-def _kv_elem_idx(nkv: int, hd: int, device) -> torch.Tensor:
+def _kv_elem_idx(nkv: int, hd: int, device,
+                 head0: Optional[int] = None) -> torch.Tensor:
     """The (1, 1, nkv, hd) element-index pattern every KV-quantiser call
     hashes with: global head·hd + lane, independent of the batch row (a
     shared block must not remember which slot wrote it, and sharded
     serving moves slots between data shards).  Under head sharding the
-    model sees local heads; the shard's global head offset comes from
+    model sees local heads; the shard's global head offset is ``head0``
+    (the training layout's decode passes it) or comes from
     ``dist.ctx.serve_shard_scope``, as the reference's does."""
     info = dist_ctx.kv_shard_info()
-    head0 = info["head0"] if info is not None and info["heads_sharded"] \
-        else 0
+    if head0 is None:
+        head0 = info["head0"] if info is not None and info["heads_sharded"] \
+            else 0
     head = head0 + torch.arange(nkv, dtype=torch.int64, device=device)
     lane = torch.arange(hd, dtype=torch.int64, device=device)
     return (head[:, None] * hd + lane[None, :]).reshape(1, 1, nkv, hd)
@@ -317,16 +320,35 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     runs flash-decode attention through the kernel dispatcher
     (``backend`` None: the CUDA kernel on the card, the plain version on
     the CPU).
+
+    On the training mesh (``layers.tp_shard``) with the query heads split
+    (``train_param_specs``), q takes the rank's heads (``wq``
+    column-parallel), and so do K and V where the KV heads divide
+    ``tp``: the cache entry is then the rank's block of heads
+    (``cache_specs``) and int8 codes hash at the global head index.
+    Otherwise K and V are computed whole into the replicated cache, and
+    the kernel reads the KV heads of the rank's query heads.  ``wo`` is
+    row-parallel, its partials summed over 'model' in ``dense``.
     """
     b = x.shape[0]
     hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
-    q = dense(x, params["wq"], policy, counter, seed=1).reshape(b, 1, nh, hd)
-    k = dense(x, params["wk"], policy, counter, seed=2).reshape(b, 1, nkv, hd)
-    v = dense(x, params["wv"], policy, counter, seed=3).reshape(b, 1, nkv, hd)
+    sh = layers.tp_shard()
+    q_split = sh is not None and params["wq"].shape[-1] != nh * hd
+    kv_split = q_split and params["wk"].shape[-1] != nkv * hd
+    col = layers.col_shard(x, params["wq"], sh) if q_split else None
+    kv_col = layers.col_shard(x, params["wk"], sh) if kv_split else None
+    nh_l = params["wq"].shape[-1] // hd
+    nkv_c = params["wk"].shape[-1] // hd          # the KV heads computed
+    q = dense(x, params["wq"], policy, counter, seed=1,
+              shard=col).reshape(b, 1, nh_l, hd)
+    k = dense(x, params["wk"], policy, counter, seed=2,
+              shard=kv_col).reshape(b, 1, nkv_c, hd)
+    v = dense(x, params["wv"], policy, counter, seed=3,
+              shard=kv_col).reshape(b, 1, nkv_c, hd)
     if cfg.qkv_bias and "bq" in params:
-        q = q + params["bq"].reshape(1, 1, nh, hd)
-        k = k + params["bk"].reshape(1, 1, nkv, hd)
-        v = v + params["bv"].reshape(1, 1, nkv, hd)
+        q = q + params["bq"].reshape(1, 1, nh_l, hd)
+        k = k + params["bk"].reshape(1, 1, nkv_c, hd)
+        v = v + params["bv"].reshape(1, 1, nkv_c, hd)
     posv = pos[:, None]
     q = layers.rope(q, posv, cfg.rope_theta)
     k = layers.rope(k, posv, cfg.rope_theta)
@@ -349,7 +371,8 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     if cache["k"].dtype == torch.int8:
         ctr = pos if kv_offset is None else pos + kv_offset
         ctr4 = ctr.reshape(b, 1, 1, 1)
-        idx4 = _kv_elem_idx(nkv, hd, x.device)
+        idx4 = _kv_elem_idx(nkv_c, hd, x.device,
+                            sh.model * nkv_c if kv_split else None)
         kq, ks = _kv_q8(k, ctr4, idx4, 101)
         vq, vs = _kv_q8(v, ctr4, idx4, 102)
         put("k", kq[:, 0])
@@ -360,22 +383,36 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
         put("k", k[:, 0].to(cache["k"].dtype))
         put("v", v[:, 0].to(cache["v"].dtype))
 
-    group = nh // nkv
-    qg = q[:, 0].reshape(b, nkv, group, hd)
+    kv = {name: cache.get(name) for name in ("k", "v", "k_scale",
+                                             "v_scale")}
+    if q_split and not kv_split:
+        # the replicated KV heads of this rank's query heads
+        kv0, nkv_l, group = layers._kv_heads(cfg, sh.tp, sh.model)
+        if nkv_l != nkv_c:
+            kv = {name: None if t is None
+                  else t.narrow(2, kv0, nkv_l).contiguous()
+                  for name, t in kv.items()}
+    else:
+        nkv_l, group = nkv_c, nh_l // nkv_c
+    qg = q[:, 0].reshape(b, nkv_l, group, hd)
     if paged:
         attn = dispatch.paged_decode_attention(
-            qg, cache["k"], cache["v"], block_tables, pos,
-            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            qg, kv["k"], kv["v"], block_tables, pos,
+            k_scale=kv["k_scale"], v_scale=kv["v_scale"],
             window=cfg.window or 0, backend=backend)
     else:
         put("k_pos", pos)
         attn = dispatch.decode_attention(
-            qg, cache["k"], cache["v"], cache["k_pos"], pos,
-            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            qg, kv["k"], kv["v"], cache["k_pos"], pos,
+            k_scale=kv["k_scale"], v_scale=kv["v_scale"],
             window=cfg.window or 0, backend=backend)
+    out = attn.to(x.dtype).reshape(b, 1, nh_l * hd)
+    if q_split:
+        return dense(out, params["wo"], policy, counter, seed=4,
+                     shard=layers.row_shard(out, params["wo"], sh)), cache
     # sharded serving: all-gather the local heads before the replicated W_O
     # (DESIGN.md §9); identity elsewhere
-    out = dist_ctx.gather_heads(attn.to(x.dtype).reshape(b, 1, nh * hd))
+    out = dist_ctx.gather_heads(out)
     return dense(out, params["wo"], policy, counter, seed=4), cache
 
 
@@ -976,8 +1013,17 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     the decode-attention kernel backend (None: by device).  ``active``
     (B,) bool, where given: the rows that are False keep their recurrent
     state and ring contents as they were (their position the caller
-    freezes)."""
-    x = params["embed"][token[:, None]]
+    freezes).
+
+    On the training mesh (``dist.ctx.train_shard_scope``, the reference's
+    GSPMD decode under ``param_specs`` / ``cache_specs``) params and cache
+    are this rank's blocks (``interop.shard_train_params``,
+    ``interop.shard_cache``) and ``token`` its data shard's rows: the
+    embedding and the head are vocab-parallel, the logits gathered over
+    'model'; attention, the MLP and the recurrent layers run their
+    tensor-parallel forms."""
+    x = layers.embed_lookup(params["embed"], token[:, None],
+                            cfg.vocab_padded())
     b = x.shape[0]
     pos = torch.broadcast_to(cache["pos"].to(torch.int32), (b,)).contiguous()
     block_tables = cache.get("block_tables")
@@ -991,12 +1037,22 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                             counter=counter, cache_entry=entry, pos=pos,
                             kv_offset=kv_offset, backend=backend,
                             block_tables=block_tables, active=active)
-    logits = _logits(params, cfg, x, policy, counter)[:, 0, : cfg.vocab_size]
+    logits = _gather_vocab(_logits(params, cfg, x, policy, counter), cfg)
     new_cache = {"pos": pos + 1, "layers": cache["layers"],
                  "remainder": cache["remainder"]}
     if block_tables is not None:
         new_cache["block_tables"] = cache["block_tables"]
     return logits, new_cache
+
+
+def _gather_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A decode step's (B, 1, V) logits → (B, vocab_size): a rank's
+    vocab columns of the training layout's head all-gathered over
+    'model' first."""
+    if logits.shape[-1] != cfg.vocab_padded():
+        logits = dist_ctx.gather_from_model(logits, logits.dim() - 1,
+                                            reduce_grad=False)
+    return logits[:, 0, : cfg.vocab_size]
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,11 @@ own:
   gloo ranks: the collectives of one real step of the same cases.
 
 Both sides run one training step of ``_torch_train_mesh``'s reduced
-models at ``BATCH`` × ``SEQ`` tokens from the seed-0 state.
+models at ``BATCH`` × ``SEQ`` tokens from the seed-0 state, and one
+decode tick of ``_torch_decode_mesh``'s reduced recurrent and
+encoder-decoder models on the training layout (``decode-collectives``,
+the tick of ``tests/test_torch_decode_mesh.py``) at its ``BATCH`` slots
+× ``MAX_LEN`` tokens.
 """
 
 import json
@@ -23,6 +27,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
+import _torch_decode_mesh as dm  # noqa: E402
 import _torch_train_mesh as tm  # noqa: E402
 
 # (model, policy) of the collective checks
@@ -35,6 +40,9 @@ STATE_MODELS = ["smollm", "granite-moe", "mamba2", "rgemma", "whisper"]
 MESH_SIZES = {"single": {"data": 32, "model": 8},
               "multi": {"data": 64, "model": 8}}
 CACHE_BYTES = 1.5e9        # a decode cell's global cache bytes, both sides
+# the training-layout decode cells: collectives against gloo at (1, 2),
+# state bytes at (2, 2), rank (0, 0)
+DECODE_SHAPES = [(1, 2), (2, 2)]
 
 
 def _key(model, policy, shape):
@@ -130,6 +138,17 @@ def port_main(out):
             m = dryrun.measure(cfg, "train", tm.SEQ, tm.BATCH, mesh,
                                policy=tm.port_policy(pol))
             res["collectives"][_key(mname, pol, shape)] = m["collectives"]
+    res["decode"] = {}
+    for shape in DECODE_SHAPES:
+        mesh = dryrun.fake_mesh(*shape)
+        for mname in dm.MODELS:
+            cfg, _ = tm.model(mname)
+            for pol in dm.POLICIES:
+                m = dryrun.measure(cfg, "decode", dm.MAX_LEN, dm.BATCH, mesh,
+                                   policy=tm.port_policy(pol))
+                res["decode"][_key(mname, pol, shape)] = {
+                    k: m[k] for k in ("collectives", "state_bytes",
+                                      "layout")}
     with open(out, "w") as f:
         json.dump(res, f)
 

@@ -15,10 +15,17 @@ reference's formulas, the port's own layout and real steps:
   layer).  Non-reentrant checkpointing stops recomputing after the last
   tensor the backward needs, so each layer's W_down product is not run
   again;
-* the CLI sweeps every cell of the reference's grid on the CPU: train
-  and prefill cells ``ok``, decode cells ``ok``, ``skip`` by the
-  reference's rule or ``error`` where the sharded engine refuses the
-  family (ROADMAP Queue 3), and a rerun resumes from its output.
+* a decode cell of the recurrent and encoder-decoder families runs on
+  the training layout (``"layout": "train"``): its per-rank state bytes
+  equal the bytes of ``interop.shard_train_params``' and
+  ``interop.shard_cache``'s local leaves (reduced configs at (2, 2),
+  rank (0, 0)), and its collectives equal those of the same tick decoded
+  by gloo ranks at (1, 2) (``_torch_decode_mesh.decode_collectives``,
+  the tick of ``tests/test_torch_decode_mesh.py``);
+* the CLI sweeps every cell of the reference's grid on the CPU: train,
+  prefill and decode cells ``ok`` (decode on the serving layout for an
+  attention-only decoder, on the training layout for the rest), or
+  ``skip`` by the reference's rule, and a rerun resumes from its output.
 """
 
 import json
@@ -28,6 +35,7 @@ import sys
 
 import pytest
 
+import _torch_decode_mesh as dm
 import _torch_dryrun as td
 import _torch_mesh
 import _torch_train_mesh as tm
@@ -61,7 +69,9 @@ def runs(tmp_path_factory):
         _RUN["ref"] = _script("ref", tmp)
         _RUN["port"] = _script("port", tmp)
         _RUN["gloo"] = {s: _torch_mesh.run_mesh(
-            s, ["dryrun-collectives"], tmp, modules=("_torch_dryrun",))
+            s, ["dryrun-collectives"] + (
+                ["decode-collectives"] if s == (1, 2) else []), tmp,
+            modules=("_torch_dryrun", "_torch_decode_mesh"))
             for s in td.COLLECTIVE_SHAPES}
     return _RUN
 
@@ -101,6 +111,35 @@ def test_collectives_equal_a_real_step(runs, model, policy, shape):
     assert "error" not in real, real.get("error")
     assert real[key], key
     assert runs["port"]["collectives"][key] == real[key]
+
+
+@pytest.mark.parametrize("model", dm.MODELS)
+def test_decode_state_bytes_are_the_local_leaves(runs, model):
+    """A training-layout decode cell's per-rank state: the bytes of rank
+    (0, 0)'s params and cache blocks at (2, 2)."""
+    cfg, params = tm.model(model)
+    mesh = MeshShape(("data", "model"), (2, 2))
+    coord = {"data": 0, "model": 0}
+    local = {"params": interop.shard_train_params(params, cfg, coord, mesh),
+             "cache": interop.shard_cache(dm.empty_cache(cfg, params), cfg,
+                                          coord, mesh)}
+    want = sum(t.numel() * t.element_size() for t in tree.leaves(local))
+    for pol in dm.POLICIES:
+        got = runs["port"]["decode"][td._key(model, pol, (2, 2))]
+        assert got["layout"] == "train"
+        assert got["state_bytes"] == want
+
+
+@pytest.mark.parametrize("model,pol", [(m, p) for m in dm.MODELS
+                                       for p in dm.POLICIES])
+def test_decode_collectives_equal_a_real_tick(runs, model, pol):
+    """The dry run's decode tick at (1, 2) against the same tick decoded
+    by gloo ranks: calls and bytes by kind, rank 0."""
+    real = runs["gloo"][(1, 2)][0]["decode-collectives"]
+    assert "error" not in real, real.get("error")
+    got = runs["port"]["decode"][td._key(model, pol, (1, 2))]
+    assert real[f"{model}/{pol}"]
+    assert got["collectives"] == real[f"{model}/{pol}"]
 
 
 def test_flops_are_6nd_with_the_recompute(runs):
@@ -149,9 +188,14 @@ def test_cli_sweeps_and_resumes(tmp_path):
     assert got["smollm_135m", "decode_32k"]["status"] == "ok"
     assert got["smollm_135m", "decode_32k"]["per_rank"]["collectives"] == {}
     assert got["smollm_135m", "long_500k"]["status"] == "skip"
+    assert got["smollm_135m", "decode_32k"]["layout"] == "serve"
+    # the engine serves no recurrent state on a mesh: mamba2 decodes on
+    # the training layout, its SSD state cut by heads
     for shape in ("decode_32k", "long_500k"):
         r = got["mamba2_370m", shape]
-        assert r["status"] == "error" and "attention-only" in r["error"]
+        assert r["status"] == "ok" and r["layout"] == "train", r
+        assert r["per_rank"]["collectives"]["gather_from_model"]["calls"] \
+            == 2 * get_config("mamba2_370m").n_layers + 1
     again = cli("smollm_135m,mamba2_370m,granite_3_8b")
     assert again[:8] == first
     assert [r["arch"] for r in again[8:]] == ["granite_3_8b"] * 4

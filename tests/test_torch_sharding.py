@@ -25,7 +25,7 @@ from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import MeshShape
 from repro_torch.interop import shard_serve_params
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import registry
+from repro_torch.models import registry, transformer
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -213,31 +213,109 @@ def test_shard_serve_params_slices_qkv_heads(n_kv_heads):
         assert local["embed"] is params["embed"]
 
 
+def _host_reorders(cfg, params, batch, dp, tp, rows):
+    """op → whether this host's own libraries sum a shard's outputs in
+    another order than the same slice at the single-device shape, read
+    off the libraries directly: torch's CPU ops of each probed op
+    (``policy.matmul``'s f32 GEMM, the f32 mean square of the norm,
+    ``layers.grouped_logits`` / ``grouped_values``) at one shard's local
+    shapes and at the global ones, on operands whose summed dim carries
+    4096 at both ends in one factor and ±4096 in the other (the two
+    products cancel, so an order change moves nearly every output).
+    The GEMM's order depends on the host (its ISA and BLAS build pick the
+    kernel by the row count): this is the order the probe must find."""
+    from repro_torch.models import layers
+    from repro_torch.numerics.policy import matmul
+
+    gen = torch.Generator().manual_seed(5)
+    b = batch // dp
+    split = shd.serve_heads_shardable(cfg, tp)
+
+    def lead(shape, dim=-1, last=4096.0):
+        t = torch.randn(shape, generator=gen)
+        t.narrow(dim, 0, 1).fill_(4096.0)
+        t.narrow(dim, t.shape[dim] - 1, 1).fill_(last)
+        return t.bfloat16()
+
+    def differs(op, full_args, local_args, cut):
+        full = op(*full_args)
+        return not torch.equal(op(*local_args), cut(full))
+
+    out = {}
+    for name, w in transformer._verify_weights(params, cfg).items():
+        width = cfg.d_model if w is None else w.shape[0]
+        x = lead((batch, rows, width))
+        if w is None:
+            def op(a):
+                af = a.float()
+                return torch.mean(af * af, dim=-1, keepdim=True)
+            out[name] = differs(op, (x,), (x[:b].contiguous(),),
+                                lambda o: o[:b])
+            continue
+        wt = lead(tuple(w.shape), 0, -4096.0)
+        n = wt.shape[1] // tp if split and name in ("wq", "wk", "wv") \
+            else wt.shape[1]
+        out[name] = differs(matmul, (x, wt), (x[:b].contiguous(),
+                                              wt[:, :n].contiguous()),
+                            lambda o: o[:b, ..., :n])
+    if rows > 1:
+        nkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd()
+        h = nkv // tp if split else nkv
+        q = lead((batch, rows, nkv, g, hd))
+        k = lead((batch, rows, nkv, hd), last=-4096.0)
+        out["attn_logits"] = differs(
+            layers.grouped_logits, (q, k),
+            (q[:b, :, :h].contiguous(), k[:b, :, :h].contiguous()),
+            lambda o: o[:b, :h])
+        probs = lead((batch, nkv, g, rows, rows))
+        v = lead((batch, rows, nkv, hd), 1, -4096.0)
+        out["attn_values"] = differs(
+            layers.grouped_values, (probs, v),
+            (probs[:b, :h].contiguous(), v[:b, :, :h].contiguous()),
+            lambda o: o[:b, :, :h])
+    return out
+
+
 @pytest.mark.parametrize("mesh", [(1, 1), (2, 1), (1, 2), (2, 2)],
                          ids=lambda m: f"{m[0]}x{m[1]}")
 def test_shard_purity_reads_zero_on_the_cpu(mesh):
     """The shard-purity probe at the serve meshes of the CPU tests (batch
-    4, reduced SmolLM): every op, decode and 8-token prefill rows, sums a
-    shard's outputs in the single-device order — what makes the CPU's
-    sharded streams bitwise (``tests/test_torch_mesh_serve.py``)."""
-    from repro_torch.models import transformer
-
+    4, reduced SmolLM), decode and 8-token prefill rows: every op reads
+    what this host's libraries do at its shapes (``_host_reorders``): 0
+    where they sum a shard's outputs in the single-device order, on most
+    hosts every op, which is what makes the CPU's sharded streams bitwise
+    (``tests/test_torch_mesh_serve.py``); an AVX-512 host whose GEMM
+    takes another kernel at 2 rows than at 4 reads its order change
+    there."""
     cfg = port_get_config("smollm_135m").reduced()
     params = registry.init_model(cfg, device="cpu")
     for rows in (1, 8):
         got = transformer.shard_purity(params, cfg, 4, *mesh, rows=rows)
         assert set(got) == set(transformer.VERIFY_OPS) | (
             {"attn_logits", "attn_values"} if rows > 1 else set())
-        assert not any(got.values()), (rows, got)
+        want = _host_reorders(cfg, params, 4, *mesh, rows)
+        assert {op: n > 0 for op, n in got.items()} == want, (rows, got)
 
 
-def test_shard_purity_sees_an_order_change():
-    """The probe is not blind: one row a shard (batch 4 on a 4-way data
-    axis) takes the CPU's matrix-vector path, which sums in another order
-    than the 4-row product, and the probe counts the outputs that move."""
-    from repro_torch.models import transformer
-
+def test_shard_purity_sees_an_order_change(monkeypatch):
+    """The probe is not blind: a product that sums K in reverse at a
+    shard's row count (every local call has fewer rows than the
+    single-device one on a 4-way data axis) is an order change, and the
+    probe counts the outputs it moves; without it the probe reads what
+    this host's GEMM does at 1 row against 4 (its matrix-vector path may
+    or may not sum in another order)."""
     cfg = port_get_config("smollm_135m").reduced()
     params = registry.init_model(cfg, device="cpu")
+    assert {op: n > 0 for op, n in transformer.shard_purity(
+        params, cfg, 4, 4, 1).items()} == _host_reorders(cfg, params, 4, 4,
+                                                         1, 1)
+    dense = transformer.dense
+
+    def reversed_k(a, w, *args, **kw):
+        if a.shape[0] == 4:
+            return dense(a, w, *args, **kw)
+        return dense(a.flip(-1), w.flip(0), *args, **kw)
+
+    monkeypatch.setattr(transformer, "dense", reversed_k)
     got = transformer.shard_purity(params, cfg, 4, 4, 1)
     assert got["wq"] > 0 and got["wd"] > 0, got
