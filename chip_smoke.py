@@ -3,7 +3,7 @@
 
   PYTHONPATH=src python chip_smoke.py
 
-Drives the port (``src/repro_torch``) on one card, in twelve phases, each
+Drives the port (``src/repro_torch``) on one card, in thirteen phases, each
 printing JSON lines:
 
 1. device — refuses to run without CUDA; the card's name and power limit
@@ -184,7 +184,20 @@ printing JSON lines:
    checkpoint; and the dry run (``launch/dryrun.py``, meta tensors on a
    fake process group) predicting the (2, 2) step's and the (1, 2)
    decode ticks' collectives exactly and the (1, 1) run's peak beside
-   the measured one.
+   the measured one;
+13. the kernel autotuner (``autotune``, run after the row-purity probe and
+   before the serve phases, ``autotune_phase``) — with
+   ``REPRO_AUTOTUNE_CACHE`` on a temporary file (the variable is unset for
+   the rest of the run): every launch-parameter candidate of kernels 1–6
+   at SmolLM-135M's full width against its plain version (ring tiles of
+   8–64 slots within 1e-4, paged ≡ ring at bs == bk and verify rows ≡
+   decode bit for bit, kernel 6's policy entry at every ``(mt, cps,
+   splits)`` of the serve products and kernel 5 bit for bit), each kernel
+   swept by CUDA events with every candidate's times printed beside the
+   card's name and power limit, the winners written and read back by ring
+   int8 engines (W = 1, W = 8, speculative, dither policy) whose streams
+   keep W = 8 ≡ W = 1, spec ≡ plain and tuned ≡ untuned under the policy,
+   with a tracer that saw the cache hits; then the cache is cleared.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check ends the run with a non-zero exit; nothing is caught.
@@ -206,6 +219,10 @@ tick under the profiler (bf16 and int8 KV).
 
 runs the device and build phases, the mesh block and the training-mesh
 block alone.
+
+  PYTHONPATH=src python chip_smoke.py --autotune
+
+runs the device and build phases and the autotune phase alone.
 """
 
 from __future__ import annotations
@@ -677,15 +694,16 @@ def paged_library_call(t, window):
     return call
 
 
-def ring_as_pool(torch, gen, t):
-    """The ring snapshot ``t`` (no wrap) as a pool of KERNEL_BLOCK-token
-    blocks in shuffled order, with its block table: (q, k, v, block_tables,
-    pos, k_scale, v_scale)."""
+def ring_as_pool(torch, gen, t, bs=None):
+    """The ring snapshot ``t`` (no wrap) as a pool of ``bs``-token blocks
+    (default KERNEL_BLOCK) in shuffled order, with its block table: (q, k,
+    v, block_tables, pos, k_scale, v_scale)."""
     from repro_torch.kernels.decode_attention import KERNEL_BLOCK
 
     q, k, v, _, pos, ks, vs = t
     b, cap = k.shape[:2]
-    bs, nb = KERNEL_BLOCK, cap // KERNEL_BLOCK
+    bs = bs or KERNEL_BLOCK
+    nb = cap // bs
     perm = torch.randperm(b * nb, generator=gen).to(q.device)
 
     def to_pool(x):
@@ -6140,6 +6158,274 @@ def dryrun_checks(started, meshes, one, tp_lines, timeout=600):
     return out
 
 
+# ------------------------------------------------------- the autotuner
+
+AUTOTUNE_RING = dict(b=8, cap=1024, nkv=3, group=3, hd=64)   # SmolLM-135M
+AUTOTUNE_MATMULS = MATMUL_SHAPES[:5]   # the policy serve's decode products
+AUTOTUNE_QUANTIZE = (576, 1536)
+AUTOTUNE_REQUESTS = 8      # the tuned engines' traffic: 8 ring requests,
+AUTOTUNE_NEW = 16          # 16 new tokens each
+AUTOTUNE_REPEATS, AUTOTUNE_LAUNCHES = 5, 50   # samples, calls a sample
+
+
+def candidate_rows(results, smi, errs):
+    """A sweep's results as printed: each candidate's least, median and
+    largest ms a call over its samples, and its error against the plain
+    version."""
+    import statistics
+
+    rows = []
+    for r in results:
+        ms = sorted(s * 1e3 for s in r["samples"])
+        rows.append({"block": r["block"], "ms": ms[0],
+                     "median_ms": statistics.median(ms), "max_ms": ms[-1],
+                     "max_abs_err": errs[tuple(r["block"])], "card": smi})
+    return rows
+
+
+def autotune_phase(torch, kmods, cfg, params, smi):
+    """The kernel autotuner (``kernels/autotune.py``) on the card, at
+    SmolLM-135M's full width, with ``REPRO_AUTOTUNE_CACHE`` pointed at a
+    temporary file:
+
+    1. every candidate held against its plain version — kernels 1 and 3
+       at each ring tile (B 8, a 1,024-slot ring, bf16 and int8) within
+       ``KERNEL_TOL``, every verify row (K 4) equal to the decode kernel
+       at its position and tile bit for bit, kernels 2 and 4 on the same
+       snapshot as a pool of blocks of the tile's size equal to the ring
+       kernels bit for bit and within ``KERNEL_TOL`` of their plain
+       versions; kernel 6's policy entry at the policy serve's four
+       decode products and the LM head at every ``(mt, cps, splits)``, and
+       kernel 5 at (576, 1536), bit for bit;
+    2. each kernel swept (CUDA events around ``AUTOTUNE_LAUNCHES``
+       back-to-back calls, ``AUTOTUNE_REPEATS`` samples): the verify
+       kernel first, then the decode kernel, whose winner is the shared
+       ring tile; the pool block, one pool per candidate; kernel 6 per
+       product; kernel 5's one candidate — every candidate's times printed
+       on a line of its own with the card's name and power limit;
+    3. the winners written to the file, the in-memory cache cleared;
+    4. a ring int8 engine at W = 1 and W = 8 and a speculative one served
+       under the winners (read back from the file), with a tracer: the
+       engines hold the winning tile, the tracer saw the cache hits, W = 8
+       ≡ W = 1 and spec ≡ plain, and the dither-policy streams under the
+       winners equal those without a cache;
+    5. the cache cleared and the variable unset, so later phases take the
+       model picks.
+
+    Returns the phase line."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import autotune, dispatch, ref
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_verify_attention as pva
+    from repro_torch.kernels import quantize as qk
+    from repro_torch.kernels import verify_attention as va
+    from repro_torch.numerics.policy import QuantPolicy
+    from repro_torch.serve import Engine, Tracer
+
+    mark, parts = part_timer()
+    tmp = tempfile.mkdtemp(prefix="autotune_")
+    path = os.path.join(tmp, "autotune.json")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = path
+    autotune.clear_cache()
+    gen = torch.Generator().manual_seed(17)
+    sh = AUTOTUNE_RING
+    b, cap, nkv, group, hd = (sh[k] for k in ("b", "cap", "nkv", "group",
+                                              "hd"))
+    split = dict(split=da.SPLIT_TILES)
+    winners, checked = {}, 0
+
+    def sweep_line(kernel, shape, winner, results, errs, **extra):
+        emit({"phase": "autotune_candidates", "kernel": kernel,
+              "shape": list(shape), "winner": list(winner),
+              "candidates": candidate_rows(results, smi, errs), **extra})
+
+    # kernels 1-4: every ring tile, the pools of the same block size
+    for quant in (False, True):
+        kv = "int8" if quant else "bfloat16"
+        t = ring_inputs(gen, **sh, quant=quant, pos_vals=SERVE_POS)
+        tv = ring_inputs(gen, **sh, quant=quant, pos_vals=SERVE_POS,
+                         kq=SPEC_K)
+        errs = {"decode": {}, "verify": {}, "paged": {}}
+        pools, pools_v = {}, {}
+        for blk in autotune.decode_attention_candidates(
+                cap, hd=hd, group=group, quantized=quant):
+            got = da.decode_attention(*t, block=blk)
+            gv = va.verify_attention(*tv, block=blk)
+            pools[blk] = ring_as_pool(torch, gen, t, bs=blk[0])
+            pools_v[blk] = ring_as_pool(torch, gen, tv, bs=blk[0])
+            paged = pda.paged_decode_attention(*pools[blk])
+            paged_v = pva.paged_verify_attention(*pools_v[blk])
+            torch.cuda.synchronize()
+            for name, out, want in (
+                    ("decode", got,
+                     ref.decode_attention_ref(*t, block=blk, **split)),
+                    ("verify", gv,
+                     ref.verify_attention_ref(*tv, block=blk, **split)),
+                    ("paged", paged,
+                     ref.paged_decode_attention_ref(*pools[blk], **split))):
+                assert torch.isfinite(out).all(), (name, blk, kv)
+                torch.testing.assert_close(out, want, atol=KERNEL_TOL,
+                                           rtol=KERNEL_TOL)
+                errs[name][blk] = (out - want).abs().max().item()
+            torch.testing.assert_close(
+                paged_v, ref.paged_verify_attention_ref(*pools_v[blk],
+                                                        **split),
+                atol=KERNEL_TOL, rtol=KERNEL_TOL)
+            assert torch.equal(paged, got), ("ring != paged", blk, kv)
+            assert torch.equal(paged_v, gv), ("ring != paged verify", blk,
+                                              kv)
+            assert rows_equal(torch, gv, functools.partial(
+                da.decode_attention, block=blk), tv, 0), (blk, kv)
+            checked += 1
+        _, res = autotune.autotune_verify_attention(
+            b, cap, nkv, SPEC_K, group, hd, backend="cuda", dtype=kv,
+            repeats=AUTOTUNE_REPEATS, launches=AUTOTUNE_LAUNCHES,
+            run=lambda blk: va.verify_attention(*tv, block=blk))
+        sweep_line("verify_attention", (b, cap, nkv, SPEC_K, group, hd),
+                   res[0]["block"], res, errs["verify"], kv=kv,
+                   note="timed only: the decode sweep below sets the "
+                        "shared tile")
+        win, res = autotune.autotune_decode_attention(
+            b, cap, nkv, group, hd, backend="cuda", dtype=kv,
+            repeats=AUTOTUNE_REPEATS, launches=AUTOTUNE_LAUNCHES,
+            run=lambda blk: da.decode_attention(*t, block=blk))
+        winners[f"decode_attention[{kv}]"] = list(win)
+        sweep_line("decode_attention", (b, cap, nkv, group, hd), win, res,
+                   errs["decode"], kv=kv)
+        win, res = autotune.autotune_paged_attention(
+            b, cap, nkv, group, hd, backend="cuda", dtype=kv,
+            repeats=AUTOTUNE_REPEATS, launches=AUTOTUNE_LAUNCHES,
+            run=lambda blk: pda.paged_decode_attention(*pools[tuple(blk)]))
+        winners[f"paged_attention[{kv}]"] = list(win)
+        sweep_line("paged_decode_attention", (b, cap, nkv, group, hd), win,
+                   res, errs["paged"], kv=kv)
+    mark("attention")
+    # kernel 6's policy entry at the serve products, kernel 5
+    kw = dict(bits=8, scheme="dither", counter=77, seed=3)
+    for m, k, n in AUTOTUNE_MATMULS:
+        x, w = policy_operands(torch, gen, m, k, n)
+        aw = dm.weight_absmax(w)
+        want = ref.dither_matmul_scaled_ref(x, w, **kw)
+        cands = autotune.matmul_candidates(m, k, n)
+        for blk in cands:
+            got = dm.dither_matmul_scaled(x, w, aw, block=blk, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), ((m, k, n), blk)
+            checked += 1
+        win, res = autotune.autotune_matmul(
+            m, k, n, bits=8, scheme="dither", backend="cuda",
+            dtype="bfloat16", repeats=AUTOTUNE_REPEATS,
+            launches=AUTOTUNE_LAUNCHES,
+            run=lambda blk: dm.dither_matmul_scaled(x, w, aw, block=blk,
+                                                    **kw))
+        winners[f"matmul{[m, k, n]}"] = list(win)
+        sweep_line("dither_matmul_scaled", (m, k, n), win, res,
+                   {tuple(c): 0 for c in cands},
+                   model_pick=list(autotune.model_block("matmul", (m, k, n),
+                                                        "bfloat16")))
+    m, n = AUTOTUNE_QUANTIZE
+    x = (torch.rand((m, n), generator=gen) * 2.4 - 1.2).cuda()
+    qkw = dict(bits=8, lo=-1.2, hi=1.2, scheme="dither", counter=12345,
+               seed=7)
+    want = dispatch.quantize(x, backend="torch-ref", **qkw)
+    assert torch.equal(dispatch.quantize(x, block=(), **qkw), want)
+    checked += 1
+    win, res = autotune.autotune_quantize(
+        m, n, bits=8, scheme="dither", backend="cuda",
+        repeats=AUTOTUNE_REPEATS, launches=AUTOTUNE_LAUNCHES,
+        run=lambda blk: dispatch.quantize(x, block=blk, **qkw))
+    winners["quantize"] = list(win)
+    sweep_line("quantize", (m, n), win, res, {(): 0})
+    mark("kernels_5_6")
+    # the winners on disk; the engines read them back from the file
+    saved = json.load(open(path))
+    assert len(saved) == 2 + 2 + len(AUTOTUNE_MATMULS) + 1, sorted(saved)
+    autotune.clear_cache()
+    ring_win = tuple(winners["decode_attention[int8]"])
+    reqs = lambda: ring_requests(cfg, AUTOTUNE_REQUESTS,   # noqa: E731
+                                 ring_lens()[:AUTOTUNE_REQUESTS],
+                                 AUTOTUNE_NEW)
+    tracer = Tracer(sink=None)
+
+    def serve(**knobs):
+        eng = Engine(params, cfg, 8, 1024, kv_quant=True, device="cuda",
+                     trace=tracer, **knobs)
+        for req in reqs():
+            eng.submit(req)
+        for mod in kmods.values():
+            mod.launches = 0
+        done = eng.run(10_000)
+        torch.cuda.synchronize()
+        assert len(done) == AUTOTUNE_REQUESTS and all(
+            len(r.out) == AUTOTUNE_NEW for r in done)
+        return eng, {tuple(r.prompt): r.out for r in done}
+
+    eng, w1 = serve()
+    assert eng.attn_block == ring_win, (eng.attn_block, ring_win)
+    assert eng._graphs.launches()["decode_attention"] > 0
+    eng, w8 = serve(decode_ticks=WINDOW)
+    assert eng.attn_block == ring_win and w8 == w1, "W = 8 != W = 1"
+    eng, spec = serve(spec_decode=True, draft_k=SPEC_K)
+    assert eng.attn_block == ring_win and spec == w1, "spec != plain"
+    assert kmods["verify_attention"].launches > 0
+    policy = QuantPolicy(scheme="dither", backend="auto")
+    _, tuned_policy = serve(policy=policy)
+    assert kmods["dither_matmul_scaled"].launches > 0
+    hits = [r for r in tracer.records()
+            if r.get("name") == "autotune_cache_hit"]
+    keys = {r["key"] for r in hits}
+    assert len(hits) >= 4 and any(k.startswith("decode_attention|")
+                                  for k in keys), keys
+    assert sum(k.startswith("matmul|8x") for k in keys) >= 4, keys
+    mark("tuned_serve")
+    autotune.clear_cache()
+    del os.environ["REPRO_AUTOTUNE_CACHE"]
+    shutil.rmtree(tmp)
+    _, untuned_policy = serve(policy=policy)
+    assert untuned_policy == tuned_policy, "tuned policy streams differ"
+    autotune.clear_cache()
+    mark("untuned_policy")
+    return {"phase": "autotune", "card": smi, "winners": winners,
+            "candidates_checked": checked,
+            "model_picks": {"decode_attention": list(autotune.model_block(
+                "decode_attention", (b, cap, nkv, group, hd), "int8")),
+                "paged_attention": list(autotune.model_block(
+                    "paged_attention", (b, cap, nkv, group, hd), "int8"))},
+            "tuned_ring_tile": list(ring_win), "cache_hits": len(hits),
+            "w8_equals_w1": True, "spec_equals_plain": True,
+            "policy_tuned_equals_untuned": True,
+            "requests": AUTOTUNE_REQUESTS, "new_tokens_each": AUTOTUNE_NEW,
+            "seconds": parts}
+
+
+def autotune_main() -> int:
+    """``--autotune``: the device and build phases, then the autotune
+    phase alone (for a short call on the card)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import registry
+    from repro_torch.serve.graphs import KERNEL_WRAPPERS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__})
+    emit({"phase": "build", "seconds": _build.build()})
+    cfg = dataclasses.replace(get_config("smollm_135m"),
+                              n_layers=SMOLLM_LAYERS)
+    params = registry.init_model(cfg, seed=0, device="cuda")
+    emit(autotune_phase(torch, KERNEL_WRAPPERS, cfg, params, smi))
+    return 0
+
+
 def device_memory(torch):
     """The card's free and total memory (every process's use), and this
     process's allocated and reserved bytes, in GB."""
@@ -6256,6 +6542,7 @@ def main() -> int:
     params = registry.init_model(cfg, seed=0, device="cuda")
     emit(row_purity_phase(torch, cfg, params))
     kmods = KERNEL_WRAPPERS
+    emit(autotune_phase(torch, kmods, cfg, params, smi))
     serve, paged, spec = {}, {}, {}
     w1_streams = {}
     for kv_quant in (False, True):
@@ -6588,6 +6875,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # no winner cache from the environment (this process and the ones it
+    # starts): the gates check the launches the model picks
+    os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
     if sys.argv[1:2] in (["--attention-times"], ["--dither-times"]):
         sys.exit(times_main(sys.argv[1], sys.argv[2:]))
     if sys.argv[1:2] == ["--attention-times-of"]:
@@ -6596,4 +6886,6 @@ if __name__ == "__main__":
         sys.exit(dither_times_worker(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--mesh-block"]:
         sys.exit(mesh_main())
+    if sys.argv[1:2] == ["--autotune"]:
+        sys.exit(autotune_main())
     sys.exit(main())

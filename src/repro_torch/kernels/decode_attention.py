@@ -16,10 +16,17 @@ the head shape they ran at (a sharded step's local heads).  The kernel
 computes
 ``ref.decode_attention_ref(..., block=(bk,), split=SPLIT_TILES)``.
 
+The tile ``block=(bk,)`` comes from the caller (the engine holds one for
+its life); ``None`` asks ``autotune.resolve``, the sweep's winner or the
+model pick (the largest tile of at most ``KERNEL_BLOCK`` slots dividing
+the cap).  A tile that is not a candidate raises ``ValueError`` before the
+launch.  On CPU tensors the plain version runs at the given tile, or as
+one whole-cap block.
+
 The launch path is kept short, since a decode tick makes one call per
 layer: the checks run in one pass over the inputs, the C functions and the
-per-shape constants (tile, split count, ``1/sqrt(hd)``) are bound once,
-and the device is switched only when ``q`` is not on the current one.
+per-shape constants (split count, ``1/sqrt(hd)``) are bound once, and the
+device is switched only when ``q`` is not on the current one.
 """
 
 from __future__ import annotations
@@ -31,14 +38,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.ref import decode_attention_ref, shrink_block
+from repro_torch.kernels import _build, autotune
+from repro_torch.kernels.autotune import KERNEL_BLOCK, SPLIT_TILES
+from repro_torch.kernels.ref import decode_attention_ref
 
-__all__ = ["decode_attention", "check_ring", "ring_constants", "launch_on",
-           "HEAD_DIMS", "KERNEL_BLOCK", "SPLIT_TILES", "SOURCE"]
+__all__ = ["decode_attention", "check_ring", "ring_constants", "ring_tile",
+           "launch_on", "HEAD_DIMS", "KERNEL_BLOCK", "SPLIT_TILES", "SOURCE"]
 
-KERNEL_BLOCK = 64     # cache slots per tile (csrc: kMaxBk), shrunk to divide cap
-SPLIT_TILES = 2       # tiles per split (csrc: kSplitTiles)
 SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 _MAX_GROUP = 16       # csrc: kMaxGroup
 HEAD_DIMS = (64, 128, 256)   # csrc: launch (256: recurrentgemma, ring only)
@@ -62,12 +68,25 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=64)
-def ring_constants(cap: int, hd: int):
-    """(bk, splits, 1/sqrt(hd)) of a ring of ``cap`` slots: the tile (the
-    largest ≤ KERNEL_BLOCK dividing cap), the most splits a row can have,
-    and the plain version's f32-rounded scale."""
-    bk = shrink_block(KERNEL_BLOCK, cap)
-    return bk, -(-(cap // bk) // SPLIT_TILES), float(1.0 / math.sqrt(hd))
+def ring_constants(cap: int, hd: int, bk: int):
+    """(splits, 1/sqrt(hd)) of a ring of ``cap`` slots at tile ``bk``: the
+    most splits a row can have, and the plain version's f32-rounded
+    scale."""
+    return -(-(cap // bk) // SPLIT_TILES), float(1.0 / math.sqrt(hd))
+
+
+def ring_tile(kind: str, q, k, block) -> int:
+    """The tile of a ring kernel's launch: ``block`` checked against
+    ``autotune``'s candidates at the call's shape (``ValueError``
+    otherwise), or with ``block`` None the autotuner's pick.  ``kind`` is
+    ``decode_attention`` or ``verify_attention`` (which resolves to the
+    decode pick: row t must equal decode at pos + t)."""
+    b, cap, nkv, hd = k.shape
+    shape = (b, cap, nkv) + tuple(q.shape[1:-3]) + (q.shape[-2], hd)
+    if block is not None:
+        return autotune.check_block(kind, shape, k.dtype, block)[0]
+    bits = 8 if k.dtype == torch.int8 else 16
+    return autotune.resolve(kind, shape, k.dtype, bits, "flash", "cuda")[0]
 
 
 def launch_on(device: torch.device, fn, *args) -> int:
@@ -170,13 +189,17 @@ def decode_attention(
     v_scale: Optional[torch.Tensor] = None,
     *,
     window: int = 0,
+    block: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """Flash-decode attention over the ring cache → (B, n_kv, group, hd) f32:
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    """Flash-decode attention over the ring cache → (B, n_kv, group, hd) f32
+    at tile ``block=(bk,)``: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     if not q.is_cuda:
         if q.device.type == "cpu":
+            if block is not None:
+                block = (ring_tile("decode_attention", q, k, block),)
             return decode_attention_ref(q, k, v, k_pos, pos, k_scale,
-                                        v_scale, window=window)
+                                        v_scale, window=window, block=block)
         raise ValueError(f"decode_attention runs on cuda (or cpu), not "
                          f"{q.device}")
     if q.dim() != 4:
@@ -186,7 +209,8 @@ def decode_attention(
     check_ring(q, k, v, k_pos, pos, k_scale, v_scale, window, HEAD_DIMS)
     b, cap, nkv, hd = k.shape
     group = q.shape[2]
-    bk, splits, inv = ring_constants(cap, hd)
+    bk = ring_tile("decode_attention", q, k, block)
+    splits, inv = ring_constants(cap, hd, bk)
     bf16, int8 = _lib()
     out = torch.empty((b, nkv, group, hd), dtype=torch.float32,
                       device=q.device)

@@ -8,9 +8,18 @@
 ``backend=None`` (or ``"auto"``) picks ``cuda`` for CUDA tensors and
 ``torch-ref`` for CPU tensors.  ``torch-ref`` on CUDA tensors runs only when
 a caller names it, as the card's checks do; nothing on the serving path
-does.  No environment variable takes part.  ``matmul`` and ``quantize``
-keep the reference's signatures; their ``block`` is accepted and ignored,
-as the reference's ``xla-ref`` ignores it.
+does.  No environment variable chooses the backend.
+
+Every entry takes the reference's ``block``, its kernel's launch
+parameters (``kernels/autotune.py``).  On ``cuda``, ``block=None`` asks the
+autotuner (``autotune.resolve``: the winner of a sweep cached for the key,
+else the model pick, which is the launch the kernels took before it); a
+given block sets the launch.  A block that is not a candidate at the
+call's shape raises ``ValueError`` before any launch, on either backend.
+On ``torch-ref`` a given ring tile ``(bk,)`` runs the plain recurrence at
+that tile and ``None`` keeps the reference's whole-cap default; the
+dither kernels' plain versions give the same bits at any block.  The
+paged entries' block is the pool's, ``(k.shape[1],)``: ``None`` or that.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dither_matmul as _dm
 from repro_torch.kernels import paged_decode_attention as _pda
@@ -74,6 +84,15 @@ def resolve_policy_backend(name: str, device=None) -> str:
     return name
 
 
+def _pool_block(k: torch.Tensor, block: Optional[tuple]) -> None:
+    """A paged entry's ``block`` is the pool's block, ``(k.shape[1],)``:
+    that pool was laid out with it (its default from
+    ``autotune.best_block("paged_attention", ...)``); any other raises."""
+    if block is not None and tuple(block) != (k.shape[1],):
+        raise ValueError(f"paged block {tuple(block)} is not the pool's "
+                         f"({k.shape[1]},): the tile is the pool block")
+
+
 def matmul(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -89,13 +108,17 @@ def matmul(
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Quantised A @ B (§VIII 'separate') → (M, N) f32 through the selected
-    backend; the operands are taken in f32."""
-    del block            # the reference's xla-ref ignores it too
+    backend; the operands are taken in f32.  ``block``: kernel 6's
+    launch parameters at (M, K, N)."""
     a, b = a.to(torch.float32), b.to(torch.float32)
     kw = dict(bits=bits, scheme=scheme, a_range=a_range, b_range=b_range,
               counter=counter, seed=seed, fmt=fmt)
     if resolve_backend(backend, a) == "cuda":
-        return _dm.dither_matmul(a.contiguous(), b.contiguous(), **kw)
+        return _dm.dither_matmul(a.contiguous(), b.contiguous(), block=block,
+                                 **kw)
+    if block is not None:
+        autotune.check_block("matmul", (a.shape[0],) + tuple(b.shape),
+                             a.dtype, block)
     return ref.dither_matmul_ref(a, b, **kw)
 
 
@@ -114,9 +137,11 @@ def quantize(
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """k-bit int32 codes of a 2-D ``x`` over [lo, hi] through the selected
-    backend; ``x`` is taken in f32."""
-    del block
+    backend; ``x`` is taken in f32.  ``block``: kernel 5's launch takes no
+    parameter, so only its one candidate ``()`` (or None)."""
     x = x.to(torch.float32)
+    if block is not None:
+        autotune.check_block("quantize", tuple(x.shape), x.dtype, block)
     kw = dict(scale=((1 << bits) - 1) / (hi - lo), zero=lo, bits=bits,
               scheme=scheme, counter=counter, seed=seed, n_pulses=n_pulses,
               fmt=fmt)
@@ -135,16 +160,20 @@ def decode_attention(
     k_scale: Optional[torch.Tensor] = None,   # (B, cap, n_kv) f32 when int8
     v_scale: Optional[torch.Tensor] = None,
     window: int = 0,
+    block: Optional[tuple] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Flash-decode attention over the ring KV cache → (B, n_kv, group, hd)
-    f32, through the selected backend.  ``torch-ref`` runs the recurrence as
-    one whole-cap block, the reference's ``xla-ref`` default."""
+    f32, through the selected backend, at tile ``block=(bk,)``.  With
+    ``block`` None ``torch-ref`` runs the recurrence as one whole-cap
+    block, the reference's ``xla-ref`` default."""
     if resolve_backend(backend, q) == "cuda":
         return _da.decode_attention(q, k, v, k_pos, pos, k_scale, v_scale,
-                                    window=window)
+                                    window=window, block=block)
+    if block is not None:
+        block = (_da.ring_tile("decode_attention", q, k, block),)
     return ref.decode_attention_ref(q, k, v, k_pos, pos, k_scale, v_scale,
-                                    window=window)
+                                    window=window, block=block)
 
 
 def paged_decode_attention(
@@ -157,12 +186,15 @@ def paged_decode_attention(
     k_scale: Optional[torch.Tensor] = None,   # (n_blocks, bs, n_kv) f32
     v_scale: Optional[torch.Tensor] = None,
     window: int = 0,
+    block: Optional[tuple] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Flash-decode attention over the paged block pool →
     (B, n_kv, group, hd) f32, through the selected backend.  The tile is
-    the pool block on both backends, so ``torch-ref`` runs the kernel's own
-    recurrence (the reference's ``xla-ref`` does the same)."""
+    the pool block on both backends (``block``: None or the pool's), so
+    ``torch-ref`` runs the kernel's own recurrence (the reference's
+    ``xla-ref`` does the same)."""
+    _pool_block(k, block)
     if resolve_backend(backend, q) == "cuda":
         return _pda.paged_decode_attention(q, k, v, block_tables, pos,
                                            k_scale, v_scale, window=window)
@@ -180,17 +212,22 @@ def verify_attention(
     k_scale: Optional[torch.Tensor] = None,   # (B, cap, n_kv) f32 when int8
     v_scale: Optional[torch.Tensor] = None,
     window: int = 0,
+    block: Optional[tuple] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Speculative verify attention over the ring KV cache →
-    (B, kq, n_kv, group, hd) f32: row t attends as a decode at ``pos + t``.
-    ``torch-ref`` runs ``decode_attention``'s whole-cap recurrence once per
-    row (the reference's ``xla-ref`` default)."""
+    (B, kq, n_kv, group, hd) f32: row t attends as a decode at ``pos + t``
+    at the same tile ``block=(bk,)`` (the autotuner's verify pick is its
+    decode pick).  With ``block`` None ``torch-ref`` runs
+    ``decode_attention``'s whole-cap recurrence once per row (the
+    reference's ``xla-ref`` default)."""
     if resolve_backend(backend, q) == "cuda":
         return _va.verify_attention(q, k, v, k_pos, pos, k_scale, v_scale,
-                                    window=window)
+                                    window=window, block=block)
+    if block is not None:
+        block = (_da.ring_tile("verify_attention", q, k, block),)
     return ref.verify_attention_ref(q, k, v, k_pos, pos, k_scale, v_scale,
-                                    window=window)
+                                    window=window, block=block)
 
 
 def paged_verify_attention(
@@ -203,11 +240,14 @@ def paged_verify_attention(
     k_scale: Optional[torch.Tensor] = None,   # (n_blocks, bs, n_kv) f32
     v_scale: Optional[torch.Tensor] = None,
     window: int = 0,
+    block: Optional[tuple] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Speculative verify attention over the paged block pool →
     (B, kq, n_kv, group, hd) f32: row t attends as a paged decode at
-    ``pos + t``, the tile pinned to the pool block on both backends."""
+    ``pos + t``, the tile pinned to the pool block on both backends
+    (``block``: None or the pool's)."""
+    _pool_block(k, block)
     if resolve_backend(backend, q) == "cuda":
         return _pva.paged_verify_attention(q, k, v, block_tables, pos,
                                            k_scale, v_scale, window=window)

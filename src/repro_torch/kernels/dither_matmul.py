@@ -26,8 +26,9 @@ Each takes CUDA tensors to the kernel and CPU tensors to its plain version
 device raises.  For CUDA tensors it checks device, dtype, shape and layout,
 raises on anything the kernel does not take (the limits are in the
 messages), plans the grid (``plan``: the decode regime at M <= 128, else
-prefill), allocates the output and the per-call scratch with
-``torch.empty``, keeps the decode regime's split scratch (zero between
+prefill) at the launch parameters its caller gives (``block``; ``None``
+asks the autotuner, ``kernels/autotune.py``), allocates the output and
+the per-call scratch with ``torch.empty``, keeps the decode regime's split scratch (zero between
 calls; the kernel leaves it so) per device and stream, launches on the
 current stream without synchronising, and adds one to
 ``dither_matmul.launches`` per call of any entry but the epilogue (the
@@ -43,10 +44,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import weakref
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
+from repro_torch.kernels.autotune import (DECODE_MAX_M, MIN_BLOCKS,
+                                          PREFILL_BLOCK, TARGET_BLOCKS)
 from repro_torch.kernels.decode_attention import launch_on
 from repro_torch.kernels.quantize import QuantParams, check_scheme, quant_params
 from repro_torch.kernels.ref import (MatmulBlock, dequant_constants,
@@ -61,12 +65,7 @@ __all__ = ["dither_matmul", "dither_matmul_scaled", "dither_matmul_sharded",
 
 SOURCE = "src/repro_torch/kernels/csrc/dither_matmul.cu"
 MAX_BITS = 8                 # codes are u8 in the tensor-core product
-DECODE_MAX_M = 128           # the decode regime: one row tile of the MMA
-MIN_BLOCKS = 132             # the H100's SMs: the decode plan's floor
-TARGET_BLOCKS = 4 * 132      # at most: 4 blocks of 256 an SM, one wave
-_ROW_TILES = (1, 4, 16)      # csrc launch_decode_mt: 8-row MMA tiles
-_STRIP, _CHUNK = 16, 32      # decode: weight columns a block, K a chunk
-_TILE_MN, _TILE_K = 128, 64  # prefill: kBM = kBN, kBK
+_TILE_MN, _TILE_K = PREFILL_BLOCK[1:]   # prefill: kBM = kBN, kBK
 _GRID_MAX = 65535            # CUDA's limit on gridDim.y
 _KINDS = {"f32": 0, "row": 1, "trans": 2}
 
@@ -107,28 +106,38 @@ def _round_up(n: int, m: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def plan(m: int, k: int, n: int) -> dict:
-    """The grid of an (m, k) @ (k, n) product.
+def plan(m: int, k: int, n: int, block: Optional[tuple] = None) -> dict:
+    """The grid of an (m, k) @ (k, n) product at launch parameters
+    ``block`` (an ``autotune.matmul_candidates`` entry; ``None``: the
+    model pick, ``autotune.model_block``).
 
-    Decode (``m <= DECODE_MAX_M``): ``mt`` 8-row MMA tiles hold every row;
-    one block of 256 threads per 16-column weight strip and split, each
-    split ``cps`` 32-deep K chunks (the last may be shorter), with as many
-    splits as K's chunks allow up to ``TARGET_BLOCKS`` blocks, one wave
-    (a second wave would wait out the split merge's round trips again); at
-    least ``MIN_BLOCKS`` at every serve shape.  Prefill:
-    128 x 128 output tiles over operands padded to (mp, kp) and (np, kp).
+    Decode (``m <= DECODE_MAX_M``), ``block = (mt, cps, splits)``: ``mt``
+    8-row MMA tiles hold every row; one block of 256 threads per 16-column
+    weight strip and split, each split ``cps`` 32-deep K chunks (the last
+    may be shorter).  Prefill: 128 x 128 output tiles over operands padded
+    to (mp, kp) and (np, kp).
     """
+    if block is None:
+        block = autotune.model_block("matmul", (m, k, n), "float32")
     if m > DECODE_MAX_M:
         mp, np_ = _round_up(m, _TILE_MN), _round_up(n, _TILE_MN)
         return {"regime": "prefill", "mp": mp, "np": np_,
                 "kp": _round_up(k, _TILE_K),
                 "blocks": (mp // _TILE_MN) * (np_ // _TILE_MN)}
-    mt = next(t for t in _ROW_TILES if 8 * t >= m)
-    strips, chunks = -(-n // _STRIP), -(-k // _CHUNK)
-    cps = -(-chunks // max(1, TARGET_BLOCKS // strips))
-    splits = -(-chunks // cps)
+    mt, cps, splits = block
+    strips, chunks = -(-n // 16), -(-k // 32)
     return {"regime": "decode", "mt": mt, "strips": strips, "chunks": chunks,
             "cps": cps, "splits": splits, "blocks": strips * splits}
+
+
+def _block(m: int, k: int, n: int, dtype, bits: int, scheme: str,
+           block: Optional[tuple]) -> tuple:
+    """A product's launch parameters: ``block`` checked against the
+    autotuner's candidates (``ValueError`` otherwise), or with ``block``
+    None the autotuner's pick."""
+    if block is not None:
+        return autotune.check_block("matmul", (m, k, n), dtype, block)
+    return autotune.resolve("matmul", (m, k, n), dtype, bits, scheme, "cuda")
 
 
 class _Scratch:
@@ -174,10 +183,12 @@ _constants = functools.lru_cache(maxsize=1024)(dequant_constants)
 
 
 def _launch(kind: str, a, b, out, w_absmax, m: int, k: int, n: int, *,
-            bits, scheme, a_range, b_range, counter, seed, fmt) -> None:
-    """One call of the C entry: the plan, the scratch and both quantisers
-    (A: ``seed``, N_A = max(N, 2) pulses; B: ``seed + 1``, N_B = max(M, 2))."""
-    p = plan(m, k, n)
+            bits, scheme, a_range, b_range, counter, seed, fmt,
+            block) -> None:
+    """One call of the C entry: the plan at ``block`` (see ``_block``), the
+    scratch and both quantisers (A: ``seed``, N_A = max(N, 2) pulses; B:
+    ``seed + 1``, N_B = max(M, 2))."""
+    p = plan(m, k, n, _block(m, k, n, a.dtype, bits, scheme, block))
     a_range, b_range = tuple(a_range), tuple(b_range)
     sa, sb, r_acc, c_col, c_row, c_k = _constants(bits, a_range, b_range, k)
     cross = a_range[0] != 0.0 or b_range[0] != 0.0
@@ -192,7 +203,7 @@ def _launch(kind: str, a, b, out, w_absmax, m: int, k: int, n: int, *,
     if p["regime"] == "decode":
         mt, cps, splits = p["mt"], p["cps"], p["splits"]
         mp = np_ = kp = 0
-        codes_a = s.get("codes_a", 8 * mt * _CHUNK * p["chunks"], torch.uint8)
+        codes_a = s.get("codes_a", 8 * mt * 32 * p["chunks"], torch.uint8)
         codes_bt = None
         rowsum = s.get("rowsum", m, torch.int32)
         if splits > 1:
@@ -233,9 +244,11 @@ def _launch(kind: str, a, b, out, w_absmax, m: int, k: int, n: int, *,
 def dither_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int,
                   scheme: str = "dither", a_range=(0.0, 1.0),
                   b_range=(0.0, 1.0), counter=0, seed: int = 0,
-                  fmt: str = "spread") -> torch.Tensor:
+                  fmt: str = "spread",
+                  block: Optional[tuple] = None) -> torch.Tensor:
     """C = dequant(Q(A) · Q(B)) → (M, N) f32 (§VIII 'separate'): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors at launch parameters ``block`` (``_block``),
+    the plain version for CPU tensors (the same bits at any block)."""
     if a.device.type == "cpu":
         return dither_matmul_ref(a, b, bits=bits, scheme=scheme,
                                  a_range=a_range, b_range=b_range,
@@ -260,7 +273,7 @@ def dither_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int,
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     _launch("f32", a, b, out, None, m, k, n, bits=bits, scheme=scheme,
             a_range=a_range, b_range=b_range, counter=counter, seed=seed,
-            fmt=fmt)
+            fmt=fmt, block=block)
     return out
 
 
@@ -281,12 +294,14 @@ def _weight_layout(w: torch.Tensor) -> str:
 def dither_matmul_scaled(x: torch.Tensor, w: torch.Tensor,
                          w_absmax: torch.Tensor, *, bits: int,
                          scheme: str = "dither", counter=0, seed: int = 0,
-                         fmt: str = "spread") -> torch.Tensor:
+                         fmt: str = "spread",
+                         block: Optional[tuple] = None) -> torch.Tensor:
     """The policy's product → (M, N) bf16: x (M, K) and w (K, N) bf16, each
     normalised by its absmax (x's reduced in the kernel, w's given as the
     0-dim bf16 ``w_absmax``, see ``weight_absmax``), quantised over (-1, 1)
     with ``seed`` / ``seed + 1``, multiplied, dequantised and scaled by
-    ``bf16(ax · aw)``: the CUDA kernel for CUDA tensors, the plain version
+    ``bf16(ax · aw)``: the CUDA kernel for CUDA tensors at launch
+    parameters ``block`` (``_block``), the plain version
     (``ref.dither_matmul_scaled_ref``) for CPU tensors."""
     if x.device.type == "cpu":
         return dither_matmul_scaled_ref(x, w, w_absmax, bits=bits,
@@ -317,7 +332,7 @@ def dither_matmul_scaled(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     _launch(kind, x, w, out, w_absmax, m, k, n, bits=bits, scheme=scheme,
             a_range=(-1.0, 1.0), b_range=(-1.0, 1.0), counter=counter,
-            seed=seed, fmt=fmt)
+            seed=seed, fmt=fmt, block=block)
     dither_matmul_scaled.launches += 1
     return out
 

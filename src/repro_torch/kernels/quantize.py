@@ -8,6 +8,9 @@ tensors it checks device, dtype, shape and contiguity, raises on anything
 the kernel does not take, allocates the output with ``torch.empty``,
 launches on the current stream without synchronising, and adds one to
 ``quantize.launches``.  A counter given as a tensor is read on the host.
+The launch takes no parameter at run time (its grid follows the element
+count and the card's SMs), so the autotuner has one candidate for it,
+``()`` (``kernels/autotune.py``).
 """
 
 from __future__ import annotations

@@ -10,9 +10,11 @@ kernel does not take, allocates the output (and the f32 scratch of the
 split partials, when a row can span several splits) with ``torch.empty``,
 launches on the current stream without synchronising, and adds one to
 ``verify_attention.launches``.  Row t of the output is the ring decode
-kernel (``decode_attention``) at ``pos + t``, bit for bit; the kernel
-computes ``ref.verify_attention_ref(..., block=(bk,),
-split=SPLIT_TILES)``.
+kernel (``decode_attention``) at ``pos + t`` and the same tile, bit for
+bit; the kernel computes ``ref.verify_attention_ref(..., block=(bk,),
+split=SPLIT_TILES)``.  The tile ``block=(bk,)`` comes from the caller;
+``None`` asks the autotuner, whose verify pick is the decode pick
+(``decode_attention.ring_tile``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (check_ring, launch_on,
-                                                  ring_constants)
+                                                  ring_constants, ring_tile)
 from repro_torch.kernels.ref import verify_attention_ref
 
 __all__ = ["verify_attention", "SOURCE"]
@@ -59,13 +61,17 @@ def verify_attention(
     v_scale: Optional[torch.Tensor] = None,
     *,
     window: int = 0,
+    block: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """Verify attention over the ring cache → (B, kq, n_kv, group, hd) f32:
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    """Verify attention over the ring cache → (B, kq, n_kv, group, hd) f32
+    at tile ``block=(bk,)``: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     if not q.is_cuda:
         if q.device.type == "cpu":
+            if block is not None:
+                block = (ring_tile("verify_attention", q, k, block),)
             return verify_attention_ref(q, k, v, k_pos, pos, k_scale,
-                                        v_scale, window=window)
+                                        v_scale, window=window, block=block)
         raise ValueError(f"verify_attention runs on cuda (or cpu), not "
                          f"{q.device}")
     if q.dim() != 5:
@@ -77,7 +83,8 @@ def verify_attention(
     window = int(window)
     check_ring(q, k, v, k_pos, pos, k_scale, v_scale, window)
     cap = k.shape[1]
-    bk, splits, inv = ring_constants(cap, hd)
+    bk = ring_tile("verify_attention", q, k, block)
+    splits, inv = ring_constants(cap, hd, bk)
     bf16, int8 = _lib()
     out = torch.empty((b, kq, nkv, group, hd), dtype=torch.float32,
                       device=q.device)

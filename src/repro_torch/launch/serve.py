@@ -81,8 +81,11 @@ def serve_main(argv=None):
                          "block pool with prefix caching + continuous "
                          "batching")
     ap.add_argument("--block-size", type=int, default=None,
-                    help="paged pool block size in tokens (default 64, the "
-                         "CUDA kernels' tile; the CUDA kernel takes 1..64)")
+                    help="paged pool block size in tokens (default: the "
+                         "kernel autotuner's pick, a cached sweep winner "
+                         "from $REPRO_AUTOTUNE_CACHE or else the largest of "
+                         "8/16/32/64 giving a full-length request 4 blocks; "
+                         "the CUDA kernel takes 1..64)")
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="paged pool capacity in blocks (default: matches "
                          "the dense ring, batch × ceil(max_len/bs))")

@@ -244,9 +244,11 @@ def decode_step_encdec(params: Params, cfg: ModelConfig,
                        token: torch.Tensor, cache: Params, *, policy=None,
                        counter=0, kv_offset=None,
                        backend: Optional[str] = None,
-                       active: Optional[torch.Tensor] = None):
+                       active: Optional[torch.Tensor] = None,
+                       attn_block: Optional[tuple] = None):
     """One decoder token for every slot: ring self-attention (the decode
-    attention kernel on the card, ``backend`` None) and cross-attention
+    attention kernel on the card, ``backend`` None, at tile
+    ``attn_block``) and cross-attention
     against the static cross-KV → ((B, vocab_size) f32 logits, cache).
     ``cache["pos"]`` is per slot (B,); the self-KV is written in place
     (rows where ``active`` is False write their slot's old contents
@@ -271,7 +273,7 @@ def decode_step_encdec(params: Params, cfg: ModelConfig,
         entry = transformer._index(cache["layers"][0], i)
         a, _ = transformer._attention_decode(
             bp["attn"], cfg, _lnorm(x, bp["ln1"], cfg), entry, pos, policy,
-            counter, backend=backend, active=active)
+            counter, backend=backend, active=active, attn_block=attn_block)
         x = x + a
         x = x + _cross_decode(bp["xattn"], cfg, _lnorm(x, bp["ln_x"], cfg),
                               cross["k"][i], cross["v"][i], policy, counter)

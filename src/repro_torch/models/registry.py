@@ -147,7 +147,8 @@ def apply_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   lengths: torch.Tensor, max_len: int, *, policy=None,
                   counter=0, kv_quant: bool = False, kv_offset=None,
                   cache0: Optional[Params] = None,
-                  frames: Optional[torch.Tensor] = None):
+                  frames: Optional[torch.Tensor] = None,
+                  attn_block: Optional[tuple] = None):
     """Batched prefill of right-padded prompts (B, S) with true lengths
     (B,) (0: an inactive row) → (last-token logits (B, vocab_size) f32,
     ring cache with ``pos == lengths``).
@@ -158,8 +159,8 @@ def apply_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     the encoder-decoder's from ``frames``; it is updated in place), one
     decode step per position t < S on the column ``tokens[:, t]``, each
     row's state, KV and position frozen once t ≥ its length
-    (``scanned_prefill_step``), its logits kept from its last active
-    step."""
+    (``scanned_prefill_step``, at the ring tile ``attn_block``), its
+    logits kept from its last active step."""
     _check_family(cfg)
     b, s = tokens.shape
     lengths = lengths.to(torch.int32)
@@ -177,14 +178,15 @@ def apply_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for t in range(s):
         scanned_prefill_step(params, cfg, tokens[:, t], t, lengths, cache,
                              last, policy=policy, counter=counter,
-                             kv_offset=kv_offset)
+                             kv_offset=kv_offset, attn_block=attn_block)
     return last, cache
 
 
 def scanned_prefill_step(params: Params, cfg: ModelConfig,
                          token: torch.Tensor, t, lengths: torch.Tensor,
                          cache: Params, last: torch.Tensor, *, policy=None,
-                         counter=0, kv_offset=None) -> None:
+                         counter=0, kv_offset=None,
+                         attn_block: Optional[tuple] = None) -> None:
     """Step t of the scanned prefill, in place: the decode step on
     ``token`` (B,) for the rows with t < ``lengths`` (the others keep
     their state, KV and position), and their logits into ``last`` (B,
@@ -193,7 +195,7 @@ def scanned_prefill_step(params: Params, cfg: ModelConfig,
     active = lengths > t
     logits, new = apply_decode(
         params, cfg, token, cache, policy=policy, counter=counter,
-        kv_offset=kv_offset, active=active)
+        kv_offset=kv_offset, active=active, attn_block=attn_block)
     cache["pos"].copy_(torch.where(active, new["pos"], cache["pos"]))
     last.copy_(torch.where(active[:, None], logits, last))
 
@@ -240,33 +242,38 @@ def apply_prefill_chunked(params: Params, cfg: ModelConfig,
 
 def apply_decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
                  cache: Params, *, policy=None, counter=0, kv_offset=None,
-                 backend: Optional[str] = None, active=None):
+                 backend: Optional[str] = None, active=None,
+                 attn_block: Optional[tuple] = None):
     """One decode step (``transformer.decode_step``), ring or paged by the
     cache's layout, or the encoder-decoder's (``encdec.decode_step_encdec``);
     rows where ``active`` (B,) is False keep their recurrent state and
-    ring contents."""
+    ring contents.  ``attn_block``: the ring attention kernel's tile (None:
+    the dispatcher's default)."""
     _check_family(cfg)
     if cfg.is_encdec:
         return encdec.decode_step_encdec(
             params, cfg, token, cache, policy=policy, counter=counter,
-            kv_offset=kv_offset, backend=backend, active=active)
+            kv_offset=kv_offset, backend=backend, active=active,
+            attn_block=attn_block)
     return transformer.decode_step(params, cfg, token, cache, policy=policy,
                                    counter=counter, kv_offset=kv_offset,
-                                   backend=backend, active=active)
+                                   backend=backend, active=active,
+                                   attn_block=attn_block)
 
 
 def apply_verify(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  cache: Params, *, policy=None, counter=0, kv_offset=None,
                  alive=None, wcap=None, backend: Optional[str] = None,
-                 fused_ops=frozenset()):
+                 fused_ops=frozenset(), attn_block: Optional[tuple] = None):
     """Score K draft positions per slot in one forward
     (``transformer.verify_step``); requires ``supports_spec_decode(cfg)``.
-    ``fused_ops``: the library ops ``verify_row_purity`` found row-pure."""
+    ``fused_ops``: the library ops ``verify_row_purity`` found row-pure;
+    ``attn_block``: the ring tile, ``apply_decode``'s."""
     _check_family(cfg)
     return transformer.verify_step(params, cfg, tokens, cache, policy=policy,
                                    counter=counter, kv_offset=kv_offset,
                                    alive=alive, wcap=wcap, backend=backend,
-                                   fused_ops=fused_ops)
+                                   fused_ops=fused_ops, attn_block=attn_block)
 
 
 def verify_row_purity(params: Params, cfg: ModelConfig, batch: int,

@@ -306,7 +306,8 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
                       cache: Params, pos: torch.Tensor, policy, counter,
                       kv_offset=None, backend: Optional[str] = None,
                       block_tables: Optional[torch.Tensor] = None,
-                      active: Optional[torch.Tensor] = None):
+                      active: Optional[torch.Tensor] = None,
+                      attn_block: Optional[tuple] = None):
     """One-token attention against one layer's cache entry.
     x: (B, 1, d); ``pos`` (B,) int32 per-slot absolute positions.
 
@@ -319,7 +320,8 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     ``active`` (B,) is False write their slot's old contents back.  Then
     runs flash-decode attention through the kernel dispatcher
     (``backend`` None: the CUDA kernel on the card, the plain version on
-    the CPU).
+    the CPU) at ``attn_block``, the ring tile (None: the dispatcher's
+    default; a paged cache's tile is its pool block).
 
     On the training mesh (``layers.tp_shard``) with the query heads split
     (``train_param_specs``), q takes the rank's heads (``wq``
@@ -405,7 +407,7 @@ def _attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
         attn = dispatch.decode_attention(
             qg, kv["k"], kv["v"], cache["k_pos"], pos,
             k_scale=kv["k_scale"], v_scale=kv["v_scale"],
-            window=cfg.window or 0, backend=backend)
+            window=cfg.window or 0, block=attn_block, backend=backend)
     out = attn.to(x.dtype).reshape(b, 1, nh_l * hd)
     if q_split:
         return dense(out, params["wo"], policy, counter, seed=4,
@@ -452,7 +454,7 @@ def _apply_block(bp: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions, *, policy, counter, cache_entry=None, pos=None,
                  kv_offset=None, collect_kv: bool = False,
                  backend: Optional[str] = None, block_tables=None,
-                 active=None):
+                 active=None, attn_block: Optional[tuple] = None):
     _check_kind(kind)
     h = layers.rms_norm(x, bp["ln1"], cfg.norm_eps)
     new_cache = cache_entry
@@ -469,7 +471,8 @@ def _apply_block(bp: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                                            kv_offset=kv_offset,
                                            backend=backend,
                                            block_tables=block_tables,
-                                           active=active)
+                                           active=active,
+                                           attn_block=attn_block)
     else:
         out, kv = layers.attention(bp["attn"], cfg, h, positions,
                                    window=cfg.window, policy=policy,
@@ -1003,14 +1006,16 @@ def merge_cache(old: Params, new: Params, active: torch.Tensor) -> Params:
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Params, *, policy=None, counter=0, kv_offset=None,
                 backend: Optional[str] = None,
-                active: Optional[torch.Tensor] = None):
+                active: Optional[torch.Tensor] = None,
+                attn_block: Optional[tuple] = None):
     """One decode step: (B,) tokens + cache → ((B, vocab_size) f32 logits,
     cache).  Every slot advances by one; the cache's layer tensors are
     updated in place and shared by the returned cache.  A cache carrying
     ``block_tables`` (B, nbmax) decodes against the paged block pool (one
     map for every layer's pool), else against the ring.  ``kv_offset``
     (B,) shifts the int8-KV dither counter per slot.  ``backend`` selects
-    the decode-attention kernel backend (None: by device).  ``active``
+    the decode-attention kernel backend (None: by device), ``attn_block``
+    its ring tile (None: the dispatcher's default).  ``active``
     (B,) bool, where given: the rows that are False keep their recurrent
     state and ring contents as they were (their position the caller
     freezes).
@@ -1036,7 +1041,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         x, _ = _apply_block(bp, cfg, kind, x, positions, policy=policy,
                             counter=counter, cache_entry=entry, pos=pos,
                             kv_offset=kv_offset, backend=backend,
-                            block_tables=block_tables, active=active)
+                            block_tables=block_tables, active=active,
+                            attn_block=attn_block)
     logits = _gather_vocab(_logits(params, cfg, x, policy, counter), cfg)
     new_cache = {"pos": pos + 1, "layers": cache["layers"],
                  "remainder": cache["remainder"]}
@@ -1249,7 +1255,8 @@ def _attention_verify(params: Params, cfg: ModelConfig, x: torch.Tensor,
                       kv_offset=None, alive=None, wcap=None,
                       backend: Optional[str] = None,
                       block_tables: Optional[torch.Tensor] = None,
-                      fused_ops=frozenset()):
+                      fused_ops=frozenset(),
+                      attn_block: Optional[tuple] = None):
     """K-token verify attention against one layer's cache entry: the
     reference's ``_attention_verify``.  x: (B, K, d) normed hidden rows;
     row t scores position ``pos + t``.  Returns (B, K, d).
@@ -1258,7 +1265,8 @@ def _attention_verify(params: Params, cfg: ModelConfig, x: torch.Tensor,
     ``pos + t`` computes.  Rope, the KV quantiser and the writes are
     elementwise per (row, position) and run over (B, K) at once; attention
     goes through the verify kernel, whose row t is the decode kernel at
-    ``pos + t``; each projection runs fused over the K rows only when named
+    ``pos + t`` at the same tile (``attn_block``, decode's); each
+    projection runs fused over the K rows only when named
     in ``fused_ops`` (see ``row_purity``), else per row at decode's own
     (B, 1, d) shape.
 
@@ -1343,7 +1351,7 @@ def _attention_verify(params: Params, cfg: ModelConfig, x: torch.Tensor,
         attn = dispatch.verify_attention(
             qg, cache["k"], cache["v"], cache["k_pos"], pos,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-            window=cfg.window or 0, backend=backend)
+            window=cfg.window or 0, block=attn_block, backend=backend)
     out = dist_ctx.gather_heads(attn.to(x.dtype).reshape(b, kq, nh * hd))
     return _rowwise(lambda a: dense(a, params["wo"], policy, counter, seed=4),
                     out, "wo" in fused_ops)
@@ -1353,7 +1361,7 @@ def _apply_verify_block(bp: Params, cfg: ModelConfig, kind: str,
                         x: torch.Tensor, *, policy, counter,
                         cache_entry: Params, pos: torch.Tensor, kv_offset,
                         alive, wcap, backend: Optional[str], block_tables,
-                        fused_ops):
+                        fused_ops, attn_block: Optional[tuple] = None):
     """One transformer block of the verify forward over the K hidden rows
     x (B, K, d): ``_apply_block``'s decode ops — the norms and the SwiGLU
     MLP's projections per row unless named in ``fused_ops``, its
@@ -1372,7 +1380,8 @@ def _apply_verify_block(bp: Params, cfg: ModelConfig, kind: str,
     x = x + _attention_verify(bp["attn"], cfg, h, cache_entry, pos, policy,
                               counter, kv_offset=kv_offset, alive=alive,
                               wcap=wcap, backend=backend,
-                              block_tables=block_tables, fused_ops=fused_ops)
+                              block_tables=block_tables, fused_ops=fused_ops,
+                              attn_block=attn_block)
     h2 = _rms_norm_rows(x, bp["ln2"], cfg.norm_eps, norm)
     mp = bp["mlp"]
     layers._check_act(cfg.mlp_act)
@@ -1387,7 +1396,7 @@ def _apply_verify_block(bp: Params, cfg: ModelConfig, kind: str,
 def verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Params, *, policy=None, counter=0, kv_offset=None,
                 alive=None, wcap=None, backend: Optional[str] = None,
-                fused_ops=frozenset()):
+                fused_ops=frozenset(), attn_block: Optional[tuple] = None):
     """Score K draft positions per slot in one forward → ((B, K,
     vocab_size) f32 logits, cache with the K positions written in place).
 
@@ -1401,6 +1410,7 @@ def verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``fused_ops`` names the ops of ``VERIFY_OPS`` to run over all K rows at
     once; the rest run per row at decode's shape (the default: all), which
     is row-pure whatever the library does (see ``row_purity``).
+    ``attn_block``: the ring tile, ``decode_step``'s.
     """
     b, kq = tokens.shape
     pos = torch.broadcast_to(cache["pos"].to(torch.int32), (b,)).contiguous()
@@ -1415,7 +1425,7 @@ def verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                 counter=counter, cache_entry=entry, pos=pos,
                                 kv_offset=kv_offset, alive=alive, wcap=wcap,
                                 backend=backend, block_tables=block_tables,
-                                fused_ops=fused_ops)
+                                fused_ops=fused_ops, attn_block=attn_block)
     xn = _rms_norm_rows(x, params["final_norm"], cfg.norm_eps,
                         "rms_norm" in fused_ops)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

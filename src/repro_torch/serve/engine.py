@@ -84,6 +84,7 @@ from repro_torch import interop
 from repro_torch.dist import ctx as dist_ctx
 from repro_torch.dist import sharding as dist_sharding
 from repro_torch.dist.fault_tolerance import StragglerWatchdog
+from repro_torch.kernels import autotune
 from repro_torch.kernels.paged_decode_attention import MAX_BLOCK_SIZE
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
@@ -100,13 +101,7 @@ __all__ = ["make_serve_fns", "make_decode_and_sample", "make_fused_decode",
            "make_paged_prefill", "make_chunked_prefill", "make_spec_verify",
            "Engine", "Request", "SamplingParams", "Scheduler", "KVPool",
            "Metrics", "Tracer", "WindowGraphs", "PrefillGraphs",
-           "DEFAULT_BLOCK_SIZE", "mesh_layout"]
-
-# The paged pool's default block size: the CUDA kernels' tile (64 keys), so
-# at the default settings the paged kernel runs the ring kernel's tiles and
-# ring == paged holds bit for bit on the card.  (The reference picks its
-# default with a TPU cost model, kernels/autotune.py, which is not ported.)
-DEFAULT_BLOCK_SIZE = MAX_BLOCK_SIZE
+           "mesh_layout"]
 
 
 def mesh_layout(cfg: ModelConfig, batch: int, mesh
@@ -142,7 +137,7 @@ def _resolved(policy):
 
 
 def make_serve_fns(cfg: ModelConfig, policy=None, *, max_len: int,
-                   kv_quant: bool = False, cross=None):
+                   kv_quant: bool = False, cross=None, attn_block=None):
     """The two serving steps: ``prefill_step(params, tokens, lengths,
     kv_offset, counter)`` maps a right-padded (B, S) prompt batch and its
     (B,) true lengths to the last-prompt-token logits and a ring cache whose
@@ -151,7 +146,9 @@ def make_serve_fns(cfg: ModelConfig, policy=None, *, max_len: int,
     ``policy`` every dense product is quantised with the given counter.
     The encoder-decoder's prefill starts from a fresh self-KV sharing
     ``cross``, a cache's cross-KV (the engine's: the reference encodes
-    its frames again at every call, to the same values)."""
+    its frames again at every call, to the same values).  ``attn_block``:
+    the ring attention kernel's tile (``Engine.attn_block``; None: the
+    dispatcher's default), in decode and the scanned prefill."""
     policy = _resolved(policy)
 
     def prefill_step(params, tokens, lengths, kv_offset=None, counter=0):
@@ -163,11 +160,12 @@ def make_serve_fns(cfg: ModelConfig, policy=None, *, max_len: int,
         return registry.apply_prefill(
             params, cfg, tokens, lengths, max_len, policy=policy,
             counter=counter, kv_quant=kv_quant, kv_offset=kv_offset,
-            cache0=cache0)
+            cache0=cache0, attn_block=attn_block)
 
     def decode_step(params, token, cache, kv_offset=None, counter=0):
         return registry.apply_decode(params, cfg, token, cache, policy=policy,
-                                     counter=counter, kv_offset=kv_offset)
+                                     counter=counter, kv_offset=kv_offset,
+                                     attn_block=attn_block)
 
     return prefill_step, decode_step
 
@@ -189,7 +187,8 @@ def make_decode_and_sample(cfg: ModelConfig, policy=None):
     return decode_and_sample
 
 
-def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
+def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1,
+                      attn_block=None):
     """The engine's decode window: ``fused_decode(params, token, cache,
     kv_offset, counter, temps, topks, seeds, counters, alive, budgets,
     stops)`` runs ``n_ticks`` decode-and-sample ticks (the reference's
@@ -208,7 +207,7 @@ def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
     the port does for the encoder-decoder, a ring model).
     A live slot's ops are those of a one-tick window, so a window of n
     ticks is n single ticks bit for bit.  The cache's layer tensors are
-    written in place."""
+    written in place.  ``attn_block``: the ring attention kernel's tile."""
     policy = _resolved(policy)
     recurrent = not registry.supports_batched_prefill(cfg) \
         and not cfg.is_encdec
@@ -232,7 +231,7 @@ def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
             logits, new_cache = registry.apply_decode(
                 params, cfg, token, step_cache, policy=policy,
                 counter=counter + j, kv_offset=kv_offset,
-                active=alive if recurrent else None)
+                active=alive if recurrent else None, attn_block=attn_block)
             toks = sample_tokens(logits, temps, topks, seeds, counters)
             toks = torch.where(alive, toks, token)
             new_cache["pos"] = torch.where(alive, new_cache["pos"], pos0)
@@ -250,7 +249,7 @@ def make_fused_decode(cfg: ModelConfig, policy=None, *, n_ticks: int = 1):
 
 
 def make_spec_verify(cfg: ModelConfig, policy=None, *, draft_k: int,
-                     fused_ops=frozenset()):
+                     fused_ops=frozenset(), attn_block=None):
     """The speculative verify step: ``spec_verify(params, drafts, cache,
     kv_offset, counter, temps, topks, seeds, counters, alive, wcap)`` scores
     ``draft_k`` positions per slot in one call and returns ``(sampled (B, K)
@@ -263,7 +262,9 @@ def make_spec_verify(cfg: ModelConfig, policy=None, *, draft_k: int,
     (``registry.spec_commit`` follows).  Rows that are not ``alive`` write
     nothing: on a paged cache their block tables read as the trash block.
     ``fused_ops``: the verify forward's library ops to run over all K rows
-    at once (``registry.verify_row_purity``); the rest run per row."""
+    at once (``registry.verify_row_purity``); the rest run per row.
+    ``attn_block``: the ring tile, the decode window's (verify row t is
+    decode at pos + t only at decode's tile)."""
     policy = _resolved(policy)
 
     def spec_verify(params, drafts, cache, kv_offset, counter, temps, topks,
@@ -276,7 +277,8 @@ def make_spec_verify(cfg: ModelConfig, policy=None, *, draft_k: int,
                 _trash_id(cache)).to(torch.int32)
         logits, new_cache = registry.apply_verify(
             params, cfg, drafts, step_cache, policy=policy, counter=counter,
-            kv_offset=kv_offset, alive=alive, wcap=wcap, fused_ops=fused_ops)
+            kv_offset=kv_offset, alive=alive, wcap=wcap, fused_ops=fused_ops,
+            attn_block=attn_block)
         if "block_tables" in cache:
             new_cache["block_tables"] = cache["block_tables"]
         sampled = torch.stack(
@@ -499,11 +501,16 @@ class Engine:
     bit for bit the plain one.  It supersedes ``decode_ticks``.
 
     ``device`` is where the cache and the per-slot state live; ``params``
-    must be there already.  Paged knobs: ``block_size`` (default
-    ``DEFAULT_BLOCK_SIZE`` = 64, the CUDA kernels' tile, so ring == paged
-    bit for bit on the card at the defaults; the CUDA paged kernel takes
-    1 ≤ block_size ≤ 64), ``num_blocks`` (default batch × ceil(max_len /
-    block_size), the dense ring's token count) and ``prefix_cache`` (on
+    must be there already.  Paged knobs: ``block_size`` (default from the
+    autotuner, ``autotune.best_block("paged_attention", ...)`` as the
+    reference's engine takes it: a sweep's cached winner, else the
+    reference's rule over the card's candidates — the largest of 8, 16,
+    32, 64 that gives a full-length request at least 4 blocks, so 64 at
+    ``max_len`` ≥ 256, where ring == paged holds bit for bit on the card
+    at the ring's default tile, and the reference's pick at the reduced
+    config; the CUDA paged kernel takes 1 ≤ block_size ≤ 64),
+    ``num_blocks`` (default batch × ceil(max_len / block_size), the dense
+    ring's token count) and ``prefix_cache`` (on
     only without a matmul policy or under its deterministic scheme, as the
     reference's).  ``prefill_chunk`` is clamped to the ring's capacity, or
     rounded down to a multiple of the block size (at least one block).
@@ -670,13 +677,15 @@ class Engine:
         self.policy = policy
         self.kv_quant = kv_quant
         self.kv_layout = kv_layout
+        # the tracer first: it observes the autotuner's picks below
+        self.trace = Tracer.from_spec(trace)
         # the paged layout's block pools, one per data shard (none on the
         # ring layout); every rank keeps all of them on the host
         self.pools: List[KVPool] = []
         self._rid_shard: dict = {}            # rid → data shard holding it
         if kv_layout == "paged":
             bs = int(block_size) if block_size is not None \
-                else DEFAULT_BLOCK_SIZE
+                else self._default_block_size()
             if bs < 1 or (self.device.type == "cuda" and bs > MAX_BLOCK_SIZE):
                 raise ValueError(
                     f"block_size {bs} not in [1, {MAX_BLOCK_SIZE}] (the CUDA "
@@ -708,11 +717,14 @@ class Engine:
             self._bt_dirty = True
             self._prefill_paged = make_paged_prefill(cfg_l, policy,
                                                      kv_quant=kv_quant)
+            self.attn_block = None
         else:
             self.cache = self._make_cache()
+            self.attn_block = self._ring_tile()
             self._prefill, _ = make_serve_fns(cfg_l, policy, max_len=max_len,
                                               kv_quant=kv_quant,
-                                              cross=self.cache.get("cross"))
+                                              cross=self.cache.get("cross"),
+                                              attn_block=self.attn_block)
             if (not registry.supports_batched_prefill(cfg)
                     and self.device.type == "cuda"
                     and (policy is None or not policy.enabled)):
@@ -720,7 +732,8 @@ class Engine:
                 # encoder-decoder: one captured decode step, replayed once
                 # per prompt position
                 self._prefill = PrefillGraphs(params, cfg, self.cache,
-                                              max_len, self.device)
+                                              max_len, self.device,
+                                              self.attn_block)
             if self.prefill_chunk is not None:
                 # a chunk covers each ring slot at most once only while it
                 # fits the ring
@@ -743,7 +756,8 @@ class Engine:
                 and not self.heads_sharded):
             self._graphs = WindowGraphs(
                 params, self.cache,
-                lambda n: make_fused_decode(cfg_l, None, n_ticks=n))
+                lambda n: make_fused_decode(cfg_l, None, n_ticks=n,
+                                            attn_block=self.attn_block))
         self.window_mode = "graph" if self._graphs is not None else "eager"
         self._spec = None
         # the verify forward's library ops that this device sums in the same
@@ -756,7 +770,8 @@ class Engine:
                     params, cfg_l, self._rows, self.draft_k).items()
                 if n == 0)
             self._spec = make_spec_verify(cfg_l, policy, draft_k=self.draft_k,
-                                          fused_ops=self.verify_fused_ops)
+                                          fused_ops=self.verify_fused_ops,
+                                          attn_block=self.attn_block)
         # per-window write budget of each paged slot (``_pre_decode_paged``)
         self._paged_cap = {}
         # the teacher-forced replay step of a restore, built on first use
@@ -796,13 +811,50 @@ class Engine:
         # sink; span timelines, off unless ``trace`` is given
         self.metrics = (metrics if isinstance(metrics, Metrics)
                         else Metrics(sink=metrics))
-        self.trace = Tracer.from_spec(trace)
         if self.trace.enabled:
             # queue/block provenance rides the tracer's event feed; the
             # hooks stay None (and cost nothing) on an untraced engine
             self.scheduler.on_event = self.trace.event
             for pool in self.pools:
                 pool.on_event = self.trace.event
+
+    def _default_block_size(self) -> int:
+        """The paged pool's block when none is given: the autotuner's
+        (``best_block("paged_attention", (batch, max_len, n_kv, group,
+        hd), ...)``, the reference engine's key and rule)."""
+        cfg = self.cfg
+        nkv = max(1, cfg.n_kv_heads)
+        shape = (self.batch, self.max_len, nkv, max(1, cfg.n_heads // nkv),
+                 cfg.hd())
+        backend = "cuda" if self.device.type == "cuda" else "torch-ref"
+        return autotune.best_block(
+            "paged_attention", shape, "int8" if self.kv_quant else "bfloat16",
+            8 if self.kv_quant else 16, "flash", backend)[0]
+
+    def _ring_tile(self) -> Optional[tuple]:
+        """The ring attention kernels' tile ``(bk,)``, read once from the
+        autotuner (``best_block("decode_attention", ...)`` at this engine's
+        rows and its cache's shape: a sweep's cached winner, else the
+        largest tile of at most 64 slots dividing the cap) and held for the
+        engine's life, so that its captured windows and prefill graph,
+        its verify windows (verify row t ≡ decode at pos + t needs decode's
+        tile) and a restore's replay all run one tile.  None on the CPU,
+        where the plain version runs the reference's whole-cap
+        recurrence, and where no layer has a ring."""
+        if self.device.type != "cuda":
+            return None
+        rings = [e["k"] for e in self.cache["layers"] + self.cache["remainder"]
+                 if "k_pos" in e]
+        if not rings:
+            return None
+        k = rings[0]
+        cap, nkv, hd = k.shape[-3:]
+        cfg = self._cfg_local
+        quantized = k.dtype == torch.int8
+        return autotune.best_block(
+            "decode_attention",
+            (self._rows, cap, nkv, cfg.n_heads // cfg.n_kv_heads, hd),
+            k.dtype, 8 if quantized else 16, "flash", "cuda")
 
     def _make_cache(self):
         """A fresh decode cache of this engine's layout on its device: this
@@ -1123,7 +1175,8 @@ class Engine:
         """The eager decode window of ``n`` ticks, built on first use."""
         if n not in self._fused_variants:
             self._fused_variants[n] = make_fused_decode(
-                self._cfg_local, self.policy, n_ticks=n)
+                self._cfg_local, self.policy, n_ticks=n,
+                attn_block=self.attn_block)
         return self._fused_variants[n]
 
     def _prefill_waves(self, rows: dict) -> List[List[int]]:

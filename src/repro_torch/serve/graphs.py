@@ -299,10 +299,13 @@ class PrefillGraphs:
     counter t, updates the rows with t < length (the others keep their
     state, KV and position) and advances t.  The returned cache holds
     ``cache``'s own layer tensors, so merging it into them changes
-    nothing."""
+    nothing.  ``attn_block``: the ring attention kernel's tile, the
+    engine's."""
 
-    def __init__(self, params, cfg, cache, max_len: int, device):
+    def __init__(self, params, cfg, cache, max_len: int, device,
+                 attn_block=None):
         self.params, self.cfg = params, cfg
+        self.attn_block = attn_block
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
@@ -337,7 +340,7 @@ class PrefillGraphs:
         token = self.tokens.index_select(1, self.t)[:, 0]
         registry.scanned_prefill_step(
             self.params, self.cfg, token, self.t, self.lengths, self.cache,
-            self.last, kv_offset=self.offsets)
+            self.last, kv_offset=self.offsets, attn_block=self.attn_block)
         self.t.add_(1)
 
     def _reset(self):

@@ -26,12 +26,14 @@ the same ``t``.  Spans open at crash time are closed by ``restore()`` with a
 ``recovery`` marker and a ``recovery`` segment bridges the gap to resume, so
 timelines stay continuous (and still sum to 100%) across snapshot/restore.
 
-Cold-start stalls: an enabled tracer observes the port's own — a CUDA
-kernel library built by ``nvcc`` (``kernels/_build.py``) and a decode
-window's CUDA-graph capture (``serve/graphs.py``) — as ``kernel_build`` and
-``graph_capture`` events with their seconds, so they show in the timeline
-(the reference observes its TPU autotuner's cache instead, which the port
-does not have).
+Cold-start stalls and launch choices: an enabled tracer observes the
+port's own — a CUDA kernel library built by ``nvcc`` (``kernels/_build.py``)
+and a decode window's CUDA-graph capture (``serve/graphs.py``), as
+``kernel_build`` and ``graph_capture`` events with their seconds — and, as
+the reference's does, the kernel autotuner's (``kernels/autotune.py``):
+``autotune_model_pick``, ``autotune_cache_hit`` and ``autotune_sweep``
+events with their keys, blocks and sweep seconds, so they show in the
+timeline.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import os
 import time
 
 from repro_torch import coldstart
+from repro_torch.kernels import autotune
 from repro_torch.serve.metrics import SinkBuffer, make_sink
 
 __all__ = ["Tracer", "format_explain"]
@@ -118,6 +121,7 @@ class Tracer:
         if self.enabled:
             # held weakly: a dropped tracer unregisters itself
             coldstart.register_observer(self)
+            autotune.register_observer(self)
 
     # ------------------------------------------------------------- spec --
     @classmethod
@@ -298,6 +302,13 @@ class Tracer:
         (a kernel library compiled, with its seconds) and ``graph_capture``
         (a decode window captured as a CUDA graph, with its seconds), so
         they show up in the timeline."""
+        self.event(kind, **fields)
+
+    def autotune_event(self, kind, **fields):
+        """Observer hook for the kernel autotuner's winner cache: a model
+        pick, a cache hit (with the block) or a measured sweep (winner,
+        candidates, recompute, seconds), as the reference's tracer gets
+        them."""
         self.event(kind, **fields)
 
     # ------------------------------------------------------ attribution --

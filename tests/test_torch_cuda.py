@@ -19,6 +19,7 @@ only (the card's machine has no JAX) and skip where
 
 import copy
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -287,7 +288,9 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def test_paged_engine_launches_once_per_layer_per_tick(cuda, kv_quant):
     """The paged engine on the card decodes through the paged kernel only,
     once per layer per tick, and its greedy streams equal the ring
-    engine's at the default block size (64, the ring kernel's tile).
+    engine's at 64-token pool blocks (the ring kernel's default tile at
+    this cap; the default pool block at max_len 128 is 32 since the
+    autotuner gives the reference's rule, so the block is given).
     Every tick is a CUDA-graph replay: the launches are the captured
     graph's (one per layer) times its replays, one replay per tick; the
     host count saw only the warm-up's launches and the capture's."""
@@ -299,7 +302,8 @@ def test_paged_engine_launches_once_per_layer_per_tick(cuda, kv_quant):
     streams = {}
     for layout in ("ring", "paged"):
         eng = Engine(params, cfg, 2, 128, kv_quant=kv_quant,
-                     kv_layout=layout, device=cuda)
+                     kv_layout=layout, device=cuda,
+                     block_size=64 if layout == "paged" else None)
         for r in range(3):
             eng.submit(Request(rid=r, prompt=[1 + r, 2, 3, 4, 5] * (r + 1),
                                max_new=6))
@@ -1728,3 +1732,182 @@ def test_train_mesh_step_through_kernel6_equals_plain(cuda, tmp_path, shape):
         r = res["train-kernel6-parity"]
         assert "error" not in r, r["error"]
         assert r["equal"] and r["launches"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel autotuner's candidates and a tuned engine (kernels/autotune.py)
+# ---------------------------------------------------------------------------
+
+
+def _ring_as_pool(t, bs, seed):
+    """A ring snapshot (no wrap) as a pool of ``bs``-token blocks in
+    shuffled order: (q, k, v, block_tables, pos, k_scale, v_scale)."""
+    q, k, v, _, pos, ks, vs = t
+    b, cap = k.shape[:2]
+    nb = cap // bs
+    perm = torch.randperm(b * nb, generator=torch.Generator().manual_seed(
+        seed)).to(k.device)
+
+    def to_pool(x):
+        if x is None:
+            return None
+        tail = tuple(x.shape[2:])
+        pool = torch.zeros((b * nb + 1, bs) + tail, dtype=x.dtype,
+                           device=x.device)
+        pool[perm] = x.reshape((b * nb, bs) + tail)
+        return pool
+
+    return [q, to_pool(k), to_pool(v), perm.reshape(b, nb).to(torch.int32),
+            pos, to_pool(ks), to_pool(vs)]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_autotune_attention_candidates_match_plain(cuda, quant):
+    """Kernels 1-4 at every tile the autotuner may pick (SmolLM-135M's
+    heads, a 512-slot ring): each against its plain version at that tile
+    and the kernels' split within 1e-4; at pool blocks of the same size
+    the paged kernels equal the ring kernels bit for bit; every verify row
+    equals the decode kernel at its position and tile bit for bit; the
+    dispatcher with that block launches the same kernel."""
+    from repro_torch.kernels import autotune, dispatch
+
+    b, cap, nkv, group, hd, kq = 4, 512, 3, 3, 64, 4
+    pos_vals = [0, 130, 300, 511 - kq]
+    t = _ring(21, b=b, cap=cap, nkv=nkv, group=group, hd=hd, quant=quant,
+              pos_vals=pos_vals, device=cuda)
+    tv = _ring(22, b=b, cap=cap, nkv=nkv, group=group, hd=hd, quant=quant,
+               pos_vals=pos_vals, kq=kq, device=cuda)
+    cands = autotune.decode_attention_candidates(cap, hd=hd, group=group,
+                                                 quantized=quant)
+    assert cands == [(8,), (16,), (32,), (64,)]
+    for (bk,) in cands:
+        kw = dict(block=(bk,), split=da.SPLIT_TILES)
+        got = da.decode_attention(*t, block=(bk,))
+        gv = va.verify_attention(*tv, block=(bk,))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref.decode_attention_ref(*t, **kw),
+                                   atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(gv, ref.verify_attention_ref(*tv, **kw),
+                                   atol=1e-4, rtol=1e-4)
+        _rows_equal_decode(
+            gv, lambda *a, **k: da.decode_attention(*a, block=(bk,), **k),
+            tv, 0)
+        q, k, v, kp, pos, ks, vs = t
+        assert torch.equal(dispatch.decode_attention(
+            q, k, v, kp, pos, k_scale=ks, v_scale=vs, block=(bk,)), got)
+        paged = pda.paged_decode_attention(*_ring_as_pool(t, bk, bk))
+        pagedv = pva.paged_verify_attention(*_ring_as_pool(tv, bk, bk + 1))
+        torch.cuda.synchronize()
+        assert torch.equal(paged, got), bk
+        assert torch.equal(pagedv, gv), bk
+    with pytest.raises(ValueError, match="not a candidate"):
+        da.decode_attention(*t, block=(24,))
+    with pytest.raises(ValueError, match="not a candidate"):
+        va.verify_attention(*tv, block=(128,))
+
+
+def test_autotune_dither_candidates_are_bitwise(cuda):
+    """Kernels 5 and 6 give the same bits at every candidate: kernel 6's
+    policy entry and f32 entry at the serve path's decode products (the
+    LM head as the transposed view) at every ``(mt, cps, splits)`` against
+    the plain version; kernel 5 at its one candidate through the
+    dispatcher; a non-candidate raises before any launch."""
+    from repro_torch.kernels import autotune, dispatch
+    from repro_torch.kernels import dither_matmul as dm
+    from repro_torch.kernels import quantize as qk
+
+    gen = torch.Generator().manual_seed(8)
+    kw = dict(bits=8, scheme="dither", counter=77, seed=3)
+    for m, k, n in ((8, 576, 576), (8, 576, 192), (8, 1536, 576),
+                    (8, 576, 49152)):
+        x = torch.randn((m, k), generator=gen).to(torch.bfloat16).to(cuda)
+        if n == 49152:
+            w = (torch.randn((n, k), generator=gen) * 0.05).to(
+                torch.bfloat16).to(cuda).T
+        else:
+            w = (torch.randn((k, n), generator=gen) * 0.05).to(
+                torch.bfloat16).to(cuda)
+        aw = dm.weight_absmax(w)
+        want = ref.dither_matmul_scaled_ref(x, w, **kw)
+        a = (torch.rand((m, k), generator=gen) * 2 - 1).to(cuda)
+        b = (torch.rand((k, n), generator=gen) * 2 - 1).to(cuda)
+        fk = dict(a_range=(-1.0, 1.0), b_range=(-1.0, 1.0), **kw)
+        want_f = ref.dither_matmul_ref(a, b, **fk)
+        cands = autotune.matmul_candidates(m, k, n)
+        assert len(cands) >= 10
+        for blk in cands:
+            got = dm.dither_matmul_scaled(x, w, aw, block=blk, **kw)
+            got_f = dispatch.matmul(a, b, block=blk, **fk)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), ((m, k, n), blk)
+            assert torch.equal(got_f, want_f), ((m, k, n), blk)
+        with pytest.raises(ValueError, match="not a candidate"):
+            dm.dither_matmul_scaled(x, w, aw, block=(2, 1, 18), **kw)
+    x = (torch.rand((576, 1536), generator=gen) * 2 - 1).to(cuda)
+    qkw = dict(bits=8, lo=-1.0, hi=1.0, scheme="dither", counter=5, seed=2)
+    before = qk.quantize.launches
+    got = dispatch.quantize(x, block=(), **qkw)
+    assert qk.quantize.launches == before + 1
+    assert torch.equal(got, dispatch.quantize(x.cpu(), **qkw).to(cuda))
+    with pytest.raises(ValueError, match="not a candidate"):
+        dispatch.quantize(x, block=(8, 128), **qkw)
+    assert qk.quantize.launches == before + 1
+
+
+def test_tuned_engine_streams_equal_where_they_must(cuda, tmp_path,
+                                                    monkeypatch):
+    """Engines built under a winner cache (a 16-slot ring tile, kernel 6's
+    one-chunk-per-block plans): the ring engine holds the cached tile and
+    its tracer saw the cache hit; its W = 4 streams equal its W = 1 ones,
+    the speculative engine's equal the plain ones (verify takes decode's
+    tile), and under the dither policy the tuned streams equal the
+    untuned ones bit for bit (kernel 6 is exact at every candidate)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.numerics.policy import QuantPolicy
+    from repro_torch.serve import Engine, Request, SamplingParams, Tracer
+
+    cfg = _hd64_config()
+    params = registry.init_model(cfg, seed=0, device=cuda)
+    nkv, group = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    ring_key = autotune.cache_key("decode_attention", (2, 64, nkv, group, 64),
+                                  "int8", 8, "flash", "cuda")
+    winners = {ring_key: [16]}
+    for k, n in ((cfg.d_model, cfg.n_heads * 64), (cfg.d_model, nkv * 64),
+                 (cfg.n_heads * 64, cfg.d_model), (cfg.d_model, cfg.d_ff),
+                 (cfg.d_ff, cfg.d_model), (cfg.d_model, cfg.vocab_padded())):
+        chunks = -(-k // 32)
+        winners[autotune.cache_key("matmul", (2, k, n), "bfloat16", 8,
+                                   "dither", "cuda")] = [1, 1, chunks]
+    cache_file = tmp_path / "autotune.json"
+    cache_file.write_text(json.dumps(winners))
+
+    def serve(**kw):
+        eng = Engine(params, cfg, 2, 64, kv_quant=True, device=cuda, **kw)
+        for r in range(3):
+            eng.submit(Request(rid=r, prompt=[1 + r, 2, 3, 4, 5] * (r + 1),
+                               sampling=SamplingParams(
+                                   temperature=0.8 * (r % 2), top_k=20,
+                                   seed=r, max_new=9,
+                                   counter_offset=100 * r)))
+        done = sorted(eng.run(200), key=lambda r: r.rid)
+        return eng, [r.out for r in done]
+
+    policy = QuantPolicy(scheme="dither", backend="auto")
+    untuned = serve(policy=policy)[1]
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(cache_file))
+    autotune.clear_cache()
+    try:
+        tr = Tracer(sink=None)
+        eng, w1 = serve(trace=tr)
+        assert eng.attn_block == (16,)
+        assert any(r.get("name") == "autotune_cache_hit"
+                   and r.get("key") == ring_key for r in tr.records())
+        assert serve(decode_ticks=4)[1] == w1
+        assert serve(spec_decode=True, draft_k=4)[1] == w1
+        tr = Tracer(sink=None)
+        assert serve(policy=policy, trace=tr)[1] == untuned
+        hits = {r["key"] for r in tr.records()
+                if r.get("name") == "autotune_cache_hit"}
+        assert len(hits & set(winners)) >= 4, hits
+    finally:
+        autotune.clear_cache()

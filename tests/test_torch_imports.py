@@ -5,7 +5,8 @@ imports every module of the port, serves a few requests over the ring
 and the paged cache, speculatively, under the dither matmul policy, and
 with metrics, tracing and a crash recovered from a snapshot, takes one
 training step under the dither policy with compressed gradients and
-encodes and multiplies pulse streams, and serves and trains the MoE and
+encodes and multiplies pulse streams, sweeps the kernel autotuner and
+reads its winner back from the cache file, and serves and trains the MoE and
 VLM configs of the zoo (``models/moe.py``, the stub frontend's embeds)
 and the recurrent ones (``models/ssm.py``, ``models/hybrid.py``) — and
 by a scan of its sources and ``chip_smoke.py``."""
@@ -131,6 +132,23 @@ for arch in ("mamba2_370m", "recurrentgemma_9b"):
     zs, m = trainer.make_train_step(zc, AdamW(lr=1e-3))(
         zs, synthetic_batch(zc, DataConfig(2, 8), 0, device="cpu"))
     assert bool(m["loss"].isfinite())
+from repro_torch.kernels import autotune, dispatch
+os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune.json")
+autotune.clear_cache()
+q = torch.randn(2, 2, 2, 32).bfloat16()
+k, v = torch.randn(2, 2, 64, 2, 32).bfloat16()
+k_pos = torch.arange(64, dtype=torch.int32).repeat(2, 1)
+pos = torch.tensor([63, 20], dtype=torch.int32)
+win, res = autotune.autotune_decode_attention(
+    2, 64, 2, 2, 32, backend="torch-ref", dtype="bfloat16", repeats=1,
+    launches=1, run=lambda blk: dispatch.decode_attention(
+        q, k, v, k_pos, pos, block=blk, backend="torch-ref"))
+assert len(res) == 4 and json.load(open(os.environ["REPRO_AUTOTUNE_CACHE"]))
+autotune.clear_cache()
+assert autotune.best_block("decode_attention", (2, 64, 2, 2, 32), "bfloat16",
+                           16, "flash", "torch-ref") == win
+del os.environ["REPRO_AUTOTUNE_CACHE"]
+autotune.clear_cache()
 import importlib, pkgutil, repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -142,6 +160,7 @@ assert set(["repro_torch.serve.kvpool", "repro_torch.serve.draft",
             "repro_torch.kernels.paged_verify_attention",
             "repro_torch.kernels.quantize",
             "repro_torch.kernels.dither_matmul",
+            "repro_torch.kernels.autotune",
             "repro_torch.core.quantizers",
             "repro_torch.core.matmul",
             "repro_torch.serve.metrics",
